@@ -1,0 +1,15 @@
+"""biomedkg_tpu_torch: the PyTorch / CUDA (NVIDIA H100) port of biomedkg_tpu.
+
+The JAX package ``biomedkg_tpu`` stays the reference; this package is its
+counterpart module by module (same file names) and imports neither JAX nor
+anything of ``biomedkg_tpu``. Host-side data code is numpy only (no pandas,
+no PyYAML); device code is torch, with the TPU's Pallas kernels replaced by
+hand-written CUDA kernels under ``csrc/`` that build at first use.
+
+Entry points take ``device=None``, which means ``"cuda"``, and raise when
+CUDA is missing unless the caller passes ``device="cpu"`` (device.py).
+
+Ported so far: the KGE serving path (``serving.KGEScorer``, ``serve.py``)
+with an RGCN encoder aggregating through the CUDA sorted segment-sum
+(``ops/segsum.py``, ``csrc/segsum.cu``) and the DistMult decoder.
+"""

@@ -1,0 +1,1 @@
+"""interop layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,53 @@
+"""Model factory (counterpart of biomedkg_tpu/models/factory.py), keeping
+the reference's ``"dismult"`` decoder key with ``"distmult"`` as an alias."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .decoders import DistMult
+from .encoders import RGCN
+
+_LATER = "not ported yet (ROADMAP.md queue 1: remaining decoders and encoders)"
+
+
+class GAE(nn.Module):
+    """Graph auto-encoder: encode with a GNN, decode triplet scores."""
+
+    def __init__(self, encoder: nn.Module, decoder: nn.Module):
+        super().__init__()
+        self.encoder = encoder
+        self.decoder = decoder
+
+    def init(self, generator: torch.Generator):
+        self.encoder.init(generator)
+        self.decoder.init(generator)
+
+    def encode(self, x, edge_index, edge_type, edge_mask, *,
+               training: bool = False):
+        return self.encoder(x, edge_index, edge_type, edge_mask,
+                            training=training)
+
+
+class KGEModelFactory:
+    @staticmethod
+    def get_model(encoder_name: str, decoder_name: str, in_dim: int,
+                  hidden_dim: int, out_dim: int, num_hidden_layers: int,
+                  num_relation: int, num_heads: Optional[int] = None) -> GAE:
+        if encoder_name == "rgat":
+            raise NotImplementedError(f"encoder 'rgat' is {_LATER}")
+        if encoder_name != "rgcn":
+            raise ValueError(f"Unknown encoder: {encoder_name!r}")
+        if decoder_name in ("transe", "complex", "rotate"):
+            raise NotImplementedError(f"decoder {decoder_name!r} is {_LATER}")
+        if decoder_name not in ("dismult", "distmult"):
+            raise ValueError(f"Unknown decoder: {decoder_name!r}")
+        encoder = RGCN(in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
+                       num_hidden_layers=num_hidden_layers,
+                       num_relations=num_relation)
+        decoder = DistMult(num_relations=num_relation,
+                           hidden_channels=out_dim)
+        return GAE(encoder=encoder, decoder=decoder)

@@ -1,0 +1,1 @@
+"""sampling layer of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,52 @@
+"""Loaders (counterpart of biomedkg_tpu/sampling/loaders.py).
+
+Only ``FullGraphLoader`` is ported: the serving path encodes the whole
+graph as one padded batch. The SAINT and neighbour loaders come with the
+training slice (ROADMAP.md queue 1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .batch import GraphBatch, pad_graph_batch
+from .csr import CSRGraph
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class FullGraphLoader:
+    """Single padded batch containing the entire graph."""
+
+    def __init__(self, graph: CSRGraph, block_size: int = 256,
+                 edge_layout: str = "relation"):
+        self.graph = graph
+        self.block_size = block_size
+        self.edge_layout = edge_layout
+        self._batch = None
+
+    def batch(self) -> GraphBatch:
+        if self._batch is None:
+            g = self.graph
+            counts = np.bincount(g.edge_type, minlength=g.num_relations)
+            edge_budget = int(np.sum(
+                (counts + self.block_size - 1) // self.block_size
+            ) * self.block_size)
+            edge_budget = max(edge_budget, self.block_size)
+            # the reference aligns to lcm(block_size, 2048) for its
+            # training-side negative chunks; kept so both packages pack the
+            # same envelope
+            lcm = int(np.lcm(self.block_size, 2048))
+            edge_budget = -(-edge_budget // lcm) * lcm
+            x = g.x if g.x is not None else np.zeros((g.num_nodes, 1),
+                                                     np.float32)
+            self._batch = pad_graph_batch(
+                x, g.edge_index, g.edge_type, num_relations=g.num_relations,
+                node_budget=_round_up(g.num_nodes + 1, 128),
+                edge_budget=edge_budget, block_size=self.block_size,
+                num_seed=g.num_nodes,
+                node_ids=np.arange(g.num_nodes, dtype=np.int32),
+                layout=self.edge_layout)
+        return self._batch
