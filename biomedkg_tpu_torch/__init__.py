@@ -11,5 +11,8 @@ CUDA is missing unless the caller passes ``device="cpu"`` (device.py).
 
 Ported so far: the KGE serving path (``serving.KGEScorer``, ``serve.py``)
 with an RGCN encoder aggregating through the CUDA sorted segment-sum
-(``ops/segsum.py``, ``csrc/segsum.cu``) and the DistMult decoder.
+(``ops/segsum.py``, ``csrc/segsum.cu``) and the DistMult decoder; and the
+KGE training step (``train_kge.py``, ``training/``) on GraphSAINT batches
+(``sampling/``), scoring its negatives through the CUDA DistMult
+negative-scoring kernels (``ops/negscore.py``, ``csrc/negscore.cu``).
 """

@@ -1,19 +1,24 @@
 """PrimeKG data module (counterpart of
 biomedkg_tpu/data/modules.py::PrimeKGModule).
 
-What the serving path needs: ``setup`` (graph build and, for
-``stage="split"``, the link split), ``edge_layout``, ``data``, ``graph`` and
-``edge_map_index``. The SAINT / neighbour loaders, the inductive split and
-the DPI module come in later slices (ROADMAP.md queue 1).
+``setup`` (graph build and, for ``stage="split"``, the link split),
+``edge_layout``, ``data``, ``graph``, ``edge_map_index`` and the GraphSAINT
+loaders of every split, which share one envelope probed once on the
+largest split graph. The neighbour and full-batch loaders, the inductive
+split and the DPI module come in later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+from ..sampling.loaders import SaintRandomWalkLoader
 from . import node_encoders as node
 from .primekg import PrimeKG
 from .split import random_link_split
+
+_LOADERS = ("the neighbour and full-batch loaders are not ported yet "
+            "(ROADMAP.md queue 1, item 2)")
 
 
 def get_node_encode_method(node_init_method: Optional[str], embed_dim: int):
@@ -27,29 +32,85 @@ def get_node_encode_method(node_init_method: Optional[str], embed_dim: int):
 
 
 class PrimeKGModule:
+    SAINT_WALK_LENGTH = 10
+    SAINT_TRAIN_STEPS = 1000
+    SAINT_EVAL_STEPS = 100
+
     def __init__(self, data_dir: str, embed_dim: int, node_type: List[str],
                  batch_size: int, val_ratio: float, test_ratio: float,
                  node_init_method: Optional[str] = None,
-                 seed: int = 42):
+                 seed: int = 42, block_size: int = 256):
         self.data_dir = data_dir
         self.node_type = node_type
         self.batch_size = batch_size
         self.val_ratio = val_ratio
         self.test_ratio = test_ratio
         self.seed = seed
+        self.block_size = block_size
         self.node_init_method = node_init_method
         # "relation" or "dst" — must match the model's ``edge_layout``
         self.edge_layout = "relation"
+        # True → batches carry node ids only; the training module gathers
+        # features from its device-resident table (set_feature_table)
+        self.device_features = False
+        # None, or the share of the SAINT envelope the train batches top
+        # up to (sampling/saint.py ``fill_target``); eval batches keep the
+        # reference's root count
+        self.saint_fill_target = None
         self.encoder = get_node_encode_method(node_init_method, embed_dim)
 
     def setup(self, stage: str = "split"):
+        self._do_split = stage == "split"
         self.primekg = PrimeKG(data_dir=self.data_dir,
                                node_type=self.node_type,
                                encoder=self.encoder)
         self.data = self.primekg
         self.edge_map_index = self.primekg.edge_map_index
         self.graph = self.primekg.graph
-        if stage == "split":
+        self._saint_budgets = None
+        if self._do_split:
             self.train_data, self.val_data, self.test_data = \
                 random_link_split(self.graph, self.val_ratio,
                                   self.test_ratio, seed=self.seed)
+
+    def _saint(self, split, num_steps, seed_offset, fill_target=None):
+        # budgets probed ONCE, on the largest split graph (test carries
+        # train+val message-passing edges) and with the fill plan, so every
+        # split's batches share one envelope
+        if self._saint_budgets is None:
+            probe = SaintRandomWalkLoader(
+                self.test_data.graph if self._do_split else self.graph,
+                batch_size=self.batch_size,
+                walk_length=self.SAINT_WALK_LENGTH, num_steps=1,
+                block_size=self.block_size, seed=self.seed,
+                fill_target=self.saint_fill_target)
+            self._saint_budgets = (probe.node_budget, probe.edge_budget)
+        nb, eb = self._saint_budgets
+        return SaintRandomWalkLoader(
+            split.graph, batch_size=self.batch_size,
+            walk_length=self.SAINT_WALK_LENGTH, num_steps=num_steps,
+            block_size=self.block_size, seed=self.seed + seed_offset,
+            node_budget=nb, edge_budget=eb, fill_target=fill_target,
+            with_features=not self.device_features,
+            edge_layout=self.edge_layout)
+
+    @staticmethod
+    def _check_loader(loader_type: str):
+        if loader_type in ("neighbor", "full"):
+            raise NotImplementedError(f"loader_type={loader_type!r}: "
+                                      f"{_LOADERS}")
+        if loader_type != "saint":
+            raise ValueError(f"unknown loader_type {loader_type!r}")
+
+    def train_dataloader(self, loader_type: str = "neighbor"):
+        self._check_loader(loader_type)
+        return self._saint(self.train_data, self.SAINT_TRAIN_STEPS, 1,
+                           fill_target=self.saint_fill_target)
+
+    def val_dataloader(self, loader_type: str = "neighbor"):
+        self._check_loader(loader_type)
+        return self._saint(self.val_data, self.SAINT_EVAL_STEPS, 2)
+
+    def test_dataloader(self, loader_type: str = "neighbor"):
+        self._check_loader(loader_type)
+        return self._saint(self.test_data, self.SAINT_EVAL_STEPS, 3)

@@ -4,27 +4,73 @@ The JAX ``KGEModule`` keeps its parameters as a tree of arrays
 (``params["model"]["encoder"]["layers"][i]`` with ``w_rel`` (R, din,
 dout), ``w_root`` (din, dout), ``b`` (dout,), and
 ``params["model"]["decoder"]["rel_emb"]`` (R, d)); native checkpoints
-store that tree as numpy. The port keeps the same tensors, under the same
-names and layouts, in ``model.encoder.layers[i]`` and
-``model.decoder.rel_emb``, so the mapping is a checked copy.
+store that tree as numpy, and optax's Adam moments have the same tree. The
+port keeps the same tensors, under the same names and layouts, so the
+tree's dotted paths (``model.encoder.layers.0.w_rel``) are exactly the
+port ``KGEModule``'s parameter names and the mapping is a checked copy.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import numpy as np
 import torch
 from torch import nn
 
 
-def _copy(dst: nn.Parameter, src, name: str):
-    src = np.asarray(src)
-    if tuple(src.shape) != tuple(dst.shape):
-        raise ValueError(f"{name}: checkpoint shape {tuple(src.shape)} != "
-                         f"model shape {tuple(dst.shape)}")
-    with torch.no_grad():
-        dst.copy_(torch.from_numpy(np.array(src, dtype=np.float32)))
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """``{dotted path: array}`` of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for key, value in items:
+        out.update(flatten_tree(value, f"{prefix}{key}."))
+    return out
+
+
+def unflatten_tree(named: Dict[str, Any]) -> Any:
+    """The inverse of ``flatten_tree``: integer path parts become lists."""
+    root: Dict = {}
+    for path, value in named.items():
+        node = root
+        *parents, leaf = path.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(root)
+
+
+def tensors_from_tree(module: nn.Module, tree: Any,
+                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """float32 CPU tensors of ``tree`` (the JAX layout), one per parameter
+    of ``module``, by name, checked against the parameters' shapes."""
+    flat = flatten_tree(tree)
+    out = {}
+    for name, p in module.named_parameters():
+        key = prefix + name
+        if key not in flat:
+            raise ValueError(f"{key}: missing from the checkpoint tree")
+        src = flat.pop(key)
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(src.shape)} "
+                             f"!= model shape {tuple(p.shape)}")
+        out[name] = torch.from_numpy(np.array(src, dtype=np.float32))
+    if flat:
+        raise ValueError(f"checkpoint tree has unknown leaves {sorted(flat)}")
+    return out
 
 
 def load_jax_params(model: nn.Module, params: Dict) -> None:
@@ -38,24 +84,23 @@ def load_jax_params(model: nn.Module, params: Dict) -> None:
     if len(layers) != len(model.encoder.layers):
         raise ValueError(f"checkpoint has {len(layers)} encoder layers, "
                          f"model {len(model.encoder.layers)}")
-    for i, (src, dst) in enumerate(zip(layers, model.encoder.layers)):
+    for i, src in enumerate(layers):
         if set(src) != {"w_rel", "w_root", "b"}:
             raise ValueError(f"encoder layer {i}: not an RGCN layer "
                              f"({sorted(src)})")
-        for name in ("w_rel", "w_root", "b"):
-            _copy(getattr(dst, name), src[name], f"layers[{i}].{name}")
-    _copy(model.decoder.rel_emb, params["model"]["decoder"]["rel_emb"],
-          "decoder.rel_emb")
+    tensors = tensors_from_tree(model, params, prefix="model.")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(tensors[name])
+
+
+def to_jax_tree(named: Dict[str, torch.Tensor]) -> Any:
+    """Tensors by dotted name as the JAX tree (numpy leaves)."""
+    return unflatten_tree({name: t.detach().cpu().numpy().copy()
+                           for name, t in named.items()})
 
 
 def to_jax_params(model: nn.Module) -> Dict:
     """The port's ``GAE`` ``model`` as the JAX params tree (numpy leaves)."""
-    def np_(t):
-        return t.detach().cpu().numpy().copy()
-
-    return {"model": {
-        "encoder": {"layers": [
-            {"w_rel": np_(layer.w_rel), "w_root": np_(layer.w_root),
-             "b": np_(layer.b)} for layer in model.encoder.layers]},
-        "decoder": {"rel_emb": np_(model.decoder.rel_emb)},
-    }}
+    return to_jax_tree({"model." + name: p
+                        for name, p in model.named_parameters()})

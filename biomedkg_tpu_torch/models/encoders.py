@@ -3,7 +3,15 @@
 Per layer (PyG RGCNConv with the per-relation mean):
     out_i = x_i @ W_root + b + Σ_r (1/|N_r(i)|) Σ_{j∈N_r(i)} x_j @ W_r
 stacked in→hidden, num_hidden_layers×(hidden→hidden), hidden→out with
-ReLU (+ dropout 0.2 in training) between layers.
+ReLU (+ inverted dropout 0.2 in training) between layers. The dropout
+masks come from an explicit ``torch.Generator``, one per hidden layer in
+the reference's order, or are passed in (the tests inject the reference's
+masks, ROADMAP.md hazard H2).
+
+``compute_dtype`` bfloat16 is the reference's mixed-precision policy: the
+weights and x are cast to bf16 (the float32 masters keep the gradients),
+matmuls sum in float32 and round to bf16, and the float32 aggregation is
+cast back to bf16 before it joins the root term.
 
 Only the node-centric conv is ported: R dense (N, din) @ (din, dout)
 products, a gather at ``rel·N + src``, then the per-destination sum. In
@@ -16,11 +24,12 @@ need kernels not yet ported and raise.
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..nn import xavier_uniform
+from ..nn import dropout, dropout_mask, xavier_uniform
 from ..ops.segment import per_dst_relation_counts, scatter_add, take_rows
 from ..ops.segsum import sorted_segment_sum
 
@@ -45,6 +54,8 @@ class RGCNLayer(nn.Module):
 
 
 class RGCN(nn.Module):
+    DROPOUT = 0.2
+
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_hidden_layers: int, num_relations: int,
                  drop_out: bool = True, conv_impl: str = "auto"):
@@ -85,7 +96,8 @@ class RGCN(nn.Module):
             flat_cnt = take_rows(cnt.reshape(-1), dst * r + edge_type)
         return edge_mask.float() / flat_cnt.clamp(min=1.0)
 
-    def _conv(self, layer, x, src, dst, dst32, edge_type, norm):
+    def _conv(self, w_rel, w_root, b, x, src, dst, dst32, edge_type,
+              norm):
         num_nodes = x.shape[0]
         impl = self.conv_impl
         if impl == "auto":
@@ -93,7 +105,7 @@ class RGCN(nn.Module):
                     * num_nodes else "edge")
         if impl == "edge" and self.edge_layout != "dst":
             raise NotImplementedError(_EDGE_CONV)
-        h_all = torch.matmul(x.unsqueeze(0), layer.w_rel)   # (R, N, dout)
+        h_all = torch.matmul(x.unsqueeze(0), w_rel)   # (R, N, dout)
         flat = edge_type * num_nodes + src
         # norm is zero on pad edges, so it also applies the edge mask; the
         # gather's result is fresh, so scaling it in place saves an
@@ -104,19 +116,39 @@ class RGCN(nn.Module):
             agg = sorted_segment_sum(msg, dst32, num_nodes)
         else:
             agg = scatter_add(msg, dst, num_nodes)
-        return x @ layer.w_root + layer.b + agg
+        return x @ w_root + b + agg.to(x.dtype)
 
     def forward(self, x, edge_index, edge_type, edge_mask, *,
-                training: bool = False):
+                training: bool = False,
+                compute_dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[List[torch.Tensor]] = None):
+        """(N, out_dim) node embeddings in ``compute_dtype``. In training,
+        the dropout keep masks are ``dropout_masks`` (one bool (N, width)
+        mask per hidden layer) or drawn from ``generator``."""
         if self.edge_layout not in ("relation", "dst"):
             raise ValueError(f"unknown edge_layout {self.edge_layout!r}")
         src, dst = edge_index[0], edge_index[1]
         dst32 = dst.to(torch.int32) if self.edge_layout == "dst" else None
         norm = self._edge_norm(dst, dst32, edge_type, edge_mask, x.shape[0])
-        for layer in self.layers[:-1]:
-            x = torch.relu(self._conv(layer, x, src, dst, dst32, edge_type,
-                                      norm))
-            if self.drop_out:
-                x = F.dropout(x, 0.2, training=training)
-        return self._conv(self.layers[-1], x, src, dst, dst32, edge_type,
-                          norm)
+        norm = norm.to(compute_dtype)
+        x = x.to(compute_dtype)
+        for i, layer in enumerate(self.layers):
+            x = self._conv(layer.w_rel.to(compute_dtype),
+                           layer.w_root.to(compute_dtype),
+                           layer.b.to(compute_dtype), x, src, dst, dst32,
+                           edge_type, norm)
+            if i == len(self.layers) - 1:
+                break
+            x = torch.relu(x)
+            if self.drop_out and training:
+                if dropout_masks is not None:
+                    keep = dropout_masks[i]
+                elif generator is not None:
+                    keep = dropout_mask(x.shape, self.DROPOUT, generator,
+                                        x.device)
+                else:
+                    raise ValueError("training dropout needs a "
+                                     "torch.Generator or injected masks")
+                x = dropout(x, keep, self.DROPOUT)
+        return x

@@ -1,21 +1,62 @@
 """Gather / scatter ops for message passing on padded batches
 (counterpart of biomedkg_tpu/ops/segment.py).
 
-Plain torch: the reference pins XLA's fast gather/scatter pair with custom
-VJPs; torch's own ``index_select`` / ``index_add_`` already differentiate
-into each other. Scatters accumulate in float32 (bf16 sums saturate on hub
-nodes, ROADMAP.md hazard H4).
+Every row gather differentiates into a scatter that accumulates in float32
+and returns the gradient's own type, as the reference's custom VJPs do
+(bf16 sums saturate on hub nodes, ROADMAP.md hazard H4); torch's own
+``index_select`` backward would sum in the gradient's type.
+``take_rows_sorted`` routes that scatter through the sorted segment-sum
+(ops/segsum.py: the CUDA kernel on a CUDA tensor). The reference's
+``take_rows_matbwd`` (a one-hot matmul backward for small tables, a TPU
+lowering choice) is ``take_rows`` here: the float32 scatter computes the
+same exact sums.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .segsum import sorted_segment_sum
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        return scatter_add(g, index, ctx.num_rows), None
+
 
 def take_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``x[index]`` along rows (indices are in range by batch
-    construction)."""
-    return x.index_select(0, index)
+    construction); the backward sums in float32."""
+    return _TakeRows.apply(x, index)
+
+
+class _TakeRowsSorted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ids = index.to(torch.int32)
+        ctx.save_for_backward(ids)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return (sorted_segment_sum(g.contiguous(), ids, ctx.num_rows)
+                .to(g.dtype), None)
+
+
+def take_rows_sorted(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` whose backward is ``sorted_segment_sum``: exact for
+    any order, fast for ascending ``index`` (destination-sorted edges)."""
+    return _TakeRowsSorted.apply(x, index)
 
 
 def scatter_add(values: torch.Tensor, index: torch.Tensor,

@@ -2,10 +2,9 @@
 
 Counterpart of biomedkg_tpu/ops/pallas/segsum.py::sorted_segment_sum. On
 a CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/segsum.cu`` (built with ``nvcc`` for ``sm_90a`` at first use, into
-``csrc/build/``, keyed by a hash of the source, and bound through
-``ctypes``); on a CPU tensor it runs ``segsum_plain``, the plain torch
-version the tests and ``chip_smoke.py`` hold the kernel against. A CUDA
+``csrc/segsum.cu`` (built at first use by ops/_build.py); on a CPU tensor
+it runs ``segsum_plain``, the plain torch version the tests and
+``chip_smoke.py`` hold the kernel against. A CUDA
 tensor never falls back: the kernel builds and launches, or the call
 raises.
 
@@ -15,87 +14,24 @@ The gradient is the row gather of the reference's ``_segsum_bwd``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc")
-SOURCE = os.path.join(_CSRC, "segsum.cu")
-BUILD_DIR = os.path.join(_CSRC, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from ._build import CudaLibrary, check_launch, stream_of
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
-                       "cannot build the segsum kernel")
+_SIGNATURE = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+              ctypes.c_void_p]
+LIBRARY = CudaLibrary("segsum.cu", {"segsum_f32": _SIGNATURE,
+                                    "segsum_bf16": _SIGNATURE})
 
 
 class SegsumKernel:
-    """The built kernel library and its launch count.
-
-    ``launches`` goes up by one for each kernel launch and nowhere else;
-    ``build_seconds`` and ``build_log`` (nvcc's ptxas report) describe the
-    build of this process, or stay None / "" when the library was cached.
-    """
+    """The kernel's wrapper: ``launches`` goes up by one for each kernel
+    launch and nowhere else."""
 
     def __init__(self):
-        self._lib = None
         self.launches = 0
-        self.build_seconds = None
-        self.build_log = ""
-        self.library_path = None
-
-    def lib(self):
-        if self._lib is None:
-            self._lib = self._load()
-        return self._lib
-
-    def _load(self):
-        with open(SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"libsegsum-{digest}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-            os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                    capture_output=True, text=True, timeout=600)
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) building "
-                        f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(so)
-        for name in ("segsum_f32", "segsum_bf16"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_longlong, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        self.library_path = so
-        return lib
 
     def __call__(self, data: torch.Tensor, ids: torch.Tensor,
                  num_segments: int) -> torch.Tensor:
@@ -110,16 +46,13 @@ class SegsumKernel:
                           device=data.device)
         if m == 0 or d == 0 or num_segments == 0:
             return out
-        lib = self.lib()
+        lib = LIBRARY.lib()
         fn = lib.segsum_f32 if data.dtype == torch.float32 else \
             lib.segsum_bf16
         with torch.cuda.device(data.device):
-            stream = torch.cuda.current_stream(data.device).cuda_stream
             err = fn(data.data_ptr(), ids.data_ptr(), out.data_ptr(), m, d,
-                     num_segments, stream)
-        if err != 0:
-            raise RuntimeError(f"segsum kernel launch failed: cudaError_t "
-                               f"{err}")
+                     num_segments, stream_of(data))
+        check_launch(err, "segsum")
         self.launches += 1
         return out
 

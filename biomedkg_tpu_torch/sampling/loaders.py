@@ -1,8 +1,7 @@
-"""Loaders (counterpart of biomedkg_tpu/sampling/loaders.py).
-
-Only ``FullGraphLoader`` is ported: the serving path encodes the whole
-graph as one padded batch. The SAINT and neighbour loaders come with the
-training slice (ROADMAP.md queue 1).
+"""Loaders (counterpart of biomedkg_tpu/sampling/loaders.py):
+``SaintRandomWalkLoader`` (training batches) and ``FullGraphLoader`` (the
+whole graph as one padded batch, for serving). The neighbour loader and the
+background prefetch come later (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -11,10 +10,11 @@ import numpy as np
 
 from .batch import GraphBatch, pad_graph_batch
 from .csr import CSRGraph
+from .saint import SaintRandomWalkSampler, _round_up
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+# the reference's loader name; one epoch = num_steps batches
+SaintRandomWalkLoader = SaintRandomWalkSampler
 
 
 class FullGraphLoader:

@@ -1,15 +1,35 @@
 """KGE module (counterpart of biomedkg_tpu/training/kge_module.py): the
-hyper-parameters, the GAE model and the deterministic full-graph encode.
+hyper-parameters, the GAE model, the training loss and the deterministic
+full-graph encode.
 
-This slice serves: ``fuse_method`` "none" and ``node_init_method``
-"random" only (fusion and LM/GCL features raise), and no training step,
-which comes with its own slice (ROADMAP.md queue 1). Encoding runs in
-float32, as the reference's ``encode`` does whatever ``compute_dtype``
-training used.
+Training (``_forward_loss`` with ``training=True``, stepped by
+training/stepping.py): encode → positive DistMult scores → K = neg_ratio
+negatives per edge → masked BCE + 1e-2·L2, as the reference computes it:
+
+* "sorted" negatives (the default): sources are a sorted uniform draw over
+  the batch's real nodes, destinations iid uniform, and slot (k, s) pairs
+  with edge σ((s + off_k) mod E) for fresh offsets ``off`` and the fixed
+  stride-transpose σ of ``_mix_factor``; scored by
+  ``DistMult.score_neg_sorted`` (the CUDA negscore kernels on the card);
+* "iid" negatives (and every eval batch): (K, E) iid endpoint sets.
+
+``compute_dtype`` "bfloat16" runs the encoder in bf16 with float32 master
+weights; the positive path and the L2 term read float32 z, the negative
+path z rounded to bf16, as in the reference. Random numbers come from a
+``torch.Generator`` on the module's device; ``negatives`` and
+``dropout_masks`` let the tests pass in the reference's draws.
+
+Not ported yet, and raising when training asks for them (ROADMAP.md 2b):
+``filter_negatives``, ``cold_start_dropout > 0``, ``neg_sampler="sorted2"``
+and ``fix_edge_id``. Fusion and LM/GCL features raise at construction.
+Encoding runs in float32 whatever ``compute_dtype`` training used, as the
+reference's ``encode`` does.
 """
 
 from __future__ import annotations
 
+import math
+import warnings
 from typing import Optional
 
 import torch
@@ -18,11 +38,83 @@ from torch import nn
 from ..device import resolve_device
 from ..interop.jax_params import load_jax_params
 from ..models.factory import KGEModelFactory
+from ..nn import sigmoid_binary_cross_entropy
 from ..sampling.batch import GraphBatch
 from .checkpoint import load_checkpoint
+from .optim import make_optimizer
+from .stepping import StepsMixin
+
+_LATER = "is not ported yet (ROADMAP.md 2b)"
 
 
-class KGEModule(nn.Module):
+def _mix_factor(e: int, bound: Optional[int] = None) -> int:
+    """Largest divisor of ``e`` that is ≤ bound (default √e): the stride of
+    the transpose permutation that decorrelates relation runs from the
+    sorted source sample."""
+    if bound is None:
+        bound = int(math.isqrt(e))
+    best = 1
+    for d in range(1, bound + 1):
+        if e % d == 0:
+            best = d
+    if best == 1 and e > 4:
+        warnings.warn(
+            f"edge budget {e} has no divisor in [2, {bound}]: the "
+            "stride-transpose negative pairing degrades to identity, "
+            "re-coupling relation runs with narrow source bands (slower "
+            "convergence). Pad the edge budget to a composite size.",
+            stacklevel=2)
+    return best
+
+
+def _sorted_uniform_sample(generator: torch.Generator, ke: int,
+                           num_real_nodes: torch.Tensor) -> torch.Tensor:
+    """(ke,) int32 ascending uniform draw over [0, num_real_nodes) by the
+    exponential-spacing construction (no sort)."""
+    u = torch.rand(ke + 1, generator=generator, device=generator.device)
+    cum = torch.cumsum(-torch.log(u.clamp_(min=1e-12)), 0)
+    # clamp: the last ratios can round to exactly 1.0 and would emit the
+    # pad row num_real_nodes
+    ids = (cum[:-1] / cum[-1] * num_real_nodes).to(torch.int32)
+    return torch.minimum(ids, (num_real_nodes - 1).to(torch.int32))
+
+
+def sample_negatives_sorted(generator: torch.Generator, ratio: int,
+                            num_edges: int, num_real_nodes: torch.Tensor):
+    """Stratified-sorted negatives: (neg_src ascending (K·E,) int32,
+    neg_dst (K·E,) int32 iid, off (K,) int64). Slot (k, e) pairs with edge
+    σ((e + off[k]) mod E) (``rolled_index``), so every slot's source
+    marginal is exactly uniform."""
+    ke = ratio * num_edges
+    neg_src = _sorted_uniform_sample(generator, ke, num_real_nodes)
+    neg_dst = (torch.rand(ke, generator=generator, device=generator.device)
+               * num_real_nodes).to(torch.int32)
+    off = torch.randint(0, num_edges, (ratio,), generator=generator,
+                        device=generator.device)
+    return neg_src, neg_dst, off
+
+
+def rolled_index(off: torch.Tensor, num_edges: int,
+                 a_dim: int) -> torch.Tensor:
+    """(K·E,) batch-edge index of each negative slot: slot (k, j) takes
+    edge (off[k] + (j mod a)·(E/a) + j div a) mod E, the reference's
+    cyclic shift followed by an (a, E/a) transpose."""
+    j = torch.arange(num_edges, device=off.device)
+    perm = (j % a_dim) * (num_edges // a_dim) + j // a_dim
+    return ((perm[None, :] + off[:, None]) % num_edges).reshape(-1)
+
+
+def _parse_neg_ratio(neg_ratio) -> Optional[int]:
+    """The reference's ``neg_ratio: none`` YAML-string quirk."""
+    if neg_ratio is None:
+        return None
+    if isinstance(neg_ratio, str):
+        return None if neg_ratio.lower() in ("none", "null", "") \
+            else int(neg_ratio)
+    return int(neg_ratio) or None
+
+
+class KGEModule(StepsMixin, nn.Module):
     kind = "kge"
 
     def __init__(self, encoder_name: str, decoder_name: str, in_dim: int,
@@ -42,6 +134,10 @@ class KGEModule(nn.Module):
             raise NotImplementedError(
                 f"node_init_method={node_init_method!r} is not ported yet "
                 "(ROADMAP.md queue 1: Stage A / Stage B encoders)")
+        if neg_sampler not in ("sorted", "sorted2", "iid"):
+            raise ValueError(f"unknown neg_sampler {neg_sampler!r}")
+        if compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.hparams = dict(
             encoder_name=encoder_name, decoder_name=decoder_name,
             in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
@@ -52,6 +148,11 @@ class KGEModule(nn.Module):
             node_init_method=node_init_method, seed=seed,
             compute_dtype=compute_dtype, remat=remat,
             neg_sampler=neg_sampler, cold_start_dropout=cold_start_dropout)
+        self.compute_dtype = (torch.bfloat16 if compute_dtype == "bfloat16"
+                              else torch.float32)
+        self.neg_ratio = _parse_neg_ratio(neg_ratio)
+        self.neg_sampler = neg_sampler
+        self.cold_start_dropout = float(cold_start_dropout or 0.0)
         self.model = KGEModelFactory.get_model(
             encoder_name=encoder_name, decoder_name=decoder_name,
             in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
@@ -61,6 +162,13 @@ class KGEModule(nn.Module):
     def init(self, generator: torch.Generator):
         """Fresh weights from ``generator`` (reference init rules)."""
         self.model.init(generator)
+
+    def configure_optimizers(self, num_training_steps: int,
+                             grad_clip: float = 1.0):
+        hp = self.hparams
+        self.tx = make_optimizer(hp["learning_rate"], hp["scheduler_type"],
+                                 num_training_steps, hp["warm_up_ratio"],
+                                 grad_clip)
 
     @property
     def edge_layout(self) -> str:
@@ -86,15 +194,107 @@ class KGEModule(nn.Module):
         if value != "scatter":
             raise ValueError(f"unknown dst_bwd {value!r}")
 
+    @property
+    def filter_negatives(self) -> bool:
+        return False
+
+    @filter_negatives.setter
+    def filter_negatives(self, value: bool):
+        if value:
+            raise NotImplementedError(f"filter_negatives {_LATER}")
+
+    @property
+    def fix_edge_id(self) -> Optional[int]:
+        return None
+
+    @fix_edge_id.setter
+    def fix_edge_id(self, edge_id: Optional[int]):
+        if edge_id is not None:
+            raise NotImplementedError(f"fix_edge_id (DPI transfer) {_LATER}")
+
+    def _check_trainable(self):
+        if self.cold_start_dropout > 0.0:
+            raise NotImplementedError(f"cold_start_dropout > 0 {_LATER}")
+        if self.neg_sampler == "sorted2":
+            raise NotImplementedError(
+                f"neg_sampler='sorted2' (the dual-sorted negscore kernels) "
+                f"{_LATER}")
+
+    def _forward_loss(self, batch: GraphBatch, training: bool,
+                      generator: Optional[torch.Generator] = None,
+                      negatives=None, dropout_masks=None):
+        """(loss, aux) of a device batch (sampling/batch.py
+        ``batch_to_device``). Draws come from ``generator`` unless passed
+        in: ``negatives`` is (neg_src, neg_dst, off) for the sorted sampler
+        and (neg_src, neg_dst) (K, E) for the iid one; ``dropout_masks``
+        one bool keep mask per hidden layer."""
+        if training:
+            self._check_trainable()
+        if generator is None and (negatives is None or (
+                training and dropout_masks is None)):
+            raise ValueError("pass a torch.Generator or the draws "
+                             "(negatives, dropout_masks)")
+        etype, emask = batch.edge_type, batch.edge_mask
+        z = self.model.encoder(
+            self._batch_features(batch), batch.edge_index, etype, emask,
+            training=training, compute_dtype=self.compute_dtype,
+            generator=generator, dropout_masks=dropout_masks).float()
+        src, dst = batch.edge_index[0], batch.edge_index[1]
+        decoder = self.model.decoder
+        pos_pred = decoder.score(z, src, dst, etype,
+                                 tail_sorted=self.edge_layout == "dst")
+
+        ratio = self.neg_ratio or 1
+        num_edges = etype.shape[0]
+        num_real_nodes = batch.node_mask.sum().clamp(min=1)
+        z_neg = z.to(self.compute_dtype)
+        if training and self.neg_sampler == "sorted":
+            neg_src, neg_dst, off = (
+                negatives if negatives is not None else
+                sample_negatives_sorted(generator, ratio, num_edges,
+                                        num_real_nodes))
+            idx = rolled_index(off, num_edges, _mix_factor(num_edges))
+            neg_pred = decoder.score_neg_sorted(
+                z_neg, neg_src, neg_dst, etype[idx].to(torch.int32))
+            neg_mask = emask[idx]
+        else:
+            if negatives is None:
+                def draw():
+                    return (torch.rand(ratio, num_edges, generator=generator,
+                                       device=generator.device)
+                            * num_real_nodes).long()
+                negatives = (draw(), draw())
+            neg_src, neg_dst = negatives
+            neg_pred = decoder.score_neg(z_neg, neg_src, neg_dst,
+                                         etype).reshape(-1)
+            neg_mask = emask.expand(ratio, num_edges).reshape(-1)
+
+        pred = torch.cat([pos_pred, neg_pred])
+        gt = torch.cat([torch.ones_like(pos_pred),
+                        torch.zeros_like(neg_pred)])
+        weights = torch.cat([emask, neg_mask]).to(pred.dtype)
+        loss = self._finish_loss(z, batch.node_mask, pred, gt, weights)
+        aux = {"pred": pred, "gt": gt, "weights": weights,
+               "pos_pred": pos_pred, "edge_type": etype, "edge_mask": emask,
+               "loss": loss}
+        return loss, aux
+
+    def _finish_loss(self, z, node_mask, pred, gt, weights):
+        """Masked BCE + 1e-2·L2 over the real nodes' z and rel_emb."""
+        bce = sigmoid_binary_cross_entropy(pred, gt, weights)
+        nmask = node_mask.to(z.dtype)
+        reg_z = torch.sum(z ** 2 * nmask[:, None]) / (
+            nmask.sum().clamp(min=1.0) * z.shape[-1])
+        reg_rel = sum(torch.mean(p ** 2)
+                      for p in self.model.decoder.parameters())
+        return bce + 1e-2 * (reg_z + reg_rel)
+
     @torch.inference_mode()
     def encode(self, batch: GraphBatch) -> torch.Tensor:
         """Deterministic full forward over a device batch
         (sampling/batch.py::batch_to_device) → (N_pad, out_dim)."""
-        if batch.x.numel() == 0:
-            raise NotImplementedError(
-                "batches without features (device-resident feature table) "
-                "come with the training slice")
-        return self.model.encode(batch.x, batch.edge_index, batch.edge_type,
+        return self.model.encode(self._batch_features(batch),
+                                 batch.edge_index, batch.edge_type,
                                  batch.edge_mask, training=False)
 
 

@@ -1,0 +1,93 @@
+"""Training-step scaffolding (counterpart of
+biomedkg_tpu/training/stepping.py).
+
+A module defines ``_forward_loss(batch, training, ...) -> (loss, aux)``;
+this mixin supplies the train state, single steps, ``train_steps`` over a
+list of batches (a Python loop: the counterpart of the reference's
+``lax.scan``; a CUDA-graph capture is later work, ROADMAP.md) and the
+device-resident feature table.
+
+Random numbers come from an explicit ``torch.Generator`` on the module's
+device; ``negatives`` and ``dropout_masks`` let a caller pass in the draws
+instead (the tests inject the reference's, ROADMAP.md hazard H2).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .optim import AdamState, Optimizer
+
+
+class TrainState(NamedTuple):
+    """The module's parameters by name (updated in place by each step),
+    the optimizer state and the number of steps taken."""
+    params: Dict[str, torch.Tensor]
+    opt_state: AdamState
+    step: int
+
+
+class StepsMixin:
+    tx: Optional[Optimizer] = None
+    feature_table: Optional[torch.Tensor] = None
+
+    def _forward_loss(self, batch, training: bool, generator=None,
+                      negatives=None, dropout_masks=None):
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def set_feature_table(self, x: np.ndarray) -> None:
+        """Keep the full node-feature table on the module's device; batches
+        then carry node ids only (the data module's
+        ``device_features = True``)."""
+        self.feature_table = torch.as_tensor(
+            x, dtype=torch.float32).to(self.device)
+
+    def _batch_features(self, batch) -> torch.Tensor:
+        if batch.x.numel() == 0:
+            if self.feature_table is None:
+                raise ValueError("batch has no features; call "
+                                 "set_feature_table first")
+            return self.feature_table.index_select(0, batch.node_ids)
+        return batch.x
+
+    def init_state(self, generator: Optional[torch.Generator] = None
+                   ) -> TrainState:
+        """A zero optimizer state over fresh weights from ``generator``,
+        or over the module's current weights when it is None."""
+        if self.tx is None:
+            raise RuntimeError("call configure_optimizers first")
+        if generator is not None:
+            self.init(generator)
+        params = dict(self.named_parameters())
+        return TrainState(params, self.tx.init(list(params.values())), 0)
+
+    def train_step(self, state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None, *,
+                   negatives=None, dropout_masks=None):
+        """One update; returns (state, {"train_loss": loss}), the loss a
+        device scalar (reading it syncs)."""
+        params = list(state.params.values())
+        loss, _ = self._forward_loss(batch, training=True,
+                                     generator=generator,
+                                     negatives=negatives,
+                                     dropout_masks=dropout_masks)
+        grads = torch.autograd.grad(loss, params)
+        opt_state = self.tx.update(list(grads), state.opt_state, params)
+        return (TrainState(state.params, opt_state, state.step + 1),
+                {"train_loss": loss.detach()})
+
+    def train_steps(self, state: TrainState, batches: List,
+                    generator: torch.Generator):
+        """len(batches) steps; returns (state, logs) with the last step's
+        loss."""
+        logs = {}
+        for batch in batches:
+            state, logs = self.train_step(state, batch, generator)
+        return state, logs

@@ -68,6 +68,15 @@ _CHILD = textwrap.dedent("""
         raise AssertionError("KGEScorer without CUDA did not raise")
     scorer = KGEScorer(ckpt, dm, device="cpu")
     print(scorer.score("gene_000000", "protein_protein", "gene_000001"))
+    import contextlib, io
+    from biomedkg_tpu_torch.train_kge import main as train_kge
+    with contextlib.redirect_stdout(io.StringIO()):
+        trained = train_kge(["steps=1", "epochs=1", "device=cpu",
+                             "ckpt_dir=" + sys.argv[3]])
+    dm768 = PrimeKGModule(data_dir=data_dir, embed_dim=768,
+                          node_type=["gene/protein", "drug", "disease"],
+                          batch_size=8, val_ratio=0.2, test_ratio=0.2)
+    KGEScorer(trained, dm768, device="cpu")
     print(sorted(m for m, mod in sys.modules.items()
                  if mod is not None and m.split(".")[0] in {forbidden!r}))
 """)
@@ -77,7 +86,8 @@ def test_serves_without_jax_pandas_yaml(tmp_path):
     """A JAX-written checkpoint (its optax optimizer state included) serves
     on the CPU in a process where JAX, biomedkg_tpu, pandas, PyYAML and
     optax cannot be imported; every port module and chip_smoke.py import
-    there too."""
+    there too, and train_kge trains a step and writes a checkpoint that
+    serves."""
     hp = dict(encoder_name="rgcn", decoder_name="dismult", in_dim=8,
               hidden_dim=8, out_dim=8, num_hidden_layers=1, num_relation=8,
               num_heads=1, scheduler_type="cosine", learning_rate=1e-3,
@@ -92,8 +102,9 @@ def test_serves_without_jax_pandas_yaml(tmp_path):
     code = _CHILD.format(forbidden=FORBIDDEN, root=ROOT)
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code, ckpt,
-                           str(tmp_path / "primekg")], env=env,
-                          capture_output=True, text=True, timeout=300)
+                           str(tmp_path / "primekg"), str(tmp_path / "ck")],
+                          env=env, cwd=tmp_path, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     score, loaded = proc.stdout.strip().splitlines()
     assert 0.0 < float(score) < 1.0
