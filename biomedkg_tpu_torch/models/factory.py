@@ -1,5 +1,6 @@
-"""Model factory (counterpart of biomedkg_tpu/models/factory.py), keeping
-the reference's ``"dismult"`` decoder key with ``"distmult"`` as an alias."""
+"""Model factory (counterpart of biomedkg_tpu/models/factory.py): RGCN with
+any of the four decoders, keeping the reference's ``"dismult"`` decoder key
+with ``"distmult"`` as an alias."""
 
 from __future__ import annotations
 
@@ -8,10 +9,11 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .decoders import DistMult
+from .decoders import ComplEx, DistMult, RotatE, TransE
 from .encoders import RGCN
 
-_LATER = "not ported yet (ROADMAP.md queue 1: remaining decoders and encoders)"
+DECODERS = {"dismult": DistMult, "distmult": DistMult, "transe": TransE,
+            "complex": ComplEx, "rotate": RotatE}
 
 
 class GAE(nn.Module):
@@ -38,16 +40,15 @@ class KGEModelFactory:
                   hidden_dim: int, out_dim: int, num_hidden_layers: int,
                   num_relation: int, num_heads: Optional[int] = None) -> GAE:
         if encoder_name == "rgat":
-            raise NotImplementedError(f"encoder 'rgat' is {_LATER}")
+            raise NotImplementedError(
+                "encoder 'rgat' is not ported yet (ROADMAP.md slice 4)")
         if encoder_name != "rgcn":
             raise ValueError(f"Unknown encoder: {encoder_name!r}")
-        if decoder_name in ("transe", "complex", "rotate"):
-            raise NotImplementedError(f"decoder {decoder_name!r} is {_LATER}")
-        if decoder_name not in ("dismult", "distmult"):
+        if decoder_name not in DECODERS:
             raise ValueError(f"Unknown decoder: {decoder_name!r}")
         encoder = RGCN(in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
                        num_hidden_layers=num_hidden_layers,
                        num_relations=num_relation)
-        decoder = DistMult(num_relations=num_relation,
-                           hidden_channels=out_dim)
+        decoder = DECODERS[decoder_name](num_relations=num_relation,
+                                         hidden_channels=out_dim)
         return GAE(encoder=encoder, decoder=decoder)

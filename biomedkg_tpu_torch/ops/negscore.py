@@ -1,21 +1,36 @@
-"""Fused DistMult negative scoring, forward and backward:
-``s[i] = Σ_j z[ns[i], j] · rel_emb[rel[i], j] · z[nd[i], j]``.
+"""Fused negative scoring for the four KGE decoders, forward and backward.
 
-Counterpart of biomedkg_tpu/ops/pallas/negscore.py in mode "distmult"
-(``distmult_neg_scores``: ``_fwd_call`` / ``_bwd_call``). On CUDA tensors
-``distmult_neg_scores`` launches the hand-written Hopper kernels of
-``csrc/negscore.cu`` (built at first use by ops/_build.py), for any d, K·E
-and N and for ``z`` in float32 or bfloat16; on CPU tensors it runs
-``distmult_neg_scores_plain``, the reference's unfused path written in
-torch, which the tests and ``chip_smoke.py`` hold the kernels against. A
-CUDA tensor never falls back: the kernels build and launch, or the call
-raises.
+For slot i with h = z[ns[i]], t = z[nd[i]] and the relation row
+r = table[rel[i]], the score is Σ over features of
 
-Contract, as in the reference: ``ns`` ascending (the stratified-sorted
-sampler; any order is exact, only slower), ``nd`` any order, both clipped
-into [0, N) as clip-mode gathers do. The relation rows are rounded to z's
-type, products and sums are float32, and the scores are float32. The
-backward returns ``dz`` in z's type and ``d(rel_emb)`` in rel_emb's.
+* "distmult": h·r·t;
+* "complex":  r_re·(h_re t_re + h_im t_im) + r_im·(h_re t_im − h_im t_re),
+  on the re/im halves of width d/2;
+* "transe":   −|h + r − t|, on z rows normalised to unit L1 norm first;
+* "rotate":   −|h∘e^{iθ} − t| per complex pair, γ added by the decoder.
+
+Counterpart of biomedkg_tpu/ops/pallas/negscore.py: the streamed family
+``{mode}_neg_scores`` (``_fwd_call`` / ``_bwd_call``) and the dual-sorted
+family ``{mode}_neg_scores_ds`` (``_fwd_call_ds`` / ``_bwd_call_ds``, for
+the "sorted2" sampler whose ``nd`` lies in a narrow band per ``BLOCK``
+slots). On CUDA tensors these launch the hand-written Hopper kernels of
+``csrc/negscore.cu`` (built at first use by ops/_build.py), for any K·E
+and N, for ``z`` in float32 or bfloat16, and any d (even for the paired
+modes "complex" and "rotate"); on CPU tensors they run
+``{mode}_neg_scores_plain``, which the tests and ``chip_smoke.py`` hold the
+kernels against. The two families compute the same function, so they share
+the plain version. A CUDA tensor never falls back: the kernels build and
+launch, or the call raises.
+
+As the reference's kernels compute it: ``ns`` ascending (any order is
+exact, only slower), ``nd`` any order, ns, nd and rel clipped into range.
+The relation table is rounded to z's type and everything else is float32;
+the scores are float32. RotatE's table is ``[cos θ | sin θ]`` (R, d) from
+the float32 phases θ (R, d/2), and its gradient comes back as dθ. TransE's
+L1 normalisation is plain torch around the kernels (z to float32, each row
+divided by max(Σ|row|, 1e-12), back to z's type), so autograd carries its
+gradient, as XLA does in the reference. The backward returns ``dz`` in z's
+type and the relation gradient in rel_emb's.
 """
 
 from __future__ import annotations
@@ -27,39 +42,62 @@ import torch
 from ._build import CudaLibrary, check_launch, stream_of
 from .segment import take_rows
 
+BLOCK = 2048            # slots per chunk of the "sorted2" sampler and the
+                        # dual-sorted kernels (the reference's negscore.BLOCK)
+MODES = ("distmult", "complex", "transe", "rotate")
+PAIRED = ("complex", "rotate")       # features j and j + d/2 form a pair
+
 _P = ctypes.c_void_p
-_FWD = [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
-_BWD = [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P]
+_I = ctypes.c_int
+# mode, z, ns, nd, rel, re, out, m, n, d, r, [vec | chunk], stream
+_FWD = [_I, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]
+# mode, z, ns, nd, rel, re, ds, dz, dre, m, n, d, r, [chunk], stream
+_BWD = [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
+        _P]
+_BWD_DS = _BWD[:-1] + [_I, _P]
 LIBRARY = CudaLibrary("negscore.cu", {
-    "negscore_fwd_f32": _FWD, "negscore_fwd_bf16": _FWD,
-    "negscore_bwd_f32": _BWD, "negscore_bwd_bf16": _BWD})
+    **{f"negscore_{fam}fwd_{t}": _FWD
+       for fam in ("", "ds_") for t in ("f32", "bf16")},
+    **{f"negscore_bwd_{t}": _BWD for t in ("f32", "bf16")},
+    **{f"negscore_ds_bwd_{t}": _BWD_DS for t in ("f32", "bf16")}})
 
 
-def _check(z, ns, nd, rel, rel_emb):
+def kernel_name(mode: str, dual: bool) -> str:
+    """The forward kernel's name; its backward's adds "_bwd"."""
+    return f"{mode}_neg_scores{'_ds' if dual else ''}"
+
+
+def _rel_width(mode: str, d: int) -> int:
+    """Width of the relation parameter: d, or the d/2 phases of RotatE."""
+    return d // 2 if mode == "rotate" else d
+
+
+def _check(name, mode, z, ns, nd, rel, rel_emb, rel_width):
     m = ns.shape[0] if ns.dim() == 1 else -1
     if (z.dim() != 2 or rel_emb.dim() != 2 or ns.dim() != 1
             or nd.shape != (m,) or rel.shape != (m,)
-            or rel_emb.shape[1] != z.shape[1]):
+            or rel_emb.shape[1] != rel_width):
         raise ValueError(
-            f"distmult_neg_scores: want z (N, d), ns/nd/rel (M,), rel_emb "
-            f"(R, d); got {tuple(z.shape)}, {tuple(ns.shape)}, "
-            f"{tuple(nd.shape)}, {tuple(rel.shape)}, {tuple(rel_emb.shape)}")
+            f"{name}: want z (N, d), ns/nd/rel (M,), rel_emb (R, "
+            f"{'d/2' if rel_width != z.shape[-1] else 'd'}); got "
+            f"{tuple(z.shape)}, {tuple(ns.shape)}, {tuple(nd.shape)}, "
+            f"{tuple(rel.shape)}, {tuple(rel_emb.shape)}")
+    if mode in PAIRED and z.shape[1] % 2:
+        raise ValueError(f"{name}: mode {mode!r} pairs features j and "
+                         f"j + d/2 and needs an even d, got {z.shape[1]}")
     if z.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"distmult_neg_scores: z must be float32 or "
-                        f"bfloat16, got {z.dtype}")
+        raise TypeError(f"{name}: z must be float32 or bfloat16, got "
+                        f"{z.dtype}")
     if not rel_emb.is_floating_point():
-        raise TypeError(f"distmult_neg_scores: rel_emb is {rel_emb.dtype}")
-    for name, ids in (("ns", ns), ("nd", nd), ("rel", rel)):
+        raise TypeError(f"{name}: rel_emb is {rel_emb.dtype}")
+    for arg, ids in (("ns", ns), ("nd", nd), ("rel", rel)):
         if ids.dtype != torch.int32:
-            raise TypeError(f"distmult_neg_scores: {name} must be int32, "
-                            f"got {ids.dtype}")
+            raise TypeError(f"{name}: {arg} must be int32, got {ids.dtype}")
     devices = {t.device for t in (z, ns, nd, rel, rel_emb)}
     if len(devices) != 1:
-        raise ValueError(f"distmult_neg_scores: inputs on {devices}")
+        raise ValueError(f"{name}: inputs on {devices}")
     if (z.shape[0] == 0 or rel_emb.shape[0] == 0) and m > 0:
-        raise ValueError("distmult_neg_scores: empty z or rel_emb table")
+        raise ValueError(f"{name}: empty z or rel_emb table")
 
 
 def _on_card(*tensors):
@@ -72,20 +110,22 @@ def _on_card(*tensors):
 
 
 class NegScoreForward:
-    """The forward kernel's wrapper: ``launches`` goes up by one for each
-    kernel launch and nowhere else.
+    """One forward kernel's wrapper (a mode, streamed or dual-sorted):
+    ``launches`` goes up by one for each kernel launch and nowhere else.
 
-    ``re`` is the relation table as float32 (already rounded to z's
-    type); returns the (M,) float32 scores."""
+    ``re`` is the float32 relation table (R, d) from ``relation_table``;
+    returns the (M,) float32 scores."""
 
-    def __init__(self):
+    def __init__(self, mode: str, dual: bool):
+        self.mode, self.dual = mode, dual
+        self.name = kernel_name(mode, dual)
         self.launches = 0
 
     def __call__(self, z, ns, nd, rel, re) -> torch.Tensor:
-        _check(z, ns, nd, rel, re)
+        _check(self.name, self.mode, z, ns, nd, rel, re, z.shape[-1])
         _on_card(z, ns, nd, rel, re)
         if re.dtype != torch.float32:
-            raise TypeError(f"negscore kernel: re must be float32, got "
+            raise TypeError(f"{self.name} kernel: re must be float32, got "
                             f"{re.dtype}")
         (n, d), m, r = z.shape, ns.shape[0], re.shape[0]
         out = torch.empty(m, dtype=torch.float32, device=z.device)
@@ -93,97 +133,174 @@ class NegScoreForward:
             return out
         if d == 0:
             return out.zero_()
-        lib = LIBRARY.lib()
-        fn = (lib.negscore_fwd_f32 if z.dtype == torch.float32
-              else lib.negscore_fwd_bf16)
-        pack = 16 // z.element_size()
-        vec = int(d % pack == 0 and z.data_ptr() % 16 == 0)
+        kind = "f32" if z.dtype == torch.float32 else "bf16"
+        fn = getattr(LIBRARY.lib(),
+                     f"negscore_{'ds_' if self.dual else ''}fwd_{kind}")
+        if self.dual:
+            last = BLOCK
+        else:   # 16-byte loads of each row's (half-)width
+            units = d // 2 if self.mode in PAIRED else d
+            last = int(units % (16 // z.element_size()) == 0
+                       and z.data_ptr() % 16 == 0)
         with torch.cuda.device(z.device):
-            err = fn(z.data_ptr(), ns.data_ptr(), nd.data_ptr(),
-                     rel.data_ptr(), re.data_ptr(), out.data_ptr(), m, n, d,
-                     r, vec, stream_of(z))
-        check_launch(err, "negscore forward")
+            err = fn(MODES.index(self.mode), z.data_ptr(), ns.data_ptr(),
+                     nd.data_ptr(), rel.data_ptr(), re.data_ptr(),
+                     out.data_ptr(), m, n, d, r, last, stream_of(z))
+        check_launch(err, f"{self.name} forward")
         self.launches += 1
         return out
 
 
 class NegScoreBackward:
-    """The backward kernel's wrapper: ``launches`` goes up by one for each
-    kernel launch and nowhere else. Returns float32 (dz (N, d),
-    dre (R, d)) for the float32 upstream gradient ``ds`` (M,)."""
+    """One backward kernel's wrapper: ``launches`` goes up by one for each
+    kernel launch and nowhere else. Returns float32 (dz (N, d), d(rel)
+    (R, d), or dθ (R, d/2) for "rotate") for the float32 upstream
+    gradient ``ds`` (M,)."""
 
-    def __init__(self):
+    def __init__(self, mode: str, dual: bool):
+        self.mode, self.dual = mode, dual
+        self.name = kernel_name(mode, dual) + "_bwd"
         self.launches = 0
 
     def __call__(self, z, ns, nd, rel, re, ds):
-        _check(z, ns, nd, rel, re)
+        _check(self.name, self.mode, z, ns, nd, rel, re, z.shape[-1])
         _on_card(z, ns, nd, rel, re, ds)
         if re.dtype != torch.float32 or ds.dtype != torch.float32 \
                 or ds.shape != ns.shape:
-            raise TypeError("negscore backward kernel: re and ds must be "
-                            "float32, ds shaped like ns")
+            raise TypeError(f"{self.name} kernel: re and ds must be "
+                            f"float32, ds shaped like ns")
         (n, d), m, r = z.shape, ns.shape[0], re.shape[0]
         dz = torch.zeros(n, d, dtype=torch.float32, device=z.device)
-        dre = torch.zeros(r, d, dtype=torch.float32, device=z.device)
+        dre = torch.zeros(r, _rel_width(self.mode, d), dtype=torch.float32,
+                          device=z.device)
         if m == 0 or d == 0:
             return dz, dre
-        lib = LIBRARY.lib()
-        fn = (lib.negscore_bwd_f32 if z.dtype == torch.float32
-              else lib.negscore_bwd_bf16)
+        kind = "f32" if z.dtype == torch.float32 else "bf16"
+        fn = getattr(LIBRARY.lib(),
+                     f"negscore_{'ds_' if self.dual else ''}bwd_{kind}")
+        args = [MODES.index(self.mode), z.data_ptr(), ns.data_ptr(),
+                nd.data_ptr(), rel.data_ptr(), re.data_ptr(), ds.data_ptr(),
+                dz.data_ptr(), dre.data_ptr(), m, n, d, r]
+        if self.dual:
+            args.append(BLOCK)
         with torch.cuda.device(z.device):
-            err = fn(z.data_ptr(), ns.data_ptr(), nd.data_ptr(),
-                     rel.data_ptr(), re.data_ptr(), ds.data_ptr(),
-                     dz.data_ptr(), dre.data_ptr(), m, n, d, r,
-                     stream_of(z))
-        check_launch(err, "negscore backward")
+            err = fn(*args, stream_of(z))
+        check_launch(err, f"{self.name}")
         self.launches += 1
         return dz, dre
 
 
-FORWARD = NegScoreForward()
-BACKWARD = NegScoreBackward()
+# one wrapper per (mode, family, direction), by the name chip_smoke reports
+KERNELS = {k.name: k for mode in MODES for dual in (False, True)
+           for k in (NegScoreForward(mode, dual),
+                     NegScoreBackward(mode, dual))}
 
 
-def relation_table(rel_emb: torch.Tensor, z_dtype) -> torch.Tensor:
-    """The kernels' relation table: rel_emb rounded to z's type, as
-    float32."""
-    return rel_emb.detach().to(z_dtype).float().contiguous()
+def relation_table(mode: str, rel_emb: torch.Tensor,
+                   z_dtype) -> torch.Tensor:
+    """The kernels' (R, d) relation table as float32, rounded to z's type:
+    rel_emb, or RotatE's ``[cos θ | sin θ]`` of the float32 phases.
+    Differentiable."""
+    if mode == "rotate":
+        theta = rel_emb.float()
+        rel_emb = torch.cat([torch.cos(theta), torch.sin(theta)], dim=1)
+    return rel_emb.to(z_dtype).float()
 
 
-class _DistMultNegScores(torch.autograd.Function):
+def l1_normalized(z: torch.Tensor) -> torch.Tensor:
+    """TransE's table pass: each row of float32 z divided by
+    max(Σ|row|, 1e-12), back in z's type (differentiable)."""
+    zf = z.float()
+    return (zf / zf.abs().sum(1, keepdim=True).clamp(min=1e-12)).to(z.dtype)
+
+
+def slot_terms(mode: str, h, t, r) -> torch.Tensor:
+    """(M, d), or (M, d/2) for the paired modes: the per-feature terms
+    whose row sum is each slot's score, in the kernels' arithmetic (float32
+    h, t and relation rows r)."""
+    if mode == "distmult":
+        return h * r * t
+    if mode == "transe":
+        return -(h + r - t).abs()
+    half = h.shape[1] // 2
+    h0, h1, t0, t1 = h[:, :half], h[:, half:], t[:, :half], t[:, half:]
+    r0, r1 = r[:, :half], r[:, half:]
+    if mode == "complex":
+        return r0 * (h0 * t0 + h1 * t1) + r1 * (h0 * t1 - h1 * t0)
+    u0 = h0 * r0 - h1 * r1 - t0
+    u1 = h0 * r1 + h1 * r0 - t1
+    return -torch.sqrt(torch.clamp(u0 * u0 + u1 * u1, min=1e-12))
+
+
+def plain_scores(mode, z, ns, nd, rel, rel_emb) -> torch.Tensor:
+    """The plain version of the kernels themselves: what they compute on z
+    as given (for "transe", z already L1-normalised), differentiated by
+    autograd. DistMult's keeps the reference's unfused form, whose h·t
+    products round to z's type."""
+    n, r = z.shape[0], rel_emb.shape[0]
+    h = take_rows(z, ns.long().clamp(0, n - 1))
+    t = take_rows(z, nd.long().clamp(0, n - 1))
+    table = relation_table(mode, rel_emb, z.dtype)
+    rel = rel.long().clamp(0, r - 1)
+    if mode == "distmult":
+        # the reference's unfused path: h·t in z's type, projected against
+        # all R relations with float32 sums, the slot's column selected
+        all_rel = (h * t).float() @ table.T
+        onehot = rel[:, None] == torch.arange(r, device=z.device)
+        return torch.where(onehot, all_rel, 0.0).sum(1)
+    return slot_terms(mode, h.float(), t.float(), take_rows(table, rel)).sum(1)
+
+
+class _NegScores(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, ns, nd, rel, rel_emb):
-        re = relation_table(rel_emb, z.dtype)
+    def forward(ctx, z, ns, nd, rel, rel_emb, mode, dual):
+        re = relation_table(mode, rel_emb.detach(), z.dtype).contiguous()
         ctx.save_for_backward(z, ns, nd, rel, re)
         ctx.rel_dtype = rel_emb.dtype
-        return FORWARD(z, ns, nd, rel, re)
+        ctx.name = kernel_name(mode, dual)
+        return KERNELS[ctx.name](z, ns, nd, rel, re)
 
     @staticmethod
     def backward(ctx, ds):
         z, ns, nd, rel, re = ctx.saved_tensors
-        dz, dre = BACKWARD(z, ns, nd, rel, re, ds.float().contiguous())
-        return dz.to(z.dtype), None, None, None, dre.to(ctx.rel_dtype)
+        dz, dre = KERNELS[ctx.name + "_bwd"](z, ns, nd, rel, re,
+                                             ds.float().contiguous())
+        return (dz.to(z.dtype), None, None, None, dre.to(ctx.rel_dtype),
+                None, None)
 
 
-def distmult_neg_scores_plain(z, ns, nd, rel, rel_emb) -> torch.Tensor:
-    """The reference's unfused path (biomedkg_tpu/models/decoders.py
-    ``DistMult.score_neg_sorted``): gather both rows, ``h * t`` in z's
-    type, project against all R relations with float32 sums, select the
-    slot's column; differentiated by autograd."""
-    _check(z, ns, nd, rel, rel_emb)
-    n, r = z.shape[0], rel_emb.shape[0]
-    h = take_rows(z, ns.long().clamp(0, n - 1))
-    t = take_rows(z, nd.long().clamp(0, n - 1))
-    all_rel = (h * t).float() @ rel_emb.to(z.dtype).float().T   # (M, R)
-    onehot = (rel.long().clamp(0, r - 1)[:, None]
-              == torch.arange(r, device=z.device))
-    return torch.where(onehot, all_rel, 0.0).sum(1)
+def _make(mode: str, dual: bool, plain: bool):
+    name = kernel_name(mode, dual) + ("_plain" if plain else "")
+
+    def neg_scores(z, ns, nd, rel, rel_emb) -> torch.Tensor:
+        _check(name, mode, z, ns, nd, rel, rel_emb,
+               _rel_width(mode, z.shape[-1]))
+        if mode == "transe":
+            z = l1_normalized(z)
+        if plain or z.device.type == "cpu":
+            return plain_scores(mode, z, ns, nd, rel, rel_emb)
+        return _NegScores.apply(z, ns, nd, rel, rel_emb, mode, dual)
+
+    neg_scores.__name__ = neg_scores.__qualname__ = name
+    neg_scores.__doc__ = (
+        f"(M,) float32 {mode} negative scores"
+        + (": the plain torch version." if plain else
+           f"; the {'dual-sorted' if dual else 'streamed'} kernels on CUDA "
+           f"tensors, the plain version on CPU tensors."))
+    return neg_scores
 
 
-def distmult_neg_scores(z, ns, nd, rel, rel_emb) -> torch.Tensor:
-    """(M,) float32 negative scores; the kernels on CUDA tensors, the plain
-    version on CPU tensors (see the module docstring)."""
-    if z.device.type == "cpu":
-        return distmult_neg_scores_plain(z, ns, nd, rel, rel_emb)
-    _check(z, ns, nd, rel, rel_emb)
-    return _DistMultNegScores.apply(z, ns, nd, rel, rel_emb)
+distmult_neg_scores_plain = _make("distmult", False, True)
+complex_neg_scores_plain = _make("complex", False, True)
+transe_neg_scores_plain = _make("transe", False, True)
+rotate_neg_scores_plain = _make("rotate", False, True)
+
+distmult_neg_scores = _make("distmult", False, False)
+complex_neg_scores = _make("complex", False, False)
+transe_neg_scores = _make("transe", False, False)
+rotate_neg_scores = _make("rotate", False, False)
+
+distmult_neg_scores_ds = _make("distmult", True, False)
+complex_neg_scores_ds = _make("complex", True, False)
+transe_neg_scores_ds = _make("transe", True, False)
+rotate_neg_scores_ds = _make("rotate", True, False)

@@ -6,17 +6,19 @@ root), the training step of this slice:
 Keys: ``epochs`` (default 100), ``neg_ratio`` (10), ``saint_fill`` (none;
 e.g. 0.92 tops SAINT batches up to that share of the envelope), ``steps``
 (SAINT steps per epoch; default the data module's 1000), ``seed`` (42),
-``device`` (cuda), ``ckpt_dir`` (./ckpt) and ``model.compute_dtype``
-(float32 or bfloat16). The other settings are the defaults of
-configs/kge.yaml, configs/model/kge.yaml and configs/data/primekg.yaml,
-written out below until the config layer is ported; the model's input
-width is data.embed_dim (768), which the reference's scripts also pass as
+``device`` (cuda), ``ckpt_dir`` (./ckpt), ``model.compute_dtype``
+(float32 or bfloat16), ``model.decoder_name`` (dismult, distmult, transe,
+complex or rotate) and ``model.neg_sampler`` (sorted, sorted2 or iid).
+The other settings are the defaults of configs/kge.yaml,
+configs/model/kge.yaml and configs/data/primekg.yaml, written out below
+until the config layer is ported; the model's input width is
+data.embed_dim (768), which the reference's scripts also pass as
 model.in_dim.
 
-It trains RGCN + DistMult on GraphSAINT batches of the train split (the
-"dst" layout, features gathered from a device-resident table) and writes
-``<ckpt_dir>/kge/<experiment>/last.ckpt`` with the optimizer state, which
-``KGEScorer`` serves and ``load_train_state`` resumes. The Trainer
+It trains RGCN and the chosen decoder on GraphSAINT batches of the train
+split (the "dst" layout, features gathered from a device-resident table)
+and writes ``<ckpt_dir>/kge/<experiment>/last.ckpt`` with the optimizer
+state, which ``KGEScorer`` serves and ``load_train_state`` resumes. The Trainer
 (validation and test metrics, top-k checkpoints, early stopping, resume)
 comes in a later slice (ROADMAP.md).
 """
@@ -44,7 +46,9 @@ MODEL = dict(encoder_name="rgcn", decoder_name="dismult",
              neg_sampler="sorted", cold_start_dropout=0.0)
 DEFAULTS = {"epochs": 100, "neg_ratio": 10, "saint_fill": None,
             "steps": None, "seed": 42, "device": None, "ckpt_dir": "./ckpt",
-            "model.compute_dtype": "float32"}
+            "model.compute_dtype": "float32",
+            "model.decoder_name": MODEL["decoder_name"],
+            "model.neg_sampler": MODEL["neg_sampler"]}
 _INTS = ("epochs", "neg_ratio", "steps", "seed")
 
 
@@ -77,7 +81,9 @@ def train(args: dict) -> str:
     if args["steps"] is not None:
         dm.SAINT_TRAIN_STEPS = args["steps"]
 
-    module = KGEModule(**MODEL, num_relation=dm.data.num_edge_types,
+    model = dict(MODEL, decoder_name=args["model.decoder_name"],
+                 neg_sampler=args["model.neg_sampler"])
+    module = KGEModule(**model, num_relation=dm.data.num_edge_types,
                        neg_ratio=args["neg_ratio"],
                        node_init_method=PRIMEKG_DATA["node_init_method"],
                        seed=seed, compute_dtype=args["model.compute_dtype"])
@@ -105,7 +111,7 @@ def train(args: dict) -> str:
         print(f"epoch {epoch}: {len(losses)} steps, mean train_loss "
               f"{mean:.6f}, {time.perf_counter() - t0:.2f} s", flush=True)
 
-    exp_name = (f"{MODEL['encoder_name']}_{MODEL['decoder_name']}_"
+    exp_name = (f"{model['encoder_name']}_{model['decoder_name']}_"
                 f"{PRIMEKG_DATA['node_init_method']}{int(time.time())}")
     path = os.path.join(args["ckpt_dir"], "kge", exp_name, "last.ckpt")
     save_train_state(path, module, state, extras={"epoch": args["epochs"]})

@@ -3,14 +3,18 @@ hyper-parameters, the GAE model, the training loss and the deterministic
 full-graph encode.
 
 Training (``_forward_loss`` with ``training=True``, stepped by
-training/stepping.py): encode → positive DistMult scores → K = neg_ratio
-negatives per edge → masked BCE + 1e-2·L2, as the reference computes it:
+training/stepping.py): encode → positive scores of the decoder (DistMult,
+ComplEx, TransE or RotatE) → K = neg_ratio negatives per edge → masked BCE
++ 1e-2·L2, as the reference computes it:
 
 * "sorted" negatives (the default): sources are a sorted uniform draw over
   the batch's real nodes, destinations iid uniform, and slot (k, s) pairs
   with edge σ((s + off_k) mod E) for fresh offsets ``off`` and the fixed
-  stride-transpose σ of ``_mix_factor``; scored by
-  ``DistMult.score_neg_sorted`` (the CUDA negscore kernels on the card);
+  stride-transpose σ of ``_mix_factor``; scored by the decoder's
+  ``score_neg_sorted`` (the CUDA negscore kernels on the card);
+* "sorted2" negatives: the same sources, with each chunk of ``BLOCK``
+  destinations drawn iid inside a randomly placed narrow band; scored by
+  the dual-sorted kernels (``score_neg_sorted(..., dst_sorted=True)``);
 * "iid" negatives (and every eval batch): (K, E) iid endpoint sets.
 
 ``compute_dtype`` "bfloat16" runs the encoder in bf16 with float32 master
@@ -20,10 +24,10 @@ path z rounded to bf16, as in the reference. Random numbers come from a
 ``dropout_masks`` let the tests pass in the reference's draws.
 
 Not ported yet, and raising when training asks for them (ROADMAP.md 2b):
-``filter_negatives``, ``cold_start_dropout > 0``, ``neg_sampler="sorted2"``
-and ``fix_edge_id``. Fusion and LM/GCL features raise at construction.
-Encoding runs in float32 whatever ``compute_dtype`` training used, as the
-reference's ``encode`` does.
+``filter_negatives``, ``cold_start_dropout > 0`` and ``fix_edge_id``.
+Fusion and LM/GCL features raise at construction. Encoding runs in
+float32 whatever ``compute_dtype`` training used, as the reference's
+``encode`` does.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from ..device import resolve_device
 from ..interop.jax_params import load_jax_params
 from ..models.factory import KGEModelFactory
 from ..nn import sigmoid_binary_cross_entropy
+from ..ops.negscore import BLOCK
 from ..sampling.batch import GraphBatch
 from .checkpoint import load_checkpoint
 from .optim import make_optimizer
@@ -80,15 +85,36 @@ def _sorted_uniform_sample(generator: torch.Generator, ke: int,
 
 
 def sample_negatives_sorted(generator: torch.Generator, ratio: int,
-                            num_edges: int, num_real_nodes: torch.Tensor):
+                            num_edges: int, num_real_nodes: torch.Tensor,
+                            dual: bool = False):
     """Stratified-sorted negatives: (neg_src ascending (K·E,) int32,
-    neg_dst (K·E,) int32 iid, off (K,) int64). Slot (k, e) pairs with edge
+    neg_dst (K·E,) int32, off (K,) int64). Slot (k, e) pairs with edge
     σ((e + off[k]) mod E) (``rolled_index``), so every slot's source
-    marginal is exactly uniform."""
+    marginal is exactly uniform.
+
+    ``dual=False`` ("sorted"): neg_dst iid uniform. ``dual=True``
+    ("sorted2"): slot j of chunk c of ``BLOCK`` slots gets
+    min(floor(N·frac(δ_c + U_{c,j}/nc)), N − 1), with nc = K·E / BLOCK
+    chunks when BLOCK divides K·E and one chunk (iid over the whole range)
+    otherwise: iid draws inside a band of N/nc ids at a uniform random
+    place, so every slot's marginal stays uniform and independent of its
+    source."""
     ke = ratio * num_edges
     neg_src = _sorted_uniform_sample(generator, ke, num_real_nodes)
-    neg_dst = (torch.rand(ke, generator=generator, device=generator.device)
-               * num_real_nodes).to(torch.int32)
+    if dual:
+        nc = ke // BLOCK if ke % BLOCK == 0 else 1
+        u = torch.rand(nc, ke // nc, generator=generator,
+                       device=generator.device)
+        delta = torch.rand(nc, 1, generator=generator,
+                           device=generator.device)
+        v = torch.remainder(delta + u / nc, 1.0)
+        neg_dst = torch.minimum((v * num_real_nodes).to(torch.int32),
+                                (num_real_nodes - 1).to(torch.int32))
+        neg_dst = neg_dst.reshape(-1)
+    else:
+        neg_dst = (torch.rand(ke, generator=generator,
+                              device=generator.device)
+                   * num_real_nodes).to(torch.int32)
     off = torch.randint(0, num_edges, (ratio,), generator=generator,
                         device=generator.device)
     return neg_src, neg_dst, off
@@ -215,17 +241,13 @@ class KGEModule(StepsMixin, nn.Module):
     def _check_trainable(self):
         if self.cold_start_dropout > 0.0:
             raise NotImplementedError(f"cold_start_dropout > 0 {_LATER}")
-        if self.neg_sampler == "sorted2":
-            raise NotImplementedError(
-                f"neg_sampler='sorted2' (the dual-sorted negscore kernels) "
-                f"{_LATER}")
 
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
                       negatives=None, dropout_masks=None):
         """(loss, aux) of a device batch (sampling/batch.py
         ``batch_to_device``). Draws come from ``generator`` unless passed
-        in: ``negatives`` is (neg_src, neg_dst, off) for the sorted sampler
+        in: ``negatives`` is (neg_src, neg_dst, off) for the sorted samplers
         and (neg_src, neg_dst) (K, E) for the iid one; ``dropout_masks``
         one bool keep mask per hidden layer."""
         if training:
@@ -248,14 +270,16 @@ class KGEModule(StepsMixin, nn.Module):
         num_edges = etype.shape[0]
         num_real_nodes = batch.node_mask.sum().clamp(min=1)
         z_neg = z.to(self.compute_dtype)
-        if training and self.neg_sampler == "sorted":
+        if training and self.neg_sampler in ("sorted", "sorted2"):
+            dual = self.neg_sampler == "sorted2"
             neg_src, neg_dst, off = (
                 negatives if negatives is not None else
                 sample_negatives_sorted(generator, ratio, num_edges,
-                                        num_real_nodes))
+                                        num_real_nodes, dual=dual))
             idx = rolled_index(off, num_edges, _mix_factor(num_edges))
             neg_pred = decoder.score_neg_sorted(
-                z_neg, neg_src, neg_dst, etype[idx].to(torch.int32))
+                z_neg, neg_src, neg_dst, etype[idx].to(torch.int32),
+                dst_sorted=dual)
             neg_mask = emask[idx]
         else:
             if negatives is None:
@@ -280,7 +304,8 @@ class KGEModule(StepsMixin, nn.Module):
         return loss, aux
 
     def _finish_loss(self, z, node_mask, pred, gt, weights):
-        """Masked BCE + 1e-2·L2 over the real nodes' z and rel_emb."""
+        """Masked BCE + 1e-2·L2 over the real nodes' z and the decoder's
+        parameter (rel_emb; RotatE's (R, d/2) phases)."""
         bce = sigmoid_binary_cross_entropy(pred, gt, weights)
         nmask = node_mask.to(z.dtype)
         reg_z = torch.sum(z ** 2 * nmask[:, None]) / (

@@ -39,7 +39,23 @@ Phases; any failure ends the run with a non-zero exit:
     shapes, timed beside their bounds; the loss falling on a fixed batch;
     ``python -m biomedkg_tpu_torch.train_kge`` for a few steps on the card
     on the same PrimeKG++-scale graph and its checkpoint served by
-    ``KGEScorer``.
+    ``KGEScorer`` (with it, concurrently, the RotatE + "sorted2" run of
+    phase 6);
+ 6. the other decoders and the dual-sorted sampler on the same SAINT
+    batches at full width: ComplEx, TransE and RotatE (γ = 12) with
+    "sorted" negatives and all four decoders with "sorted2". For each:
+    warm-up steps, then P6_STEPS timed steps with every launch count set to
+    0 just before and read just after (the mode's streamed or dual-sorted
+    negscore pair 1 + 1 per step, segsum 6); one batch's loss and every
+    gradient with the kernels against the plain versions (bf16 and
+    float32); the mode's two kernels against the plain version at the
+    path's shapes (the dual-sorted ones also on an input whose nd is in any
+    order), timed beside their bounds; the loss falling on a fixed batch;
+    for RotatE + "sorted2" a torch.profiler breakdown as in phase 5.
+    Before them every negscore kernel on small shapes off the path.
+    Then ``train_kge model.decoder_name=rotate model.neg_sampler=sorted2``'s
+    checkpoint served, its ``score`` and ``topk_tails`` answers checked
+    against a float64 host recomputation.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +101,9 @@ SEED = 42
 WARMUP, ITERS = 3, 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32, outside tensor cores
+# special-function units (sqrt, reciprocal): 16 per SM and clock against
+# 128 float32 FMA lanes (256 operations)
+SFU_OP_PER_S = FP32_FLOP_PER_S / 16
 # full width: the model bench.py trains (bench.py:64)
 HPARAMS = dict(
     encoder_name="rgcn", decoder_name="dismult", in_dim=768, hidden_dim=256,
@@ -115,6 +134,29 @@ STEP_TOL = {torch.bfloat16: (1e-3, 3e-2), torch.float32: (1e-5, 5e-4)}
 # (d(rel_emb) sums ~51k signed terms per relation: relative to its max the
 # cancellation alone reaches 1e-5)
 NEG_TOL_BF16 = (2e-2, 3e-2)
+
+# -- phase 6: the other decoders and the dual-sorted sampler --------------
+MODE = {"dismult": "distmult", "complex": "complex", "transe": "transe",
+        "rotate": "rotate"}
+PHASE6 = [("complex", "sorted"), ("transe", "sorted"), ("rotate", "sorted"),
+          ("dismult", "sorted2"), ("complex", "sorted2"),
+          ("transe", "sorted2"), ("rotate", "sorted2")]
+P6_WARMUP, P6_STEPS = 2, 5
+PROFILED6 = ("rotate", "sorted2")     # the configuration phase 6 profiles
+# TransE's gradients reach z through the L1 sign: in bf16 they are held to
+# JAX's own figure for its dz (tests/test_ops.py:619-624)
+TRANSE_GRAD_TOL_BF16 = 8e-2
+# per slot and feature, the float32 operations of (forward, backward); the
+# paired modes' counts are per unit (features j and j + d/2) halved
+NEG_FLOPS = {"distmult": (3, 8), "complex": (5, 15), "transe": (4, 10),
+             "rotate": (6.5, 16.5)}
+# per unit, the special-function operations of (forward, backward): RotatE's
+# sqrt, and its divide by the distance backward
+NEG_SFU = {"rotate": (1, 2)}
+# the TPU functions each negscore kernel replaces (negscore.py lines), by
+# (dual-sorted, backward)
+NEG_REPLACES = {(False, False): 494, (False, True): 526,
+                (True, False): 355, (True, True): 387}
 
 
 def fail(msg: str):
@@ -161,47 +203,70 @@ def segsum_bound_ms(data: torch.Tensor, num_segments: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def negscore_bound_ms(z, m, r, backward: bool):
-    """Least time for one negscore call: the z table, three int32 index
-    arrays, the relation table and the scores (plus ds in, dz and dre out
-    backward) moved once over HBM bandwidth; 3 (forward) or 8 (backward)
-    float32 operations per slot and feature over the float32 peak."""
+def negscore_bound_ms(mode, z, m, r, backward: bool):
+    """Least time for one negscore call, as (ms, "bytes" or "operations",
+    the term that sets it): the z table, three int32 index arrays, the
+    relation table and the scores (plus ds in, dz and the relation gradient
+    out backward) moved once over HBM bandwidth; the mode's float32
+    operations over the float32 peak; its special-function operations over
+    their peak."""
     n, d = z.shape
     nbytes = n * d * z.element_size() + 3 * 4 * m + r * d * 4 + 4 * m
     if backward:
-        nbytes += n * d * 4 + r * d * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (8 if backward else 3) * m * d / FP32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        dr = d // 2 if mode == "rotate" else d
+        nbytes += n * d * 4 + r * dr * 4
+    terms = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "float32 operations": NEG_FLOPS[mode][backward] * m * d
+        / FP32_FLOP_PER_S * 1e3,
+        "special-function operations": NEG_SFU.get(mode, (0, 0))[backward]
+        * m * (d // 2) / SFU_OP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
 def launch_counts() -> dict:
     return {"sorted_segment_sum": segsum.KERNEL.launches,
-            "distmult_neg_scores": negscore.FORWARD.launches,
-            "distmult_neg_scores_bwd": negscore.BACKWARD.launches}
+            **{name: k.launches for name, k in negscore.KERNELS.items()}}
 
 
 def reset_launch_counts():
     segsum.KERNEL.launches = 0
-    negscore.FORWARD.launches = 0
-    negscore.BACKWARD.launches = 0
+    for k in negscore.KERNELS.values():
+        k.launches = 0
+
+
+def expected_launches(segsum_n: int, kernel: str, n: int) -> dict:
+    """Every count 0 but segsum's and the ``kernel`` pair's."""
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update({"sorted_segment_sum": segsum_n, kernel: n,
+                 kernel + "_bwd": n})
+    return want
+
+
+# the decoders' negscore dispatchers and their plain versions
+NEG_DISPATCH = {negscore.kernel_name(mode, dual):
+                getattr(negscore, f"{mode}_neg_scores_plain")
+                for mode in negscore.MODES for dual in (False, True)}
 
 
 @contextlib.contextmanager
 def plain_versions():
     """The model with every kernel swapped for its plain torch version
     (the segment-sums of the encoder and of the tail gather's backward,
-    and the negative scoring)."""
+    and the negative scoring of every decoder and sampler)."""
     saved = (encoders.sorted_segment_sum, segment.sorted_segment_sum,
-             decoders.distmult_neg_scores)
+             {name: getattr(decoders, name) for name in NEG_DISPATCH})
     encoders.sorted_segment_sum = segsum.segsum_plain
     segment.sorted_segment_sum = segsum.segsum_plain
-    decoders.distmult_neg_scores = negscore.distmult_neg_scores_plain
+    for name, plain in NEG_DISPATCH.items():
+        setattr(decoders, name, plain)
     try:
         yield
     finally:
-        (encoders.sorted_segment_sum, segment.sorted_segment_sum,
-         decoders.distmult_neg_scores) = saved
+        encoders.sorted_segment_sum, segment.sorted_segment_sum = saved[:2]
+        for name, fn in saved[2].items():
+            setattr(decoders, name, fn)
 
 
 def serve_requests(scorer: KGEScorer, rng) -> dict:
@@ -279,11 +344,13 @@ def serve_requests(scorer: KGEScorer, rng) -> dict:
 
 
 def fixed_draws(module, batch, gen):
-    """One set of sorted negatives and dropout keep masks for ``batch``."""
+    """One set of the module's sorted negatives and dropout keep masks for
+    ``batch``."""
     num_edges = batch.edge_type.shape[0]
     nreal = batch.node_mask.sum().clamp(min=1)
-    negatives = sample_negatives_sorted(gen, module.neg_ratio, num_edges,
-                                        nreal)
+    negatives = sample_negatives_sorted(
+        gen, module.neg_ratio, num_edges, nreal,
+        dual=module.neg_sampler == "sorted2")
     n = batch.node_mask.shape[0]
     masks = [dropout_mask((n, dout), encoders.RGCN.DROPOUT, gen, gen.device)
              for _, dout in module.model.encoder.dims[:-1]]
@@ -313,9 +380,359 @@ def train_module(sd, feature_table, dev, **over) -> KGEModule:
     return module
 
 
-def train_phase(dm, dev):
-    """Phase 5; returns the negscore kernels' records and the segsum
-    kernel's launches on this path."""
+def timed_steps(module, state, batches, gen, what: str):
+    """Run ``batches`` with every launch count set to 0 just before and
+    read just after; returns (state, launches, ms per step)."""
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    state, logs = module.train_steps(state, batches, gen)
+    end.record()
+    torch.cuda.synchronize()
+    steps = len(batches)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    event_ms = start.elapsed_time(end) / steps
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = float(logs["train_loss"])
+    real = sum(int(b.edge_mask.sum()) for b in batches)
+    rate = real * (1 + TRAIN["neg_ratio"]) / (step_ms * steps / 1e3)
+    print(f"{what}: {step_ms:.3f} ms per step (host clock), "
+          f"{event_ms:.3f} ms (CUDA events), {rate:.4g} triplets/s "
+          f"(real edges x (1 + K) per step, bench.py:167); peak device "
+          f"memory {peak_gb:.3f} GB, of which {resident_gb:.3f} GB was "
+          f"allocated before the steps; last loss {loss:.6f}; launches over "
+          f"{steps} steps {({k: v for k, v in launches.items() if v})}")
+    check(np.isfinite(loss), f"{what}: training loss not finite")
+    return state, launches, step_ms
+
+
+def profile_steps(module, state, batches, gen, what: str):
+    """Device busy time by kernel and host time by op over one profiled
+    window of ``batches`` (torch.profiler), and the idle share against the
+    same window's CUDA-event wall time."""
+    steps = len(batches)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        module.train_steps(state, batches, gen)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / steps
+    events = prof.key_averages()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    print(f"{what} device kernels (torch.profiler, {steps} steps, per "
+          f"step): {busy:.3f} ms busy of {wall:.3f} ms wall (CUDA events in "
+          f"the same profiled window; idle share {1 - busy / wall:.3f}), "
+          f"{sum(e.count for e in kernels) / steps:g} kernels; "
+          + "; ".join(f"{e.key[:60]} x{e.count / steps:g} "
+                      f"{e.self_device_time_total / 1e3 / steps:.3f} ms"
+                      for e in kernels[:15]))
+    host_ops = sorted((e for e in events
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
+    print(f"{what} host ops (torch.profiler, self CPU ms per step, "
+          f"profiled): "
+          + "; ".join(f"{e.key[:40]} x{e.count / steps:g} "
+                      f"{e.self_cpu_time_total / 1e3 / steps:.3f}"
+                      for e in host_ops[:12]))
+
+
+def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
+                 **over):
+    """One batch's loss and every gradient with the kernels against the
+    same step with the plain versions, in bf16 and float32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        step = train_module(sd, feature_table, dev,
+                            compute_dtype=str(dtype)[6:], **over)
+        draws = fixed_draws(step, batch,
+                            torch.Generator(device=dev).manual_seed(SEED + 1))
+        reset_launch_counts()
+        loss_k, grads_k = step_grads(step, batch, *draws)
+        used = launch_counts()
+        reset_launch_counts()
+        with plain_versions():
+            loss_p, grads_p = step_grads(step, batch, *draws)
+        check(not any(launch_counts().values()),
+              "the plain versions launched a kernel")
+        check(used == expected_launches(SEGSUM_PER_STEP, kernel, 1),
+              f"{what}: launches in one step: {used}")
+        loss_tol, grad_tol = STEP_TOL[dtype]
+        if dtype == torch.bfloat16 and kernel.startswith("transe"):
+            grad_tol = TRANSE_GRAD_TOL_BF16
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        errs = {n: rel_err(a, b) for (n, _), a, b in
+                zip(step.named_parameters(), grads_k, grads_p)}
+        worst = max(errs, key=errs.get)
+        print(f"{what} step {str(dtype)[6:]}, kernels vs plain: loss "
+              f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_err:.3g}, tol "
+              f"{loss_tol:g}); gradients max rel-to-max {errs[worst]:.3g} "
+              f"({worst}; tol {grad_tol:g})")
+        check(loss_err <= loss_tol, f"{what} {dtype} step: loss disagrees")
+        check(errs[worst] <= grad_tol,
+              f"{what} {dtype} step: {worst} disagrees")
+
+
+def neg_magnitudes(mode, zt, ns, nd, rel, rel_emb, ds):
+    """For each element of the scores, dz and the relation gradient, the
+    sum of its terms' magnitudes: float32 checks hold each element within
+    SUM_RTOL of it (sums that differ only in order)."""
+    n, d = zt.shape
+    h = zt[ns.long()].float().requires_grad_(True)
+    t = zt[nd.long()].float().requires_grad_(True)
+    if mode == "rotate":
+        leaf = rel_emb[rel.long()].float().requires_grad_(True)
+        rows = negscore.relation_table(mode, leaf, zt.dtype)
+    else:
+        leaf = negscore.relation_table(mode, rel_emb, zt.dtype)[
+            rel.long()].requires_grad_(True)
+        rows = leaf
+    terms = negscore.slot_terms(mode, h, t, rows)
+    dh, dt, dr = torch.autograd.grad(terms.sum(1), (h, t, leaf), ds)
+    mag_dz = torch.zeros(n, d, device=zt.device)
+    mag_dz.index_add_(0, ns.long(), dh.abs()).index_add_(0, nd.long(),
+                                                          dt.abs())
+    mag_dr = torch.zeros(rel_emb.shape, device=zt.device)
+    mag_dr.index_add_(0, rel.long(), dr.abs())
+    return terms.detach().abs().sum(1), mag_dz, mag_dr
+
+
+def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
+                     nd_wide=None):
+    """The (mode, family) forward and backward kernels against the plain
+    version at the path's shapes (scores, dz, the relation gradient; the
+    dual-sorted ones also with ``nd_wide``, ids in any order, in float32),
+    timed beside their bounds; returns their two ``kernels`` records."""
+    name = negscore.kernel_name(mode, dual)
+    fwd, bwd = negscore.KERNELS[name], negscore.KERNELS[name + "_bwd"]
+    ns, nd, rel = negatives
+    m, r = ns.shape[0], rel_emb.shape[0]
+
+    def kernel_table(dtype):
+        zt = z.to(dtype)
+        if mode == "transe":      # the table pass the kernels see
+            zt = negscore.l1_normalized(zt)
+        return (zt.contiguous(),
+                negscore.relation_table(mode, rel_emb, dtype).contiguous())
+
+    err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        zt, re = kernel_table(dtype)
+        inputs = [("", nd)]
+        if nd_wide is not None and dtype == torch.float32:
+            inputs.append((", nd in any order", nd_wide))
+        for label, ndc in inputs:
+            s_k = fwd(zt, ns, ndc, rel, re)
+            dz_k, dre_k = bwd(zt, ns, ndc, rel, re, ds)
+            zp = zt.clone().requires_grad_(True)
+            rp = rel_emb.clone().requires_grad_(True)
+            s_p = negscore.plain_scores(mode, zp, ns, ndc, rel, rp)
+            dz_p, dre_p = torch.autograd.grad(s_p, (zp, rp), ds)
+            torch.cuda.synchronize()
+            pairs = ((s_k, s_p.detach()), (dz_k, dz_p), (dre_k, dre_p))
+            rel_errs = [rel_err(a, b) for a, b in pairs]
+            abs_errs = [float((a.float() - b.float()).abs().max())
+                        for a, b in pairs]
+            if dtype == torch.bfloat16:
+                val_tol, grad_tol = NEG_TOL_BF16
+                ok = rel_errs[0] <= val_tol and max(rel_errs[1:]) <= grad_tol
+                how = f"tol {val_tol:g} / {grad_tol:g}"
+            else:
+                mags = neg_magnitudes(mode, zt, ns, ndc, rel, rel_emb, ds)
+                ratios = [float(((a.float() - b.float()).abs()
+                                 / c.clamp(min=1e-30)).max())
+                          for (a, b), c in zip(pairs, mags)]
+                ok = max(ratios) <= SUM_RTOL
+                how = (f"of Σ|terms| per element "
+                       f"{', '.join(f'{x:.3g}' for x in ratios)}, tol "
+                       f"{SUM_RTOL:g}")
+            print(f"{name} {str(dtype)[6:]}{label}: z {tuple(zt.shape)}, "
+                  f"{m} slots, R = {r}: kernels vs plain rel-to-max scores "
+                  f"{rel_errs[0]:.3g}, dz {rel_errs[1]:.3g}, d(rel_emb) "
+                  f"{rel_errs[2]:.3g} ({how}); max abs {abs_errs}")
+            check(ok, f"{name} {dtype}{label}: kernels disagree with the "
+                      f"plain version")
+            if not label:
+                err[dtype] = (abs_errs[0], max(abs_errs[1:]))
+
+    zt, re = kernel_table(torch.bfloat16)
+    fwd_ms = time_ms(lambda: fwd(zt, ns, nd, rel, re))
+    bwd_ms = time_ms(lambda: bwd(zt, ns, nd, rel, re, ds))
+    with torch.no_grad():
+        plain_fwd_ms = time_ms(lambda: negscore.plain_scores(
+            mode, zt, ns, nd, rel, rel_emb))
+    zp = zt.clone().requires_grad_(True)
+    rp = rel_emb.clone().requires_grad_(True)
+    s_p = negscore.plain_scores(mode, zp, ns, nd, rel, rp)
+    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        s_p, (zp, rp), ds, retain_graph=True))
+    records = []
+    for backward, ms, plain_ms in ((False, fwd_ms, plain_fwd_ms),
+                                   (True, bwd_ms, plain_bwd_ms)):
+        bound, by, term = negscore_bound_ms(mode, zt, m, r, backward)
+        kname = name + ("_bwd" if backward else "")
+        print(f"{kname} time (bf16, training shape): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({term}), "
+              f"kernel at {bound / ms:.1%} of bound; no single PyTorch "
+              f"call computes this function")
+        records.append({
+            "name": kname, "route": "cuda",
+            "source": "biomedkg_tpu_torch/csrc/negscore.cu",
+            "replaces": "biomedkg_tpu/ops/pallas/negscore.py:"
+                        f"{NEG_REPLACES[dual, backward]}",
+            "launches": launches[kname],
+            "max_abs_err": err[torch.bfloat16][backward], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None})
+    return records
+
+
+def loss_falls(sd, feature_table, dev, batch, what: str, **over):
+    """Eight steps on one batch with fixed draws: the first (lr 0) leaves
+    the loss as it was, and the loss then falls."""
+    probe = train_module(sd, feature_table, dev, **over)
+    probe.configure_optimizers(num_training_steps=20)
+    st = probe.init_state()
+    negatives, masks = fixed_draws(
+        probe, batch, torch.Generator(device=dev).manual_seed(SEED + 2))
+    keep_all = [torch.ones_like(mk) for mk in masks]
+    losses = []
+    for _ in range(8):
+        st, out = probe.train_step(st, batch, negatives=negatives,
+                                   dropout_masks=keep_all)
+        losses.append(float(out["train_loss"]))
+    print(f"{what} fixed-batch losses (lr 0 at step 0, warm-up 4 steps): "
+          f"{[round(x, 6) for x in losses]}")
+    check(abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0]),
+          f"{what}: the first update (schedule(0) = 0) changed the loss")
+    check(losses[-1] < losses[1], f"{what}: the loss did not fall on a "
+                                  f"fixed batch")
+
+
+def encoded(module, batch) -> torch.Tensor:
+    """The batch's z as the bf16 training step computes it (no dropout)."""
+    with torch.no_grad():
+        return module.model.encoder(
+            module._batch_features(batch), batch.edge_index,
+            batch.edge_type, batch.edge_mask,
+            compute_dtype=torch.bfloat16).float()
+
+
+def path_negatives(batch, gen, dual: bool):
+    """The path's (ns, nd, per-slot relation) for ``batch``."""
+    num_edges = batch.edge_type.shape[0]
+    ns, nd, off = sample_negatives_sorted(
+        gen, TRAIN["neg_ratio"], num_edges,
+        batch.node_mask.sum().clamp(min=1), dual=dual)
+    rel = batch.edge_type[rolled_index(off, num_edges,
+                                       _mix_factor(num_edges))].int()
+    return ns, nd, rel
+
+
+def start_train_kge(tmp: str, *extra) -> subprocess.Popen:
+    """``python -m biomedkg_tpu_torch.train_kge`` on the card for 3 steps
+    on the PrimeKG++-scale graph, in its own directory under ``tmp``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cwd = tempfile.mkdtemp(dir=tmp)
+    return subprocess.Popen(
+        [sys.executable, "-m", "biomedkg_tpu_torch.train_kge", "steps=3",
+         "epochs=1", "saint_fill=0.92", "model.compute_dtype=bfloat16",
+         f"seed={SEED}", f"ckpt_dir={cwd}/ckpt", *extra],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_train_kge(proc, what: str, graph, t0: float) -> str:
+    """Wait for a ``start_train_kge`` run; returns its checkpoint's path."""
+    out, errs = proc.communicate(timeout=600)
+    print(f"train_kge {what} ({time.perf_counter() - t0:.1f} s, rc "
+          f"{proc.returncode}):", out.strip().replace("\n", " | "))
+    check(proc.returncode == 0, f"train_kge {what} failed: {errs[-2000:]}")
+    check(out.startswith(f"train_kge: {graph.num_nodes} nodes, "
+                         f"{graph.num_edges} edges"),
+          f"train_kge {what} did not train on the PrimeKG++-scale graph")
+    return out.split("checkpoint: ")[-1].strip()
+
+
+def serve_checkpoint(ckpt: str, tmp: str, what: str) -> KGEScorer:
+    full = PrimeKGModule(**dict(PRIMEKG_DATA,
+                                data_dir=tempfile.mkdtemp(dir=tmp)),
+                         seed=SEED)
+    t0 = time.perf_counter()
+    served = KGEScorer(ckpt, full, device="cuda")
+    check(bool(torch.isfinite(served.z).all())
+          and served.z.shape[0] == full.graph.num_nodes,
+          f"{what} checkpoint: served z not finite / not full-graph")
+    print(f"{what} checkpoint served over {served.z.shape[0]} nodes (init "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return served
+
+
+def host_rotate_logits(z, theta, gamma, h, r, t=None):
+    """float64 RotatE logits of (h, r, t), or of every node as the tail of
+    (h, r) when ``t`` is None."""
+    half = z.shape[1] // 2
+    c, s = np.cos(theta[r]), np.sin(theta[r])
+    rot_re = z[h, :half] * c - z[h, half:] * s
+    rot_im = z[h, :half] * s + z[h, half:] * c
+    tails = z if t is None else z[t]
+    dist = np.sqrt(np.maximum((rot_re - tails[..., :half]) ** 2
+                              + (rot_im - tails[..., half:]) ** 2, 1e-12))
+    return gamma - dist.sum(-1)
+
+
+def serve_rotate_requests(scorer: KGEScorer, rng):
+    """``score`` and ``topk_tails`` of a RotatE checkpoint against a float64
+    recomputation on the host."""
+    g = scorer.dm.graph
+    z = scorer.z.double().cpu().numpy()
+    theta = scorer.decoder.rel_emb.detach().double().cpu().numpy()
+    gamma = scorer.decoder.gamma
+    pick = rng.choice(g.num_edges, 8, replace=False)
+    heads, tails = g.edge_index[0, pick], g.edge_index[1, pick]
+    rels = g.edge_type[pick]
+    got = np.array([scorer.score(scorer.id_to_name[int(h)],
+                                 scorer.dm.edge_map_index[int(r)],
+                                 scorer.id_to_name[int(t)])
+                    for h, r, t in zip(heads, rels, tails)])
+    want = 1.0 / (1.0 + np.exp(-host_rotate_logits(z, theta, gamma, heads,
+                                                   rels, tails)))
+    err = float(np.abs(got - want).max())
+    ntype = np.asarray(scorer.dm.data.node_type_of)
+    top_err = 0.0
+    for h, r in zip(heads[:3], rels[:3]):
+        top = scorer.topk_tails(scorer.id_to_name[int(h)],
+                                scorer.dm.edge_map_index[int(r)], k=10)
+        probs = np.array([p for _, p in top])
+        host = 1.0 / (1.0 + np.exp(-host_rotate_logits(z, theta, gamma, h,
+                                                       r)))
+        allowed = np.unique(ntype[g.edge_index[1][g.edge_type == r]])
+        host[~np.isin(ntype, allowed)] = -np.inf
+        host[h] = -np.inf
+        check(len(top) == 10, "RotatE topk_tails: not 10 answers")
+        top_err = max(top_err, float(np.abs(np.sort(host)[::-1][:10]
+                                            - probs).max()))
+    print(f"RotatE served: score vs float64 host max_abs_err={err:.3g}, "
+          f"topk_tails top-10 probabilities max_abs_err={top_err:.3g} "
+          f"(tol 1e-5)")
+    check(err <= 1e-5 and top_err <= 1e-5,
+          "RotatE served answers disagree with the host recomputation")
+
+
+def train_phase(dm, dev, tmp):
+    """Phase 5; returns the distmult negscore kernels' records, the segsum
+    kernel's launches on this path, the device batches, the feature table
+    and the RotatE + sorted2 ``train_kge`` run it starts for phase 6."""
     k = TRAIN["neg_ratio"]
     dm.edge_layout = "dst"
     dm.device_features = True
@@ -344,173 +761,28 @@ def train_phase(dm, dev):
     torch.cuda.synchronize()
 
     # -- the main path: TRAIN_STEPS steps, launches counted ---------------
-    reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    resident_gb = torch.cuda.memory_allocated() / 1e9
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    state, logs = module.train_steps(state, batches[TRAIN_WARMUP:], gen)
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-    event_ms = start.elapsed_time(end) / TRAIN_STEPS
-    launches = launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    loss = float(logs["train_loss"])
-    rate = sum(real_edges) * (1 + k) / (step_ms * TRAIN_STEPS / 1e3)
-    print(f"train step: {step_ms:.3f} ms per step (host clock), "
-          f"{event_ms:.3f} ms (CUDA events), {rate:.4g} triplets/s "
-          f"(real edges x (1 + K) per step, bench.py:167); peak device "
-          f"memory {peak_gb:.3f} GB, of which {resident_gb:.3f} GB was "
-          f"allocated before the steps (the serving phases' tensors, the "
-          f"batches, weights and optimizer state); last loss {loss:.6f}; "
-          f"launches over "
-          f"{TRAIN_STEPS} steps {launches}")
-    check(np.isfinite(loss), "training loss not finite")
-    check(launches == {"sorted_segment_sum": SEGSUM_PER_STEP * TRAIN_STEPS,
-                       "distmult_neg_scores": TRAIN_STEPS,
-                       "distmult_neg_scores_bwd": TRAIN_STEPS},
+    state, launches, _ = timed_steps(module, state, batches[TRAIN_WARMUP:],
+                                     gen, "train step")
+    check(launches == expected_launches(SEGSUM_PER_STEP * TRAIN_STEPS,
+                                        "distmult_neg_scores", TRAIN_STEPS),
           f"launches per step on the training path: {launches}")
 
-    # busy and wall time from the same profiled window of PROFILED steps
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        start.record()
-        module.train_steps(state, batches[-PROFILED:], gen)
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / PROFILED
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / PROFILED
-    print(f"train step device kernels (torch.profiler, {PROFILED} steps, "
-          f"per step): {busy:.3f} ms busy of {wall:.3f} ms wall (CUDA "
-          f"events in the same profiled window; idle share "
-          f"{1 - busy / wall:.3f}), "
-          f"{sum(e.count for e in kernels) / PROFILED:g} kernels; "
-          + "; ".join(f"{e.key[:60]} x{e.count / PROFILED:g} "
-                      f"{e.self_device_time_total / 1e3 / PROFILED:.3f} ms"
-                      for e in kernels[:15]))
-    host_ops = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CPU),
-                      key=lambda e: -e.self_cpu_time_total)
-    print("train step host ops (torch.profiler, self CPU ms per step, "
-          "profiled): "
-          + "; ".join(f"{e.key[:40]} x{e.count / PROFILED:g} "
-                      f"{e.self_cpu_time_total / 1e3 / PROFILED:.3f}"
-                      for e in host_ops[:12]))
+    profile_steps(module, state, batches[-PROFILED:], gen, "train step")
 
     # -- one step: kernels against the plain versions ---------------------
     batch = batches[0]
-    for dtype in (torch.bfloat16, torch.float32):
-        step = train_module(sd, module.feature_table, dev,
-                            compute_dtype=str(dtype)[6:])
-        draws = fixed_draws(step, batch,
-                            torch.Generator(device=dev).manual_seed(SEED + 1))
-        reset_launch_counts()
-        loss_k, grads_k = step_grads(step, batch, *draws)
-        used = launch_counts()
-        reset_launch_counts()
-        with plain_versions():
-            loss_p, grads_p = step_grads(step, batch, *draws)
-        check(not any(launch_counts().values()),
-              "the plain versions launched a kernel")
-        check(used == {"sorted_segment_sum": SEGSUM_PER_STEP,
-                       "distmult_neg_scores": 1,
-                       "distmult_neg_scores_bwd": 1},
-              f"launches in one step: {used}")
-        loss_tol, grad_tol = STEP_TOL[dtype]
-        loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        errs = {n: rel_err(a, b) for (n, _), a, b in
-                zip(step.named_parameters(), grads_k, grads_p)}
-        worst = max(errs, key=errs.get)
-        print(f"train step {str(dtype)[6:]}, kernels vs plain: loss "
-              f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_err:.3g}, tol "
-              f"{loss_tol:g}); gradients max rel-to-max {errs[worst]:.3g} "
-              f"({worst}; tol {grad_tol:g})")
-        check(loss_err <= loss_tol, f"{dtype} step: loss disagrees")
-        check(errs[worst] <= grad_tol, f"{dtype} step: {worst} disagrees")
+    compare_step(sd, module.feature_table, dev, batch, "distmult_neg_scores",
+                 "train")
 
     # -- the negscore kernels against the plain version -------------------
-    with torch.no_grad():
-        z = module.model.encoder(
-            module._batch_features(batch), batch.edge_index,
-            batch.edge_type, batch.edge_mask,
-            compute_dtype=torch.bfloat16).float()
-    num_edges = batch.edge_type.shape[0]
-    ns, nd, off = sample_negatives_sorted(
-        gen, k, num_edges, batch.node_mask.sum().clamp(min=1))
-    rel = batch.edge_type[rolled_index(off, num_edges,
-                                       _mix_factor(num_edges))].int()
-    rel_emb = module.model.decoder.rel_emb.detach()
+    z = encoded(module, batch)
     ds = torch.randn(m, generator=gen, device=dev)
-    err = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        zt = z.to(dtype).contiguous()
-        re = negscore.relation_table(rel_emb, dtype)
-        s_k = negscore.FORWARD(zt, ns, nd, rel, re)
-        dz_k, dre_k = negscore.BACKWARD(zt, ns, nd, rel, re, ds)
-        zp = zt.clone().requires_grad_(True)
-        rp = rel_emb.clone().requires_grad_(True)
-        s_p = negscore.distmult_neg_scores_plain(zp, ns, nd, rel, rp)
-        dz_p, dre_p = torch.autograd.grad(s_p, (zp, rp), ds)
-        torch.cuda.synchronize()
-        pairs = ((s_k, s_p.detach()), (dz_k, dz_p), (dre_k, dre_p))
-        rel_errs = tuple(rel_err(a, b) for a, b in pairs)
-        err[dtype] = (float((s_k - s_p).abs().max()),
-                      max(float((dz_k - dz_p.float()).abs().max()),
-                          float((dre_k - dre_p).abs().max())))
-        if dtype == torch.bfloat16:
-            val_tol, grad_tol = NEG_TOL_BF16
-            ok = rel_errs[0] <= val_tol and max(rel_errs[1:]) <= grad_tol
-            how = f"tol {val_tol:g} / {grad_tol:g}"
-        else:
-            za = zt.abs().requires_grad_(True)
-            ra = rel_emb.abs().requires_grad_(True)
-            s_a = negscore.distmult_neg_scores_plain(za, ns, nd, rel, ra)
-            mags = (s_a.detach(),) + torch.autograd.grad(s_a, (za, ra),
-                                                         ds.abs())
-            ratios = [float(((a.float() - b.float()).abs()
-                             / c.clamp(min=1e-30)).max())
-                      for (a, b), c in zip(pairs, mags)]
-            ok = max(ratios) <= SUM_RTOL
-            how = (f"of Σ|terms| per element "
-                   f"{', '.join(f'{x:.3g}' for x in ratios)}, tol "
-                   f"{SUM_RTOL:g}")
-        print(f"negscore {str(dtype)[6:]} z {tuple(zt.shape)}, {m} slots, "
-              f"R = {rel_emb.shape[0]}: kernel vs plain rel-to-max scores "
-              f"{rel_errs[0]:.3g}, dz {rel_errs[1]:.3g}, d(rel_emb) "
-              f"{rel_errs[2]:.3g} ({how}); max abs {err[dtype]}")
-        check(ok, f"negscore {dtype}: kernels disagree with the plain version")
+    records = negscore_records(
+        "distmult", False, z, path_negatives(batch, gen, False),
+        module.model.decoder.rel_emb.detach(), ds, launches)
 
-    zt = z.to(torch.bfloat16).contiguous()
-    re = negscore.relation_table(rel_emb, torch.bfloat16)
-    fwd_ms = time_ms(lambda: negscore.FORWARD(zt, ns, nd, rel, re))
-    bwd_ms = time_ms(lambda: negscore.BACKWARD(zt, ns, nd, rel, re, ds))
-    with torch.no_grad():
-        plain_fwd_ms = time_ms(lambda: negscore.distmult_neg_scores_plain(
-            zt, ns, nd, rel, rel_emb))
-    zp = zt.clone().requires_grad_(True)
-    rp = rel_emb.clone().requires_grad_(True)
-    s_p = negscore.distmult_neg_scores_plain(zp, ns, nd, rel, rp)
-    plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        s_p, (zp, rp), ds, retain_graph=True))
-    bounds = [negscore_bound_ms(zt, m, rel_emb.shape[0], bw)
-              for bw in (False, True)]
-    for name, ms, plain_ms, (bound, by) in (
-            ("forward", fwd_ms, plain_fwd_ms, bounds[0]),
-            ("backward", bwd_ms, plain_bwd_ms, bounds[1])):
-        print(f"negscore {name} time (bf16, training shape): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({by}), kernel at {bound / ms:.1%} of bound; no single "
-              f"PyTorch call computes this function")
-
-    data = torch.randn(num_edges, TRAIN["hidden_dim"], device=dev,
-                       generator=gen).bfloat16()
+    data = torch.randn(batch.edge_type.shape[0], TRAIN["hidden_dim"],
+                       device=dev, generator=gen).bfloat16()
     dst = batch.edge_index[1].int()
     n_pad = batch.node_mask.shape[0]
     got = segsum.KERNEL(data, dst, n_pad)
@@ -528,71 +800,108 @@ def train_phase(dm, dev):
           f"index_add_ {seg[2]:.4f} ms, bound {seg[3]:.4f} ms ({seg[4]})")
 
     # -- training makes progress on a fixed batch -------------------------
-    probe = train_module(sd, module.feature_table, dev)
-    probe.configure_optimizers(num_training_steps=20)
-    st = probe.init_state()
-    negatives, masks = fixed_draws(
-        probe, batch, torch.Generator(device=dev).manual_seed(SEED + 2))
-    keep_all = [torch.ones_like(mk) for mk in masks]
-    losses = []
-    for _ in range(8):
-        st, out = probe.train_step(st, batch, negatives=negatives,
-                                   dropout_masks=keep_all)
-        losses.append(float(out["train_loss"]))
-    print(f"fixed-batch losses (lr 0 at step 0, warm-up 4 steps): "
-          f"{[round(x, 6) for x in losses]}")
-    check(abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0]),
-          "the first update (schedule(0) = 0) changed the loss")
-    check(losses[-1] < losses[1], "the loss did not fall on a fixed batch")
+    loss_falls(sd, module.feature_table, dev, batch, "train")
 
-    # -- the train_kge entry point on the card, on the same graph, served --
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "biomedkg_tpu_torch.train_kge", "steps=3",
-             "epochs=1", "saint_fill=0.92", "model.compute_dtype=bfloat16",
-             f"seed={SEED}", f"ckpt_dir={tmp}/ckpt"],
-            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
-        print(f"train_kge ({time.perf_counter() - t0:.1f} s, rc "
-              f"{proc.returncode}):", proc.stdout.strip().replace("\n", " | "))
-        check(proc.returncode == 0,
-              f"train_kge failed: {proc.stderr[-2000:]}")
-        check(proc.stdout.startswith(f"train_kge: {dm.graph.num_nodes} "
-                                     f"nodes, {dm.graph.num_edges} edges"),
-              "train_kge did not train on the PrimeKG++-scale graph")
-        ckpt = proc.stdout.split("checkpoint: ")[-1].strip()
-        full = PrimeKGModule(**dict(PRIMEKG_DATA,
-                                    data_dir=os.path.join(tmp, "d")),
-                             seed=SEED)
-        t0 = time.perf_counter()
-        served = KGEScorer(ckpt, full, device="cuda")
-        init_s = time.perf_counter() - t0
-        check(bool(torch.isfinite(served.z).all())
-              and served.z.shape[0] == dm.graph.num_nodes,
-              "train_kge checkpoint: served z not finite / not full-graph")
-        p = served.score("gene_000000", "protein_protein", "gene_000001")
-        print(f"train_kge checkpoint served over {served.z.shape[0]} "
-              f"nodes (init {init_s:.1f} s): score {p:.6f}")
-        check(0.0 < p < 1.0, "served score out of (0, 1)")
+    # -- the train_kge entry point on the card, on the same graph, served;
+    # phase 6's RotatE + sorted2 run alongside --------------------------
+    t0 = time.perf_counter()
+    runs = (start_train_kge(tmp), start_train_kge(
+        tmp, "model.decoder_name=rotate", "model.neg_sampler=sorted2"))
+    ckpt = finish_train_kge(runs[0], "DistMult", dm.graph, t0)
+    served = serve_checkpoint(ckpt, tmp, "train_kge DistMult")
+    p = served.score("gene_000000", "protein_protein", "gene_000001")
+    print(f"train_kge DistMult checkpoint: score {p:.6f}")
+    check(0.0 < p < 1.0, "served score out of (0, 1)")
+    return (records, launches["sorted_segment_sum"], batches,
+            module.feature_table, (runs[1], t0))
 
-    return [
-        {"name": "distmult_neg_scores", "route": "cuda",
-         "source": "biomedkg_tpu_torch/csrc/negscore.cu",
-         "replaces": "biomedkg_tpu/ops/pallas/negscore.py:494",
-         "launches": launches["distmult_neg_scores"],
-         "max_abs_err": err[torch.bfloat16][0], "ms": fwd_ms,
-         "plain_ms": plain_fwd_ms, "bound_ms": bounds[0][0],
-         "bound_by": bounds[0][1], "library_ms": None},
-        {"name": "distmult_neg_scores_bwd", "route": "cuda",
-         "source": "biomedkg_tpu_torch/csrc/negscore.cu",
-         "replaces": "biomedkg_tpu/ops/pallas/negscore.py:526",
-         "launches": launches["distmult_neg_scores_bwd"],
-         "max_abs_err": err[torch.bfloat16][1], "ms": bwd_ms,
-         "plain_ms": plain_bwd_ms, "bound_ms": bounds[1][0],
-         "bound_by": bounds[1][1], "library_ms": None},
-    ], launches["sorted_segment_sum"]
+
+def odd_shape_checks(dev):
+    """Every negscore kernel against its plain version off the path, in
+    float32: d not a multiple of the warp (nor the pair offset d/2), K·E
+    not a multiple of the chunk, ids out of range (clipped)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n, m, r = 37, 5000, 5
+    worst = 0.0
+    for mode in negscore.MODES:
+        for d in (6, 100) if mode in negscore.PAIRED else (7, 100):
+            def draw(lo, hi, size):
+                return torch.randint(lo, hi, size, device=dev,
+                                     generator=gen).int()
+            z = torch.randn(n, d, device=dev, generator=gen)
+            ns = torch.sort(draw(-2, n + 3, (m,)))[0]
+            nd, rel = draw(-2, n + 3, (m,)), draw(-1, r + 1, (m,))
+            rel_emb = torch.randn(r, d // 2 if mode == "rotate" else d,
+                                  device=dev, generator=gen)
+            ds = torch.randn(m, device=dev, generator=gen)
+            re = negscore.relation_table(mode, rel_emb,
+                                         torch.float32).contiguous()
+            for dual in (False, True):
+                name = negscore.kernel_name(mode, dual)
+                got = (negscore.KERNELS[name](z, ns, nd, rel, re),
+                       *negscore.KERNELS[name + "_bwd"](z, ns, nd, rel, re,
+                                                        ds))
+                zp = z.clone().requires_grad_(True)
+                rp = rel_emb.clone().requires_grad_(True)
+                s_p = negscore.plain_scores(mode, zp, ns, nd, rel, rp)
+                want = (s_p.detach(),
+                        *torch.autograd.grad(s_p, (zp, rp), ds))
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                check(max(errs) <= 1e-4,
+                      f"{name} at d = {d}: kernels disagree ({errs})")
+                worst = max(worst, *errs)
+    print(f"negscore kernels off the path (float32, N = {n}, K·E = {m}, "
+          f"d of 6 or 7 and 100, ids out of range): max rel-to-max error "
+          f"{worst:.3g} (tol 1e-4)")
+
+
+def decoder_phase(dm, dev, tmp, batches, feature_table, rotate_run):
+    """Phase 6; returns the negscore kernels' records of its paths."""
+    odd_shape_checks(dev)
+    batch = batches[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    m = TRAIN["neg_ratio"] * batch.edge_type.shape[0]
+    ds = torch.randn(m, generator=gen, device=dev)
+    records = []
+    for decoder_name, sampler in PHASE6:
+        mode, dual = MODE[decoder_name], sampler == "sorted2"
+        kernel = negscore.kernel_name(mode, dual)
+        what = f"{decoder_name} + {sampler}"
+        over = dict(decoder_name=decoder_name, neg_sampler=sampler)
+        module = KGEModule(**dict(TRAIN, **over)).to(dev)
+        module.edge_layout = "dst"
+        module.feature_table = feature_table
+        module.configure_optimizers(num_training_steps=100)
+        state = module.init_state(torch.Generator().manual_seed(SEED))
+        sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+        step_gen = torch.Generator(device=dev).manual_seed(SEED)
+        state, _ = module.train_steps(state, batches[:P6_WARMUP], step_gen)
+        torch.cuda.synchronize()
+        state, launches, _ = timed_steps(
+            module, state, batches[P6_WARMUP:P6_WARMUP + P6_STEPS],
+            step_gen, f"{what} train step")
+        check(launches == expected_launches(SEGSUM_PER_STEP * P6_STEPS,
+                                            kernel, P6_STEPS),
+              f"{what}: launches per step: {launches}")
+        if (decoder_name, sampler) == PROFILED6:
+            profile_steps(module, state, batches[-PROFILED:], step_gen,
+                          f"{what} train step")
+        compare_step(sd, feature_table, dev, batch, kernel, what, **over)
+        negatives = path_negatives(batch, gen, dual)
+        nd_wide = path_negatives(batch, gen, False)[1] if dual else None
+        records += negscore_records(
+            mode, dual, encoded(module, batch), negatives,
+            module.model.decoder.rel_emb.detach(), ds, launches, nd_wide)
+        loss_falls(sd, feature_table, dev, batch, what, **over)
+
+    proc, t0 = rotate_run
+    ckpt = finish_train_kge(proc, "RotatE + sorted2", dm.graph, t0)
+    served = serve_checkpoint(ckpt, tmp, "train_kge RotatE + sorted2")
+    check(served.module.hparams["decoder_name"] == "rotate"
+          and served.module.hparams["neg_sampler"] == "sorted2",
+          "train_kge did not train RotatE with sorted2")
+    serve_rotate_requests(served, np.random.default_rng(SEED))
+    return records
 
 
 def main() -> int:
@@ -775,8 +1084,13 @@ def main() -> int:
     check(small_err <= Z_RTOL * small_scale,
           "small graph: card disagrees with the CPU path")
 
-    # -- 5. the training main path ----------------------------------------
-    neg_records, train_segsum = train_phase(scorer.dm, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 5. the training main path ------------------------------------
+        neg_records, train_segsum, batches, table, rotate_run = \
+            train_phase(scorer.dm, dev, tmp)
+        # -- 6. the other decoders and the dual-sorted sampler ------------
+        neg_records += decoder_phase(scorer.dm, dev, tmp, batches, table,
+                                     rotate_run)
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed["conv f32"]
     print(json.dumps({"kernels": [{

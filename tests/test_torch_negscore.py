@@ -139,12 +139,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel wrappers never compute on the CPU; only the dispatch in
     distmult_neg_scores sends CPU tensors to the plain version."""
     z, ns, nd, rel, re, cot = (torch.from_numpy(a) for a in _inputs(50, 0))
-    before = (negscore.FORWARD.launches, negscore.BACKWARD.launches)
+    fwd = negscore.KERNELS["distmult_neg_scores"]
+    bwd = negscore.KERNELS["distmult_neg_scores_bwd"]
+    before = (fwd.launches, bwd.launches)
     with pytest.raises(ValueError, match="CUDA"):
-        negscore.FORWARD(z, ns, nd, rel, re)
+        fwd(z, ns, nd, rel, re)
     with pytest.raises(ValueError, match="CUDA"):
-        negscore.BACKWARD(z, ns, nd, rel, re, cot)
-    assert (negscore.FORWARD.launches, negscore.BACKWARD.launches) == before
+        bwd(z, ns, nd, rel, re, cot)
+    assert (fwd.launches, bwd.launches) == before
 
 
 @pytest.mark.parametrize("change,err", [

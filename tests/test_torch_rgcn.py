@@ -152,7 +152,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KGEModelFactory.get_model("rgat", "dismult", 8, 8, 8, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KGEModelFactory.get_model("rgcn", "transe", 8, 8, 8, 1, 8)
+        KGEModelFactory.get_model("rgat", "transe", 8, 8, 8, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KGEModule(**dict(hp, fuse_method="attention",
                          node_init_method="lm"))

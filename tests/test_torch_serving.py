@@ -1,6 +1,9 @@
 """The serving slice as a whole: one checkpoint written by the JAX package
 (with an optimizer state) served by the JAX ``KGEScorer`` in its default
-"relation" layout and by the port's on the CPU in the "dst" layout.
+"relation" layout and by the port's on the CPU in the "dst" layout; a
+DistMult checkpoint for every entry point, and one of each other decoder
+(TransE, ComplEx, RotatE) for ``score``, ``score_many`` and
+``topk_tails``.
 
 Tolerances: z and scores 1e-4; probabilities 1e-5 (float32 on both sides,
 summation order differs); top-k names equal wherever the probabilities
@@ -170,3 +173,53 @@ def test_serve_main(tmp_path, monkeypatch, capsys):
         serve.parse_args(["ckpt=x"])
     with pytest.raises(SystemExit):
         serve.parse_args(["seed=1"])
+
+
+@pytest.fixture(scope="module", params=["transe", "complex", "rotate"])
+def decoder_scorers(request, tmp_path_factory):
+    """The JAX and port scorers over one JAX checkpoint of each of the
+    other decoders (DistMult's is ``scorers``)."""
+    tmp = tmp_path_factory.mktemp(f"serving_{request.param}")
+    module = JaxKGEModule(**dict(HPARAMS, decoder_name=request.param))
+    params = module.init(jax.random.PRNGKey(4))
+    ckpt = str(tmp / "kge.ckpt")
+    jax_save(ckpt, "kge", module.hparams, params)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_primekg, "_download_csv", lambda path: False)
+        jax_scorer = JaxScorer(ckpt, JaxModule(**_data_kw(tmp / "jax")))
+    scorer = KGEScorer(ckpt, PrimeKGModule(**_data_kw(tmp / "port")),
+                       device="cpu")
+    assert type(scorer.decoder).__name__ == \
+        type(jax_scorer.decoder).__name__
+    return jax_scorer, scorer
+
+
+def test_decoder_score_and_score_many(decoder_scorers):
+    jax_scorer, scorer = decoder_scorers
+    np.testing.assert_allclose(scorer.z.numpy(), np.asarray(jax_scorer.z),
+                               rtol=1e-4, atol=1e-4)
+    triples = _triples(scorer, 65, seed=1)
+    got = scorer.score_many(triples)
+    np.testing.assert_allclose(got, jax_scorer.score_many(triples), rtol=0,
+                               atol=1e-5)
+    for t in triples[:4]:
+        assert scorer.score(*t) == pytest.approx(jax_scorer.score(*t),
+                                                 abs=1e-5)
+
+
+@pytest.mark.parametrize("k", [1, 10])
+def test_decoder_topk_tails(decoder_scorers, k):
+    jax_scorer, scorer = decoder_scorers
+    for head, rel, _ in _triples(scorer, 3, seed=k + 1):
+        want = jax_scorer.topk_tails(head, rel, k)
+        got = scorer.topk_tails(head, rel, k)
+        assert len(got) == len(want)
+        wp = np.array([p for _, p in want])
+        np.testing.assert_allclose([p for _, p in got], wp, rtol=0,
+                                   atol=1e-5)
+        gap = np.abs(np.diff(wp))
+        untied = np.ones(len(wp), bool)
+        untied[:-1] &= gap > 1e-5
+        untied[1:] &= gap > 1e-5
+        for i in np.flatnonzero(untied):
+            assert got[i][0] == want[i][0]

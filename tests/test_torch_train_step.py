@@ -1,7 +1,9 @@
 """The port's KGE training step against the JAX package: the negative
-sampler's helpers, ``_forward_loss`` with the reference's negatives and
-dropout masks injected, the schedule, three optimizer steps, checkpoints
-both ways, and the ``train_kge`` entry point.
+samplers' helpers and distributions, ``_forward_loss`` with the
+reference's negatives and dropout masks injected, the schedule, three
+optimizer steps, checkpoints both ways (DistMult, RotatE and ComplEx), and
+the ``train_kge`` entry point. tests/test_torch_train_decoders.py holds the
+step of every decoder and sorted sampler against JAX's.
 
 Tolerances: float32 loss 1e-5 and gradients 5e-4 relative (as
 tests/test_parity.py; only summation orders differ); bfloat16 2e-2
@@ -51,13 +53,13 @@ def _hparams(dtype="float32"):
                 compute_dtype=dtype)
 
 
-def _raw(seed=0, scale=1.0):
+def _raw(seed=0, scale=1.0, num_edges=200, edge_budget=256):
     rng = np.random.default_rng(seed)
-    e = 200
-    ei = np.stack([rng.integers(0, N_REAL, e), rng.integers(0, N_REAL, e)])
-    et = rng.integers(0, R, e)
+    ei = np.stack([rng.integers(0, N_REAL, num_edges),
+                   rng.integers(0, N_REAL, num_edges)])
+    et = rng.integers(0, R, num_edges)
     x = (scale * rng.standard_normal((N_REAL, D_IN))).astype(np.float32)
-    kw = dict(num_relations=R, node_budget=64, edge_budget=256,
+    kw = dict(num_relations=R, node_budget=64, edge_budget=edge_budget,
               block_size=32, num_seed=N_REAL, layout="dst")
     return (jax.tree_util.tree_map(jnp.asarray, jax_pad(x, ei, et, **kw)),
             batch_to_device(pad_graph_batch(x, ei, et, **kw), "cpu"))
@@ -73,15 +75,16 @@ def _modules(dtype="float32"):
     return jm, params, module
 
 
-def _jax_draws(jm, jbatch, rng):
+def _jax_draws(jm, jbatch, rng, dual=False):
     """The negatives and dropout masks ``_forward_loss`` draws from
-    ``rng`` (its key splits, training/kge_module.py)."""
+    ``rng`` (its key splits, training/kge_module.py); ``dual`` for the
+    "sorted2" sampler."""
     _, r_enc, r_neg, r_perm, _ = jax.random.split(rng, 5)
     r_s, r_d = jax.random.split(r_neg)
     num_edges = jbatch.edge_type.shape[0]
     num_real = jnp.maximum(jnp.sum(jbatch.node_mask.astype(jnp.int32)), 1)
     ns, nd, off = jax_kge.sample_negatives_sorted(
-        r_s, r_d, r_perm, NEG_RATIO, num_edges, num_real)
+        r_s, r_d, r_perm, jm.neg_ratio, num_edges, num_real, dual=dual)
     masks = []
     for din, dout in jm.model.encoder.dims[:-1]:
         r_enc, sub = jax.random.split(r_enc)
@@ -341,10 +344,7 @@ def test_port_checkpoint_loads_in_jax_and_resumes(tmp_path):
 
 
 def test_training_raises_on_paths_not_ported():
-    module = kge_module.KGEModule(**dict(_hparams(), neg_sampler="sorted2"))
     _, batch = _raw()
-    with pytest.raises(NotImplementedError, match="sorted2"):
-        module._forward_loss(batch, True, torch.Generator())
     module = kge_module.KGEModule(**dict(_hparams(),
                                          cold_start_dropout=0.1))
     with pytest.raises(NotImplementedError, match="cold_start"):
@@ -369,3 +369,115 @@ def test_train_kge_cli_writes_a_checkpoint_the_scorer_serves(
     p = scorer.score("gene_000000", "protein_protein", "gene_000001")
     assert 0.0 < p < 1.0
     assert scorer.module.hparams["compute_dtype"] == "bfloat16"
+
+
+def test_dual_sampler_distribution():
+    """The "sorted2" draws (tests/test_negatives.py:231-290 for the
+    reference's): every BLOCK chunk of nd lies in a circular band of at
+    most N/nc + 1 ids, each slot's marginal is uniform across steps, dst is
+    independent of src, and the band placements vary; the sources stay the
+    sorted sampler's."""
+    block = kge_module.BLOCK
+    k, n, steps = 4, 200, 200
+    num_edges = block // 2
+    ke = k * num_edges
+    nc = ke // block
+    gen = torch.Generator().manual_seed(11)
+    probe = [0, 137, block + 17, ke - 1]
+    slot_vals = {j: [] for j in probe}
+    src137, dst137, band_mins = [], [], []
+    counts = np.zeros(n)
+    for _ in range(steps):
+        ns, nd, off = kge_module.sample_negatives_sorted(
+            gen, k, num_edges, torch.tensor(n), dual=True)
+        assert ns.dtype == nd.dtype == torch.int32
+        assert bool(torch.all(ns[1:] >= ns[:-1]))
+        nd = nd.numpy()
+        assert nd.min() >= 0 and nd.max() < n
+        for c in range(nc):
+            chunk = np.unique(nd[c * block:(c + 1) * block])
+            gaps = np.diff(np.concatenate([chunk, [chunk[0] + n]]))
+            assert n - gaps.max() <= n // nc + 1
+            if c == 0:
+                band_mins.append(int(chunk.min()))
+        np.add.at(counts, nd, 1)
+        for j in probe:
+            slot_vals[j].append(int(nd[j]))
+        src137.append(int(ns[137]))
+        dst137.append(int(nd[137]))
+    for j, vals in slot_vals.items():
+        hist = np.bincount(np.asarray(vals) * 8 // n, minlength=8)
+        z = (hist - steps / 8) / np.sqrt(steps / 8)
+        assert np.abs(z).max() < 5.0, (j, hist)
+    assert (counts > 0).all()
+    assert abs(np.corrcoef(src137, dst137)[0, 1]) < 0.3
+    assert len(set(band_mins)) > 20
+    # K·E not a multiple of BLOCK: one chunk, iid over the whole range
+    _, nd, _ = kge_module.sample_negatives_sorted(
+        gen, 3, 1000, torch.tensor(n), dual=True)
+    assert nd.max() - nd.min() > n // 2
+
+
+def _decoder_hparams(decoder):
+    return dict(_hparams(), decoder_name=decoder)
+
+
+def test_jax_rotate_checkpoint_resumes_in_port(tmp_path):
+    """A JAX RotatE checkpoint (its (R, d/2) phases, Adam moments and
+    counts) resumes in the port to the same next step."""
+    jm = jax_kge.KGEModule(**_decoder_hparams("rotate"))
+    jm.edge_layout = "dst"
+    jbatch, batch = _raw()
+    jm.configure_optimizers(STEPS)
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    jstate = _jax_steps(jm, jm.init_state(jax.random.PRNGKey(0)), jbatch,
+                        keys[:2])
+    path = str(tmp_path / "jax_rotate.ckpt")
+    jax_ckpt.save_checkpoint(path, "kge", jm.hparams, jstate.params,
+                             opt_state=jstate.opt_state, step=2)
+    jstate = _jax_steps(jm, jstate, jbatch, keys[2:])
+
+    module = kge_module.KGEModule(**_decoder_hparams("rotate"))
+    module.edge_layout = "dst"
+    module.configure_optimizers(STEPS)
+    state = load_train_state(path, module)
+    assert state.step == 2 and state.opt_state.count == 2
+    assert module.model.decoder.rel_emb.shape == (R, D_HID // 2)
+    state = _port_steps(jm, module, state, jbatch, batch, keys[2:])
+    _assert_params_equal(module, jstate.params)
+
+
+def test_port_complex_params_load_in_jax(tmp_path):
+    module = kge_module.KGEModule(**_decoder_hparams("complex"))
+    module.edge_layout = "dst"
+    module.configure_optimizers(STEPS)
+    _, batch = _raw()
+    state, _ = module.train_steps(module.init_state(
+        torch.Generator().manual_seed(0)), [batch],
+        torch.Generator().manual_seed(1))
+    path = str(tmp_path / "port_complex.ckpt")
+    save_train_state(path, module, state)
+    loaded, params = jax_kge.load_kge_module(path)
+    assert loaded.hparams["decoder_name"] == "complex"
+    assert type(loaded.model.decoder).__name__ == "ComplEx"
+    _assert_params_equal(module, params)
+
+
+def test_train_kge_cli_rotate_sorted2_checkpoint_is_served(
+        tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("BIOMEDKG_SYNTHETIC_SCALE", raising=False)
+    path = train_kge_main(["steps=2", "epochs=1", "device=cpu",
+                           f"ckpt_dir={tmp_path / 'ck'}", "seed=3",
+                           "model.decoder_name=rotate",
+                           "model.neg_sampler=sorted2"])
+    assert "rgcn_rotate_" in path
+    dm = PrimeKGModule(**dict(PRIMEKG_DATA, data_dir=str(tmp_path / "d")),
+                       seed=3)
+    scorer = KGEScorer(path, dm, device="cpu")
+    assert scorer.module.hparams["neg_sampler"] == "sorted2"
+    assert type(scorer.decoder).__name__ == "RotatE"
+    p = scorer.score("gene_000000", "protein_protein", "gene_000001")
+    assert 0.0 < p < 1.0
+    top = scorer.topk_tails("gene_000000", "protein_protein", 3)
+    assert len(top) == 3 and top[0][1] >= top[-1][1]
