@@ -1,8 +1,9 @@
 """Carry parameters between the JAX package's tree and the port's modules.
 
 The JAX ``KGEModule`` keeps its parameters as a tree of arrays
-(``params["model"]["encoder"]["layers"][i]`` with ``w_rel`` (R, din,
-dout), ``w_root`` (din, dout), ``b`` (dout,), and
+(``params["model"]["encoder"]["layers"][i]`` with, for RGCN, ``w_rel``
+(R, din, dout), ``w_root`` (din, dout), ``b`` (dout,); for RGAT ``w_rel``
+(R, din, H·dout), ``att_src`` and ``att_dst`` (R, H, dout), ``b``; and
 ``params["model"]["decoder"]["rel_emb"]`` (R, d)); native checkpoints
 store that tree as numpy, and optax's Adam moments have the same tree. The
 port keeps the same tensors, under the same names and layouts, so the
@@ -84,9 +85,11 @@ def load_jax_params(model: nn.Module, params: Dict) -> None:
     if len(layers) != len(model.encoder.layers):
         raise ValueError(f"checkpoint has {len(layers)} encoder layers, "
                          f"model {len(model.encoder.layers)}")
+    want = {name for name, _ in model.encoder.layers[0].named_parameters()}
     for i, src in enumerate(layers):
-        if set(src) != {"w_rel", "w_root", "b"}:
-            raise ValueError(f"encoder layer {i}: not an RGCN layer "
+        if set(src) != want:
+            raise ValueError(f"encoder layer {i}: not an "
+                             f"{type(model.encoder).__name__} layer "
                              f"({sorted(src)})")
     tensors = tensors_from_tree(model, params, prefix="model.")
     with torch.no_grad():

@@ -1,4 +1,5 @@
-"""Relational GCN encoder (counterpart of biomedkg_tpu/models/encoders.py).
+"""Relational GCN and relational GAT encoders (counterpart of
+biomedkg_tpu/models/encoders.py).
 
 Per layer (PyG RGCNConv with the per-relation mean):
     out_i = x_i @ W_root + b + Σ_r (1/|N_r(i)|) Σ_{j∈N_r(i)} x_j @ W_r
@@ -13,13 +14,27 @@ weights and x are cast to bf16 (the float32 masters keep the gradients),
 matmuls sum in float32 and round to bf16, and the float32 aggregation is
 cast back to bf16 before it joins the root term.
 
-Only the node-centric conv is ported: R dense (N, din) @ (din, dout)
-products, a gather at ``rel·N + src``, then the per-destination sum. In
-the "dst" layout (destination-sorted batches) that sum and the (N, R)
+RGCN has two convs, picked as the reference picks them ("auto": node when
+E >= R·N, else edge; the "dst" layout forces node):
+
+* node-centric: R dense (N, din) @ (din, dout) products, a gather at
+  ``rel·N + src``, then the per-destination sum;
+* edge-centric ("relation" layout only): the gathered, masked source rows
+  through the grouped GEMM over single-relation edge blocks
+  (ops/relmm.py: the CUDA ``relation_matmul_sorted``, one launch per
+  conv), then the same sum.
+
+In the "dst" layout (destination-sorted batches) the sum and the (N, R)
 count table run on the CUDA sorted segment-sum (ops/segsum.py): 1 + one
 per conv launches per forward. The "relation" layout sums with a float32
-``index_add_``. The edge-centric conv, RGAT and the ``dst_bwd`` variants
-need kernels not yet ported and raise.
+``index_add_``. The ``dst_bwd`` variants are not ported.
+
+RGAT (the reference's intended relational attention, PARITY.md) runs in
+the "relation" layout only (its ``edge_layout`` refuses "dst"): per conv
+two grouped GEMMs (source and destination messages through W_r, H heads
+side by side, head-major), additive attention logits, a masked softmax over
+each destination's incoming edges, the float32 weighted sum and the head
+mean.
 """
 
 from __future__ import annotations
@@ -30,12 +45,12 @@ import torch
 from torch import nn
 
 from ..nn import dropout, dropout_mask, xavier_uniform
-from ..ops.segment import per_dst_relation_counts, scatter_add, take_rows
+from ..ops.relmm import relation_matmul_sorted
+from ..ops.segment import (per_dst_relation_counts, scatter_add,
+                           segment_softmax, take_rows, take_rows_matbwd)
 from ..ops.segsum import sorted_segment_sum
 
-_EDGE_CONV = ("the edge-centric conv needs relation_matmul_sorted, not "
-              "ported yet (ROADMAP.md: TPU kernels still to port, "
-              "relmm.py::relation_matmul_sorted)")
+DROPOUT = 0.2
 
 
 def _layer_dims(in_dim, hidden_dim, out_dim, num_hidden_layers):
@@ -53,9 +68,22 @@ class RGCNLayer(nn.Module):
         self.b = nn.Parameter(torch.zeros(dout))
 
 
-class RGCN(nn.Module):
-    DROPOUT = 0.2
+def _dropout(x, i, training, drop_out, generator, dropout_masks):
+    """Inverted dropout after hidden conv ``i``: the injected mask, or one
+    drawn from ``generator``."""
+    if not (drop_out and training):
+        return x
+    if dropout_masks is not None:
+        keep = dropout_masks[i]
+    elif generator is not None:
+        keep = dropout_mask(x.shape, DROPOUT, generator, x.device)
+    else:
+        raise ValueError("training dropout needs a torch.Generator or "
+                         "injected masks")
+    return dropout(x, keep, DROPOUT)
 
+
+class RGCN(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_hidden_layers: int, num_relations: int,
                  drop_out: bool = True, conv_impl: str = "auto"):
@@ -66,8 +94,7 @@ class RGCN(nn.Module):
         self.drop_out = drop_out
         if conv_impl not in ("auto", "node", "edge"):
             raise ValueError(f"unknown conv_impl {conv_impl!r}")
-        # "auto" picks node when E >= R·N (the reference's FLOP rule);
-        # "edge" is not ported
+        # "auto" picks node when E >= R·N (the reference's FLOP rule)
         self.conv_impl = conv_impl
         # "relation" or "dst" — must match the batches' layout
         self.edge_layout = "relation"
@@ -97,20 +124,25 @@ class RGCN(nn.Module):
         return edge_mask.float() / flat_cnt.clamp(min=1.0)
 
     def _conv(self, w_rel, w_root, b, x, src, dst, dst32, edge_type,
-              norm):
+              edge_mask, block_rel, norm):
         num_nodes = x.shape[0]
         impl = self.conv_impl
         if impl == "auto":
             impl = ("node" if edge_type.shape[0] >= self.num_relations
                     * num_nodes else "edge")
-        if impl == "edge" and self.edge_layout != "dst":
-            raise NotImplementedError(_EDGE_CONV)
-        h_all = torch.matmul(x.unsqueeze(0), w_rel)   # (R, N, dout)
-        flat = edge_type * num_nodes + src
-        # norm is zero on pad edges, so it also applies the edge mask; the
-        # gather's result is fresh, so scaling it in place saves an
-        # (E, dout) buffer
-        msg = take_rows(h_all.reshape(-1, h_all.shape[-1]), flat)
+        if self.edge_layout == "dst":
+            impl = "node"
+        if impl == "node":
+            h_all = torch.matmul(x.unsqueeze(0), w_rel)   # (R, N, dout)
+            flat = edge_type * num_nodes + src
+            msg = take_rows(h_all.reshape(-1, h_all.shape[-1]), flat)
+        else:
+            msg = relation_matmul_sorted(
+                take_rows(x, src) * edge_mask[:, None].to(x.dtype), w_rel,
+                block_rel)
+        # norm is zero on pad edges, so it also applies the edge mask; msg
+        # is fresh (a gather's, or the grouped GEMM's, which its backward
+        # does not keep), so scaling it in place saves an (E, dout) buffer
         msg = msg.mul_(norm[:, None])
         if self.edge_layout == "dst":
             agg = sorted_segment_sum(msg, dst32, num_nodes)
@@ -118,14 +150,16 @@ class RGCN(nn.Module):
             agg = scatter_add(msg, dst, num_nodes)
         return x @ w_root + b + agg.to(x.dtype)
 
-    def forward(self, x, edge_index, edge_type, edge_mask, *,
-                training: bool = False,
+    def forward(self, x, edge_index, edge_type, edge_mask, block_rel=None,
+                *, training: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[List[torch.Tensor]] = None):
-        """(N, out_dim) node embeddings in ``compute_dtype``. In training,
-        the dropout keep masks are ``dropout_masks`` (one bool (N, width)
-        mask per hidden layer) or drawn from ``generator``."""
+        """(N, out_dim) node embeddings in ``compute_dtype``. ``block_rel``
+        is the relation-layout batch's per-block relation (the edge conv
+        needs it). In training, the dropout keep masks are
+        ``dropout_masks`` (one bool (N, width) mask per hidden layer) or
+        drawn from ``generator``."""
         if self.edge_layout not in ("relation", "dst"):
             raise ValueError(f"unknown edge_layout {self.edge_layout!r}")
         src, dst = edge_index[0], edge_index[1]
@@ -137,18 +171,100 @@ class RGCN(nn.Module):
             x = self._conv(layer.w_rel.to(compute_dtype),
                            layer.w_root.to(compute_dtype),
                            layer.b.to(compute_dtype), x, src, dst, dst32,
-                           edge_type, norm)
+                           edge_type, edge_mask, block_rel, norm)
             if i == len(self.layers) - 1:
                 break
-            x = torch.relu(x)
-            if self.drop_out and training:
-                if dropout_masks is not None:
-                    keep = dropout_masks[i]
-                elif generator is not None:
-                    keep = dropout_mask(x.shape, self.DROPOUT, generator,
-                                        x.device)
-                else:
-                    raise ValueError("training dropout needs a "
-                                     "torch.Generator or injected masks")
-                x = dropout(x, keep, self.DROPOUT)
+            x = _dropout(torch.relu(x), i, training, self.drop_out,
+                         generator, dropout_masks)
+        return x
+
+
+class RGATLayer(nn.Module):
+    def __init__(self, num_relations: int, num_heads: int, din: int,
+                 dout: int):
+        super().__init__()
+        # the last axis is head-major: (H·dout) reshapes to (H, dout)
+        self.w_rel = nn.Parameter(
+            torch.empty(num_relations, din, num_heads * dout))
+        self.att_src = nn.Parameter(torch.empty(num_relations, num_heads,
+                                                dout))
+        self.att_dst = nn.Parameter(torch.empty(num_relations, num_heads,
+                                                dout))
+        self.b = nn.Parameter(torch.zeros(dout))
+
+
+class RGAT(nn.Module):
+    """Relational graph attention stack. Per head: e_uv = leaky_relu(
+    a_src[r]·(x_u W_r) + a_dst[r]·(x_v W_r), 0.2), softmax over the
+    incoming edges of v across relations, Σ_u α_uv (x_u W_r), the heads
+    averaged (so every layer keeps the reference stack's widths), + b."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_hidden_layers: int, num_relations: int,
+                 num_heads: int = 1, drop_out: bool = True):
+        super().__init__()
+        self.dims = _layer_dims(in_dim, hidden_dim, out_dim,
+                                num_hidden_layers)
+        self.num_relations = num_relations
+        self.num_heads = num_heads
+        self.drop_out = drop_out
+        self.layers = nn.ModuleList(
+            RGATLayer(num_relations, num_heads, din, dout)
+            for din, dout in self.dims)
+
+    @property
+    def edge_layout(self) -> str:
+        return "relation"
+
+    @edge_layout.setter
+    def edge_layout(self, value: str):
+        """The grouped GEMM needs single-relation blocks: only "relation"."""
+        if value != "relation":
+            raise ValueError(f"RGAT requires relation-blocked batches "
+                             f"(layout='relation'), got {value!r}")
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        for layer in self.layers:
+            for p in (layer.w_rel, layer.att_src, layer.att_dst):
+                p.copy_(xavier_uniform(p.shape, generator))
+            layer.b.zero_()
+
+    def _conv(self, layer, x, src, dst, edge_type, edge_mask, block_rel,
+              dtype):
+        num_nodes, heads = x.shape[0], self.num_heads
+        dout = layer.b.shape[0]
+        w_rel = layer.w_rel.to(dtype)
+        mask = edge_mask[:, None].to(x.dtype)
+        # the (E, din) messages are temporaries: outside autograd each is
+        # freed as soon as its product is taken
+        hs = relation_matmul_sorted(take_rows(x, src) * mask, w_rel,
+                                    block_rel).reshape(-1, heads, dout)
+        hd = relation_matmul_sorted(take_rows(x, dst) * mask, w_rel,
+                                    block_rel).reshape(-1, heads, dout)
+        a_src = take_rows_matbwd(layer.att_src.to(dtype), edge_type)
+        a_dst = take_rows_matbwd(layer.att_dst.to(dtype), edge_type)
+        logits = torch.nn.functional.leaky_relu(
+            (hs * a_src).sum(-1) + (hd * a_dst).sum(-1), 0.2)   # (E, H)
+        alpha = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
+        weighted = (hs * alpha[..., None]).reshape(-1, heads * dout)
+        agg = scatter_add(weighted, dst, num_nodes)
+        return agg.reshape(num_nodes, heads, dout).mean(1) + layer.b.to(dtype)
+
+    def forward(self, x, edge_index, edge_type, edge_mask, block_rel=None,
+                *, training: bool = False,
+                compute_dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[List[torch.Tensor]] = None):
+        """(N, out_dim) node embeddings in ``compute_dtype`` of a
+        relation-layout batch; dropout as ``RGCN.forward``."""
+        src, dst = edge_index[0], edge_index[1]
+        x = x.to(compute_dtype)
+        for i, layer in enumerate(self.layers):
+            x = self._conv(layer, x, src, dst, edge_type, edge_mask,
+                           block_rel, compute_dtype)
+            if i == len(self.layers) - 1:
+                break
+            x = _dropout(torch.relu(x), i, training, self.drop_out,
+                         generator, dropout_masks)
         return x

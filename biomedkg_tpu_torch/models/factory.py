@@ -1,6 +1,7 @@
-"""Model factory (counterpart of biomedkg_tpu/models/factory.py): RGCN with
-any of the four decoders, keeping the reference's ``"dismult"`` decoder key
-with ``"distmult"`` as an alias."""
+"""Model factory (counterpart of biomedkg_tpu/models/factory.py): RGCN or
+RGAT (``num_heads`` heads, 1 when None) with any of the four decoders,
+keeping the reference's ``"dismult"`` decoder key with ``"distmult"`` as an
+alias."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch
 from torch import nn
 
 from .decoders import ComplEx, DistMult, RotatE, TransE
-from .encoders import RGCN
+from .encoders import RGAT, RGCN
 
 DECODERS = {"dismult": DistMult, "distmult": DistMult, "transe": TransE,
             "complex": ComplEx, "rotate": RotatE}
@@ -28,9 +29,9 @@ class GAE(nn.Module):
         self.encoder.init(generator)
         self.decoder.init(generator)
 
-    def encode(self, x, edge_index, edge_type, edge_mask, *,
-               training: bool = False):
-        return self.encoder(x, edge_index, edge_type, edge_mask,
+    def encode(self, x, edge_index, edge_type, edge_mask, block_rel=None,
+               *, training: bool = False):
+        return self.encoder(x, edge_index, edge_type, edge_mask, block_rel,
                             training=training)
 
 
@@ -39,16 +40,17 @@ class KGEModelFactory:
     def get_model(encoder_name: str, decoder_name: str, in_dim: int,
                   hidden_dim: int, out_dim: int, num_hidden_layers: int,
                   num_relation: int, num_heads: Optional[int] = None) -> GAE:
-        if encoder_name == "rgat":
-            raise NotImplementedError(
-                "encoder 'rgat' is not ported yet (ROADMAP.md slice 4)")
-        if encoder_name != "rgcn":
+        dims = dict(in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
+                    num_hidden_layers=num_hidden_layers,
+                    num_relations=num_relation)
+        if encoder_name == "rgcn":
+            encoder = RGCN(**dims)
+        elif encoder_name == "rgat":
+            encoder = RGAT(**dims, num_heads=num_heads or 1)
+        else:
             raise ValueError(f"Unknown encoder: {encoder_name!r}")
         if decoder_name not in DECODERS:
             raise ValueError(f"Unknown decoder: {decoder_name!r}")
-        encoder = RGCN(in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
-                       num_hidden_layers=num_hidden_layers,
-                       num_relations=num_relation)
         decoder = DECODERS[decoder_name](num_relations=num_relation,
                                          hidden_channels=out_dim)
         return GAE(encoder=encoder, decoder=decoder)

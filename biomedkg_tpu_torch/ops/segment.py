@@ -10,9 +10,15 @@ and returns the gradient's own type, as the reference's custom VJPs do
 ``take_rows_matbwd`` (a one-hot matmul backward for small tables, a TPU
 lowering choice) is ``take_rows`` here: the float32 scatter computes the
 same exact sums.
+
+``scatter_max`` and ``segment_softmax`` (the RGAT attention) follow the
+reference's, with every sum in float32 (the reference sums the softmax
+denominator in the scores' type).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -53,6 +59,9 @@ class _TakeRowsSorted(torch.autograd.Function):
                 .to(g.dtype), None)
 
 
+take_rows_matbwd = take_rows
+
+
 def take_rows_sorted(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``x[index]`` whose backward is ``sorted_segment_sum``: exact for
     any order, fast for ascending ``index`` (destination-sorted edges)."""
@@ -76,3 +85,38 @@ def per_dst_relation_counts(dst: torch.Tensor, edge_type: torch.Tensor,
     flat = dst * num_relations + edge_type
     counts = scatter_add(edge_mask.float(), flat, num_nodes * num_relations)
     return counts.reshape(num_nodes, num_relations)
+
+
+def scatter_max(values: torch.Tensor, index: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Max-reduce ``values`` rows into ``num_segments`` buckets keyed by
+    ``index``; an empty bucket holds ``finfo(dtype).min`` (the reference's
+    ``segment_max`` gives -inf there)."""
+    out = values.new_full((num_segments,) + values.shape[1:],
+                          torch.finfo(values.dtype).min)
+    idx = index.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    return out.scatter_reduce_(0, idx, values, "amax")
+
+
+def segment_softmax(scores: torch.Tensor, index: torch.Tensor,
+                    num_segments: int,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax of ``scores`` (E,) or (E, H) within the segments of
+    ``index``; masked entries get probability 0 and an all-masked or empty
+    segment stays finite. The segment max that shifts the exponents is
+    detached: softmax is shift-invariant, so its gradient terms cancel
+    exactly in exact arithmetic. The denominator sums in float32 and is
+    clamped at 1e-16."""
+    squeeze = scores.dim() == 1
+    if squeeze:
+        scores = scores[:, None]
+    neg = torch.finfo(scores.dtype).min
+    if mask is not None:
+        scores = torch.where(mask[:, None], scores, neg)
+    seg_max = scatter_max(scores.detach(), index, num_segments)
+    expd = torch.exp(scores - take_rows(seg_max, index))
+    if mask is not None:
+        expd = torch.where(mask[:, None], expd, 0.0)
+    denom = scatter_add(expd, index, num_segments)
+    out = expd / take_rows(denom, index).clamp(min=1e-16)
+    return out[:, 0] if squeeze else out

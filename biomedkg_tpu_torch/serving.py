@@ -9,8 +9,10 @@ One full-graph encode over every known edge, then
     relation's observed tail types, never the head itself
 
 RGCN encodes in the destination-sorted ("dst") layout, so its aggregation
-runs on the CUDA sorted segment-sum (ops/segsum.py); the answers equal the
-JAX scorer's, which encodes in its default "relation" layout.
+runs on the CUDA sorted segment-sum (ops/segsum.py); RGAT in the
+"relation" layout, its messages through the CUDA grouped GEMM
+(ops/relmm.py). The answers equal the JAX scorer's, which encodes in its
+default "relation" layout.
 """
 
 from __future__ import annotations
@@ -31,8 +33,7 @@ class KGEScorer:
                  device: Optional[str] = None):
         self.device = resolve_device(device)
         self.module = load_kge_module(ckpt_path, self.device)
-        if self.module.hparams["encoder_name"] == "rgcn":
-            self.module.edge_layout = "dst"
+        self.module.edge_layout = self.module.default_layout
         data_module.setup(stage="split")
         self.dm = data_module
         tg = data_module.data

@@ -7,17 +7,20 @@ Keys: ``epochs`` (default 100), ``neg_ratio`` (10), ``saint_fill`` (none;
 e.g. 0.92 tops SAINT batches up to that share of the envelope), ``steps``
 (SAINT steps per epoch; default the data module's 1000), ``seed`` (42),
 ``device`` (cuda), ``ckpt_dir`` (./ckpt), ``model.compute_dtype``
-(float32 or bfloat16), ``model.decoder_name`` (dismult, distmult, transe,
-complex or rotate) and ``model.neg_sampler`` (sorted, sorted2 or iid).
+(float32 or bfloat16), ``model.encoder_name`` (rgcn or rgat),
+``model.num_heads`` (RGAT's heads, 2), ``model.decoder_name`` (dismult,
+distmult, transe, complex or rotate) and ``model.neg_sampler`` (sorted,
+sorted2 or iid).
 The other settings are the defaults of configs/kge.yaml,
 configs/model/kge.yaml and configs/data/primekg.yaml, written out below
 until the config layer is ported; the model's input width is
 data.embed_dim (768), which the reference's scripts also pass as
 model.in_dim.
 
-It trains RGCN and the chosen decoder on GraphSAINT batches of the train
-split (the "dst" layout, features gathered from a device-resident table)
-and writes ``<ckpt_dir>/kge/<experiment>/last.ckpt`` with the optimizer
+It trains the chosen encoder and decoder on GraphSAINT batches of the
+train split (features gathered from a device-resident table) in the
+layout the reference picks: "dst" for RGCN, "relation" for RGAT, whose
+grouped GEMM needs single-relation blocks. It writes ``<ckpt_dir>/kge/<experiment>/last.ckpt`` with the optimizer
 state, which ``KGEScorer`` serves and ``load_train_state`` resumes. The Trainer
 (validation and test metrics, top-k checkpoints, early stopping, resume)
 comes in a later slice (ROADMAP.md).
@@ -47,9 +50,11 @@ MODEL = dict(encoder_name="rgcn", decoder_name="dismult",
 DEFAULTS = {"epochs": 100, "neg_ratio": 10, "saint_fill": None,
             "steps": None, "seed": 42, "device": None, "ckpt_dir": "./ckpt",
             "model.compute_dtype": "float32",
+            "model.encoder_name": MODEL["encoder_name"],
+            "model.num_heads": MODEL["num_heads"],
             "model.decoder_name": MODEL["decoder_name"],
             "model.neg_sampler": MODEL["neg_sampler"]}
-_INTS = ("epochs", "neg_ratio", "steps", "seed")
+_INTS = ("epochs", "neg_ratio", "steps", "seed", "model.num_heads")
 
 
 def parse_args(argv: List[str]) -> dict:
@@ -75,20 +80,21 @@ def train(args: dict) -> str:
     seed = args["seed"]
     dm = PrimeKGModule(**PRIMEKG_DATA, seed=seed)
     dm.setup(stage="split")
-    dm.edge_layout = "dst"
     dm.device_features = True
     dm.saint_fill_target = args["saint_fill"]
     if args["steps"] is not None:
         dm.SAINT_TRAIN_STEPS = args["steps"]
 
-    model = dict(MODEL, decoder_name=args["model.decoder_name"],
+    model = dict(MODEL, encoder_name=args["model.encoder_name"],
+                 num_heads=args["model.num_heads"],
+                 decoder_name=args["model.decoder_name"],
                  neg_sampler=args["model.neg_sampler"])
     module = KGEModule(**model, num_relation=dm.data.num_edge_types,
                        neg_ratio=args["neg_ratio"],
                        node_init_method=PRIMEKG_DATA["node_init_method"],
                        seed=seed, compute_dtype=args["model.compute_dtype"])
     module.to(device)
-    module.edge_layout = "dst"
+    module.edge_layout = dm.edge_layout = module.default_layout
     module.set_feature_table(dm.graph.x)
     loader = dm.train_dataloader(loader_type="saint")
     module.configure_optimizers(len(loader) * args["epochs"])

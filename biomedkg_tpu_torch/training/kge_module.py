@@ -197,12 +197,19 @@ class KGEModule(StepsMixin, nn.Module):
                                  grad_clip)
 
     @property
+    def default_layout(self) -> str:
+        """The batch layout the reference trains and serves the encoder in
+        (train_kge.py): "dst" for RGCN, "relation" otherwise."""
+        return "dst" if self.hparams["encoder_name"] == "rgcn" else "relation"
+
+    @property
     def edge_layout(self) -> str:
         return self.model.encoder.edge_layout
 
     @edge_layout.setter
     def edge_layout(self, value: str):
-        """"relation" or "dst"; must match the batches' layout."""
+        """"relation" or "dst"; must match the batches' layout (RGAT refuses
+        "dst")."""
         if value not in ("relation", "dst"):
             raise ValueError(f"unknown edge_layout {value!r}")
         self.model.encoder.edge_layout = value
@@ -259,7 +266,7 @@ class KGEModule(StepsMixin, nn.Module):
         etype, emask = batch.edge_type, batch.edge_mask
         z = self.model.encoder(
             self._batch_features(batch), batch.edge_index, etype, emask,
-            training=training, compute_dtype=self.compute_dtype,
+            batch.block_rel, training=training, compute_dtype=self.compute_dtype,
             generator=generator, dropout_masks=dropout_masks).float()
         src, dst = batch.edge_index[0], batch.edge_index[1]
         decoder = self.model.decoder
@@ -320,7 +327,8 @@ class KGEModule(StepsMixin, nn.Module):
         (sampling/batch.py::batch_to_device) → (N_pad, out_dim)."""
         return self.model.encode(self._batch_features(batch),
                                  batch.edge_index, batch.edge_type,
-                                 batch.edge_mask, training=False)
+                                 batch.edge_mask, batch.block_rel,
+                                 training=False)
 
 
 def load_kge_module(ckpt_path: str,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (biomedkg_tpu_torch): the KGE serving
-path and the KGE training step at full width on one CUDA card (Hopper,
-sm_90a).
+path and the KGE training step (RGCN and RGAT) at full width on one CUDA
+card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -55,7 +55,25 @@ Phases; any failure ends the run with a non-zero exit:
     Before them every negscore kernel on small shapes off the path.
     Then ``train_kge model.decoder_name=rotate model.neg_sampler=sorted2``'s
     checkpoint served, its ``score`` and ``topk_tails`` answers checked
-    against a float64 host recomputation.
+    against a float64 host recomputation;
+ 7. RGAT and the relation-layout edge conv, through the grouped-GEMM
+    kernel ``relation_matmul_sorted`` (forward and d_msg): the kernels on
+    small odd shapes (B of 64 and 96, din 100, dout 36, a relation with no
+    block, trailing pad blocks); the RGAT training step (RGAT 768→256×4, 2
+    heads, + DistMult, "sorted" negatives, bf16 with float32 masters) on
+    relation-layout SAINT batches of the same envelope, timed as in phase
+    5 with its launch counts (relmm 8 + 6, negscore 1 + 1, segsum 0 per
+    step), a torch.profiler window, loss and gradients with the kernels
+    against the plain versions, the loss falling on a fixed batch; both
+    kernels against the plain version at the path's shapes (RGAT's 768 →
+    512 and 256 → 512 in bf16, the edge conv's full-graph 768 → 256 in
+    float32; dW against its plain float32 form), timed beside their bounds
+    and one torch.bmm over pre-gathered weight blocks; the RGCN edge conv's
+    full-graph encode (4 launches) against the node conv's z; and
+    ``train_kge model.encoder_name=rgat``'s checkpoint (run beside phase
+    5's) served: a float32 full-graph RGAT encode with 8 launches, timed,
+    its z against the same encode with the plain versions (Z_RTOL of
+    max|z|), its answers checked against float64.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -86,7 +104,7 @@ from biomedkg_tpu_torch.device import check_full_fp32
 from biomedkg_tpu_torch.interop.jax_params import to_jax_params
 from biomedkg_tpu_torch.models import decoders, encoders
 from biomedkg_tpu_torch.nn import dropout_mask
-from biomedkg_tpu_torch.ops import _build, negscore, segment, segsum
+from biomedkg_tpu_torch.ops import _build, negscore, relmm, segment, segsum
 from biomedkg_tpu_torch.sampling import native
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
 from biomedkg_tpu_torch.sampling.loaders import FullGraphLoader
@@ -101,6 +119,7 @@ SEED = 42
 WARMUP, ITERS = 3, 20
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32, outside tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 # special-function units (sqrt, reciprocal): 16 per SM and clock against
 # 128 float32 FMA lanes (256 operations)
 SFU_OP_PER_S = FP32_FLOP_PER_S / 16
@@ -157,6 +176,22 @@ NEG_SFU = {"rotate": (1, 2)}
 # (dual-sorted, backward)
 NEG_REPLACES = {(False, False): 494, (False, True): 526,
                 (True, False): 355, (True, True): 387}
+
+# -- phase 7: RGAT and the relation-layout edge conv -----------------------
+RGAT = dict(TRAIN, encoder_name="rgat")        # 2 heads (HPARAMS)
+P7_WARMUP, P7_STEPS = 2, 5
+# grouped GEMMs per RGAT step (two per conv: source and destination
+# messages) and d_msg launches (none for the first conv: its messages come
+# from the feature table, which has no gradient); per encode
+RELMM_PER_STEP = (2 * CONVS, 2 * (CONVS - 1))
+RELMM_PER_RGAT_ENCODE = 2 * CONVS
+RELMM_PER_EDGE_ENCODE = CONVS
+# relmm kernel against plain, per element, relative to (|msg| @ |W|): float32
+# sums differ only in order; bf16 outputs are each rounded once (at most one
+# bf16 ulp, 2^-7, apart)
+RELMM_RTOL = {torch.float32: SUM_RTOL, torch.bfloat16: 1e-2}
+# the TPU functions the two relmm kernels replace (relmm.py lines)
+RELMM_REPLACES = {False: 36, True: 91}
 
 
 def fail(msg: str):
@@ -227,20 +262,24 @@ def negscore_bound_ms(mode, z, m, r, backward: bool):
 
 def launch_counts() -> dict:
     return {"sorted_segment_sum": segsum.KERNEL.launches,
-            **{name: k.launches for name, k in negscore.KERNELS.items()}}
+            **{name: k.launches for name, k in negscore.KERNELS.items()},
+            **{name: k.launches for name, k in relmm.KERNELS.items()}}
 
 
 def reset_launch_counts():
     segsum.KERNEL.launches = 0
-    for k in negscore.KERNELS.values():
+    for k in (*negscore.KERNELS.values(), *relmm.KERNELS.values()):
         k.launches = 0
 
 
-def expected_launches(segsum_n: int, kernel: str, n: int) -> dict:
-    """Every count 0 but segsum's and the ``kernel`` pair's."""
+def expected_launches(segsum_n: int, kernel: str, n: int,
+                      relmm_n=(0, 0)) -> dict:
+    """Every count 0 but segsum's, the ``kernel`` pair's and relmm's
+    (forward, d_msg)."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update({"sorted_segment_sum": segsum_n, kernel: n,
-                 kernel + "_bwd": n})
+                 kernel + "_bwd": n, relmm.NAME: relmm_n[0],
+                 relmm.NAME + "_bwd": relmm_n[1]})
     return want
 
 
@@ -254,18 +293,22 @@ NEG_DISPATCH = {negscore.kernel_name(mode, dual):
 def plain_versions():
     """The model with every kernel swapped for its plain torch version
     (the segment-sums of the encoder and of the tail gather's backward,
-    and the negative scoring of every decoder and sampler)."""
+    the grouped GEMM of the relational convs, and the negative scoring of
+    every decoder and sampler)."""
     saved = (encoders.sorted_segment_sum, segment.sorted_segment_sum,
+             encoders.relation_matmul_sorted,
              {name: getattr(decoders, name) for name in NEG_DISPATCH})
     encoders.sorted_segment_sum = segsum.segsum_plain
     segment.sorted_segment_sum = segsum.segsum_plain
+    encoders.relation_matmul_sorted = relmm.relation_matmul_sorted_plain
     for name, plain in NEG_DISPATCH.items():
         setattr(decoders, name, plain)
     try:
         yield
     finally:
-        encoders.sorted_segment_sum, segment.sorted_segment_sum = saved[:2]
-        for name, fn in saved[2].items():
+        (encoders.sorted_segment_sum, segment.sorted_segment_sum,
+         encoders.relation_matmul_sorted) = saved[:3]
+        for name, fn in saved[3].items():
             setattr(decoders, name, fn)
 
 
@@ -352,7 +395,7 @@ def fixed_draws(module, batch, gen):
         gen, module.neg_ratio, num_edges, nreal,
         dual=module.neg_sampler == "sorted2")
     n = batch.node_mask.shape[0]
-    masks = [dropout_mask((n, dout), encoders.RGCN.DROPOUT, gen, gen.device)
+    masks = [dropout_mask((n, dout), encoders.DROPOUT, gen, gen.device)
              for _, dout in module.model.encoder.dims[:-1]]
     return negatives, masks
 
@@ -375,7 +418,7 @@ def train_module(sd, feature_table, dev, **over) -> KGEModule:
     module = KGEModule(**dict(TRAIN, **over))
     module.load_state_dict(sd)
     module.to(dev)
-    module.edge_layout = "dst"
+    module.edge_layout = module.default_layout
     module.feature_table = feature_table
     return module
 
@@ -449,9 +492,10 @@ def profile_steps(module, state, batches, gen, what: str):
 
 
 def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
-                 **over):
+                 segsum_n=SEGSUM_PER_STEP, relmm_n=(0, 0), **over):
     """One batch's loss and every gradient with the kernels against the
-    same step with the plain versions, in bf16 and float32."""
+    same step with the plain versions, in bf16 and float32; one step makes
+    ``segsum_n`` segsum launches and ``relmm_n`` relmm ones."""
     for dtype in (torch.bfloat16, torch.float32):
         step = train_module(sd, feature_table, dev,
                             compute_dtype=str(dtype)[6:], **over)
@@ -465,7 +509,7 @@ def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
             loss_p, grads_p = step_grads(step, batch, *draws)
         check(not any(launch_counts().values()),
               "the plain versions launched a kernel")
-        check(used == expected_launches(SEGSUM_PER_STEP, kernel, 1),
+        check(used == expected_launches(segsum_n, kernel, 1, relmm_n),
               f"{what}: launches in one step: {used}")
         loss_tol, grad_tol = STEP_TOL[dtype]
         if dtype == torch.bfloat16 and kernel.startswith("transe"):
@@ -624,7 +668,7 @@ def encoded(module, batch) -> torch.Tensor:
     with torch.no_grad():
         return module.model.encoder(
             module._batch_features(batch), batch.edge_index,
-            batch.edge_type, batch.edge_mask,
+            batch.edge_type, batch.edge_mask, batch.block_rel,
             compute_dtype=torch.bfloat16).float()
 
 
@@ -803,17 +847,18 @@ def train_phase(dm, dev, tmp):
     loss_falls(sd, module.feature_table, dev, batch, "train")
 
     # -- the train_kge entry point on the card, on the same graph, served;
-    # phase 6's RotatE + sorted2 run alongside --------------------------
+    # phase 6's RotatE + sorted2 run and phase 7's RGAT run alongside ------
     t0 = time.perf_counter()
     runs = (start_train_kge(tmp), start_train_kge(
-        tmp, "model.decoder_name=rotate", "model.neg_sampler=sorted2"))
+        tmp, "model.decoder_name=rotate", "model.neg_sampler=sorted2"),
+        start_train_kge(tmp, "model.encoder_name=rgat"))
     ckpt = finish_train_kge(runs[0], "DistMult", dm.graph, t0)
     served = serve_checkpoint(ckpt, tmp, "train_kge DistMult")
     p = served.score("gene_000000", "protein_protein", "gene_000001")
     print(f"train_kge DistMult checkpoint: score {p:.6f}")
     check(0.0 < p < 1.0, "served score out of (0, 1)")
     return (records, launches["sorted_segment_sum"], batches,
-            module.feature_table, (runs[1], t0))
+            module.feature_table, (runs[1], t0), (runs[2], t0))
 
 
 def odd_shape_checks(dev):
@@ -904,6 +949,294 @@ def decoder_phase(dm, dev, tmp, batches, feature_table, rotate_run):
     return records
 
 
+def relmm_bound_ms(rows, din, dout, nb, r, dtype):
+    """Least time for one grouped GEMM: msg, W and block_rel read once and
+    the output written once over HBM bandwidth; its 2·rows·din·dout
+    operations over the peak of the instance's unit (the bf16 tensor cores;
+    float32 outside them, as full float32 must run)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (rows * (din + dout) + r * din * dout) * size + 4 * nb
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    t_ops = 2 * rows * din * dout / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def relmm_check(what, msg, w, block_rel, gen):
+    """The forward and d_msg kernels against the plain version, each
+    element within RELMM_RTOL of (|x| @ |W|), and dW (the backward's float32
+    bmm + index_add_) against autograd through the plain version in float32
+    within SUM_RTOL of Σ|msg||g|; returns (forward, d_msg) max abs errors
+    and the upstream gradient."""
+    dtype, (r, din, dout) = msg.dtype, w.shape
+    g = torch.randn(msg.shape[0], dout, device=msg.device,
+                    generator=gen).to(dtype)
+    plain = relmm.relation_matmul_sorted_plain
+    abs_errs, ratios = [], []
+    for x, kernel in ((msg, relmm.FORWARD), (g, relmm.BACKWARD)):
+        got = kernel(x, w, block_rel)
+        wp = w.transpose(1, 2) if kernel.transpose else w
+        want = plain(x, wp, block_rel)
+        mag = plain(x.abs().float(), wp.abs().float(), block_rel)
+        err = (got.float() - want.float()).abs()
+        ratios.append(float((err / mag.clamp(min=1e-30)).max()))
+        abs_errs.append(float(err.max()))
+        check(bool(torch.all(err <= RELMM_RTOL[dtype] * mag)),
+              f"relmm {what} {kernel.name}: kernel disagrees with plain")
+        del got, want, mag, err
+    wf = w.float().requires_grad_(True)
+    (dw_p,) = torch.autograd.grad(plain(msg.float(), wf, block_rel), wf,
+                                  g.float())
+    dw_k = relmm.weight_grad(msg, g, block_rel, r)
+    mag = relmm.weight_grad(msg.abs(), g.abs(), block_rel, r)
+    dw_ratio = float(((dw_k - dw_p).abs() / mag.clamp(min=1e-30)).max())
+    torch.cuda.synchronize()
+    print(f"relmm {what}: msg {tuple(msg.shape)} {str(dtype)[6:]}, W "
+          f"{tuple(w.shape)}, block {relmm.block_size_of(msg, block_rel)}: "
+          f"kernel vs plain max |err| / (|x|@|W|) forward {ratios[0]:.3g}, "
+          f"d_msg {ratios[1]:.3g} (tol "
+          f"{RELMM_RTOL[dtype]:g}), max abs {abs_errs}; dW vs plain float32 "
+          f"{dw_ratio:.3g} of Σ|msg||g| (tol {SUM_RTOL:g})")
+    check(dw_ratio <= SUM_RTOL, f"relmm {what}: dW disagrees with plain")
+    return abs_errs, g
+
+
+def odd_relmm_checks(dev):
+    """The relmm kernels off the path: din 100, dout 36, a relation with no
+    block (3 of 5), two trailing pad blocks (zero rows, relation 0), and B
+    of 64 and of 96 (rows then no multiple of the 64-row tile)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for block in (64, 96):
+        block_rel = torch.tensor([1, 0, 4, 2, 2, 1, 4, 0, 0], device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            msg = torch.randn(len(block_rel) * block, 100, device=dev,
+                              generator=gen)
+            msg[-2 * block:] = 0
+            w = torch.randn(5, 100, 36, device=dev, generator=gen)
+            relmm_check(f"odd shape B={block}", msg.to(dtype), w.to(dtype),
+                        block_rel, gen)
+
+
+def relmm_times(msg, w, block_rel, g, library: bool):
+    """CUDA-event medians (ms) of the forward and d_msg kernels, the plain
+    versions and (``library``) one torch.bmm over the (nb, B, ·) block
+    views against the (nb, din, dout) weight blocks gathered before
+    timing; with the bounds."""
+    plain = relmm.relation_matmul_sorted_plain
+    wt = w.transpose(1, 2)
+    nb = block_rel.shape[0]
+    out = {"fwd": time_ms(lambda: relmm.FORWARD(msg, w, block_rel)),
+           "bwd": time_ms(lambda: relmm.BACKWARD(g, w, block_rel))}
+    with torch.no_grad():
+        out["plain_fwd"] = time_ms(lambda: plain(msg, w, block_rel))
+        out["plain_bwd"] = time_ms(lambda: plain(g, wt, block_rel))
+    out["lib_fwd"] = out["lib_bwd"] = None
+    if library:
+        blocks_w = w[block_rel.long()]
+        x3, g3 = msg.view(nb, -1, msg.shape[1]), g.view(nb, -1, g.shape[1])
+        out["lib_fwd"] = time_ms(lambda: torch.bmm(x3, blocks_w))
+        out["lib_bwd"] = time_ms(lambda: torch.bmm(
+            g3, blocks_w.transpose(1, 2)))
+        del blocks_w
+    r, din, dout = w.shape
+    out["bound_fwd"] = relmm_bound_ms(msg.shape[0], din, dout, nb, r,
+                                      msg.dtype)
+    out["bound_bwd"] = relmm_bound_ms(msg.shape[0], dout, din, nb, r,
+                                      msg.dtype)
+    return out
+
+
+def relmm_path_checks(dev, train_batch, full_batch):
+    """Phase 7a: the relmm kernels against their plain versions at the
+    path's shapes (RGAT's layer-1 768 → 512 and hidden 256 → 512 products
+    on its SAINT batch in bf16; the RGCN edge conv's 768 → 256 on the
+    full-graph relation-layout batch in float32), timed; returns the
+    timings of RGAT's layer-1 shape and the max abs errors."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    r, heads = HPARAMS["num_relation"], HPARAMS["num_heads"]
+    cases = [("RGAT layer 1", train_batch, 768, heads * 256, torch.bfloat16),
+             ("RGAT hidden", train_batch, 256, heads * 256, torch.bfloat16),
+             ("edge conv (serving)", full_batch, 768, 256, torch.float32)]
+    errs, first = [[], []], None
+    for what, batch, din, dout, dtype in cases:
+        block_rel = batch.block_rel
+        msg = torch.randn(batch.edge_type.shape[0], din, device=dev,
+                          generator=gen) * batch.edge_mask[:, None]
+        w = torch.randn(r, din, dout, device=dev, generator=gen) / din ** 0.5
+        msg, w = msg.to(dtype), w.to(dtype)
+        abs_errs, g = relmm_check(what, msg, w, block_rel, gen)
+        for i in (0, 1):
+            errs[i].append(abs_errs[i])
+        t = relmm_times(msg, w, block_rel, g,
+                        library=dtype == torch.bfloat16)
+        for d in ("fwd", "bwd"):
+            bound, by = t[f"bound_{d}"]
+            lib = (f"torch.bmm on gathered weight blocks {t[f'lib_{d}']:.4f}"
+                   f" ms" if t[f"lib_{d}"] is not None else
+                   "no library yardstick at this shape")
+            print(f"relmm {what} {'forward' if d == 'fwd' else 'd_msg'} "
+                  f"time ({str(dtype)[6:]}, {msg.shape[0]} rows, "
+                  f"{din if d == 'fwd' else dout} -> "
+                  f"{dout if d == 'fwd' else din}): kernel {t[d]:.4f} ms, "
+                  f"plain {t[f'plain_{d}']:.4f} ms, {lib}, bound "
+                  f"{bound:.4f} ms ({by}), kernel at {bound / t[d]:.1%} of "
+                  f"bound")
+        first = first or t
+        del msg, w, g
+    torch.cuda.empty_cache()
+    return first, [max(e) for e in errs]
+
+
+def rgat_train_phase(dm, dev, table):
+    """Phase 7b; returns the device batches and the launches of the timed
+    steps."""
+    dm.edge_layout = "relation"
+    loader = dm.train_dataloader(loader_type="saint")
+    t0 = time.perf_counter()
+    host = [loader.sample()[0] for _ in range(P7_WARMUP + P7_STEPS)]
+    sample_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    batches = [batch_to_device(b, dev) for b in host]
+    occupancy = (sum(int(b.edge_mask.sum()) for b in host[P7_WARMUP:])
+                 / (P7_STEPS * loader.edge_budget))
+    print(f"RGAT train envelope (relation layout): {loader.node_budget} node "
+          f"slots, {loader.edge_budget} edge slots in "
+          f"{host[0].block_rel.shape[0]} blocks of {loader.block_size}; "
+          f"edge occupancy {occupancy:.4f}; host SAINT sampling "
+          f"{sample_ms:.1f} ms per batch")
+
+    module = KGEModule(**RGAT).to(dev)
+    module.feature_table = table
+    module.configure_optimizers(num_training_steps=100)
+    state = module.init_state(torch.Generator().manual_seed(SEED))
+    sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state, _ = module.train_steps(state, batches[:P7_WARMUP], gen)
+    torch.cuda.synchronize()
+    state, launches, _ = timed_steps(module, state, batches[P7_WARMUP:], gen,
+                                     "RGAT train step")
+    want = expected_launches(0, "distmult_neg_scores", P7_STEPS,
+                             tuple(n * P7_STEPS for n in RELMM_PER_STEP))
+    check(launches == want, f"RGAT launches per step: {launches}")
+    profile_steps(module, state, batches[-PROFILED:], gen, "RGAT train step")
+    compare_step(sd, table, dev, batches[0], "distmult_neg_scores", "RGAT",
+                 segsum_n=0, relmm_n=RELMM_PER_STEP, encoder_name="rgat")
+    loss_falls(sd, table, dev, batches[0], "RGAT", encoder_name="rgat")
+    return batches, launches
+
+
+def timed_encodes(module, batch, n=3):
+    """``n`` encodes, host clock after a synchronise; (z, ms list)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = module.encode(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return z, times
+
+
+def edge_conv_phase(module, full_batch):
+    """Phase 7c: the RGCN edge conv's full-graph encode (float32, one
+    relmm launch per conv) against the node conv's z on the same
+    relation-layout batch."""
+    enc = module.model.encoder
+    module.edge_layout = "relation"
+    enc.conv_impl = "edge"
+    reset_launch_counts()
+    z_edge, ms = timed_encodes(module, full_batch)
+    launches = launch_counts()
+    enc.conv_impl = "node"
+    z_node, node_ms = timed_encodes(module, full_batch, 1)
+    enc.conv_impl = "auto"
+    module.edge_layout = "dst"
+    check(launches == expected_launches(0, "distmult_neg_scores", 0,
+                                        (3 * RELMM_PER_EDGE_ENCODE, 0)),
+          f"edge conv encode launches: {launches}")
+    scale = float(z_node.abs().max())
+    err = float((z_edge - z_node).abs().max())
+    print(f"RGCN edge conv full-graph encode (float32, relation layout, "
+          f"{full_batch.edge_type.shape[0]} edge slots): {ms} ms (host "
+          f"clock, synchronised), {RELMM_PER_EDGE_ENCODE} relmm launches "
+          f"per encode; node conv on the same batch {node_ms} ms; z edge vs "
+          f"node max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z| = "
+          f"{Z_RTOL * scale:.3g})")
+    check(bool(torch.isfinite(z_edge).all()), "edge conv z not finite")
+    check(err <= Z_RTOL * scale, "edge conv z disagrees with the node conv")
+
+
+def serve_rgat(rgat_run, graph, tmp, dev):
+    """Phase 7d: train_kge's RGAT checkpoint served (a float32 full-graph
+    RGAT encode in the relation layout), its encode timed and its z held
+    against the same encode with the plain versions, its answers checked
+    against float64; returns the serving encode's relmm launches."""
+    proc, t0 = rgat_run
+    ckpt = finish_train_kge(proc, "RGAT", graph, t0)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    served = serve_checkpoint(ckpt, tmp, "train_kge RGAT")
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(type(served.module.model.encoder).__name__ == "RGAT"
+          and served.module.edge_layout == "relation",
+          "train_kge did not train RGAT / not served in the relation layout")
+    check(launches == expected_launches(0, "distmult_neg_scores", 0,
+                                        (RELMM_PER_RGAT_ENCODE, 0)),
+          f"RGAT serving encode launches: {launches}")
+    batch = batch_to_device(
+        FullGraphLoader(served.dm.graph, edge_layout="relation").batch(), dev)
+    z, ms = timed_encodes(served.module, batch, 2)
+    with plain_versions():
+        z_plain, plain_ms = timed_encodes(served.module, batch, 1)
+    scale = float(z_plain.abs().max())
+    err = float((z - z_plain).abs().max())
+    n = served.z.shape[0]
+    check(bool(torch.isfinite(z).all()), "RGAT served z not finite")
+    check(err <= Z_RTOL * scale,
+          "RGAT served encode with the kernels disagrees with the plain "
+          "versions")
+    check(float((z[:n] - served.z).abs().max())
+          <= Z_RTOL * float(served.z.abs().max()),
+          "RGAT re-encode disagrees with the served z")
+    del z_plain
+    lat = serve_requests(served, np.random.default_rng(SEED))
+    print(f"RGAT served: full-graph encode {ms} ms (host clock, "
+          f"synchronised, {RELMM_PER_RGAT_ENCODE} relmm launches), with the "
+          f"plain versions {plain_ms} ms; z kernel vs plain "
+          f"max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z| = "
+          f"{Z_RTOL * scale:.3g}); peak device memory over the scorer's "
+          f"start-up {peak_gb:.2f} GB; requests {json.dumps(lat)}")
+    return launches[relmm.NAME]
+
+
+def rgat_phase(dm, dev, tmp, table, rgat_run, scorer_module):
+    """Phase 7; returns the relmm kernels' records."""
+    odd_relmm_checks(dev)
+    batches, launches = rgat_train_phase(dm, dev, table)
+    full_batch = batch_to_device(
+        FullGraphLoader(dm.graph, edge_layout="relation").batch(), dev)
+    t, errs = relmm_path_checks(dev, batches[0], full_batch)
+    edge_conv_phase(scorer_module, full_batch)
+    del full_batch, batches
+    torch.cuda.empty_cache()
+    serve_launches = serve_rgat(rgat_run, dm.graph, tmp, dev)
+    records = []
+    for backward, d in ((False, "fwd"), (True, "bwd")):
+        name = relmm.NAME + ("_bwd" if backward else "")
+        bound, by = t[f"bound_{d}"]
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "biomedkg_tpu_torch/csrc/relmm.cu",
+            "replaces": f"biomedkg_tpu/ops/pallas/relmm.py:"
+                        f"{RELMM_REPLACES[backward]}",
+            "launches": launches[name] + (0 if backward
+                                          else serve_launches),
+            "max_abs_err": errs[backward], "ms": t[d],
+            "plain_ms": t[f"plain_{d}"], "bound_ms": bound, "bound_by": by,
+            "library_ms": t[f"lib_{d}"]})
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -916,7 +1249,7 @@ def main() -> int:
 
     # -- 1. build every kernel from the checkout, all at once -------------
     t0 = time.perf_counter()
-    libraries = (segsum.LIBRARY, negscore.LIBRARY)
+    libraries = (segsum.LIBRARY, negscore.LIBRARY, relmm.LIBRARY)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         builds = [pool.submit(lib.lib) for lib in libraries]
         sampler = pool.submit(native.get_lib)
@@ -1086,11 +1419,15 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         # -- 5. the training main path ------------------------------------
-        neg_records, train_segsum, batches, table, rotate_run = \
+        neg_records, train_segsum, batches, table, rotate_run, rgat_run = \
             train_phase(scorer.dm, dev, tmp)
         # -- 6. the other decoders and the dual-sorted sampler ------------
         neg_records += decoder_phase(scorer.dm, dev, tmp, batches, table,
                                      rotate_run)
+        # -- 7. RGAT and the relation-layout edge conv --------------------
+        del batches
+        relmm_records = rgat_phase(scorer.dm, dev, tmp, table, rgat_run,
+                                   scorer.module)
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed["conv f32"]
     print(json.dumps({"kernels": [{
@@ -1100,7 +1437,8 @@ def main() -> int:
         "launches": launches["sorted_segment_sum"] + train_segsum,
         "max_abs_err": max(results.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms}] + neg_records}))
+        "bound_by": bound_by, "library_ms": lib_ms}] + neg_records
+        + relmm_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

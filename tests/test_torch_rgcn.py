@@ -24,7 +24,6 @@ from biomedkg_tpu_torch.data.synthetic import synthetic_triplets
 from biomedkg_tpu_torch.data.triplet import TripletGraph
 from biomedkg_tpu_torch.interop.jax_params import load_jax_params, \
     to_jax_params
-from biomedkg_tpu_torch.models.factory import KGEModelFactory
 from biomedkg_tpu_torch.nn import xavier_uniform
 from biomedkg_tpu_torch.ops import segment
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
@@ -148,19 +147,17 @@ def test_params_round_trip_and_init():
 
 
 def test_unported_paths_raise():
+    """The refusals that remain: fusion, ``dst_bwd="perm"``, and RGAT,
+    which has no destination-sorted layout, asked for "dst"."""
     hp = _hparams(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KGEModelFactory.get_model("rgat", "dismult", 8, 8, 8, 1, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KGEModelFactory.get_model("rgat", "transe", 8, 8, 8, 1, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KGEModule(**dict(hp, fuse_method="attention",
                          node_init_method="lm"))
     module = KGEModule(**hp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         module.dst_bwd = "perm"
-    module.model.encoder.conv_impl = "edge"
-    _, tg, _, _, _ = _setup()
-    batch = batch_to_device(FullGraphLoader(tg.graph).batch(), "cpu")
-    with pytest.raises(NotImplementedError, match="relation_matmul_sorted"):
-        module.encode(batch)
+    rgat = KGEModule(**dict(hp, encoder_name="rgat"))
+    with pytest.raises(ValueError, match="relation-blocked"):
+        rgat.edge_layout = "dst"
+    rgat.edge_layout = "relation"
+    assert rgat.edge_layout == "relation"

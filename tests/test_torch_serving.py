@@ -1,9 +1,9 @@
 """The serving slice as a whole: one checkpoint written by the JAX package
 (with an optimizer state) served by the JAX ``KGEScorer`` in its default
 "relation" layout and by the port's on the CPU in the "dst" layout; a
-DistMult checkpoint for every entry point, and one of each other decoder
-(TransE, ComplEx, RotatE) for ``score``, ``score_many`` and
-``topk_tails``.
+DistMult checkpoint for every entry point, one of each other decoder
+(TransE, ComplEx, RotatE) and one of RGAT (served in the "relation"
+layout by both) for ``score``, ``score_many`` and ``topk_tails``.
 
 Tolerances: z and scores 1e-4; probabilities 1e-5 (float32 on both sides,
 summation order differs); top-k names equal wherever the probabilities
@@ -175,12 +175,15 @@ def test_serve_main(tmp_path, monkeypatch, capsys):
         serve.parse_args(["seed=1"])
 
 
-@pytest.fixture(scope="module", params=["transe", "complex", "rotate"])
+@pytest.fixture(scope="module", params=["transe", "complex", "rotate",
+                                        "rgat"])
 def decoder_scorers(request, tmp_path_factory):
     """The JAX and port scorers over one JAX checkpoint of each of the
-    other decoders (DistMult's is ``scorers``)."""
+    other decoders (DistMult's is ``scorers``), and of RGAT + DistMult."""
     tmp = tmp_path_factory.mktemp(f"serving_{request.param}")
-    module = JaxKGEModule(**dict(HPARAMS, decoder_name=request.param))
+    over = ({"encoder_name": "rgat"} if request.param == "rgat"
+            else {"decoder_name": request.param})
+    module = JaxKGEModule(**dict(HPARAMS, **over))
     params = module.init(jax.random.PRNGKey(4))
     ckpt = str(tmp / "kge.ckpt")
     jax_save(ckpt, "kge", module.hparams, params)
@@ -189,8 +192,11 @@ def decoder_scorers(request, tmp_path_factory):
         jax_scorer = JaxScorer(ckpt, JaxModule(**_data_kw(tmp / "jax")))
     scorer = KGEScorer(ckpt, PrimeKGModule(**_data_kw(tmp / "port")),
                        device="cpu")
-    assert type(scorer.decoder).__name__ == \
-        type(jax_scorer.decoder).__name__
+    for part in ("encoder", "decoder"):
+        assert type(getattr(scorer.module.model, part)).__name__ == \
+            type(getattr(jax_scorer.module.model, part)).__name__
+    assert scorer.module.edge_layout == (
+        "relation" if request.param == "rgat" else "dst")
     return jax_scorer, scorer
 
 

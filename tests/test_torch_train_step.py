@@ -1,8 +1,8 @@
 """The port's KGE training step against the JAX package: the negative
 samplers' helpers and distributions, ``_forward_loss`` with the
 reference's negatives and dropout masks injected, the schedule, three
-optimizer steps, checkpoints both ways (DistMult, RotatE and ComplEx), and
-the ``train_kge`` entry point. tests/test_torch_train_decoders.py holds the
+optimizer steps, checkpoints both ways (DistMult, RotatE, ComplEx and
+RGAT), and the ``train_kge`` entry point (RGCN and RGAT). tests/test_torch_train_decoders.py holds the
 step of every decoder and sorted sampler against JAX's.
 
 Tolerances: float32 loss 1e-5 and gradients 5e-4 relative (as
@@ -53,14 +53,14 @@ def _hparams(dtype="float32"):
                 compute_dtype=dtype)
 
 
-def _raw(seed=0, scale=1.0, num_edges=200, edge_budget=256):
+def _raw(seed=0, scale=1.0, num_edges=200, edge_budget=256, layout="dst"):
     rng = np.random.default_rng(seed)
     ei = np.stack([rng.integers(0, N_REAL, num_edges),
                    rng.integers(0, N_REAL, num_edges)])
     et = rng.integers(0, R, num_edges)
     x = (scale * rng.standard_normal((N_REAL, D_IN))).astype(np.float32)
     kw = dict(num_relations=R, node_budget=64, edge_budget=edge_budget,
-              block_size=32, num_seed=N_REAL, layout="dst")
+              block_size=32, num_seed=N_REAL, layout=layout)
     return (jax.tree_util.tree_map(jnp.asarray, jax_pad(x, ei, et, **kw)),
             batch_to_device(pad_graph_batch(x, ei, et, **kw), "cpu"))
 
@@ -477,6 +477,75 @@ def test_train_kge_cli_rotate_sorted2_checkpoint_is_served(
     scorer = KGEScorer(path, dm, device="cpu")
     assert scorer.module.hparams["neg_sampler"] == "sorted2"
     assert type(scorer.decoder).__name__ == "RotatE"
+    p = scorer.score("gene_000000", "protein_protein", "gene_000001")
+    assert 0.0 < p < 1.0
+    top = scorer.topk_tails("gene_000000", "protein_protein", 3)
+    assert len(top) == 3 and top[0][1] >= top[-1][1]
+
+
+def _rgat_hparams():
+    return dict(_hparams(), encoder_name="rgat")
+
+
+def test_jax_rgat_checkpoint_resumes_in_port(tmp_path):
+    """A JAX RGAT checkpoint (its head-major w_rel, attention vectors, Adam
+    moments and counts) resumes in the port to the same next step on a
+    relation-layout batch."""
+    jm = jax_kge.KGEModule(**_rgat_hparams())
+    jbatch, batch = _raw(edge_budget=512, layout="relation")
+    jm.configure_optimizers(STEPS)
+    keys = jax.random.split(jax.random.PRNGKey(5), 3)
+    jstate = _jax_steps(jm, jm.init_state(jax.random.PRNGKey(0)), jbatch,
+                        keys[:2])
+    path = str(tmp_path / "jax_rgat.ckpt")
+    jax_ckpt.save_checkpoint(path, "kge", jm.hparams, jstate.params,
+                             opt_state=jstate.opt_state, step=2)
+    jstate = _jax_steps(jm, jstate, jbatch, keys[2:])
+
+    module = kge_module.KGEModule(**_rgat_hparams())
+    module.configure_optimizers(STEPS)
+    state = load_train_state(path, module)
+    assert state.step == 2 and state.opt_state.count == 2
+    assert module.model.encoder.layers[0].w_rel.shape == (R, D_IN, 2 * D_HID)
+    state = _port_steps(jm, module, state, jbatch, batch, keys[2:])
+    _assert_params_equal(module, jstate.params)
+
+
+def test_port_rgat_checkpoint_loads_in_jax_and_resumes(tmp_path):
+    module = kge_module.KGEModule(**_rgat_hparams())
+    module.configure_optimizers(STEPS)
+    _, batch = _raw(edge_budget=512, layout="relation")
+    state, _ = module.train_steps(module.init_state(
+        torch.Generator().manual_seed(0)), [batch, batch],
+        torch.Generator().manual_seed(1))
+    path = str(tmp_path / "port_rgat.ckpt")
+    save_train_state(path, module, state)
+    loaded, params = jax_kge.load_kge_module(path)
+    assert type(loaded.model.encoder).__name__ == "RGAT"
+    _assert_params_equal(module, params)
+
+    again = kge_module.KGEModule(**_rgat_hparams())
+    again.configure_optimizers(STEPS)
+    resumed = load_train_state(path, again)
+    assert resumed.step == 2 and resumed.opt_state.count == 2
+    for a, b in zip(resumed.opt_state.mu + resumed.opt_state.nu,
+                    state.opt_state.mu + state.opt_state.nu):
+        assert torch.equal(a, b)
+
+
+def test_train_kge_cli_rgat_checkpoint_is_served(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("BIOMEDKG_SYNTHETIC_SCALE", raising=False)
+    path = train_kge_main(["steps=2", "epochs=1", "device=cpu",
+                           f"ckpt_dir={tmp_path / 'ck'}", "seed=3",
+                           "model.encoder_name=rgat"])
+    assert "rgat_dismult_" in path
+    dm = PrimeKGModule(**dict(PRIMEKG_DATA, data_dir=str(tmp_path / "d")),
+                       seed=3)
+    scorer = KGEScorer(path, dm, device="cpu")
+    encoder = scorer.module.model.encoder
+    assert type(encoder).__name__ == "RGAT" and encoder.num_heads == 2
+    assert scorer.module.edge_layout == "relation"
     p = scorer.score("gene_000000", "protein_protein", "gene_000001")
     assert 0.0 < p < 1.0
     top = scorer.topk_tails("gene_000000", "protein_protein", 3)
