@@ -10,9 +10,13 @@ Entry points take ``device=None``, which means ``"cuda"``, and raise when
 CUDA is missing unless the caller passes ``device="cpu"`` (device.py).
 
 Ported so far: the KGE serving path (``serving.KGEScorer``, ``serve.py``)
-with an RGCN encoder aggregating through the CUDA sorted segment-sum
-(``ops/segsum.py``, ``csrc/segsum.cu``) and the DistMult decoder; and the
-KGE training step (``train_kge.py``, ``training/``) on GraphSAINT batches
-(``sampling/``), scoring its negatives through the CUDA DistMult
-negative-scoring kernels (``ops/negscore.py``, ``csrc/negscore.cu``).
+with an RGCN or RGAT encoder aggregating through the CUDA sorted
+segment-sum (``ops/segsum.py``, ``csrc/segsum.cu``) or grouped GEMM
+(``ops/relmm.py``, ``csrc/relmm.cu``) and four decoders; the KGE training
+step (``train_kge.py``, ``training/``) on GraphSAINT batches
+(``sampling/``), scoring its negatives through the CUDA negative-scoring
+kernels (``ops/negscore.py``, ``csrc/negscore.cu``); and Stage B's GCL
+pretraining (``train_gcl.py``, ``training/gcl_module.py``,
+``models/gcl.py``) on neighbour batches, GRACE's InfoNCE denominator
+through the CUDA flash kernels (``ops/flashnce.py``, ``csrc/flashnce.cu``).
 """

@@ -2,23 +2,28 @@
 biomedkg_tpu/data/modules.py::PrimeKGModule).
 
 ``setup`` (graph build and, for ``stage="split"``, the link split),
-``edge_layout``, ``data``, ``graph``, ``edge_map_index`` and the GraphSAINT
-loaders of every split, which share one envelope probed once on the
-largest split graph. The neighbour and full-batch loaders, the inductive
-split and the DPI module come in later slices (ROADMAP.md queue 1).
+``edge_layout``, ``data``, ``graph``, ``edge_map_index``, and the loaders
+of every split: GraphSAINT random walks (``loader_type="saint"``) and
+[30, 30, 30] neighbour fan-outs (``"neighbor"``), each kind sharing one
+envelope probed once on the largest split graph; ``all_dataloader`` (the
+fan-outs over the whole graph) and ``subgraph_dataloader`` (the whole graph
+as one batch, for export). The full-batch training loader
+(``loader_type="full"``), the inductive split and the DPI module come in
+later slices (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
-from ..sampling.loaders import SaintRandomWalkLoader
+from ..sampling.loaders import (FullGraphLoader, NeighborBatchLoader,
+                                SaintRandomWalkLoader)
 from . import node_encoders as node
 from .primekg import PrimeKG
 from .split import random_link_split
 
-_LOADERS = ("the neighbour and full-batch loaders are not ported yet "
-            "(ROADMAP.md queue 1, item 2)")
+_FULL = ("loader_type='full' (full-batch training) is not ported yet "
+         "(ROADMAP.md queue 1, item 2)")
 
 
 def get_node_encode_method(node_init_method: Optional[str], embed_dim: int):
@@ -35,6 +40,7 @@ class PrimeKGModule:
     SAINT_WALK_LENGTH = 10
     SAINT_TRAIN_STEPS = 1000
     SAINT_EVAL_STEPS = 100
+    FANOUTS = [30, 30, 30]
 
     def __init__(self, data_dir: str, embed_dim: int, node_type: List[str],
                  batch_size: int, val_ratio: float, test_ratio: float,
@@ -68,18 +74,23 @@ class PrimeKGModule:
         self.edge_map_index = self.primekg.edge_map_index
         self.graph = self.primekg.graph
         self._saint_budgets = None
+        self._neighbor_budgets = None
         if self._do_split:
             self.train_data, self.val_data, self.test_data = \
                 random_link_split(self.graph, self.val_ratio,
                                   self.test_ratio, seed=self.seed)
 
+    def _probe_graph(self):
+        """The largest split graph (test carries train+val message-passing
+        edges): each loader kind probes its budgets once, on it, so every
+        split's batches share one envelope."""
+        return self.test_data.graph if self._do_split else self.graph
+
     def _saint(self, split, num_steps, seed_offset, fill_target=None):
-        # budgets probed ONCE, on the largest split graph (test carries
-        # train+val message-passing edges) and with the fill plan, so every
-        # split's batches share one envelope
+        # probed with the fill plan, so train and eval share the envelope
         if self._saint_budgets is None:
             probe = SaintRandomWalkLoader(
-                self.test_data.graph if self._do_split else self.graph,
+                self._probe_graph(),
                 batch_size=self.batch_size,
                 walk_length=self.SAINT_WALK_LENGTH, num_steps=1,
                 block_size=self.block_size, seed=self.seed,
@@ -94,23 +105,58 @@ class PrimeKGModule:
             with_features=not self.device_features,
             edge_layout=self.edge_layout)
 
+    def _neighbor(self, split, shuffle, seed_offset):
+        if self._neighbor_budgets is None:
+            probe = NeighborBatchLoader(
+                self._probe_graph(), batch_size=self.batch_size,
+                fanouts=self.FANOUTS, block_size=self.block_size,
+                seed=self.seed)
+            self._neighbor_budgets = (probe.node_budget, probe.edge_budget)
+        nb, eb = self._neighbor_budgets
+        return NeighborBatchLoader(
+            split.graph, batch_size=self.batch_size, fanouts=self.FANOUTS,
+            shuffle=shuffle, block_size=self.block_size,
+            seed=self.seed + seed_offset, node_budget=nb, edge_budget=eb,
+            with_features=not self.device_features,
+            edge_layout=self.edge_layout)
+
     @staticmethod
     def _check_loader(loader_type: str):
-        if loader_type in ("neighbor", "full"):
-            raise NotImplementedError(f"loader_type={loader_type!r}: "
-                                      f"{_LOADERS}")
-        if loader_type != "saint":
+        if loader_type == "full":
+            raise NotImplementedError(_FULL)
+        if loader_type not in ("saint", "neighbor"):
             raise ValueError(f"unknown loader_type {loader_type!r}")
 
     def train_dataloader(self, loader_type: str = "neighbor"):
         self._check_loader(loader_type)
-        return self._saint(self.train_data, self.SAINT_TRAIN_STEPS, 1,
-                           fill_target=self.saint_fill_target)
+        if loader_type == "saint":
+            return self._saint(self.train_data, self.SAINT_TRAIN_STEPS, 1,
+                               fill_target=self.saint_fill_target)
+        return self._neighbor(self.train_data, shuffle=True, seed_offset=1)
 
     def val_dataloader(self, loader_type: str = "neighbor"):
         self._check_loader(loader_type)
-        return self._saint(self.val_data, self.SAINT_EVAL_STEPS, 2)
+        if loader_type == "saint":
+            return self._saint(self.val_data, self.SAINT_EVAL_STEPS, 2)
+        return self._neighbor(self.val_data, shuffle=False, seed_offset=2)
 
     def test_dataloader(self, loader_type: str = "neighbor"):
         self._check_loader(loader_type)
-        return self._saint(self.test_data, self.SAINT_EVAL_STEPS, 3)
+        if loader_type == "saint":
+            return self._saint(self.test_data, self.SAINT_EVAL_STEPS, 3)
+        return self._neighbor(self.test_data, shuffle=False, seed_offset=3)
+
+    def all_dataloader(self):
+        """[30, 30, 30] fan-outs over the whole graph, budgets probed on
+        it."""
+        return NeighborBatchLoader(
+            self.graph, batch_size=self.batch_size, fanouts=self.FANOUTS,
+            shuffle=False, block_size=self.block_size, seed=self.seed,
+            with_features=not self.device_features,
+            edge_layout=self.edge_layout)
+
+    def subgraph_dataloader(self):
+        """The whole graph as one batch in the module's layout (the
+        reference's export loader)."""
+        return FullGraphLoader(self.graph, block_size=self.block_size,
+                               edge_layout=self.edge_layout)

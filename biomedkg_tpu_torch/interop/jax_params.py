@@ -4,11 +4,15 @@ The JAX ``KGEModule`` keeps its parameters as a tree of arrays
 (``params["model"]["encoder"]["layers"][i]`` with, for RGCN, ``w_rel``
 (R, din, dout), ``w_root`` (din, dout), ``b`` (dout,); for RGAT ``w_rel``
 (R, din, H·dout), ``att_src`` and ``att_dst`` (R, H, dout), ``b``; and
-``params["model"]["decoder"]["rel_emb"]`` (R, d)); native checkpoints
-store that tree as numpy, and optax's Adam moments have the same tree. The
-port keeps the same tensors, under the same names and layouts, so the
-tree's dotted paths (``model.encoder.layers.0.w_rel``) are exactly the
-port ``KGEModule``'s parameter names and the mapping is a checked copy.
+``params["model"]["decoder"]["rel_emb"]`` (R, d)). The JAX GCL modules
+keep ``params["model"]["encoder"]["layers"][i]`` = {``w`` (din, dout),
+``b``} of the GCN and, per model, ``fc1``/``fc2`` (GRACE), ``project``
+(DGI) or the ``mlp`` list (GGD), each {``w`` (in, out), ``b``}. Native
+checkpoints store the tree as numpy, and optax's Adam moments have the same
+tree. The port keeps the same tensors, under the same names and layouts, so
+the tree's dotted paths (``model.encoder.layers.0.w_rel``,
+``model.mlp.0.w``) are exactly the port modules' parameter names and the
+mapping is a checked copy.
 """
 
 from __future__ import annotations
@@ -75,8 +79,8 @@ def tensors_from_tree(module: nn.Module, tree: Any,
 
 
 def load_jax_params(model: nn.Module, params: Dict) -> None:
-    """Copy a JAX KGE params tree (``params["model"]``'s parent) into the
-    port's ``GAE`` ``model``."""
+    """Copy a JAX params tree (``params["model"]``'s parent) into the
+    port's ``model`` (a KGE ``GAE``, or a GCL model)."""
     if set(params) != {"model"}:
         raise NotImplementedError(
             f"params subtrees {sorted(set(params) - {'model'})} (modality "
@@ -104,6 +108,6 @@ def to_jax_tree(named: Dict[str, torch.Tensor]) -> Any:
 
 
 def to_jax_params(model: nn.Module) -> Dict:
-    """The port's ``GAE`` ``model`` as the JAX params tree (numpy leaves)."""
+    """The port's ``model`` as the JAX params tree (numpy leaves)."""
     return to_jax_tree({"model." + name: p
                         for name, p in model.named_parameters()})

@@ -1,5 +1,5 @@
-"""Relational GCN and relational GAT encoders (counterpart of
-biomedkg_tpu/models/encoders.py).
+"""Relational GCN, relational GAT and homogeneous GCN encoders
+(counterpart of biomedkg_tpu/models/encoders.py).
 
 Per layer (PyG RGCNConv with the per-relation mean):
     out_i = x_i @ W_root + b + Σ_r (1/|N_r(i)|) Σ_{j∈N_r(i)} x_j @ W_r
@@ -35,6 +35,13 @@ two grouped GEMMs (source and destination messages through W_r, H heads
 side by side, head-major), additive attention logits, a masked softmax over
 each destination's incoming edges, the float32 weighted sum and the head
 mean.
+
+The GCN (the GCL models' encoder, PyG GCNConv) adds self-loops and
+normalises symmetrically, D^-1/2 (A + I) D^-1/2 with the in-degree counted
+on the real edges once per forward; per conv one dense product, the
+gathered and scaled source rows, and their per-destination sum: the CUDA
+sorted segment-sum in the "dst" layout (one launch per conv), a float32
+``index_add_`` in the "relation" layout.
 """
 
 from __future__ import annotations
@@ -263,6 +270,87 @@ class RGAT(nn.Module):
         for i, layer in enumerate(self.layers):
             x = self._conv(layer, x, src, dst, edge_type, edge_mask,
                            block_rel, compute_dtype)
+            if i == len(self.layers) - 1:
+                break
+            x = _dropout(torch.relu(x), i, training, self.drop_out,
+                         generator, dropout_masks)
+        return x
+
+
+class GCNLayer(nn.Module):
+    def __init__(self, din: int, dout: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(din, dout))
+        self.b = nn.Parameter(torch.zeros(dout))
+
+
+class GCNEncoder(nn.Module):
+    """Homogeneous GCN stack of the GCL models: in→hidden,
+    num_hidden_layers×(hidden→hidden), hidden→out, ReLU (+ inverted dropout
+    0.2 in training) between convs. ``compute_dtype`` bfloat16 rounds as the
+    reference does: the dense product sums in float32 and rounds to bf16,
+    the float32 segment-sum is cast to bf16 before the self-loop term joins
+    it, and the edge weights are computed in bf16."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_hidden_layers: int, drop_out: bool = True):
+        super().__init__()
+        self.dims = _layer_dims(in_dim, hidden_dim, out_dim,
+                                num_hidden_layers)
+        self.drop_out = drop_out
+        # "relation" or "dst" — must match the batches' layout; a GCN has
+        # no relation blocks, so every batch may come destination-sorted
+        # (augmentations drop edges through the mask, keeping the order)
+        self.edge_layout = "relation"
+        self.layers = nn.ModuleList(GCNLayer(din, dout)
+                                    for din, dout in self.dims)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator):
+        for layer in self.layers:
+            layer.w.copy_(xavier_uniform(layer.w.shape, generator))
+            layer.b.zero_()
+
+    @staticmethod
+    def _edge_norm(src, dst, edge_mask, num_nodes, dtype):
+        """The per-edge weight dis[src]·dis[dst] (zero on masked edges) and
+        the self-loop weight 1/deg, deg = real in-degree + 1; shared by
+        every conv."""
+        em = edge_mask.to(dtype)
+        deg = scatter_add(em[:, None], dst, num_nodes)[:, 0] + 1.0
+        dis = torch.rsqrt(deg)
+        return dis[src] * dis[dst] * em, 1.0 / deg
+
+    def _conv(self, w, b, x, src, dst, dst32, norm_e, self_w):
+        num_nodes = x.shape[0]
+        h = x @ w
+        # the gather's output is fresh, so scaling it in place saves an
+        # (E, dout) buffer
+        msg = take_rows(h, src).mul_(norm_e[:, None])
+        if self.edge_layout == "dst":
+            agg = sorted_segment_sum(msg, dst32, num_nodes).to(h.dtype)
+        else:
+            agg = scatter_add(msg, dst, num_nodes)
+        return agg + h * self_w[:, None] + b
+
+    def forward(self, x, edge_index, edge_mask, *, training: bool = False,
+                compute_dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None,
+                dropout_masks: Optional[List[torch.Tensor]] = None):
+        """(N, out_dim) node embeddings in ``compute_dtype``; in training
+        the dropout keep masks are ``dropout_masks`` (one bool (N, width)
+        mask per hidden conv) or drawn from ``generator``."""
+        if self.edge_layout not in ("relation", "dst"):
+            raise ValueError(f"unknown edge_layout {self.edge_layout!r}")
+        src, dst = edge_index[0], edge_index[1]
+        dst32 = dst.to(torch.int32) if self.edge_layout == "dst" else None
+        x = x.to(compute_dtype)
+        norm_e, self_w = self._edge_norm(src, dst, edge_mask, x.shape[0],
+                                         compute_dtype)
+        for i, layer in enumerate(self.layers):
+            x = self._conv(layer.w.to(compute_dtype),
+                           layer.b.to(compute_dtype), x, src, dst, dst32,
+                           norm_e, self_w)
             if i == len(self.layers) - 1:
                 break
             x = _dropout(torch.relu(x), i, training, self.drop_out,

@@ -1,7 +1,8 @@
 """Loaders (counterpart of biomedkg_tpu/sampling/loaders.py):
-``SaintRandomWalkLoader`` (training batches) and ``FullGraphLoader`` (the
-whole graph as one padded batch, for serving). The neighbour loader and the
-background prefetch come later (ROADMAP.md queue 1).
+``SaintRandomWalkLoader`` (KGE training batches), ``NeighborBatchLoader``
+(fan-out batches, sampling/neighbor.py) and ``FullGraphLoader`` (the whole
+graph as one padded batch, for serving and export). The background
+prefetch comes later (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ import numpy as np
 
 from .batch import GraphBatch, pad_graph_batch
 from .csr import CSRGraph
+from .neighbor import NeighborBatchLoader  # noqa: F401  (re-exported)
 from .saint import SaintRandomWalkSampler, _round_up
 
 
@@ -50,3 +52,9 @@ class FullGraphLoader:
                 node_ids=np.arange(g.num_nodes, dtype=np.int32),
                 layout=self.edge_layout)
         return self._batch
+
+    def __iter__(self):
+        yield self.batch()
+
+    def __len__(self):
+        return 1

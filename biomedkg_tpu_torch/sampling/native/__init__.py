@@ -80,6 +80,10 @@ def get_lib():
     lib.induced_subgraph.restype = ctypes.c_int64
     lib.induced_subgraph.argtypes = [i64p, i64p, i32p, i64p, ctypes.c_int64,
                                      i64p, i64p, i64p, i32p, ctypes.c_int64]
+    lib.sample_neighbors.restype = ctypes.c_int64
+    lib.sample_neighbors.argtypes = [i64p, i64p, i32p, i64p, ctypes.c_int64,
+                                     ctypes.c_int32, ctypes.c_uint64, i64p,
+                                     i64p, i32p]
     _lib = lib
     return _lib
 

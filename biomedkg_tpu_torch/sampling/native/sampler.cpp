@@ -1,12 +1,11 @@
-// Native host-side graph sampling: the CSR build, GraphSAINT random walks
-// and induced subgraphs.
+// Native host-side graph sampling: the CSR build, GraphSAINT random walks,
+// induced subgraphs and the neighbour fan-out hop.
 //
 // A copy of biomedkg_tpu/sampling/native/sampler.cpp (the same functions,
-// byte for byte, so one seed gives the same walks in both packages) without
-// its neighbour-sampling hop, which comes with the neighbour sampler. The
-// Python samplers call these through ctypes (native/__init__.py, which
-// builds this file with g++ at first use) and fall back to vectorised numpy
-// when the library is unavailable.
+// byte for byte, so one seed gives the same walks and neighbour samples in
+// both packages). The Python samplers call these through ctypes
+// (native/__init__.py, which builds this file with g++ at first use) and
+// fall back to vectorised numpy when the library is unavailable.
 
 #include <algorithm>
 #include <atomic>
@@ -105,6 +104,44 @@ int64_t induced_subgraph(const int64_t* indptr, const int64_t* nbr,
     }
   }
   for (int64_t i = 0; i < num_sub; ++i) lookup[nodes[i]] = -1;
+  return m;
+}
+
+// One fan-out hop: for each frontier node sample <=k in-edges without
+// replacement (full take when deg <= k; partial Fisher-Yates otherwise).
+// Outputs parallel arrays (src_global, frontier_pos, etype); returns count.
+int64_t sample_neighbors(const int64_t* indptr, const int64_t* nbr,
+                         const int32_t* etypes, const int64_t* frontier,
+                         int64_t num_frontier, int32_t k, uint64_t seed,
+                         int64_t* src_out, int64_t* fpos_out,
+                         int32_t* et_out) {
+  uint64_t s = seed;
+  int64_t m = 0;
+  std::vector<int64_t> idx;
+  for (int64_t i = 0; i < num_frontier; ++i) {
+    int64_t v = frontier[i];
+    int64_t lo = indptr[v], deg = indptr[v + 1] - lo;
+    if (k < 0 || deg <= k) {
+      for (int64_t p = lo; p < lo + deg; ++p) {
+        src_out[m] = nbr[p];
+        fpos_out[m] = i;
+        et_out[m] = etypes[p];
+        ++m;
+      }
+    } else {
+      idx.resize(deg);
+      for (int64_t j = 0; j < deg; ++j) idx[j] = j;
+      for (int32_t j = 0; j < k; ++j) {  // partial Fisher-Yates
+        int64_t r = j + (int64_t)(splitmix64(&s) % (uint64_t)(deg - j));
+        std::swap(idx[j], idx[r]);
+        int64_t p = lo + idx[j];
+        src_out[m] = nbr[p];
+        fpos_out[m] = i;
+        et_out[m] = etypes[p];
+        ++m;
+      }
+    }
+  }
   return m;
 }
 

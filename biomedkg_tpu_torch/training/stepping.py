@@ -8,7 +8,8 @@ list of batches (a Python loop: the counterpart of the reference's
 device-resident feature table.
 
 Random numbers come from an explicit ``torch.Generator`` on the module's
-device; ``negatives`` and ``dropout_masks`` let a caller pass in the draws
+device; keyword draws (the KGE module's ``negatives`` and
+``dropout_masks``, the GCL modules' ``draws``) let a caller pass them in
 instead (the tests inject the reference's, ROADMAP.md hazard H2).
 """
 
@@ -34,8 +35,7 @@ class StepsMixin:
     tx: Optional[Optimizer] = None
     feature_table: Optional[torch.Tensor] = None
 
-    def _forward_loss(self, batch, training: bool, generator=None,
-                      negatives=None, dropout_masks=None):
+    def _forward_loss(self, batch, training: bool, generator=None, **draws):
         raise NotImplementedError
 
     @property
@@ -69,15 +69,13 @@ class StepsMixin:
         return TrainState(params, self.tx.init(list(params.values())), 0)
 
     def train_step(self, state: TrainState, batch,
-                   generator: Optional[torch.Generator] = None, *,
-                   negatives=None, dropout_masks=None):
+                   generator: Optional[torch.Generator] = None, **draws):
         """One update; returns (state, {"train_loss": loss}), the loss a
-        device scalar (reading it syncs)."""
+        device scalar (reading it syncs). ``draws`` go to
+        ``_forward_loss``."""
         params = list(state.params.values())
         loss, _ = self._forward_loss(batch, training=True,
-                                     generator=generator,
-                                     negatives=negatives,
-                                     dropout_masks=dropout_masks)
+                                     generator=generator, **draws)
         grads = torch.autograd.grad(loss, params)
         opt_state = self.tx.update(list(grads), state.opt_state, params)
         return (TrainState(state.params, opt_state, state.step + 1),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (biomedkg_tpu_torch): the KGE serving
-path and the KGE training step (RGCN and RGAT) at full width on one CUDA
-card (Hopper, sm_90a).
+path, the KGE training step (RGCN and RGAT) and Stage B's GCL pretraining
+(GRACE, DGI, GGD) at full width on one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -73,7 +73,29 @@ Phases; any failure ends the run with a non-zero exit:
     ``train_kge model.encoder_name=rgat``'s checkpoint (run beside phase
     5's) served: a float32 full-graph RGAT encode with 8 launches, timed,
     its z against the same encode with the plain versions (Z_RTOL of
-    max|z|), its answers checked against float64.
+    max|z|), its answers checked against float64;
+ 8. Stage B, GCL pretraining on the gene/protein graph of the same
+    synthetic PrimeKG++ (train_gcl.py:37), through the flash InfoNCE
+    kernels ``flash_denom`` (forward and backward) and the segsum:
+    (a) both flash kernels against the plain version off the path (N of
+    1,000, 333, 200 and 130, d of 100, 36, 30 and 256, with and without a
+    padded tail), float32 and bf16; (b) the GRACE training step at full
+    width (GCN 768→256×4, projection 256→256→256, τ = 0.2, Adam with cosine
+    warm-up 0.2, clip 1.0) on [30, 30, 30] neighbour batches of 128 seeds in
+    the dst layout with device-resident features, in bf16 and in float32
+    (the config's type): warm-up steps, timed steps with every launch count
+    set to 0 just before and read just after (segsum 8, flash 2 + 2 per
+    step), ms per step, nodes per second, the envelope, peak memory and a
+    torch.profiler window; one batch's loss and every gradient with the
+    kernels against the plain versions; the loss falling on a fixed batch;
+    (c) both flash kernels at the path's shape (the envelope's node slots,
+    d = 256, its pad tail), float32 and bf16, timed beside their bounds and
+    the plain version; (d) one DGI and one GGD step at the same width,
+    kernels against plain versions (segsum 8, flash 0); (e) ``python -m
+    biomedkg_tpu_torch.train_gcl model.model_name=grace
+    data.node_type=gene`` (started beside phase 5's ``train_kge`` runs),
+    its checkpoint loaded by ``load_gcl_module`` and the full gene/protein
+    graph encoded on the card and on the CPU.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import statistics
@@ -104,13 +127,15 @@ from biomedkg_tpu_torch.device import check_full_fp32
 from biomedkg_tpu_torch.interop.jax_params import to_jax_params
 from biomedkg_tpu_torch.models import decoders, encoders
 from biomedkg_tpu_torch.nn import dropout_mask
-from biomedkg_tpu_torch.ops import _build, negscore, relmm, segment, segsum
+from biomedkg_tpu_torch.ops import (_build, flashnce, negscore, relmm,
+                                    segment, segsum)
 from biomedkg_tpu_torch.sampling import native
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
 from biomedkg_tpu_torch.sampling.loaders import FullGraphLoader
 from biomedkg_tpu_torch.serve import PRIMEKG_DATA, serve_loop
 from biomedkg_tpu_torch.serving import KGEScorer
 from biomedkg_tpu_torch.training.checkpoint import save_checkpoint
+from biomedkg_tpu_torch.training import gcl_module
 from biomedkg_tpu_torch.training.kge_module import (KGEModule, _mix_factor,
                                                     rolled_index,
                                                     sample_negatives_sorted)
@@ -193,6 +218,42 @@ RELMM_RTOL = {torch.float32: SUM_RTOL, torch.bfloat16: 1e-2}
 # the TPU functions the two relmm kernels replace (relmm.py lines)
 RELMM_REPLACES = {False: 36, True: 91}
 
+# -- phase 8: Stage B GCL pretraining (train_gcl.py, configs/model/gcl.yaml,
+# configs/model/base.yaml) ---------------------------------------------------
+GCL = dict(in_dim=768, hidden_dim=256, out_dim=256, num_hidden_layers=2,
+           scheduler_type="cosine", learning_rate=1e-3, warm_up_ratio=0.2,
+           fuse_method="none", seed=SEED)
+GCL_NODE_TYPE = ["gene/protein"]   # train_gcl.py:37: the largest node type
+GCL_TAU = gcl_module.TAU
+SEGSUM_PER_GCL_STEP = 2 * CONVS    # two encodes per step, one per conv
+FLASH_PER_STEP = 2                 # one forward, one backward per direction
+# (warm-up, timed, profiled) steps of the GRACE step per compute type
+P8_STEPS = {torch.bfloat16: (2, 4, 2), torch.float32: (1, 2, 1)}
+P8_BATCHES = 6
+P8_FALL_STEPS = {torch.bfloat16: 6, torch.float32: 4}
+TRAIN_GCL_STEPS = 3
+# flash kernels against the plain version: (denominators, gradients).
+# float32: den within 1e-5 of |den| (sums that differ only in order),
+# gradients 1e-4 of their max; bf16: den within 0.1 of the float32 plain
+# version's (tests/test_gcl_losses.py:200-201), gradients 5e-2 of their max
+# against the plain version in bf16 (tests/test_gcl_losses.py:114)
+FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.1, 5e-2)}
+# the step comparisons scale the features by 30 (as tests/test_torch_gcl.py
+# does). The reference's random node features are xavier_normal over the
+# (27,000, 768) table, std 0.0085: at initialisation every GRACE
+# projection is then nearly the same vector, every cosine similarity is
+# near 1, and the InfoNCE gradient is a difference of near-equal vectors,
+# so float32 summation-order noise reaches 7.5e-3 of the max in the last
+# layers' gradients (measured on one H100) and bf16 gradients are rounding noise
+# in the plain version itself; DGI's loss sits near 0. At 30 times the
+# features the similarities spread.
+COMPARE_FEATURE_SCALE = 30.0
+# phase 8a: (N, d, pad rows) off the path
+FLASH_ODD = [(1000, 100, 0), (333, 36, 40), (1000, 36, 57), (333, 100, 0),
+             (130, 256, 5), (200, 30, 9)]
+# the TPU functions the flash kernels replace (flashnce.py pallas_call lines)
+FLASH_REPLACES = {False: "212", True: "238/250"}
+
 
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
@@ -263,23 +324,28 @@ def negscore_bound_ms(mode, z, m, r, backward: bool):
 def launch_counts() -> dict:
     return {"sorted_segment_sum": segsum.KERNEL.launches,
             **{name: k.launches for name, k in negscore.KERNELS.items()},
-            **{name: k.launches for name, k in relmm.KERNELS.items()}}
+            **{name: k.launches for name, k in relmm.KERNELS.items()},
+            **{name: k.launches for name, k in flashnce.KERNELS.items()}}
 
 
 def reset_launch_counts():
     segsum.KERNEL.launches = 0
-    for k in (*negscore.KERNELS.values(), *relmm.KERNELS.values()):
+    for k in (*negscore.KERNELS.values(), *relmm.KERNELS.values(),
+              *flashnce.KERNELS.values()):
         k.launches = 0
 
 
-def expected_launches(segsum_n: int, kernel: str, n: int,
-                      relmm_n=(0, 0)) -> dict:
-    """Every count 0 but segsum's, the ``kernel`` pair's and relmm's
-    (forward, d_msg)."""
+def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
+                      flash_n: int = 0) -> dict:
+    """Every count 0 but segsum's, the ``kernel`` negscore pair's (none
+    when ``kernel`` is None), relmm's (forward, d_msg) and the flash pair's
+    (forward, backward)."""
     want = dict.fromkeys(launch_counts(), 0)
-    want.update({"sorted_segment_sum": segsum_n, kernel: n,
-                 kernel + "_bwd": n, relmm.NAME: relmm_n[0],
-                 relmm.NAME + "_bwd": relmm_n[1]})
+    want.update({"sorted_segment_sum": segsum_n, relmm.NAME: relmm_n[0],
+                 relmm.NAME + "_bwd": relmm_n[1], flashnce.NAME: flash_n,
+                 flashnce.NAME + "_bwd": flash_n})
+    if kernel is not None:
+        want.update({kernel: n, kernel + "_bwd": n})
     return want
 
 
@@ -293,22 +359,23 @@ NEG_DISPATCH = {negscore.kernel_name(mode, dual):
 def plain_versions():
     """The model with every kernel swapped for its plain torch version
     (the segment-sums of the encoder and of the tail gather's backward,
-    the grouped GEMM of the relational convs, and the negative scoring of
-    every decoder and sampler)."""
+    the grouped GEMM of the relational convs, the negative scoring of
+    every decoder and sampler, and GRACE's flash denominators)."""
     saved = (encoders.sorted_segment_sum, segment.sorted_segment_sum,
-             encoders.relation_matmul_sorted,
+             encoders.relation_matmul_sorted, gcl_module.flash_denom,
              {name: getattr(decoders, name) for name in NEG_DISPATCH})
     encoders.sorted_segment_sum = segsum.segsum_plain
     segment.sorted_segment_sum = segsum.segsum_plain
     encoders.relation_matmul_sorted = relmm.relation_matmul_sorted_plain
+    gcl_module.flash_denom = flashnce.flash_denom_plain
     for name, plain in NEG_DISPATCH.items():
         setattr(decoders, name, plain)
     try:
         yield
     finally:
         (encoders.sorted_segment_sum, segment.sorted_segment_sum,
-         encoders.relation_matmul_sorted) = saved[:3]
-        for name, fn in saved[3].items():
+         encoders.relation_matmul_sorted, gcl_module.flash_denom) = saved[:4]
+        for name, fn in saved[4].items():
             setattr(decoders, name, fn)
 
 
@@ -423,7 +490,20 @@ def train_module(sd, feature_table, dev, **over) -> KGEModule:
     return module
 
 
-def timed_steps(module, state, batches, gen, what: str):
+def triplets(batches):
+    """Stage C's work count: real edges x (1 + K) per step."""
+    return (sum(int(b.edge_mask.sum()) for b in batches)
+            * (1 + TRAIN["neg_ratio"]),
+            "triplets/s (real edges x (1 + K) per step, bench.py:167)")
+
+
+def real_nodes(batches):
+    """Stage B's work count: the real nodes of each batch."""
+    return (sum(int(b.node_mask.sum()) for b in batches),
+            "nodes/s (real nodes per batch)")
+
+
+def timed_steps(module, state, batches, gen, what: str, work=triplets):
     """Run ``batches`` with every launch count set to 0 just before and
     read just after; returns (state, launches, ms per step)."""
     reset_launch_counts()
@@ -442,11 +522,10 @@ def timed_steps(module, state, batches, gen, what: str):
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss = float(logs["train_loss"])
-    real = sum(int(b.edge_mask.sum()) for b in batches)
-    rate = real * (1 + TRAIN["neg_ratio"]) / (step_ms * steps / 1e3)
+    count, unit = work(batches)
     print(f"{what}: {step_ms:.3f} ms per step (host clock), "
-          f"{event_ms:.3f} ms (CUDA events), {rate:.4g} triplets/s "
-          f"(real edges x (1 + K) per step, bench.py:167); peak device "
+          f"{event_ms:.3f} ms (CUDA events), "
+          f"{count / (step_ms * steps / 1e3):.4g} {unit}; peak device "
           f"memory {peak_gb:.3f} GB, of which {resident_gb:.3f} GB was "
           f"allocated before the steps; last loss {loss:.6f}; launches over "
           f"{steps} steps {({k: v for k, v in launches.items() if v})}")
@@ -776,7 +855,8 @@ def serve_rotate_requests(scorer: KGEScorer, rng):
 def train_phase(dm, dev, tmp):
     """Phase 5; returns the distmult negscore kernels' records, the segsum
     kernel's launches on this path, the device batches, the feature table
-    and the RotatE + sorted2 ``train_kge`` run it starts for phase 6."""
+    and the runs it starts beside its own ``train_kge``: RotatE + sorted2
+    for phase 6, RGAT for phase 7 and ``train_gcl`` for phase 8."""
     k = TRAIN["neg_ratio"]
     dm.edge_layout = "dst"
     dm.device_features = True
@@ -851,14 +931,15 @@ def train_phase(dm, dev, tmp):
     t0 = time.perf_counter()
     runs = (start_train_kge(tmp), start_train_kge(
         tmp, "model.decoder_name=rotate", "model.neg_sampler=sorted2"),
-        start_train_kge(tmp, "model.encoder_name=rgat"))
+        start_train_kge(tmp, "model.encoder_name=rgat"),
+        start_train_gcl(tmp))
     ckpt = finish_train_kge(runs[0], "DistMult", dm.graph, t0)
     served = serve_checkpoint(ckpt, tmp, "train_kge DistMult")
     p = served.score("gene_000000", "protein_protein", "gene_000001")
     print(f"train_kge DistMult checkpoint: score {p:.6f}")
     check(0.0 < p < 1.0, "served score out of (0, 1)")
     return (records, launches["sorted_segment_sum"], batches,
-            module.feature_table, (runs[1], t0), (runs[2], t0))
+            module.feature_table, (runs[1], t0), (runs[2], t0), (runs[3], t0))
 
 
 def odd_shape_checks(dev):
@@ -1017,11 +1098,11 @@ def odd_relmm_checks(dev):
                         block_rel, gen)
 
 
-def relmm_times(msg, w, block_rel, g, library: bool):
+def relmm_times(msg, w, block_rel, g):
     """CUDA-event medians (ms) of the forward and d_msg kernels, the plain
-    versions and (``library``) one torch.bmm over the (nb, B, ·) block
-    views against the (nb, din, dout) weight blocks gathered before
-    timing; with the bounds."""
+    versions and one torch.bmm over the (nb, B, ·) block views against the
+    (nb, din, dout) weight blocks gathered before timing (3.6 GB at the
+    serving shape in float32); with the bounds."""
     plain = relmm.relation_matmul_sorted_plain
     wt = w.transpose(1, 2)
     nb = block_rel.shape[0]
@@ -1030,14 +1111,11 @@ def relmm_times(msg, w, block_rel, g, library: bool):
     with torch.no_grad():
         out["plain_fwd"] = time_ms(lambda: plain(msg, w, block_rel))
         out["plain_bwd"] = time_ms(lambda: plain(g, wt, block_rel))
-    out["lib_fwd"] = out["lib_bwd"] = None
-    if library:
-        blocks_w = w[block_rel.long()]
-        x3, g3 = msg.view(nb, -1, msg.shape[1]), g.view(nb, -1, g.shape[1])
-        out["lib_fwd"] = time_ms(lambda: torch.bmm(x3, blocks_w))
-        out["lib_bwd"] = time_ms(lambda: torch.bmm(
-            g3, blocks_w.transpose(1, 2)))
-        del blocks_w
+    blocks_w = w[block_rel.long()]
+    x3, g3 = msg.view(nb, -1, msg.shape[1]), g.view(nb, -1, g.shape[1])
+    out["lib_fwd"] = time_ms(lambda: torch.bmm(x3, blocks_w))
+    out["lib_bwd"] = time_ms(lambda: torch.bmm(g3, blocks_w.transpose(1, 2)))
+    del blocks_w
     r, din, dout = w.shape
     out["bound_fwd"] = relmm_bound_ms(msg.shape[0], din, dout, nb, r,
                                       msg.dtype)
@@ -1050,8 +1128,9 @@ def relmm_path_checks(dev, train_batch, full_batch):
     """Phase 7a: the relmm kernels against their plain versions at the
     path's shapes (RGAT's layer-1 768 → 512 and hidden 256 → 512 products
     on its SAINT batch in bf16; the RGCN edge conv's 768 → 256 on the
-    full-graph relation-layout batch in float32), timed; returns the
-    timings of RGAT's layer-1 shape and the max abs errors."""
+    full-graph relation-layout batch in float32), timed beside one
+    torch.bmm each; returns the timings of RGAT's layer-1 shape and the max
+    abs errors."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     r, heads = HPARAMS["num_relation"], HPARAMS["num_heads"]
     cases = [("RGAT layer 1", train_batch, 768, heads * 256, torch.bfloat16),
@@ -1067,18 +1146,15 @@ def relmm_path_checks(dev, train_batch, full_batch):
         abs_errs, g = relmm_check(what, msg, w, block_rel, gen)
         for i in (0, 1):
             errs[i].append(abs_errs[i])
-        t = relmm_times(msg, w, block_rel, g,
-                        library=dtype == torch.bfloat16)
+        t = relmm_times(msg, w, block_rel, g)
         for d in ("fwd", "bwd"):
             bound, by = t[f"bound_{d}"]
-            lib = (f"torch.bmm on gathered weight blocks {t[f'lib_{d}']:.4f}"
-                   f" ms" if t[f"lib_{d}"] is not None else
-                   "no library yardstick at this shape")
             print(f"relmm {what} {'forward' if d == 'fwd' else 'd_msg'} "
                   f"time ({str(dtype)[6:]}, {msg.shape[0]} rows, "
                   f"{din if d == 'fwd' else dout} -> "
                   f"{dout if d == 'fwd' else din}): kernel {t[d]:.4f} ms, "
-                  f"plain {t[f'plain_{d}']:.4f} ms, {lib}, bound "
+                  f"plain {t[f'plain_{d}']:.4f} ms, torch.bmm on gathered "
+                  f"weight blocks {t[f'lib_{d}']:.4f} ms, bound "
                   f"{bound:.4f} ms ({by}), kernel at {bound / t[d]:.1%} of "
                   f"bound")
         first = first or t
@@ -1237,6 +1313,385 @@ def rgat_phase(dm, dev, tmp, table, rgat_run, scorer_module):
     return records
 
 
+# -- phase 8: Stage B GCL pretraining and the flash InfoNCE kernels --------
+
+def flash_bound_ms(n: int, d: int, dtype, backward: bool):
+    """Least time for one flash_denom call, as (ms, "bytes" or
+    "operations", the term that sets it): an and bn read once and the
+    outputs written once (backward: col, den and g in, d_an and d_bn out)
+    over HBM bandwidth; the products over the peak of the instance's unit
+    (forward two N x N x d products, backward six: the logits rebuilt once
+    and the four cotangent products); the exps on the special-function
+    units (2 N^2 each way)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 2 * n * d * size + 8 * n
+    if backward:
+        nbytes += 8 * n + 2 * n * d * size
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    terms = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        f"{str(dtype)[6:]} operations": (6 if backward else 2) * 2 * n * n
+        * d / peak * 1e3,
+        "special-function operations": 2 * n * n / SFU_OP_PER_S * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations", term
+
+
+def unit_rows(n: int, d: int, gen, dtype) -> torch.Tensor:
+    x = torch.randn(n, d, device=gen.device, generator=gen)
+    return (x / x.norm(dim=1, keepdim=True)).to(dtype).contiguous()
+
+
+def flash_check(an, bn, col, g, what: str):
+    """The flash kernels against the plain version on one input: the
+    denominators (float32 within FLASH_TOL of |den| per row; bf16 within
+    FLASH_TOL absolute of the float32 plain version's) and d_an, d_bn
+    (within FLASH_TOL of their max, against the plain version in the same
+    type); returns (max abs den error, max abs gradient error)."""
+    dtype = an.dtype
+    den_k = flashnce.FORWARD(an, bn, col, GCL_TAU)
+    grads_k = flashnce.BACKWARD(an, bn, col, den_k, g, GCL_TAU)
+    den_32 = flashnce.denominators_plain(an.float(), bn.float(), col,
+                                         GCL_TAU)
+    den_p = den_32 if dtype == torch.float32 else \
+        flashnce.denominators_plain(an, bn, col, GCL_TAU)
+    grads_p = flashnce.denominator_grads_plain(an, bn, col, den_p, g,
+                                               GCL_TAU)
+    torch.cuda.synchronize()
+    val_tol, grad_tol = FLASH_TOL[dtype]
+    den_err = (den_k - den_32).abs()
+    if dtype == torch.float32:
+        den_ok = bool(torch.all(den_err <= val_tol
+                                * den_32.abs().clamp(min=1.0)))
+    else:
+        den_ok = float(den_err.max()) <= val_tol
+    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+    grad_abs = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(grads_k, grads_p))
+    print(f"flash {what} {str(dtype)[6:]}: N = {an.shape[0]}, d = "
+          f"{an.shape[1]}, {int((col != 0).sum())} pad rows: den max abs "
+          f"err {float(den_err.max()):.3g} (tol {val_tol:g}"
+          f"{'·max(|den|, 1)' if dtype == torch.float32 else ''}); d_an, "
+          f"d_bn rel-to-max {errs[0]:.3g}, {errs[1]:.3g} (tol {grad_tol:g})")
+    check(den_ok, f"flash {what} {dtype}: denominators disagree")
+    check(max(errs) <= grad_tol, f"flash {what} {dtype}: gradients disagree")
+    return float(den_err.max()), grad_abs
+
+
+def flash_inputs(n, d, pads, gen, dtype):
+    an, bn = unit_rows(n, d, gen, dtype), unit_rows(n, d, gen, dtype)
+    real = torch.arange(n, device=gen.device) < n - pads
+    col = torch.where(real, 0.0, flashnce.NEG).float()
+    g = torch.rand(n, device=gen.device, generator=gen) * real
+    return an, bn, col, g
+
+
+def flash_odd_checks(dev):
+    """Phase 8a: both flash kernels against the plain version off the
+    path: N no multiple of the 64-row tile, d of 100, 36 and 30 (the
+    scalar tile loads), one case at d = 256 across tiles, with and without
+    a padded tail."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    for n, d, pads in FLASH_ODD:
+        for dtype in (torch.float32, torch.bfloat16):
+            flash_check(*flash_inputs(n, d, pads, gen, dtype),
+                        "off the path")
+
+
+def flash_path_records(dev, node_mask, launches):
+    """Phase 8c: both kernels at the path's shape (the neighbour batch's
+    node slots, d = 256, its pad tail), float32 and bf16, against the plain
+    version, timed beside their bounds; returns the two ``kernels``
+    records (float32, the config's type)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    n, d = node_mask.shape[0], GCL["hidden_dim"]
+    col = torch.where(node_mask, 0.0, flashnce.NEG).float()
+    g = torch.rand(n, device=dev, generator=gen) * node_mask
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        an, bn = unit_rows(n, d, gen, dtype), unit_rows(n, d, gen, dtype)
+        errs = flash_check(an, bn, col, g, "at the path's shape")
+        den = flashnce.FORWARD(an, bn, col, GCL_TAU)
+        t = {"fwd": time_ms(lambda: flashnce.FORWARD(an, bn, col, GCL_TAU)),
+             "bwd": time_ms(lambda: flashnce.BACKWARD(an, bn, col, den, g,
+                                                      GCL_TAU))}
+        t["plain_fwd"] = time_ms(lambda: flashnce.denominators_plain(
+            an, bn, col, GCL_TAU))
+        t["plain_bwd"] = time_ms(lambda: flashnce.denominator_grads_plain(
+            an, bn, col, den, g, GCL_TAU))
+        for backward, key in ((False, "fwd"), (True, "bwd")):
+            bound, by, term = flash_bound_ms(n, d, dtype, backward)
+            print(f"flash_denom{'_bwd' if backward else ''} time "
+                  f"({str(dtype)[6:]}, N = {n}, d = {d}): kernel "
+                  f"{t[key]:.4f} ms, plain {t['plain_' + key]:.4f} ms, "
+                  f"bound {bound:.4f} ms ({term}), kernel at "
+                  f"{bound / t[key]:.1%} of bound; no single PyTorch call "
+                  f"returns these denominators (attention kernels return a "
+                  f"row logsumexp only through private ops, without the "
+                  f"two-table concat, the column mask or the masked "
+                  f"diagonal)")
+        out[dtype] = (t, errs)
+        del an, bn, den
+    t, errs = out[torch.float32]
+    records = []
+    for backward, key in ((False, "fwd"), (True, "bwd")):
+        name = flashnce.NAME + ("_bwd" if backward else "")
+        bound, by, _ = flash_bound_ms(n, d, torch.float32, backward)
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "biomedkg_tpu_torch/csrc/flashnce.cu",
+            "replaces": "biomedkg_tpu/ops/pallas/flashnce.py:"
+                        f"{FLASH_REPLACES[backward]}",
+            "launches": launches[name], "max_abs_err": errs[backward],
+            "ms": t[key], "plain_ms": t["plain_" + key], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
+    return records
+
+
+def gcl_module_for(cls, sd, table, dev, dtype):
+    module = cls(**GCL, compute_dtype=str(dtype)[6:])
+    module.load_state_dict(sd)
+    module.to(dev)
+    module.edge_layout = "dst"
+    module.feature_table = table
+    return module
+
+
+def gcl_grads(module, batch, draws):
+    loss, _ = module._forward_loss(batch, True, draws=draws)
+    grads = torch.autograd.grad(loss, list(module.parameters()))
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
+                     dtypes=(torch.bfloat16, torch.float32)):
+    """One batch's loss and every gradient with the kernels against the
+    same step with the plain versions, the features scaled by
+    COMPARE_FEATURE_SCALE; one step makes SEGSUM_PER_GCL_STEP segsum and
+    ``flash_n`` + ``flash_n`` flash launches. The loss within
+    STEP_TOL of max(|loss|, 1) (DGI's loss is a difference of two terms
+    near log 2). Each gradient within STEP_TOL of its max. In bf16, a leaf
+    whose plain bf16 gradient is itself further than STEP_TOL from the
+    float32 gradient (plain versions, same draws) is rounding noise (it
+    moves even with the plain version's row tiling); such a leaf is held
+    within STEP_TOL of the step's largest gradient instead."""
+    what = cls.model_name.upper()
+    draws = None
+    table = table * COMPARE_FEATURE_SCALE
+    for dtype in dtypes:
+        module = gcl_module_for(cls, sd, table, dev, dtype)
+        if draws is None:
+            draws = module.model.draw(
+                torch.Generator(device=dev).manual_seed(SEED + 1),
+                module._batch_features(batch), batch.edge_mask,
+                batch.node_mask, True)
+        reset_launch_counts()
+        loss_k, grads_k = gcl_grads(module, batch, draws)
+        used = launch_counts()
+        reset_launch_counts()
+        with plain_versions():
+            loss_p, grads_p = gcl_grads(module, batch, draws)
+            if dtype == torch.bfloat16:
+                _, grads_32 = gcl_grads(
+                    gcl_module_for(cls, sd, table, dev, torch.float32),
+                    batch, draws)
+        check(not any(launch_counts().values()),
+              "the plain versions launched a kernel")
+        check(used == expected_launches(SEGSUM_PER_GCL_STEP, None, 0,
+                                        flash_n=flash_n),
+              f"{what}: launches in one step: {used}")
+        loss_tol, grad_tol = STEP_TOL[dtype]
+        loss_err = abs(loss_k - loss_p) / max(abs(loss_p), 1.0)
+        names = [n for n, _ in module.named_parameters()]
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+        noise = {}
+        if dtype == torch.bfloat16:
+            top = max(float(g.float().abs().max()) for g in grads_p)
+            noise = {n: float((a.float() - b.float()).abs().max()) / top
+                     for n, a, b, c in zip(names, grads_k, grads_p, grads_32)
+                     if rel_err(b, c) > grad_tol}
+        bad = [n for n in names
+               if (noise[n] if n in noise else errs[n]) > grad_tol]
+        held = [n for n in names if n not in noise]
+        worst = max(held, key=errs.get) if held else None
+        note = (f"; bf16 noise leaves (plain bf16 over {grad_tol:g} of its "
+                f"max from float32), error of the step's largest gradient: "
+                + ", ".join(f"{n} {v:.3g}" for n, v in noise.items())
+                if noise else "")
+        print(f"{what} step {str(dtype)[6:]}, kernels vs plain: loss "
+              f"{loss_k:.7f} vs {loss_p:.7f} (err {loss_err:.3g} of "
+              f"max(|loss|, 1), tol {loss_tol:g}); gradients max "
+              f"rel-to-max "
+              + (f"{errs[worst]:.3g} ({worst}; tol {grad_tol:g})" if worst
+                 else "none held (every leaf bf16 noise)") + note)
+        check(loss_err <= loss_tol, f"{what} {dtype} step: loss disagrees")
+        check(not bad, f"{what} {dtype} step: {bad} disagree")
+
+
+def gcl_loss_falls(module, batch, what: str, steps: int):
+    """``steps`` steps on one batch with fixed draws and no dropout: the
+    first (lr 0) leaves the loss as it was, and the loss then falls."""
+    module.configure_optimizers(num_training_steps=2 * steps)
+    st = module.init_state()
+    x = module._batch_features(batch).to(module.compute_dtype)
+    draws = module.model.draw(
+        torch.Generator(device=x.device).manual_seed(SEED + 2), x,
+        batch.edge_mask, batch.node_mask, True)
+    draws["dropout"] = [[torch.ones_like(m) for m in v]
+                        for v in draws["dropout"]]
+    losses = []
+    for _ in range(steps):
+        st, out = module.train_step(st, batch, draws=draws)
+        losses.append(float(out["train_loss"]))
+    print(f"{what} fixed-batch losses (lr 0 at step 0): "
+          f"{[round(v, 6) for v in losses]}")
+    check(abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0]),
+          f"{what}: the first update (schedule(0) = 0) changed the loss")
+    check(losses[-1] < losses[1], f"{what}: the loss did not fall on a "
+                                  f"fixed batch")
+
+
+def gcl_batches(dev, tmp):
+    """The gene/protein graph's PrimeKG module and its first training
+    neighbour batches, on the card."""
+    dm = PrimeKGModule(**dict(PRIMEKG_DATA, node_type=GCL_NODE_TYPE,
+                              data_dir=tempfile.mkdtemp(dir=tmp)), seed=SEED)
+    dm.setup(stage="split")
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    loader = dm.train_dataloader(loader_type="neighbor")
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    host = list(itertools.islice(loader, P8_BATCHES))
+    sample_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    nodes = [int(b.node_mask.sum()) for b in host]
+    edges = [int(b.edge_mask.sum()) for b in host]
+    print(f"GCL {GCL_NODE_TYPE[0]} graph: {dm.graph.num_nodes} nodes, "
+          f"{dm.graph.num_edges} edges ({dm.train_data.graph.num_edges} in "
+          f"the train split); neighbour envelope {loader.node_budget} node "
+          f"x {loader.edge_budget} edge slots, {len(loader)} batches per "
+          f"epoch; real nodes {nodes}, edges {edges}; host sampling "
+          f"{sample_ms:.1f} ms per batch")
+    return dm, [batch_to_device(b, dev) for b in host]
+
+
+def grace_phase(dev, table, batches):
+    """Phase 8b: the GRACE step at full width in bf16 and float32; returns
+    the launches of its timed runs."""
+    total = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        warm, steps, profiled = P8_STEPS[dtype]
+        what = f"GRACE {str(dtype)[6:]} train step"
+        module = gcl_module.GRACEModule(**GCL, compute_dtype=str(dtype)[6:])
+        module.to(dev)
+        module.edge_layout = "dst"
+        module.feature_table = table
+        module.configure_optimizers(num_training_steps=100)
+        state = module.init_state(torch.Generator().manual_seed(SEED))
+        sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        state, _ = module.train_steps(state, batches[:warm], gen)
+        torch.cuda.synchronize()
+        state, launches, _ = timed_steps(
+            module, state, batches[warm:warm + steps], gen, what,
+            work=real_nodes)
+        check(launches == expected_launches(
+            SEGSUM_PER_GCL_STEP * steps, None, 0,
+            flash_n=FLASH_PER_STEP * steps),
+            f"{what}: launches {launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        profile_steps(module, state, batches[-profiled:], gen, what)
+        gcl_compare_step(gcl_module.GRACEModule, sd, table, dev, batches[0],
+                         FLASH_PER_STEP, dtypes=(dtype,))
+        gcl_loss_falls(gcl_module_for(gcl_module.GRACEModule, sd, table, dev,
+                                      dtype), batches[0], what,
+                       P8_FALL_STEPS[dtype])
+        del module, state
+        torch.cuda.empty_cache()
+    return total
+
+
+def dgi_ggd_phase(dev, table, batch):
+    """Phase 8d: one DGI and one GGD step at the same width, kernels
+    against the plain versions (segsum 8, flash 0)."""
+    for cls in (gcl_module.DGIModule, gcl_module.GGDModule):
+        module = cls(**GCL)
+        module.init(torch.Generator().manual_seed(SEED))
+        sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+        gcl_compare_step(cls, sd, table, dev, batch, 0)
+
+
+def start_train_gcl(tmp: str) -> subprocess.Popen:
+    """``python -m biomedkg_tpu_torch.train_gcl`` (GRACE on gene/protein,
+    the config's float32) on the card for a few steps of the
+    PrimeKG++-scale graph, in its own directory under ``tmp``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cwd = tempfile.mkdtemp(dir=tmp)
+    return subprocess.Popen(
+        [sys.executable, "-m", "biomedkg_tpu_torch.train_gcl",
+         "model.model_name=grace", "data.node_type=gene",
+         f"steps={TRAIN_GCL_STEPS}", "epochs=1", f"seed={SEED}",
+         f"ckpt_dir={cwd}/ckpt"],
+        cwd=cwd, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def encode_train_gcl(gcl_run, dm, dev):
+    """Phase 8e: train_gcl's checkpoint through ``load_gcl_module``, the
+    node type's full graph encoded on the card and on the CPU."""
+    proc, t0 = gcl_run
+    out, errs = proc.communicate(timeout=600)
+    print(f"train_gcl GRACE ({time.perf_counter() - t0:.1f} s, rc "
+          f"{proc.returncode}):", out.strip().replace("\n", " | "))
+    check(proc.returncode == 0, f"train_gcl failed: {errs[-2000:]}")
+    check(out.startswith(f"train_gcl: grace on {GCL_NODE_TYPE[0]}: "
+                         f"{dm.graph.num_nodes} nodes, "
+                         f"{dm.graph.num_edges} edges"),
+          "train_gcl did not train on the gene/protein graph")
+    ckpt = out.split("checkpoint: ")[-1].strip()
+    check("/gcl/gene/grace_none_random_" in ckpt,
+          f"train_gcl checkpoint path {ckpt}")
+    loader = FullGraphLoader(dm.graph, edge_layout="dst")
+    reset_launch_counts()
+    module = gcl_module.load_gcl_module(ckpt, device=dev)
+    module.edge_layout = "dst"
+    z, ms = timed_encodes(module, batch_to_device(loader.batch(), dev), 2)
+    launches = launch_counts()
+    cpu = gcl_module.load_gcl_module(ckpt, device="cpu")
+    cpu.edge_layout = "dst"
+    z_cpu = cpu.encode(batch_to_device(loader.batch(), "cpu"))
+    scale = float(z_cpu.abs().max())
+    err = float((z.cpu() - z_cpu).abs().max())
+    print(f"train_gcl checkpoint ({type(module).__name__}, "
+          f"{module.hparams['compute_dtype']}) encoded over the full "
+          f"{GCL_NODE_TYPE[0]} graph ({z.shape[0]} node slots): {ms} ms "
+          f"(host clock, synchronised), launches {launches}; card vs CPU "
+          f"max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z| = "
+          f"{Z_RTOL * scale:.3g})")
+    check(launches == expected_launches(2 * CONVS, None, 0),
+          f"GCL encode launches: {launches}")
+    check(bool(torch.isfinite(z).all()), "GCL encode: z not finite")
+    check(err <= Z_RTOL * scale, "GCL encode: card disagrees with the CPU")
+    return launches["sorted_segment_sum"]
+
+
+def gcl_phase(dev, tmp, gcl_run):
+    """Phase 8; returns the flash kernels' records and the segsum launches
+    of its paths."""
+    flash_odd_checks(dev)
+    dm, batches = gcl_batches(dev, tmp)
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+    launches = grace_phase(dev, table, batches)
+    records = flash_path_records(dev, batches[0].node_mask, launches)
+    dgi_ggd_phase(dev, table, batches[0])
+    del batches
+    torch.cuda.empty_cache()
+    encode_segsum = encode_train_gcl(gcl_run, dm, dev)
+    return records, launches["sorted_segment_sum"] + encode_segsum
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1249,7 +1704,8 @@ def main() -> int:
 
     # -- 1. build every kernel from the checkout, all at once -------------
     t0 = time.perf_counter()
-    libraries = (segsum.LIBRARY, negscore.LIBRARY, relmm.LIBRARY)
+    libraries = (segsum.LIBRARY, negscore.LIBRARY, relmm.LIBRARY,
+                 flashnce.LIBRARY)
     with ThreadPoolExecutor(len(libraries) + 1) as pool:
         builds = [pool.submit(lib.lib) for lib in libraries]
         sampler = pool.submit(native.get_lib)
@@ -1419,8 +1875,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         # -- 5. the training main path ------------------------------------
-        neg_records, train_segsum, batches, table, rotate_run, rgat_run = \
-            train_phase(scorer.dm, dev, tmp)
+        (neg_records, train_segsum, batches, table, rotate_run, rgat_run,
+         gcl_run) = train_phase(scorer.dm, dev, tmp)
         # -- 6. the other decoders and the dual-sorted sampler ------------
         neg_records += decoder_phase(scorer.dm, dev, tmp, batches, table,
                                      rotate_run)
@@ -1428,17 +1884,22 @@ def main() -> int:
         del batches
         relmm_records = rgat_phase(scorer.dm, dev, tmp, table, rgat_run,
                                    scorer.module)
+        # -- 8. Stage B: GCL pretraining and the flash kernels ------------
+        del table
+        torch.cuda.empty_cache()
+        flash_records, gcl_segsum = gcl_phase(dev, tmp, gcl_run)
 
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed["conv f32"]
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum", "route": "cuda",
         "source": "biomedkg_tpu_torch/csrc/segsum.cu",
         "replaces": "biomedkg_tpu/ops/pallas/segsum.py:74",
-        "launches": launches["sorted_segment_sum"] + train_segsum,
+        "launches": launches["sorted_segment_sum"] + train_segsum
+        + gcl_segsum,
         "max_abs_err": max(results.values()),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": lib_ms}] + neg_records
-        + relmm_records}))
+        + relmm_records + flash_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,128 @@
+"""The plain ``flash_denom`` (ops/flashnce.py) against the JAX package:
+its Pallas ``flashnce.flash_denom`` in interpret mode (as
+tests/test_gcl_losses.py runs it) and the XLA flash path
+``_flash_pos_denom``, values and gradients, float32 at rtol 2e-6 / 2e-5;
+ragged N with a padded tail; bf16 at JAX's own bounds (denominators within
+0.1 of float32, gradients within 5e-2 of their max). The CUDA kernels
+themselves run only on the card (chip_smoke.py phase 8); here the wrappers
+must refuse a CPU tensor rather than fall back."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from biomedkg_tpu.ops.pallas import flashnce as jax_flashnce
+from biomedkg_tpu.training.gcl_module import _flash_pos_denom
+from biomedkg_tpu_torch.ops import flashnce
+
+TAU = 0.2
+
+
+def _inputs(n, d, pads, seed):
+    rng = np.random.default_rng(seed)
+    an = rng.standard_normal((n, d)).astype(np.float32)
+    bn = rng.standard_normal((n, d)).astype(np.float32)
+    an /= np.linalg.norm(an, axis=1, keepdims=True)
+    bn /= np.linalg.norm(bn, axis=1, keepdims=True)
+    mask = np.arange(n) < n - pads
+    col = np.where(mask, 0.0, np.finfo(np.float32).min).astype(np.float32)
+    w = (rng.standard_normal(n).astype(np.float32) * mask).astype(np.float32)
+    return an, bn, col, w, mask
+
+
+def _port(an, bn, col, w, dtype=torch.float32, block=flashnce.PLAIN_BLOCK):
+    a = torch.tensor(an).to(dtype).requires_grad_(True)
+    b = torch.tensor(bn).to(dtype).requires_grad_(True)
+    den = flashnce.flash_denom(a, b, torch.tensor(col), TAU, block)
+    grads = torch.autograd.grad((den * torch.tensor(w)).sum(), (a, b))
+    return den.detach().numpy(), [g.float().numpy() for g in grads]
+
+
+def _xla(an, bn, col, w, block, dtype=jnp.float32):
+    def f(a, b):
+        _, den = _flash_pos_denom(a, b, jnp.asarray(col), block, TAU)
+        return jnp.sum(den * w), den
+    (_, den), grads = jax.value_and_grad(f, (0, 1), has_aux=True)(
+        jnp.asarray(an, dtype), jnp.asarray(bn, dtype))
+    return np.asarray(den), [np.asarray(g, np.float32) for g in grads]
+
+
+def test_plain_matches_jax_pallas_kernel_interpret():
+    """Against the Pallas kernels (forward, rows and columns backward) in
+    interpret mode and the XLA flash path, float32, a padded tail."""
+    n, d, block = 256, 128, 64
+    an, bn, col, w, _ = _inputs(n, d, 17, seed=11)
+
+    def via_kernel(a, b):
+        return jnp.sum(jax_flashnce.flash_denom(a, b, jnp.asarray(col),
+                                                block, TAU) * w)
+
+    jax_flashnce._FORCE_KERNEL = True
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            den_k = np.asarray(jax_flashnce.flash_denom(
+                jnp.asarray(an), jnp.asarray(bn), jnp.asarray(col), block,
+                TAU))
+            grads_k = jax.grad(via_kernel, (0, 1))(jnp.asarray(an),
+                                                   jnp.asarray(bn))
+    finally:
+        jax_flashnce._FORCE_KERNEL = False
+    den, grads = _port(an, bn, col, w, block=block)
+    np.testing.assert_allclose(den, den_k, rtol=2e-6, atol=2e-6)
+    for got, want in zip(grads, grads_k):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5,
+                                   atol=2e-6)
+    den_x, grads_x = _xla(an, bn, col, w, block)
+    np.testing.assert_allclose(den, den_x, rtol=2e-6, atol=2e-6)
+    for got, want in zip(grads, grads_x):
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("n,d,pads,block", [(333, 36, 40, 100),
+                                            (1000, 100, 0, 1024),
+                                            (200, 30, 9, 64)])
+def test_plain_ragged_matches_jax(n, d, pads, block):
+    """N no multiple of the tile (the plain version's last tile ragged),
+    with and without a padded tail, against the XLA flash path over one
+    N-row tile."""
+    an, bn, col, w, _ = _inputs(n, d, pads, seed=n)
+    den, grads = _port(an, bn, col, w, block=block)
+    den_x, grads_x = _xla(an, bn, col, w, block=n)
+    np.testing.assert_allclose(den, den_x, rtol=2e-6, atol=2e-6)
+    for got, want in zip(grads, grads_x):
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+
+
+def test_plain_bf16_at_jax_bounds():
+    """bf16 operands: denominators within 0.1 of JAX's float32 ones; the
+    gradients within 5e-2 of their max of JAX's bf16 flash gradients (both
+    round the logits and the cotangents to bf16 at the same places)."""
+    n, d, pads = 320, 64, 23
+    an, bn, col, w, mask = _inputs(n, d, pads, seed=5)
+    den, grads = _port(an, bn, col, w, dtype=torch.bfloat16, block=64)
+    den_32, _ = _xla(an, bn, col, w, block=64)
+    assert np.abs(den[mask] - den_32[mask]).max() < 0.1
+    _, grads_16 = _xla(an, bn, col, w, block=64, dtype=jnp.bfloat16)
+    for got, want in zip(grads, grads_16):
+        assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A CPU tensor reaches the kernels' wrappers only by mistake: they
+    raise instead of computing; ``flash_denom`` takes the plain version
+    only because the tensors lie on the CPU."""
+    an, bn, col, w, _ = _inputs(70, 16, 3, seed=1)
+    a, b, c = torch.tensor(an), torch.tensor(bn), torch.tensor(col)
+    with pytest.raises(ValueError, match="CUDA"):
+        flashnce.FORWARD(a, b, c, TAU)
+    den = flashnce.denominators_plain(a, b, c, TAU)
+    with pytest.raises(ValueError, match="CUDA"):
+        flashnce.BACKWARD(a, b, c, den, torch.ones(70), TAU)
+    assert flashnce.FORWARD.launches == flashnce.BACKWARD.launches == 0
+    np.testing.assert_array_equal(
+        flashnce.flash_denom(a, b, c, TAU).numpy(), den.numpy())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flashnce.flash_denom(a.double(), b.double(), c, TAU)

@@ -77,6 +77,13 @@ _CHILD = textwrap.dedent("""
                           node_type=["gene/protein", "drug", "disease"],
                           batch_size=8, val_ratio=0.2, test_ratio=0.2)
     KGEScorer(trained, dm768, device="cpu")
+    from biomedkg_tpu_torch.train_gcl import main as train_gcl
+    from biomedkg_tpu_torch.training.gcl_module import load_gcl_module
+    with contextlib.redirect_stdout(io.StringIO()):
+        gcl = train_gcl(["model.model_name=dgi", "data.node_type=drug",
+                         "steps=1", "epochs=1", "device=cpu",
+                         "ckpt_dir=" + sys.argv[3]])
+    load_gcl_module(gcl, device="cpu")
     print(sorted(m for m, mod in sys.modules.items()
                  if mod is not None and m.split(".")[0] in {forbidden!r}))
 """)
@@ -86,8 +93,9 @@ def test_serves_without_jax_pandas_yaml(tmp_path):
     """A JAX-written checkpoint (its optax optimizer state included) serves
     on the CPU in a process where JAX, biomedkg_tpu, pandas, PyYAML and
     optax cannot be imported; every port module and chip_smoke.py import
-    there too, and train_kge trains a step and writes a checkpoint that
-    serves."""
+    there too, train_kge trains a step and writes a checkpoint that
+    serves, and train_gcl trains a DGI step and writes a checkpoint that
+    loads."""
     hp = dict(encoder_name="rgcn", decoder_name="dismult", in_dim=8,
               hidden_dim=8, out_dim=8, num_hidden_layers=1, num_relation=8,
               num_heads=1, scheduler_type="cosine", learning_rate=1e-3,

@@ -114,6 +114,5 @@ def test_data_module_shares_budgets_like_jax(mode, tmp_path, monkeypatch):
             (a.node_budget, a.edge_budget, len(a))
         assert b.fill_target == a.fill_target
         _assert_same(a.sample()[0], b.sample()[0])
-    for kind in ("neighbor", "full"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ours.train_dataloader(loader_type=kind)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ours.train_dataloader(loader_type="full")
