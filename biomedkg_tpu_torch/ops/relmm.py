@@ -5,8 +5,12 @@ The edges come relation-sorted with every B-row block single-relation
 (the "relation" batch layout, sampling/batch.py); ``block_rel`` names each
 block's relation, and the block size is the batch's own
 (``E // len(block_rel)``). On a CUDA tensor the product runs on the
-hand-written Hopper kernel of ``csrc/relmm.cu`` (built at first use by
-ops/_build.py); on a CPU tensor it runs ``relation_matmul_sorted_plain``,
+hand-written Hopper kernels of ``csrc/relmm.cu`` (built at first use by
+ops/_build.py), in the instance ``relmm_instance`` picks from the type, the
+widths and the bases' alignment: ``wgmma`` (bf16, TMA-fed wgmma) and
+``simt_f32`` (full float32) where the widths allow, else the first design's
+``wmma_general`` and ``simt_f32_general``; on a CPU tensor it runs
+``relation_matmul_sorted_plain``,
 the plain torch version the tests and ``chip_smoke.py`` hold the kernel
 against. A CUDA tensor never falls back: the kernel builds and launches, or
 the call raises. This is also the port's whole counterpart of
@@ -35,8 +39,30 @@ _I = ctypes.c_int
 # x, w, block_rel, out, rows, k, n, num_rel, block_size, transpose, stream
 _SIGNATURE = [_P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _P]
 LIBRARY = CudaLibrary("relmm.cu", {"relmm_f32": _SIGNATURE,
-                                   "relmm_bf16": _SIGNATURE})
+                                   "relmm_bf16": _SIGNATURE,
+                                   "relmm_launch": _SIGNATURE + [_I]})
 NAME = "relation_matmul_sorted"
+# csrc/relmm.cu's instances, in the order of its Instance codes
+INSTANCES = ("wmma_general", "wgmma", "simt_f32_general", "simt_f32")
+# per type: (the redesign, the general instance that takes any widths)
+FAST = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
+GENERAL = {torch.bfloat16: "wmma_general", torch.float32: "simt_f32_general"}
+
+
+def relmm_instance(dtype: torch.dtype, k: int, n: int, *addresses: int) -> str:
+    """The instance a call runs: the redesign where its loads and stores
+    fit, else the general one. wgmma's TMA maps need 16-byte aligned bases
+    and row strides (k and n multiples of 8 in bf16: x's rows are k long,
+    W's are n long forward and k long for d_msg, and the output is stored
+    16 bytes a lane); simt_f32 copies the forward's W rows and stores the
+    output as float4 (n a multiple of 4, 16-byte aligned bases). The rule
+    is the same both ways, so the direction does not enter."""
+    aligned = all(a % 16 == 0 for a in addresses)
+    if dtype == torch.bfloat16:
+        fits = aligned and k > 0 and k % 8 == 0 and n % 8 == 0
+    else:
+        fits = aligned and n % 4 == 0
+    return FAST[dtype] if fits else GENERAL[dtype]
 
 
 def block_size_of(msg: torch.Tensor, block_rel: torch.Tensor) -> int:
@@ -80,12 +106,18 @@ def _check(msg, weights, block_rel, transpose):
 class RelmmKernel:
     """One direction's wrapper: the forward, or (``transpose``) d_msg, which
     reads weights (R, din, dout) as (R, dout, din). ``launches`` goes up by
-    one for each kernel launch and nowhere else."""
+    one for each kernel launch and nowhere else, and ``by_instance`` counts
+    the same launches by instance."""
 
     def __init__(self, transpose: bool):
         self.transpose = transpose
         self.name = NAME + ("_bwd" if transpose else "")
         self.launches = 0
+        self.by_instance = dict.fromkeys(INSTANCES, 0)
+
+    def reset(self):
+        self.launches = 0
+        self.by_instance = dict.fromkeys(INSTANCES, 0)
 
     def __call__(self, msg: torch.Tensor, weights: torch.Tensor,
                  block_rel: torch.Tensor) -> torch.Tensor:
@@ -102,15 +134,17 @@ class RelmmKernel:
         out = torch.empty(rows, n, dtype=msg.dtype, device=msg.device)
         if rows == 0 or n == 0:
             return out
-        lib = LIBRARY.lib()
-        fn = lib.relmm_f32 if msg.dtype == torch.float32 else lib.relmm_bf16
+        instance = relmm_instance(msg.dtype, k, n, msg.data_ptr(),
+                                  weights.data_ptr(), out.data_ptr())
         with torch.cuda.device(msg.device):
-            err = fn(msg.data_ptr(), weights.data_ptr(),
-                     block_rel.data_ptr(), out.data_ptr(), rows, k, n,
-                     weights.shape[0], block_size, int(self.transpose),
-                     stream_of(msg))
-        check_launch(err, self.name)
+            err = LIBRARY.lib().relmm_launch(
+                msg.data_ptr(), weights.data_ptr(), block_rel.data_ptr(),
+                out.data_ptr(), rows, k, n, weights.shape[0], block_size,
+                int(self.transpose), stream_of(msg),
+                INSTANCES.index(instance))
+        check_launch(err, f"{self.name} [{instance}]")
         self.launches += 1
+        self.by_instance[instance] += 1
         return out
 
 

@@ -57,23 +57,33 @@ Phases; any failure ends the run with a non-zero exit:
     checkpoint served, its ``score`` and ``topk_tails`` answers checked
     against a float64 host recomputation;
  7. RGAT and the relation-layout edge conv, through the grouped-GEMM
-    kernel ``relation_matmul_sorted`` (forward and d_msg): the kernels on
-    small odd shapes (B of 64 and 96, din 100, dout 36, a relation with no
-    block, trailing pad blocks); the RGAT training step (RGAT 768→256×4, 2
-    heads, + DistMult, "sorted" negatives, bf16 with float32 masters) on
-    relation-layout SAINT batches of the same envelope, timed as in phase
-    5 with its launch counts (relmm 8 + 6, negscore 1 + 1, segsum 0 per
-    step), a torch.profiler window, loss and gradients with the kernels
-    against the plain versions, the loss falling on a fixed batch; both
-    kernels against the plain version at the path's shapes (RGAT's 768 →
-    512 and 256 → 512 in bf16, the edge conv's full-graph 768 → 256 in
-    float32; dW against its plain float32 form), timed beside their bounds
-    and one torch.bmm over pre-gathered weight blocks; the RGCN edge conv's
-    full-graph encode (4 launches) against the node conv's z; and
-    ``train_kge model.encoder_name=rgat``'s checkpoint (run beside phase
-    5's) served: a float32 full-graph RGAT encode with 8 launches, timed,
-    its z against the same encode with the plain versions (Z_RTOL of
-    max|z|), its answers checked against float64;
+    kernel ``relation_matmul_sorted`` (forward and d_msg), whose wrapper
+    picks one of four instances per call (ops/relmm.py::relmm_instance):
+    every instance of each type against the plain version on small odd
+    shapes (B of 64 and 96, din 100 / dout 36 and the aligned 72 / 40, a
+    relation with no block, trailing pad blocks); the RGAT training step
+    (RGAT 768→256×4, 2 heads, + DistMult, "sorted" negatives, bf16 with
+    float32 masters) on relation-layout SAINT batches of the same envelope,
+    timed as in phase 5 with its launch counts (relmm 8 + 6 per step, all
+    on ``wgmma``; negscore 1 + 1, segsum 0), a torch.profiler window with
+    its float32 index_add_s split by call site, the same window with the
+    first-design relmm (the general instances), a few float32 steps (relmm
+    on ``simt_f32``), loss and gradients with the kernels against the plain
+    versions, the loss falling on a fixed batch; both directions at the
+    path's shapes (RGAT's 768 → 512 and 256 → 512 in bf16, the edge conv's
+    full-graph 768 → 256 in float32), where the wrapper must pick the
+    redesigned instance, each against the plain version and timed on the
+    device (torch.profiler) beside the general instance in turns, the plain
+    version, one torch.bmm over pre-gathered weight blocks, dW and the
+    bound; the RGCN edge conv's full-graph encode (4 launches on
+    ``simt_f32``, and once with the first design) against the node conv's
+    z; and ``train_kge model.encoder_name=rgat``'s checkpoint (run beside
+    phase 5's) served: a float32 full-graph RGAT encode with 8 launches,
+    timed, and with the plain versions and the first-design relmm, its z
+    against the plain versions' (Z_RTOL of max|z|), its answers checked
+    against float64. The ``kernels`` line has one record per relmm
+    instance and direction: the redesigns with their main-path launches,
+    the general instances (off the path) with none;
  8. Stage B, GCL pretraining on the gene/protein graph of the same
     synthetic PrimeKG++ (train_gcl.py:37), through the flash InfoNCE
     kernels ``flash_denom`` (forward and backward) and the segsum:
@@ -90,12 +100,13 @@ Phases; any failure ends the run with a non-zero exit:
     kernels against the plain versions; the loss falling on a fixed batch;
     (c) both flash kernels at the path's shape (the envelope's node slots,
     d = 256, its pad tail), float32 and bf16, timed beside their bounds and
-    the plain version; (d) one DGI and one GGD step at the same width,
-    kernels against plain versions (segsum 8, flash 0); (e) ``python -m
-    biomedkg_tpu_torch.train_gcl model.model_name=grace
-    data.node_type=gene`` (started beside phase 5's ``train_kge`` runs),
-    its checkpoint loaded by ``load_gcl_module`` and the full gene/protein
-    graph encoded on the card and on the CPU.
+    the plain version, and the segsum at the step's shape (the batch's edge
+    slots × 256 into its node slots), timed beside index_add_; (d) one DGI
+    and one GGD step at the same width, kernels against plain versions
+    (segsum 8, flash 0); (e) ``python -m biomedkg_tpu_torch.train_gcl
+    model.model_name=grace data.node_type=gene`` (started beside phase 5's
+    ``train_kge`` runs), its checkpoint loaded by ``load_gcl_module`` and
+    the full gene/protein graph encoded on the card and on the CPU.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -142,6 +153,7 @@ from biomedkg_tpu_torch.training.kge_module import (KGEModule, _mix_factor,
 
 SEED = 42
 WARMUP, ITERS = 3, 20
+PROFILE_TRIES = 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (data sheet)
 FP32_FLOP_PER_S = 67e12          # H100 SXM float32, outside tensor cores
 BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
@@ -205,6 +217,8 @@ NEG_REPLACES = {(False, False): 494, (False, True): 526,
 # -- phase 7: RGAT and the relation-layout edge conv -----------------------
 RGAT = dict(TRAIN, encoder_name="rgat")        # 2 heads (HPARAMS)
 P7_WARMUP, P7_STEPS = 2, 5
+# float32 RGAT steps (train_kge's default type): warm-up, timed
+P7_F32_WARMUP, P7_F32_STEPS = 1, 2
 # grouped GEMMs per RGAT step (two per conv: source and destination
 # messages) and d_msg launches (none for the first conv: its messages come
 # from the feature table, which has no gradient); per encode
@@ -215,8 +229,14 @@ RELMM_PER_EDGE_ENCODE = CONVS
 # sums differ only in order; bf16 outputs are each rounded once (at most one
 # bf16 ulp, 2^-7, apart)
 RELMM_RTOL = {torch.float32: SUM_RTOL, torch.bfloat16: 1e-2}
+# relmm is timed on the device (device_ms): a call's Python wrapper takes
+# tens of microseconds, as long as the bf16 kernels themselves or longer on
+# a busy host, so CUDA events around calls would time the host
 # the TPU functions the two relmm kernels replace (relmm.py lines)
 RELMM_REPLACES = {False: 36, True: 91}
+# relmm off the path: (din, dout, B). din 100 / dout 36 take the general
+# bf16 instance (not multiples of 8) and simt_f32; 72 / 40 take wgmma
+RELMM_ODD = [(100, 36, 64), (100, 36, 96), (72, 40, 96)]
 
 # -- phase 8: Stage B GCL pretraining (train_gcl.py, configs/model/gcl.yaml,
 # configs/model/base.yaml) ---------------------------------------------------
@@ -289,6 +309,59 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn) -> float:
+    """The device time of one call of ``fn`` in ms, after warm-up: the
+    kernel times torch.profiler records over ITERS calls, summed and
+    divided by ITERS. The host's time between kernels does not enter.
+    CUPTI now and then hands a window back with no kernel in it: such a
+    window is profiled again, and after PROFILE_TRIES empty windows the
+    CUDA-event time (time_ms, host gaps included) stands in, said so."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) \
+            / 1e3 / ITERS
+        if ms > 0:
+            return ms
+    ms = time_ms(fn)
+    print(f"device_ms: torch.profiler recorded no kernel in "
+          f"{PROFILE_TRIES} windows; CUDA-event time {ms:.4f} ms used")
+    return ms
+
+
+def segsum_batch_times(batch, d: int, dtype, gen, what: str):
+    """The segsum kernel at a batch's shape, (edge slots, d) messages in
+    ``dtype`` into its node slots by its dst ids: against the plain
+    version (SUM_RTOL of Σ|x| per segment), timed beside the plain version,
+    one float32 index_add_ and the bound."""
+    dst = batch.edge_index[1].int()
+    n_pad = batch.node_mask.shape[0]
+    data = torch.randn(dst.shape[0], d, device=dst.device,
+                       generator=gen).to(dtype)
+    got = segsum.KERNEL(data, dst, n_pad)
+    want = segsum.segsum_plain(data, dst, n_pad)
+    scale = segsum.segsum_plain(data.abs(), dst, n_pad)
+    check(bool(torch.all((got - want).abs() <= SUM_RTOL * scale)),
+          f"segsum kernel disagrees at the {what}")
+    yard = torch.zeros(n_pad, d, device=dst.device)
+    ms = time_ms(lambda: segsum.KERNEL(data, dst, n_pad))
+    plain_ms = time_ms(lambda: segsum.segsum_plain(data, dst, n_pad))
+    lib_ms = time_ms(lambda: yard.index_add_(0, dst.long(), data.float()))
+    bound, by = segsum_bound_ms(data, n_pad)
+    print(f"segsum {what} {str(dtype)[6:]} time ({tuple(data.shape)} into "
+          f"{n_pad}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel "
+          f"at {bound / ms:.1%} of bound; max abs err "
+          f"{float((got - want).abs().max()):.3g}")
+
+
 def segsum_bound_ms(data: torch.Tensor, num_segments: int):
     """Least time for one segment-sum: each input read once, the output
     written once, over HBM bandwidth; the adds over float32 peak."""
@@ -321,29 +394,40 @@ def negscore_bound_ms(mode, z, m, r, backward: bool):
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
+def relmm_key(kernel, instance: str) -> str:
+    return f"{kernel.name}[{instance}]"
+
+
 def launch_counts() -> dict:
+    """Every kernel's launches; relmm's also by instance."""
     return {"sorted_segment_sum": segsum.KERNEL.launches,
             **{name: k.launches for name, k in negscore.KERNELS.items()},
             **{name: k.launches for name, k in relmm.KERNELS.items()},
+            **{relmm_key(k, inst): c for k in relmm.KERNELS.values()
+               for inst, c in k.by_instance.items()},
             **{name: k.launches for name, k in flashnce.KERNELS.items()}}
 
 
 def reset_launch_counts():
     segsum.KERNEL.launches = 0
-    for k in (*negscore.KERNELS.values(), *relmm.KERNELS.values(),
-              *flashnce.KERNELS.values()):
+    for k in (*negscore.KERNELS.values(), *flashnce.KERNELS.values()):
         k.launches = 0
+    for k in relmm.KERNELS.values():
+        k.reset()
 
 
 def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
-                      flash_n: int = 0) -> dict:
+                      flash_n: int = 0, relmm_instance: str = None) -> dict:
     """Every count 0 but segsum's, the ``kernel`` negscore pair's (none
-    when ``kernel`` is None), relmm's (forward, d_msg) and the flash pair's
-    (forward, backward)."""
+    when ``kernel`` is None), relmm's (forward, d_msg), all of them on
+    ``relmm_instance``, and the flash pair's (forward, backward)."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update({"sorted_segment_sum": segsum_n, relmm.NAME: relmm_n[0],
                  relmm.NAME + "_bwd": relmm_n[1], flashnce.NAME: flash_n,
                  flashnce.NAME + "_bwd": flash_n})
+    if any(relmm_n):
+        want[relmm_key(relmm.FORWARD, relmm_instance)] = relmm_n[0]
+        want[relmm_key(relmm.BACKWARD, relmm_instance)] = relmm_n[1]
     if kernel is not None:
         want.update({kernel: n, kernel + "_bwd": n})
     return want
@@ -377,6 +461,18 @@ def plain_versions():
          encoders.relation_matmul_sorted, gcl_module.flash_denom) = saved[:4]
         for name, fn in saved[4].items():
             setattr(decoders, name, fn)
+
+
+@contextlib.contextmanager
+def first_design_relmm():
+    """relmm's wrapper picking the general instances (the first design)
+    for every call: the A/B of the redesign on its paths."""
+    saved = relmm.relmm_instance
+    relmm.relmm_instance = lambda dtype, *_: relmm.GENERAL[dtype]
+    try:
+        yield
+    finally:
+        relmm.relmm_instance = saved
 
 
 def serve_requests(scorer: KGEScorer, rng) -> dict:
@@ -533,16 +629,19 @@ def timed_steps(module, state, batches, gen, what: str, work=triplets):
     return state, launches, step_ms
 
 
-def profile_steps(module, state, batches, gen, what: str):
+def profile_steps(module, state, batches, gen, what: str,
+                  split_op: str = None):
     """Device busy time by kernel and host time by op over one profiled
     window of ``batches`` (torch.profiler), and the idle share against the
-    same window's CUDA-event wall time."""
+    same window's CUDA-event wall time; with ``split_op``, that op's calls
+    by call site (the window then records Python stacks)."""
     steps = len(batches)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.profiler.ProfilerActivity.CUDA],
+            with_stack=split_op is not None) as prof:
         start.record()
         module.train_steps(state, batches, gen)
         end.record()
@@ -553,6 +652,10 @@ def profile_steps(module, state, batches, gen, what: str):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if busy == 0:
+        print(f"{what}: torch.profiler recorded no device kernel in this "
+              f"window ({wall:.3f} ms wall per step); no breakdown")
+        return
     print(f"{what} device kernels (torch.profiler, {steps} steps, per "
           f"step): {busy:.3f} ms busy of {wall:.3f} ms wall (CUDA events in "
           f"the same profiled window; idle share {1 - busy / wall:.3f}), "
@@ -568,6 +671,48 @@ def profile_steps(module, state, batches, gen, what: str):
           + "; ".join(f"{e.key[:40]} x{e.count / steps:g} "
                       f"{e.self_cpu_time_total / 1e3 / steps:.3f}"
                       for e in host_ops[:12]))
+    if split_op is not None:
+        split_by_call_site(prof, split_op, steps, what)
+
+
+def call_site(event) -> str:
+    """Where a profiled op was called from, read from its parents (the
+    window ran with_stack, so Python frames are parent events): the
+    autograd node whose backward ran it, if any, with the port's frames
+    inside that backward; else the port's two innermost frames; else the
+    op that called it."""
+    frames, node = [], None
+    parent = event.cpu_parent
+    while parent is not None and node is None:
+        name = parent.name
+        if name.startswith("autograd::engine::evaluate_function: "):
+            node = name.split(": ", 1)[1]
+        elif "biomedkg_tpu_torch/" in name:
+            frames.append(name.split("biomedkg_tpu_torch/")[-1])
+        parent = parent.cpu_parent
+    site = " < ".join(frames[:2])
+    if node is not None:
+        site = f"backward of {node}" + (f" ({site})" if site else "")
+    if site:
+        return site
+    return (f"inside {event.cpu_parent.name}" if event.cpu_parent
+            else "no recorded caller")
+
+
+def split_by_call_site(prof, op: str, steps: int, what: str):
+    """``op``'s calls grouped by call site, each with the device time of
+    the kernels they launched, per step."""
+    sites = {}
+    for e in prof.events():
+        if e.name == op:
+            ms, count = sites.get(call_site(e), (0.0, 0))
+            sites[call_site(e)] = (ms + e.device_time_total / 1e3, count + 1)
+    ordered = sorted(sites.items(), key=lambda kv: -kv[1][0])
+    print(f"{what} {op} by call site (torch.profiler with_stack, device ms "
+          f"per step): {sum(v[0] for v in sites.values()) / steps:.3f} ms "
+          f"in {sum(v[1] for v in sites.values()) / steps:g} calls; "
+          + "; ".join(f"x{count / steps:g} {ms / steps:.3f} ms at {site}"
+                      for site, (ms, count) in ordered))
 
 
 def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
@@ -588,7 +733,8 @@ def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
             loss_p, grads_p = step_grads(step, batch, *draws)
         check(not any(launch_counts().values()),
               "the plain versions launched a kernel")
-        check(used == expected_launches(segsum_n, kernel, 1, relmm_n),
+        check(used == expected_launches(segsum_n, kernel, 1, relmm_n,
+                                        relmm_instance=relmm.FAST[dtype]),
               f"{what}: launches in one step: {used}")
         loss_tol, grad_tol = STEP_TOL[dtype]
         if dtype == torch.bfloat16 and kernel.startswith("transe"):
@@ -905,23 +1051,8 @@ def train_phase(dm, dev, tmp):
         "distmult", False, z, path_negatives(batch, gen, False),
         module.model.decoder.rel_emb.detach(), ds, launches)
 
-    data = torch.randn(batch.edge_type.shape[0], TRAIN["hidden_dim"],
-                       device=dev, generator=gen).bfloat16()
-    dst = batch.edge_index[1].int()
-    n_pad = batch.node_mask.shape[0]
-    got = segsum.KERNEL(data, dst, n_pad)
-    want = segsum.segsum_plain(data, dst, n_pad)
-    scale = segsum.segsum_plain(data.abs(), dst, n_pad)
-    check(bool(torch.all((got - want).abs() <= SUM_RTOL * scale)),
-          "segsum kernel disagrees at the training shape")
-    yard = torch.zeros(n_pad, data.shape[1], device=dev)
-    seg = (time_ms(lambda: segsum.KERNEL(data, dst, n_pad)),
-           time_ms(lambda: segsum.segsum_plain(data, dst, n_pad)),
-           time_ms(lambda: yard.index_add_(0, dst.long(), data.float())),
-           *segsum_bound_ms(data, n_pad))
-    print(f"segsum conv bf16 time (training shape {tuple(data.shape)} into "
-          f"{n_pad}): kernel {seg[0]:.4f} ms, plain {seg[1]:.4f} ms, "
-          f"index_add_ {seg[2]:.4f} ms, bound {seg[3]:.4f} ms ({seg[4]})")
+    segsum_batch_times(batch, TRAIN["hidden_dim"], torch.bfloat16, gen,
+                       "conv (training shape)")
 
     # -- training makes progress on a fixed batch -------------------------
     loss_falls(sd, module.feature_table, dev, batch, "train")
@@ -1043,28 +1174,57 @@ def relmm_bound_ms(rows, din, dout, nb, r, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def relmm_check(what, msg, w, block_rel, gen):
-    """The forward and d_msg kernels against the plain version, each
-    element within RELMM_RTOL of (|x| @ |W|), and dW (the backward's float32
-    bmm + index_add_) against autograd through the plain version in float32
-    within SUM_RTOL of Σ|msg||g|; returns (forward, d_msg) max abs errors
-    and the upstream gradient."""
+def on_instance(instance: str):
+    """A context in which relmm's wrapper takes ``instance``: the general
+    ones by first_design_relmm, the redesigns where they fit."""
+    if instance in relmm.GENERAL.values():
+        return first_design_relmm()
+    return contextlib.nullcontext()
+
+
+def relmm_run(kernel, x, w, block_rel, instance):
+    """``kernel`` on ``instance``, checking that the launch took it."""
+    before = kernel.by_instance[instance]
+    with on_instance(instance):
+        out = kernel(x, w, block_rel)
+    check(kernel.by_instance[instance] == before + 1,
+          f"{kernel.name}: the launch did not take {instance}")
+    return out
+
+
+def relmm_check(what, msg, w, block_rel, gen, errs):
+    """The forward and d_msg kernels, on the instance the wrapper picks and
+    on the type's general one, against the plain version: each element
+    within RELMM_RTOL of (|x| @ |W|); dW (the backward's float32 bmm +
+    index_add_) against autograd through the plain version in float32
+    within SUM_RTOL of Σ|msg||g|. Adds each (instance, direction)'s max abs
+    error to ``errs``; returns the instances picked and the upstream
+    gradient."""
     dtype, (r, din, dout) = msg.dtype, w.shape
     g = torch.randn(msg.shape[0], dout, device=msg.device,
                     generator=gen).to(dtype)
     plain = relmm.relation_matmul_sorted_plain
-    abs_errs, ratios = [], []
+    picked, report = [], []
     for x, kernel in ((msg, relmm.FORWARD), (g, relmm.BACKWARD)):
-        got = kernel(x, w, block_rel)
         wp = w.transpose(1, 2) if kernel.transpose else w
         want = plain(x, wp, block_rel)
         mag = plain(x.abs().float(), wp.abs().float(), block_rel)
-        err = (got.float() - want.float()).abs()
-        ratios.append(float((err / mag.clamp(min=1e-30)).max()))
-        abs_errs.append(float(err.max()))
-        check(bool(torch.all(err <= RELMM_RTOL[dtype] * mag)),
-              f"relmm {what} {kernel.name}: kernel disagrees with plain")
-        del got, want, mag, err
+        picked.append(relmm.relmm_instance(
+            dtype, x.shape[1], wp.shape[2], x.data_ptr(), w.data_ptr(), 0))
+        for instance in dict.fromkeys((picked[-1], relmm.GENERAL[dtype])):
+            got = relmm_run(kernel, x, w, block_rel, instance)
+            err = (got.float() - want.float()).abs()
+            ratio = float((err / mag.clamp(min=1e-30)).max())
+            key = (instance, kernel.transpose)
+            errs[key] = max(errs.get(key, 0.0), float(err.max()))
+            report.append(f"{'d_msg' if kernel.transpose else 'forward'} "
+                          f"[{instance}] {ratio:.3g} (max abs "
+                          f"{float(err.max()):.3g})")
+            check(bool(torch.all(err <= RELMM_RTOL[dtype] * mag)),
+                  f"relmm {what} {kernel.name} [{instance}]: kernel "
+                  f"disagrees with plain")
+            del got, err
+        del want, mag
     wf = w.float().requires_grad_(True)
     (dw_p,) = torch.autograd.grad(plain(msg.float(), wf, block_rel), wf,
                                   g.float())
@@ -1074,47 +1234,70 @@ def relmm_check(what, msg, w, block_rel, gen):
     torch.cuda.synchronize()
     print(f"relmm {what}: msg {tuple(msg.shape)} {str(dtype)[6:]}, W "
           f"{tuple(w.shape)}, block {relmm.block_size_of(msg, block_rel)}: "
-          f"kernel vs plain max |err| / (|x|@|W|) forward {ratios[0]:.3g}, "
-          f"d_msg {ratios[1]:.3g} (tol "
-          f"{RELMM_RTOL[dtype]:g}), max abs {abs_errs}; dW vs plain float32 "
-          f"{dw_ratio:.3g} of Σ|msg||g| (tol {SUM_RTOL:g})")
+          f"kernel vs plain max |err| / (|x|@|W|) (tol "
+          f"{RELMM_RTOL[dtype]:g}): {'; '.join(report)}; dW vs plain "
+          f"float32 {dw_ratio:.3g} of Σ|msg||g| (tol {SUM_RTOL:g})")
     check(dw_ratio <= SUM_RTOL, f"relmm {what}: dW disagrees with plain")
-    return abs_errs, g
+    return picked, g
 
 
-def odd_relmm_checks(dev):
-    """The relmm kernels off the path: din 100, dout 36, a relation with no
-    block (3 of 5), two trailing pad blocks (zero rows, relation 0), and B
-    of 64 and of 96 (rows then no multiple of the 64-row tile)."""
+def odd_relmm_checks(dev, errs):
+    """The relmm kernels off the path, every instance of each type: a
+    relation with no block (3 of 5), two trailing pad blocks (zero rows,
+    relation 0), B of 64 and of 96 (rows then no multiple of the 64- and
+    128-row tiles), at RELMM_ODD's widths: din 100 / dout 36 (the general
+    bf16 instance) and the aligned 72 / 40, which wgmma takes."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    for block in (64, 96):
+    for din, dout, block in RELMM_ODD:
         block_rel = torch.tensor([1, 0, 4, 2, 2, 1, 4, 0, 0], device=dev)
         for dtype in (torch.float32, torch.bfloat16):
-            msg = torch.randn(len(block_rel) * block, 100, device=dev,
+            msg = torch.randn(len(block_rel) * block, din, device=dev,
                               generator=gen)
             msg[-2 * block:] = 0
-            w = torch.randn(5, 100, 36, device=dev, generator=gen)
-            relmm_check(f"odd shape B={block}", msg.to(dtype), w.to(dtype),
-                        block_rel, gen)
+            w = torch.randn(5, din, dout, device=dev, generator=gen)
+            picked, _ = relmm_check(f"odd shape {din}->{dout} B={block}",
+                                    msg.to(dtype), w.to(dtype), block_rel,
+                                    gen, errs)
+            if din % 8 == 0 and dout % 8 == 0:
+                check(picked == [relmm.FAST[dtype]] * 2,
+                      f"relmm {din}->{dout} {dtype}: picked {picked}")
 
 
 def relmm_times(msg, w, block_rel, g):
-    """CUDA-event medians (ms) of the forward and d_msg kernels, the plain
-    versions and one torch.bmm over the (nb, B, ·) block views against the
-    (nb, din, dout) weight blocks gathered before timing (3.6 GB at the
-    serving shape in float32); with the bounds."""
+    """Device times (ms per call, device_ms), per direction: the
+    redesigned instance and the general one (the first design) in turns
+    (general, redesign, redesign, general), the plain version (its
+    kernels' sum), one torch.bmm over the (nb, B, ·) block views against
+    the (nb, din, dout) weight blocks gathered before timing (3.6 GB at the
+    serving shape in float32), and dW (the backward's plain float32 bmm +
+    index_add_); with the bounds. The products get block_rel as int32, so
+    that the wrapper's cast launches nothing."""
     plain = relmm.relation_matmul_sorted_plain
+    fast, general = relmm.FAST[msg.dtype], relmm.GENERAL[msg.dtype]
     wt = w.transpose(1, 2)
     nb = block_rel.shape[0]
-    out = {"fwd": time_ms(lambda: relmm.FORWARD(msg, w, block_rel)),
-           "bwd": time_ms(lambda: relmm.BACKWARD(g, w, block_rel))}
+    br32 = block_rel.int()
+    out = {}
+    for d, kernel, x in (("fwd", relmm.FORWARD, msg),
+                         ("bwd", relmm.BACKWARD, g)):
+        runs = {fast: [], general: []}
+        for instance in (general, fast, fast, general):
+            with on_instance(instance):
+                runs[instance].append(device_ms(
+                    lambda: kernel(x, w, br32)))
+        out[d] = min(runs[fast])
+        out[f"general_{d}"] = min(runs[general])
+        out[f"runs_{d}"] = runs
     with torch.no_grad():
-        out["plain_fwd"] = time_ms(lambda: plain(msg, w, block_rel))
-        out["plain_bwd"] = time_ms(lambda: plain(g, wt, block_rel))
+        out["plain_fwd"] = device_ms(lambda: plain(msg, w, br32))
+        out["plain_bwd"] = device_ms(lambda: plain(g, wt, br32))
+    out["dw"] = device_ms(lambda: relmm.weight_grad(msg, g, block_rel,
+                                                    w.shape[0]))
     blocks_w = w[block_rel.long()]
     x3, g3 = msg.view(nb, -1, msg.shape[1]), g.view(nb, -1, g.shape[1])
-    out["lib_fwd"] = time_ms(lambda: torch.bmm(x3, blocks_w))
-    out["lib_bwd"] = time_ms(lambda: torch.bmm(g3, blocks_w.transpose(1, 2)))
+    out["lib_fwd"] = device_ms(lambda: torch.bmm(x3, blocks_w))
+    out["lib_bwd"] = device_ms(lambda: torch.bmm(g3,
+                                                 blocks_w.transpose(1, 2)))
     del blocks_w
     r, din, dout = w.shape
     out["bound_fwd"] = relmm_bound_ms(msg.shape[0], din, dout, nb, r,
@@ -1124,48 +1307,67 @@ def relmm_times(msg, w, block_rel, g):
     return out
 
 
-def relmm_path_checks(dev, train_batch, full_batch):
+def relmm_path_checks(dev, train_batch, full_batch, errs):
     """Phase 7a: the relmm kernels against their plain versions at the
     path's shapes (RGAT's layer-1 768 → 512 and hidden 256 → 512 products
     on its SAINT batch in bf16; the RGCN edge conv's 768 → 256 on the
-    full-graph relation-layout batch in float32), timed beside one
-    torch.bmm each; returns the timings of RGAT's layer-1 shape and the max
-    abs errors."""
+    full-graph relation-layout batch in float32), where the wrapper must
+    pick the redesigned instance; each timed beside the general instance,
+    the plain version, one torch.bmm and dW. Returns the timings by type:
+    RGAT's layer-1 shape (bf16), the edge conv's (float32)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     r, heads = HPARAMS["num_relation"], HPARAMS["num_heads"]
     cases = [("RGAT layer 1", train_batch, 768, heads * 256, torch.bfloat16),
              ("RGAT hidden", train_batch, 256, heads * 256, torch.bfloat16),
              ("edge conv (serving)", full_batch, 768, 256, torch.float32)]
-    errs, first = [[], []], None
+    by_type = {}
     for what, batch, din, dout, dtype in cases:
         block_rel = batch.block_rel
         msg = torch.randn(batch.edge_type.shape[0], din, device=dev,
                           generator=gen) * batch.edge_mask[:, None]
         w = torch.randn(r, din, dout, device=dev, generator=gen) / din ** 0.5
         msg, w = msg.to(dtype), w.to(dtype)
-        abs_errs, g = relmm_check(what, msg, w, block_rel, gen)
-        for i in (0, 1):
-            errs[i].append(abs_errs[i])
+        picked, g = relmm_check(what, msg, w, block_rel, gen, errs)
+        check(picked == [relmm.FAST[dtype]] * 2,
+              f"relmm {what}: the path shape picked {picked}")
         t = relmm_times(msg, w, block_rel, g)
+        fast, general = relmm.FAST[dtype], relmm.GENERAL[dtype]
         for d in ("fwd", "bwd"):
             bound, by = t[f"bound_{d}"]
             print(f"relmm {what} {'forward' if d == 'fwd' else 'd_msg'} "
                   f"time ({str(dtype)[6:]}, {msg.shape[0]} rows, "
                   f"{din if d == 'fwd' else dout} -> "
-                  f"{dout if d == 'fwd' else din}): kernel {t[d]:.4f} ms, "
-                  f"plain {t[f'plain_{d}']:.4f} ms, torch.bmm on gathered "
-                  f"weight blocks {t[f'lib_{d}']:.4f} ms, bound "
-                  f"{bound:.4f} ms ({by}), kernel at {bound / t[d]:.1%} of "
-                  f"bound")
-        first = first or t
+                  f"{dout if d == 'fwd' else din}): {fast} {t[d]:.4f} ms, "
+                  f"{general} (the first design) {t[f'general_{d}']:.4f} ms "
+                  f"(runs in turn {general}, {fast}, {fast}, {general}: "
+                  f"{t[f'runs_{d}'][general][0]:.4f}, "
+                  f"{t[f'runs_{d}'][fast][0]:.4f}, "
+                  f"{t[f'runs_{d}'][fast][1]:.4f}, "
+                  f"{t[f'runs_{d}'][general][1]:.4f}), plain "
+                  f"{t[f'plain_{d}']:.4f} ms, torch.bmm on gathered weight "
+                  f"blocks {t[f'lib_{d}']:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), {fast} at {bound / t[d]:.1%} of bound, "
+                  f"{t[f'general_{d}'] / t[d]:.2f}x faster than {general}")
+        print(f"relmm {what} dW (plain float32 bmm + index_add_): "
+              f"{t['dw']:.4f} ms")
+        by_type.setdefault(dtype, t)
         del msg, w, g
     torch.cuda.empty_cache()
-    return first, [max(e) for e in errs]
+    return by_type
+
+
+def rgat_module(table, dev, **over):
+    module = KGEModule(**dict(RGAT, **over)).to(dev)
+    module.feature_table = table
+    module.configure_optimizers(num_training_steps=100)
+    return module
 
 
 def rgat_train_phase(dm, dev, table):
-    """Phase 7b; returns the device batches and the launches of the timed
-    steps."""
+    """Phase 7b: the RGAT step in bf16 (timed, profiled with its
+    index_add_s split by call site, compared, the loss falling) and a few
+    float32 steps (train_kge's default type, timed); returns the device
+    batches and the relmm launches of the timed steps by type."""
     dm.edge_layout = "relation"
     loader = dm.train_dataloader(loader_type="saint")
     t0 = time.perf_counter()
@@ -1180,9 +1382,7 @@ def rgat_train_phase(dm, dev, table):
           f"edge occupancy {occupancy:.4f}; host SAINT sampling "
           f"{sample_ms:.1f} ms per batch")
 
-    module = KGEModule(**RGAT).to(dev)
-    module.feature_table = table
-    module.configure_optimizers(num_training_steps=100)
+    module = rgat_module(table, dev)
     state = module.init_state(torch.Generator().manual_seed(SEED))
     sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1191,13 +1391,35 @@ def rgat_train_phase(dm, dev, table):
     state, launches, _ = timed_steps(module, state, batches[P7_WARMUP:], gen,
                                      "RGAT train step")
     want = expected_launches(0, "distmult_neg_scores", P7_STEPS,
-                             tuple(n * P7_STEPS for n in RELMM_PER_STEP))
+                             tuple(n * P7_STEPS for n in RELMM_PER_STEP),
+                             relmm_instance="wgmma")
     check(launches == want, f"RGAT launches per step: {launches}")
-    profile_steps(module, state, batches[-PROFILED:], gen, "RGAT train step")
+    profile_steps(module, state, batches[-PROFILED:], gen, "RGAT train step",
+                  split_op="aten::index_add_")
+    with first_design_relmm():
+        profile_steps(module, state, batches[-PROFILED:], gen,
+                      "RGAT train step with the first-design relmm "
+                      "(wmma_general)")
+    del module, state
+
+    f32 = rgat_module(table, dev, compute_dtype="float32")
+    state = f32.init_state(torch.Generator().manual_seed(SEED))
+    state, _ = f32.train_steps(state, batches[:P7_F32_WARMUP], gen)
+    torch.cuda.synchronize()
+    state, f32_launches, _ = timed_steps(
+        f32, state, batches[P7_WARMUP:P7_WARMUP + P7_F32_STEPS], gen,
+        "RGAT train step float32")
+    want = expected_launches(0, "distmult_neg_scores", P7_F32_STEPS,
+                             tuple(n * P7_F32_STEPS for n in RELMM_PER_STEP),
+                             relmm_instance="simt_f32")
+    check(f32_launches == want,
+          f"RGAT float32 launches per step: {f32_launches}")
+    del f32, state
+
     compare_step(sd, table, dev, batches[0], "distmult_neg_scores", "RGAT",
                  segsum_n=0, relmm_n=RELMM_PER_STEP, encoder_name="rgat")
     loss_falls(sd, table, dev, batches[0], "RGAT", encoder_name="rgat")
-    return batches, launches
+    return batches, [launches, f32_launches]
 
 
 def timed_encodes(module, batch, n=3):
@@ -1214,38 +1436,43 @@ def timed_encodes(module, batch, n=3):
 
 def edge_conv_phase(module, full_batch):
     """Phase 7c: the RGCN edge conv's full-graph encode (float32, one
-    relmm launch per conv) against the node conv's z on the same
-    relation-layout batch."""
+    relmm launch per conv, on simt_f32) against the node conv's z on the
+    same relation-layout batch; returns the encodes' launches."""
     enc = module.model.encoder
     module.edge_layout = "relation"
     enc.conv_impl = "edge"
     reset_launch_counts()
     z_edge, ms = timed_encodes(module, full_batch)
     launches = launch_counts()
+    with first_design_relmm():
+        _, first_ms = timed_encodes(module, full_batch, 1)
     enc.conv_impl = "node"
     z_node, node_ms = timed_encodes(module, full_batch, 1)
     enc.conv_impl = "auto"
     module.edge_layout = "dst"
     check(launches == expected_launches(0, "distmult_neg_scores", 0,
-                                        (3 * RELMM_PER_EDGE_ENCODE, 0)),
+                                        (3 * RELMM_PER_EDGE_ENCODE, 0),
+                                        relmm_instance="simt_f32"),
           f"edge conv encode launches: {launches}")
     scale = float(z_node.abs().max())
     err = float((z_edge - z_node).abs().max())
     print(f"RGCN edge conv full-graph encode (float32, relation layout, "
           f"{full_batch.edge_type.shape[0]} edge slots): {ms} ms (host "
           f"clock, synchronised), {RELMM_PER_EDGE_ENCODE} relmm launches "
-          f"per encode; node conv on the same batch {node_ms} ms; z edge vs "
+          f"per encode; with the first-design relmm (simt_f32_general) "
+          f"{first_ms} ms; node conv on the same batch {node_ms} ms; z edge vs "
           f"node max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z| = "
           f"{Z_RTOL * scale:.3g})")
     check(bool(torch.isfinite(z_edge).all()), "edge conv z not finite")
     check(err <= Z_RTOL * scale, "edge conv z disagrees with the node conv")
+    return launches
 
 
 def serve_rgat(rgat_run, graph, tmp, dev):
     """Phase 7d: train_kge's RGAT checkpoint served (a float32 full-graph
-    RGAT encode in the relation layout), its encode timed and its z held
-    against the same encode with the plain versions, its answers checked
-    against float64; returns the serving encode's relmm launches."""
+    RGAT encode in the relation layout, on simt_f32), its encode timed and
+    its z held against the same encode with the plain versions, its answers
+    checked against float64; returns the serving encode's launches."""
     proc, t0 = rgat_run
     ckpt = finish_train_kge(proc, "RGAT", graph, t0)
     reset_launch_counts()
@@ -1257,13 +1484,16 @@ def serve_rgat(rgat_run, graph, tmp, dev):
           and served.module.edge_layout == "relation",
           "train_kge did not train RGAT / not served in the relation layout")
     check(launches == expected_launches(0, "distmult_neg_scores", 0,
-                                        (RELMM_PER_RGAT_ENCODE, 0)),
+                                        (RELMM_PER_RGAT_ENCODE, 0),
+                                        relmm_instance="simt_f32"),
           f"RGAT serving encode launches: {launches}")
     batch = batch_to_device(
         FullGraphLoader(served.dm.graph, edge_layout="relation").batch(), dev)
     z, ms = timed_encodes(served.module, batch, 2)
     with plain_versions():
         z_plain, plain_ms = timed_encodes(served.module, batch, 1)
+    with first_design_relmm():
+        _, first_ms = timed_encodes(served.module, batch, 1)
     scale = float(z_plain.abs().max())
     err = float((z - z_plain).abs().max())
     n = served.z.shape[0]
@@ -1278,39 +1508,57 @@ def serve_rgat(rgat_run, graph, tmp, dev):
     lat = serve_requests(served, np.random.default_rng(SEED))
     print(f"RGAT served: full-graph encode {ms} ms (host clock, "
           f"synchronised, {RELMM_PER_RGAT_ENCODE} relmm launches), with the "
-          f"plain versions {plain_ms} ms; z kernel vs plain "
+          f"plain versions {plain_ms} ms, with the first-design relmm "
+          f"(simt_f32_general) {first_ms} ms; z kernel vs plain "
           f"max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z| = "
           f"{Z_RTOL * scale:.3g}); peak device memory over the scorer's "
           f"start-up {peak_gb:.2f} GB; requests {json.dumps(lat)}")
-    return launches[relmm.NAME]
+    return launches
+
+
+def relmm_records(times, errs, path_launches):
+    """One record per relmm instance and direction. The redesigned
+    instances carry the main path's launches and must have some; the
+    general ones (the first design, off the path) are timed at the same
+    shape as their type's redesign and must have none."""
+    records = []
+    for dtype in (torch.bfloat16, torch.float32):
+        t = times[dtype]
+        for instance in (relmm.FAST[dtype], relmm.GENERAL[dtype]):
+            for kernel in (relmm.FORWARD, relmm.BACKWARD):
+                d = "bwd" if kernel.transpose else "fwd"
+                n = sum(c[relmm_key(kernel, instance)] for c in path_launches)
+                on_path = instance == relmm.FAST[dtype]
+                check((n > 0) == on_path,
+                      f"{relmm_key(kernel, instance)}: {n} main-path "
+                      f"launches")
+                bound, by = t[f"bound_{d}"]
+                records.append({
+                    "name": relmm_key(kernel, instance), "route": "cuda",
+                    "source": "biomedkg_tpu_torch/csrc/relmm.cu",
+                    "replaces": f"biomedkg_tpu/ops/pallas/relmm.py:"
+                                f"{RELMM_REPLACES[kernel.transpose]}",
+                    "launches": n,
+                    "max_abs_err": errs[(instance, kernel.transpose)],
+                    "ms": t[d] if on_path else t[f"general_{d}"],
+                    "plain_ms": t[f"plain_{d}"], "bound_ms": bound,
+                    "bound_by": by, "library_ms": t[f"lib_{d}"]})
+    return records
 
 
 def rgat_phase(dm, dev, tmp, table, rgat_run, scorer_module):
-    """Phase 7; returns the relmm kernels' records."""
-    odd_relmm_checks(dev)
+    """Phase 7; returns the relmm instances' records."""
+    errs = {}
+    odd_relmm_checks(dev, errs)
     batches, launches = rgat_train_phase(dm, dev, table)
     full_batch = batch_to_device(
         FullGraphLoader(dm.graph, edge_layout="relation").batch(), dev)
-    t, errs = relmm_path_checks(dev, batches[0], full_batch)
-    edge_conv_phase(scorer_module, full_batch)
+    times = relmm_path_checks(dev, batches[0], full_batch, errs)
+    launches.append(edge_conv_phase(scorer_module, full_batch))
     del full_batch, batches
     torch.cuda.empty_cache()
-    serve_launches = serve_rgat(rgat_run, dm.graph, tmp, dev)
-    records = []
-    for backward, d in ((False, "fwd"), (True, "bwd")):
-        name = relmm.NAME + ("_bwd" if backward else "")
-        bound, by = t[f"bound_{d}"]
-        records.append({
-            "name": name, "route": "cuda",
-            "source": "biomedkg_tpu_torch/csrc/relmm.cu",
-            "replaces": f"biomedkg_tpu/ops/pallas/relmm.py:"
-                        f"{RELMM_REPLACES[backward]}",
-            "launches": launches[name] + (0 if backward
-                                          else serve_launches),
-            "max_abs_err": errs[backward], "ms": t[d],
-            "plain_ms": t[f"plain_{d}"], "bound_ms": bound, "bound_by": by,
-            "library_ms": t[f"lib_{d}"]})
-    return records
+    launches.append(serve_rgat(rgat_run, dm.graph, tmp, dev))
+    return relmm_records(times, errs, launches)
 
 
 # -- phase 8: Stage B GCL pretraining and the flash InfoNCE kernels --------
@@ -1685,6 +1933,10 @@ def gcl_phase(dev, tmp, gcl_run):
     table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
     launches = grace_phase(dev, table, batches)
     records = flash_path_records(dev, batches[0].node_mask, launches)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for dtype in (torch.float32, torch.bfloat16):
+        segsum_batch_times(batches[0], GCL["hidden_dim"], dtype, gen,
+                           "GRACE step shape")
     dgi_ggd_phase(dev, table, batches[0])
     del batches
     torch.cuda.empty_cache()

@@ -13,6 +13,9 @@ interpret-mode figure, tests/test_ops.py; its scan rounds dW per relation
 to bf16, the port sums it in float32 and rounds once).
 """
 
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,3 +181,67 @@ def test_segment_softmax_and_max_match_jax(heads):
 
 def test_take_rows_matbwd_is_take_rows():
     assert segment.take_rows_matbwd is segment.take_rows
+
+
+# (din, dout) of every relmm product on the RGAT (768/256 -> 2 heads x 256)
+# and RGCN edge-conv (768/256 -> 256) paths
+PATH_SHAPES = [(768, 512), (256, 512), (768, 256), (256, 256)]
+ALIGNED = (0, 256, 4096)    # msg, weights and out addresses, 16-byte aligned
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("din,dout", PATH_SHAPES)
+def test_instance_picker_takes_the_redesign_on_the_paths(dtype, din, dout):
+    """Both directions: the forward (k = din, n = dout) and d_msg (k =
+    dout, n = din)."""
+    want = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}[dtype]
+    for k, n in ((din, dout), (dout, din)):
+        assert relmm.relmm_instance(dtype, k, n, *ALIGNED) == want
+
+
+@pytest.mark.parametrize("k,n,addresses,bf16,f32", [
+    # widths that are no multiple of 8 (bf16) or whose n is none of 4
+    (100, 36, ALIGNED, "wmma_general", "simt_f32"),
+    (36, 100, ALIGNED, "wmma_general", "simt_f32"),
+    (100, 37, ALIGNED, "wmma_general", "simt_f32_general"),
+    (0, 40, ALIGNED, "wmma_general", "simt_f32"),
+    # the aligned odd shape chip_smoke.py gives the redesign
+    (72, 40, ALIGNED, "wgmma", "simt_f32"),
+    (40, 72, ALIGNED, "wgmma", "simt_f32"),
+    # a base off 16 bytes: msg, weights or out
+    (768, 512, (8, 256, 4096), "wmma_general", "simt_f32_general"),
+    (768, 512, (0, 260, 4096), "wmma_general", "simt_f32_general"),
+    (768, 512, (0, 256, 4100), "wmma_general", "simt_f32_general"),
+])
+def test_instance_picker_falls_back_to_the_general_instance(
+        k, n, addresses, bf16, f32):
+    assert relmm.relmm_instance(torch.bfloat16, k, n, *addresses) == bf16
+    assert relmm.relmm_instance(torch.float32, k, n, *addresses) == f32
+
+
+def test_instance_picker_sees_a_misaligned_view():
+    """A row view of a tensor starts at its storage offset."""
+    w = torch.zeros(8, 768, 512, dtype=torch.bfloat16)
+    msg = torch.zeros(257, 768, dtype=torch.bfloat16)
+    assert relmm.relmm_instance(torch.bfloat16, 768, 512, msg[1:].data_ptr(),
+                                w.data_ptr(), 0) == "wgmma"
+    assert relmm.relmm_instance(torch.bfloat16, 768, 512,
+                                msg.view(-1)[4:].data_ptr(), w.data_ptr(),
+                                0) == "wmma_general"
+
+
+def test_instances_match_the_cuda_source():
+    """INSTANCES is in the order of csrc/relmm.cu's Instance codes, and
+    every type's redesign and general instance are among them."""
+    path = os.path.join(os.path.dirname(relmm.__file__), os.pardir, "csrc",
+                        "relmm.cu")
+    with open(path) as f:
+        enum = re.search(r"enum Instance : int \{(.*?)\};", f.read(),
+                         re.S).group(1)
+    codes = dict(re.findall(r"\b(k[A-Za-z]+) = (\d+),", enum))
+    names = {"kWmmaGeneral": "wmma_general", "kWgmma": "wgmma",
+             "kSimtGeneral": "simt_f32_general", "kSimt": "simt_f32"}
+    assert {names[c]: int(v) for c, v in codes.items()} == {
+        name: i for i, name in enumerate(relmm.INSTANCES)}
+    for table in (relmm.FAST, relmm.GENERAL):
+        assert set(table.values()) <= set(relmm.INSTANCES)
