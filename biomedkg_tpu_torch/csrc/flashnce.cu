@@ -20,18 +20,19 @@
 // (pallas_call of _bwd_rows_kernel and of _bwd_cols_kernel). The (N, N)
 // logits never reach device memory, in either direction.
 //
-// Forward (fwd_kernel). A CTA owns 64 rows of an, kept in shared memory
-// for the whole call. It streams 64-row tiles of bn and then of an through
-// shared memory, computes each 64 x 64 logit tile, and folds it into a
-// running max and sum of exponentials per row, held in registers by the
-// four threads that share the row; den is written once. A ragged last tile
-// is masked by index, so any N works; the diagonal of intra is masked by
-// global row and column index.
+// First design, forward (fwd_kernel). A CTA owns 64 rows of an, kept in
+// shared memory for the whole call. It streams 64-row tiles of bn and then
+// of an through shared memory, computes each 64 x 64 logit tile, and folds
+// it into a running max and sum of exponentials per row, held in
+// registers by the four threads that share the row; den is written once.
+// A ragged last tile is masked by index, so any N works; the diagonal of
+// intra is masked by global row and column index.
 //
-// Backward (bwd_kernel): the flash split of the Pallas design into a rows
-// side and a columns side, so that no output element is written by two
-// CTAs and no atomics are needed (the result is deterministic). The three
-// sums above are three "jobs", and a launch runs all three (blockIdx.y):
+// First design, backward (bwd_kernel): the flash split of the Pallas
+// design into a rows side and a columns side, so that no output element
+// is written by two CTAs and no atomics are needed (the result is
+// deterministic). The three sums above are three "jobs", and a launch runs
+// all three (blockIdx.y):
 //   0 rows, inter: own an_o, streamed bn_s -> sum_s gi_os bn_s
 //   1 intra:       own an_o, streamed an_s -> sum_s (gt_os + gt_so) an_s
 //   2 cols, inter: own bn_o, streamed an_s -> sum_s gi_so an_s   (d_bn)
@@ -54,24 +55,47 @@
 // reference's XLA path rounds them, gcl_module.py:125-127). Any d up to
 // kMaxD.
 //
+// Pad tiles. The neighbour batch's pads hold col = -FLT_MAX, and a term
+// whose column is a pad is exp(x - FLT_MAX - m) = 0 exactly, as is a
+// cotangent term whose g is 0. The wrapper passes live flags (2, ceil(N /
+// 64)) uint8 (ops/flashnce.py::live_tiles): row 0 "a real column in this
+// 64-row tile", row 1 "a nonzero g in it", read from the data, never from
+// where the pads lie. The skipping kernels leave out the tiles and tile
+// pairs whose every term is such an exact 0: the forward a column tile
+// with no real column; the backward's job 0 a pair whose own g or
+// streamed columns are all 0 / pads, job 2 the same with own and streamed
+// swapped, job 1 only when both of its terms are 0; an own tile with no
+// live pair writes its zeros and exits. Where no column is real at all,
+// every column tile counts as live (den is then -FLT_MAX itself, and a
+// pad column's term exp(x - FLT_MAX - den) is 1, not 0).
+//
+// Designs (launch codes, ops/flashnce.py's DESIGNS):
+//   0 first_f32   the first design in float32: 64 x 64 logit
+//                 tiles through shared memory, every tile computed
+//   1 first_bf16  the first design in bf16, every tile computed
+//   2 skip_bf16   the first design in bf16 with the pad-tile skip; bitwise
+//                 equal to first_bf16 (it leaves out adds of an exact 0)
+//   3 wide_f32    the float32 redesign (namespace wide below), with the
+//                 skip
+// The path runs wide_f32 and skip_bf16; the first designs stay for the
+// A/B in chip_smoke.py.
+//
 // Bound. At GRACE's path shape (N = 37,376, d = 256) a forward makes two
 // N x N x d products, 1.43e12 operations: 21.3 ms on the float32 units at
 // 67 TFLOP/s, 1.45 ms on the bf16 tensor cores, plus 2.8e9 exps; the
-// backward needs at least six such products. Operations bound both;
-// device-memory traffic is a few MB. What the design does about it: the
-// own tile is read once per CTA and each streamed tile once per CTA pass,
-// both products of a tile share its shared-memory copy, and the bf16
-// instance runs on the tensor cores. Tiles move in 16-byte loads and
-// stores; the float32 products read shared memory as float4 (a thread's
-// 4 x 4 logits four k at a time, the backward's 4 x 16 block of d four
-// cotangents at a time); the forward and the float32 backward (one CTA per
-// SM) load the next streamed tile into registers while they work on this
-// one, and the bf16 backward leaves that to the SM's other CTA. Per
-// logit the epilogue spends a multiply by 1/tau and one __expf; the
-// backward stages g, den and col of both tiles in shared memory. Not done
-// yet: wgmma fed by TMA with a multi-stage ring, register-resident logits
-// (no shared-memory round trip), and skipping tiles whose rows are all
-// pads.
+// backward needs at least six such products. Operations bound both, over
+// the live tile pairs only; device-memory traffic is a few MB. The first
+// design: the own tile is read once per CTA and each streamed tile once
+// per CTA pass, both products of a tile share its shared-memory copy, and
+// the bf16 instance runs on the tensor cores (WMMA); tiles move in 16-byte
+// loads, the next streamed tile is loaded into registers while this one
+// is worked on. What held its float32 instances back (29-33 % of the
+// bound): one CTA of 8 warps per SM (two whole 64 x 260 tiles), a 4 x 4
+// logit micro-tile, and a shared-memory round trip for every logit. The
+// redesign (namespace wide): 8 x 8 and 8 x 4 register tiles fed by a
+// cp.async ring, the logits and cotangents formed in registers, two CTAs
+// per SM in the forward. Not done yet: bf16 on wgmma with the logits in
+// registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -243,6 +267,43 @@ template <typename T> struct Occupancy {
   static constexpr int kMinBlocks = sizeof(T) == 2 ? 2 : 1;
 };
 
+// ---- live tiles -------------------------------------------------------------
+
+// The live flags of 64-row tiles (flags row 0: a real column, row 1: a
+// nonzero g). all_col: no tile has a real column, so every one counts as
+// live (see the header). Every thread of the CTA must construct it.
+struct Live {
+  const uint8_t* col;
+  const uint8_t* g;
+  int tiles;
+  bool all_col;
+
+  // flags may be null where nothing is skipped (then c, gz, pair unused)
+  __device__ Live(const uint8_t* flags, int t64)
+      : col(flags), g(flags + t64), tiles(t64) {
+    int any = flags == nullptr;
+    for (int i = threadIdx.x; !any && i < t64; i += blockDim.x)
+      any |= flags[i];
+    all_col = !__syncthreads_or(any);
+  }
+  // 64-row tile t
+  __device__ __forceinline__ bool c(int t) const {
+    return t < tiles && (all_col || col[t]);
+  }
+  __device__ __forceinline__ bool gz(int t) const {
+    return t < tiles && g[t];
+  }
+  // whether a backward pair holds a nonzero term, from the own rows'
+  // flags (go, co) and the streamed rows' (gs, cs): job 0 the rows term
+  // g_o exp(l + col_s - den_o), job 2 the columns term g_s exp(l + col_o -
+  // den_s), job 1 either
+  static __device__ __forceinline__ bool pair(int job, bool go, bool co,
+                                              bool gs, bool cs) {
+    const bool rows = go && cs, cols = gs && co;
+    return job == 0 ? rows : job == 2 ? cols : (rows || cols);
+  }
+};
+
 // ---- forward --------------------------------------------------------------
 
 // Folds one logit tile into the running (m, s) of row r = threadIdx.x / 4;
@@ -276,11 +337,13 @@ __device__ __forceinline__ void online_update(
   m = m_new;
 }
 
-template <typename T>
+// kSkip: leave out the column tiles without a real column (flags).
+template <typename T, bool kSkip>
 __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
     fwd_kernel(const T* __restrict__ an, const T* __restrict__ bn,
-               const float* __restrict__ col, float* __restrict__ den, int n,
-               int d, int dp, float tau, bool vec) {
+               const float* __restrict__ col,
+               const uint8_t* __restrict__ flags, float* __restrict__ den,
+               int n, int d, int dp, float tau, bool vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = tile_ld<T>(dp);
   T* xs = reinterpret_cast<T*>(smem);
@@ -288,18 +351,26 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
   float* ls = reinterpret_cast<float*>(zs + kRows * ld);
   const int64_t r0 = (int64_t)blockIdx.x * kRows;
   const int64_t row = r0 + threadIdx.x / 4;
-  // the streamed tiles in order: bn then an at each column tile c0; the
-  // next one's loads are in flight while this one is worked on
+  const Live live(kSkip ? flags : nullptr, (n + kRows - 1) / kRows);
+  // the first live column tile at or after c
+  auto live_from = [&](int64_t c) -> int64_t {
+    if constexpr (kSkip) {
+      while (c < n && !live.c((int)(c / kRows))) c += kRows;
+    }
+    return c;
+  };
+  // the streamed tiles in order: bn then an at each live column tile c0;
+  // the next one's loads are in flight while this one is worked on
   TileLoader<T> next;
   next.fetch(an, r0, n, d, dp, vec);
   next.store(xs, ld, n, d, dp, vec);
-  next.fetch(bn, 0, n, d, dp, vec);
+  next.fetch(bn, live_from(0), n, d, dp, vec);
   // the running sum is a double: it takes one term per tile, about 1,200
   // at the path's N, and float32 would lose about sqrt(1,200) ulps
   float m = kNeg;
   double s = 0.0;
   const float inv_tau = 1.f / tau;
-  for (int64_t c0 = 0; c0 < n; c0 += kRows) {
+  for (int64_t c0 = live_from(0); c0 < n; c0 = live_from(c0 + kRows)) {
     float cv[16];  // this thread's 16 columns of the tile: their masks
 #pragma unroll
     for (int q = 0; q < 16; ++q) {
@@ -310,10 +381,12 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
       __syncthreads();  // the previous tile's readers are done
       next.store(zs, ld, n, d, dp, vec);
       __syncthreads();
-      if (!intra)
+      if (!intra) {
         next.fetch(an, c0, n, d, dp, vec);
-      else if (c0 + kRows < n)
-        next.fetch(bn, c0 + kRows, n, d, dp, vec);
+      } else {
+        const int64_t c1 = live_from(c0 + kRows);
+        if (c1 < n) next.fetch(bn, c1, n, d, dp, vec);
+      }
       logit_tile(xs, zs, ld, dp, ls);
       __syncthreads();
       online_update(ls, m, s, row, c0, cv, inv_tau, intra);
@@ -342,25 +415,35 @@ __device__ __forceinline__ void load_vectors(
 // s = s0 + c; own and st are the shared (g, den, col) vectors of the own
 // and the streamed tile. The rows term (o the row i, s the column j) is
 // g_o exp(l / tau + col_s - den_o), the columns term the same with o and s
-// swapped. Job 0 takes the rows term, job 2 the columns term, job 1 both
-// (zero on the diagonal). Zero beyond the last streamed row.
+// swapped. Job 0 takes the rows term, job 2 the columns term, job 1 both.
+// The intra diagonal's logit is -FLT_MAX whatever its column mask, as in
+// the reference: its terms are exp(-FLT_MAX - den) = 0 unless no column
+// is real (den then -FLT_MAX too). Zero beyond the last streamed row.
 __device__ __forceinline__ float cotangent(
     float l, int r, int c, int64_t o, int64_t s, int n, int job,
     const float* own, const float* st, float inv_tau) {
-  if (s >= n || (job == 1 && o == s)) return 0.f;
+  if (s >= n) return 0.f;
   const float x = l * inv_tau;
+  const bool diag = job == 1 && o == s;
   float w = 0.f;
-  if (job != 2) w = own[r] * __expf(x + st[2 * kRows + c] - own[kRows + r]);
-  if (job != 0) w += st[c] * __expf(x + own[2 * kRows + r] - st[kRows + c]);
+  if (job != 2)
+    w = own[r] *
+        __expf((diag ? kNeg : x + st[2 * kRows + c]) - own[kRows + r]);
+  if (job != 0)
+    w += st[c] *
+         __expf((diag ? kNeg : x + own[2 * kRows + r]) - st[kRows + c]);
   return w;
 }
 
-template <typename T>
+// kSkip: leave out the tile pairs whose terms are all 0 (flags); an own
+// tile with none live writes its zeros and exits.
+template <typename T, bool kSkip>
 __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
     bwd_kernel(const T* __restrict__ an, const T* __restrict__ bn,
                const float* __restrict__ col, const float* __restrict__ den,
-               const float* __restrict__ g, float* __restrict__ out, int n,
-               int n64, int d, int dp, float tau, bool vec) {
+               const float* __restrict__ g,
+               const uint8_t* __restrict__ flags, float* __restrict__ out,
+               int n, int n64, int d, int dp, float tau, bool vec) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ld = tile_ld<T>(dp);
@@ -372,6 +455,25 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
   const T* streamed = job == 0 ? bn : an;
   const int64_t o0 = (int64_t)blockIdx.x * kRows;
   float* out_job = out + ((int64_t)job * n64 + o0) * dp;
+  const Live live(kSkip ? flags : nullptr, n64 / kRows);
+  // the first streamed tile at or after s that pairs with this own tile
+  auto live_from = [&](int64_t s) -> int64_t {
+    if constexpr (kSkip) {
+      const int ot = blockIdx.x;
+      while (s < n &&
+             !Live::pair(job, live.gz(ot), live.c(ot),
+                         live.gz((int)(s / kRows)), live.c((int)(s / kRows))))
+        s += kRows;
+    }
+    return s;
+  };
+  const int64_t first = live_from(0);
+  if (first >= n) {  // no live pair (kSkip only): zeros
+    for (int i = threadIdx.x; i < kRows * dp / 4; i += kThreads)
+      reinterpret_cast<float4*>(out_job)[i] = make_float4(0.f, 0.f, 0.f,
+                                                          0.f);
+    return;
+  }
 
   constexpr bool kF32 = sizeof(T) == 4;
   // float32 overlaps the next streamed tile's loads with the work on this
@@ -381,7 +483,7 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
   TileLoader<T> next;
   next.fetch(own, o0, n, d, dp, vec);
   next.store(xs, ld, n, d, dp, vec);
-  if constexpr (kOverlap) next.fetch(streamed, 0, n, d, dp, vec);
+  if constexpr (kOverlap) next.fetch(streamed, first, n, d, dp, vec);
 
   // float32: thread (ty, tx) owns rows ty + 16 i and the float4 columns
   // 4 tx + 64 q
@@ -406,14 +508,16 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
   load_vectors(own_v, o0, n, g, den, col);
   const float inv_tau = 1.f / tau;
 
-  for (int64_t s0 = 0; s0 < n; s0 += kRows) {
+  for (int64_t s0 = first; s0 < n; s0 = live_from(s0 + kRows)) {
     __syncthreads();
     if constexpr (!kOverlap) next.fetch(streamed, s0, n, d, dp, vec);
     next.store(zs, ld, n, d, dp, vec);
     load_vectors(st_v, s0, n, g, den, col);
     __syncthreads();
-    if constexpr (kOverlap)
-      if (s0 + kRows < n) next.fetch(streamed, s0 + kRows, n, d, dp, vec);
+    if constexpr (kOverlap) {
+      const int64_t s1 = live_from(s0 + kRows);
+      if (s1 < n) next.fetch(streamed, s1, n, d, dp, vec);
+    }
     logit_tile(xs, zs, ld, dp, ls);
     __syncthreads();
     // the cotangents: in place (float32) or rounded into ws (bf16)
@@ -508,6 +612,524 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
   }
 }
 
+// ===== float32 redesign (wide_f32) ==========================================
+//
+// Both kernels are built on one register-tiled product, a logit tile
+// L = own (128 x d) . streamed (kRowsB x d)^T: 256 threads as 16 x 16,
+// thread (ty, tx) holding the logits of rows 4 ty + i, 64 + 4 ty + i
+// (i < 4) and columns 4 tx + j (and 64 + 4 tx + j where kRowsB = 128) in
+// registers. The d axis streams through a ring of kStages cp.async slots
+// for both operands at once (8 k a slot, stored k-major so that a thread
+// reads its rows and columns as float4: 4 shared loads per 64
+// multiply-adds at 8 x 8, 3 per 32 at 8 x 4), so shared memory stays
+// small. Pointers to a thread's rows are set once per tile, not per load.
+//
+// Forward (kRowsB = 128, 8 x 8 logits a thread, two CTAs per SM): the
+// online max and sum over the tiles stay in the thread's registers (its 8
+// columns of each row, a double sum as in the first design), and the 16
+// threads of a row merge theirs with shuffles once, at the end: no logit
+// passes through shared memory. A CTA takes one slice of the live column
+// tiles of its 128 rows (blockIdx.y of `splits`, chosen so that the grid
+// fills whole waves of the card); where splits > 1 each slice writes its
+// (max, sum) per row to a workspace, and the slice that finishes last (a
+// ticket per row tile) merges them in slice order, so the result does not
+// depend on which finishes first.
+//
+// Backward (kRowsB = kSB = 64, 8 x 4 logits a thread, one CTA per SM):
+// per live pair the cotangents are formed in the logit product's
+// registers and staged once, transposed, as the cotangent tile of the
+// second product, whose d axis is an 8 x 16 register accumulator a thread
+// (rows as above, columns 64 q + 4 tx + j) fed by the streamed rows
+// through the same ring (8 rows of d a slot, 16-byte copies). The ring
+// runs on across phases and tiles: the next items' loads are in flight
+// while this one is computed. The logit product, the cotangents and the
+// second product are three loops, so that the logits' registers are free
+// in the second product (one loop kept both alive and spilled). The three
+// jobs and the output layout are the first design's: no atomics,
+// deterministic.
+namespace wide {
+
+constexpr int kO = 128;       // own rows per CTA
+constexpr int kS = 128;       // streamed rows per tile
+constexpr int kBK = 8;        // k (d, or streamed rows) per ring slot
+constexpr int kStages = 4;
+constexpr int kThreads = 256;
+constexpr int kLdA = kO + 4, kLdB = kS + 4, kLdW = kO + 4;
+constexpr int kP1 = kBK * (kLdA + kLdB);  // floats of a product-1 slot
+constexpr int kP2 = kBK * (kMaxD + 4);    // floats of a product-2 slot
+constexpr int kFwdMinBlocks = 2, kBwdMinBlocks = 1;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+__device__ __forceinline__ void wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// row (or column) i of a thread's 8 in a 128-row tile, for t = ty (rows)
+// or tx (columns): 4 t + i for i < 4, 64 + 4 t + i - 4 after
+__device__ __forceinline__ int of8(int t, int i) {
+  return 4 * t + (i & 3) + 64 * (i >> 2);
+}
+
+// A thread's rows of one operand tile for the product-1 loads: the
+// address of its first row m0 = threadIdx.x / 8 at depth kk0 =
+// threadIdx.x % 8, the other three 32 rows apart, and which of them lie
+// inside the table (bit i: row m0 + 32 i).
+struct Rows {
+  const float* p;
+  unsigned ok;
+};
+
+template <int kCount = 4>
+__device__ __forceinline__ Rows rows_of(const float* m, int64_t r0, int n,
+                                        int d) {
+  const int m0 = threadIdx.x / kBK, kk0 = threadIdx.x % kBK;
+  Rows r{m + (r0 + m0) * d + kk0, 0u};
+#pragma unroll
+  for (int i = 0; i < kCount; ++i)
+    if (r0 + m0 + 32 * i < n) r.ok |= 1u << i;
+  return r;
+}
+
+// One product-1 slot: k [k0, k0 + 8) of the 128 own rows into (8, kLdA)
+// and of the kRowsB streamed rows into (8, kRowsB + 4), zero past the
+// tables' rows and d columns (base: any valid address, read by none).
+// Eight lanes read a row's 32 bytes; the stores land on 32 banks.
+template <int kRowsB = kS>
+__device__ __forceinline__ void load_p1(float* slot, Rows a, Rows b,
+                                        const float* base, int k0, int d) {
+  constexpr int kLd = kRowsB + 4;
+  const int m0 = threadIdx.x / kBK, kk0 = threadIdx.x % kBK;
+  const bool kin = k0 + kk0 < d;
+  const int64_t step = (int64_t)32 * d;
+  float* as = slot + kk0 * kLdA + m0;
+  float* bs = slot + kBK * kLdA + kk0 * kLd + m0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool oka = kin && (a.ok >> i & 1u);
+    cp4(as + 32 * i, oka ? a.p + i * step + k0 : base, oka);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsB / 32; ++i) {
+    const bool okb = kin && (b.ok >> i & 1u);
+    cp4(bs + 32 * i, okb ? b.p + i * step + k0 : base, okb);
+  }
+}
+
+// The 8 x (kRowsB / 16) logits of one product-1 slot, added in k order:
+// rows as two float4 a k, columns as kRowsB / 64 float4 (4 or 3 shared
+// loads per 64 or 32 multiply-adds).
+template <int kRowsB = kS>
+__device__ __forceinline__ void mma_p1(const float* slot,
+                                       float (&l)[8][kRowsB / 16]) {
+  constexpr int kLd = kRowsB + 4, kJ = kRowsB / 16;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const float* a = slot + 4 * ty;
+  const float* b = slot + kBK * kLdA + 4 * tx;
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + kk * kLdA);
+    const float4 a1 = *reinterpret_cast<const float4*>(a + kk * kLdA + 64);
+    const float x[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    float y[kJ];
+#pragma unroll
+    for (int h = 0; h < kJ / 4; ++h) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(b + kk * kLd + 64 * h);
+      y[4 * h] = v.x;
+      y[4 * h + 1] = v.y;
+      y[4 * h + 2] = v.z;
+      y[4 * h + 3] = v.w;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) l[i][j] = fmaf(x[i], y[j], l[i][j]);
+  }
+}
+
+// ---- forward ----------------------------------------------------------------
+
+constexpr size_t kFwdSmem = (size_t)kStages * kP1 * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks)
+    fwd_f32(const float* __restrict__ an, const float* __restrict__ bn,
+            const float* __restrict__ col, const uint8_t* __restrict__ flags,
+            float* __restrict__ den, double* __restrict__ part_s,
+            float* __restrict__ part_m, int* __restrict__ tickets, int n,
+            int d, float tau) {
+  extern __shared__ __align__(16) float ring[];
+  __shared__ int last;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int64_t o0 = (int64_t)blockIdx.x * kO;
+  const int64_t rows = (int64_t)gridDim.x * kO;  // the workspace's rows
+  const int splits = gridDim.y, p = blockIdx.y;
+  const int tiles = (n + kS - 1) / kS;
+  const Live live(flags, (n + 63) / 64);
+  auto col_live = [&](int u) { return live.c(2 * u) || live.c(2 * u + 1); };
+  auto live_from = [&](int u) {
+    while (u < tiles && !col_live(u)) ++u;
+    return u;
+  };
+  // this slice: the live column tiles of rank [lo, lo + count)
+  int total = 0;
+  for (int base = 0; base < tiles; base += kThreads)
+    total += __syncthreads_count(base + tid < tiles &&
+                                 col_live(base + tid));
+  const int lo = (int)((int64_t)total * p / splits);
+  const int count = (int)((int64_t)total * (p + 1) / splits) - lo;
+  int u0 = live_from(0);
+  for (int k = 0; k < lo; ++k) u0 = live_from(u0 + 1);
+
+  // the ring's items: per tile, k1 slots of (an, bn) then k1 of (an, an)
+  const int k1 = (d + kBK - 1) / kBK;
+  const Rows own = rows_of(an, o0, n, d);
+  int pu = u0, pk = 0, pi = 0, pk0 = 0;  // producer: tile, rank, item, k
+  Rows st = rows_of(bn, (int64_t)pu * kS, n, d);
+  auto issue = [&](int slot) {
+    if (pk < count) {
+      load_p1(ring + slot * kP1, own, st, an, pk0, d);
+      pk0 += kBK;
+      if (++pi == k1) {  // the tile's intra half: an's rows
+        pk0 = 0;
+        st = rows_of(an, (int64_t)pu * kS, n, d);
+      } else if (pi == 2 * k1) {
+        pi = pk0 = 0;
+        ++pk;
+        pu = live_from(pu + 1);
+        st = rows_of(bn, (int64_t)pu * kS, n, d);
+      }
+    }
+    commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  // the running max and sum of this thread's rows over its columns
+  float m[8];
+  double sum[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kNeg;
+    sum[i] = 0.0;
+  }
+  const float inv_tau = 1.f / tau;
+  int slot = 0;
+  for (int t = 0, u = u0; t < count; ++t, u = live_from(u + 1)) {
+    const int64_t s0 = (int64_t)u * kS;
+    for (int intra = 0; intra < 2; ++intra) {
+      float l[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) l[i][j] = 0.f;
+      for (int kt = 0; kt < k1; ++kt) {
+        wait_ring();
+        __syncthreads();
+        issue((slot + kStages - 1) % kStages);
+        mma_p1(ring + slot * kP1, l);
+        slot = (slot + 1) % kStages;
+      }
+      float cv[8];  // this thread's columns' masks, -inf past the last
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int64_t c = s0 + of8(tx, j);
+        cv[j] = c < n ? __ldg(col + c) : -INFINITY;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int64_t row = o0 + of8(ty, i);
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float x = l[i][j] * inv_tau + cv[j];
+          if (intra && s0 + of8(tx, j) == row) x = kNeg;
+          l[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+        const float m_new = fmaxf(m[i], mx);
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) e += __expf(l[i][j] - m_new);
+        sum[i] = sum[i] * (double)expf(m[i] - m_new) + (double)e;
+        m[i] = m_new;
+      }
+    }
+  }
+  wait_all();
+
+  // merge the 16 threads of each row (the warp's other 16 lanes hold other
+  // rows); both lanes of a pair compute the same sum
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int w = 1; w < 16; w *= 2) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], w);
+      const double so = __shfl_xor_sync(0xffffffffu, sum[i], w);
+      const float mn = fmaxf(m[i], mo);
+      sum[i] = sum[i] * (double)expf(m[i] - mn) + so * (double)expf(mo - mn);
+      m[i] = mn;
+    }
+  if (splits == 1) {
+    if (tx == 0)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int64_t row = o0 + of8(ty, i);
+        if (row < n) den[row] = m[i] + logf((float)sum[i]);
+      }
+    return;
+  }
+  if (tx == 0)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t at = p * rows + o0 + of8(ty, i);
+      part_m[at] = m[i];
+      part_s[at] = sum[i];
+    }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + blockIdx.x, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int64_t row = o0 + tid;
+  if (tid < kO && row < n) {
+    float mx = kNeg;
+    for (int q = 0; q < splits; ++q)
+      mx = fmaxf(mx, __ldcg(part_m + q * rows + row));
+    double total_s = 0.0;
+    for (int q = 0; q < splits; ++q)
+      total_s += __ldcg(part_s + q * rows + row) *
+                 (double)expf(__ldcg(part_m + q * rows + row) - mx);
+    den[row] = mx + logf((float)total_s);
+  }
+}
+
+// ---- backward ---------------------------------------------------------------
+
+constexpr int kSB = 64;  // the backward's streamed rows per tile
+// dynamic shared memory: the ring (product-2 slots are the larger), the
+// cotangent tile (transposed: a streamed row's 128 own rows together),
+// the own and the streamed (g, den, col)
+constexpr size_t kBwdSmem =
+    ((size_t)kStages * kP2 + kSB * kLdW + 3 * kO + 3 * kSB) * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+    bwd_f32(const float* __restrict__ an, const float* __restrict__ bn,
+            const float* __restrict__ col, const float* __restrict__ den,
+            const float* __restrict__ g, const uint8_t* __restrict__ flags,
+            float* __restrict__ out, int n, int n64, int d, int dp,
+            float tau, bool vec) {
+  extern __shared__ __align__(16) float sm[];
+  float* ring = sm;
+  float* wt = ring + kStages * kP2;
+  float* ov = wt + kSB * kLdW;
+  float* sv = ov + 3 * kO;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int job = blockIdx.y, ot = blockIdx.x;
+  const float* own = job == 2 ? bn : an;
+  const float* st = job == 0 ? bn : an;
+  const int64_t o0 = (int64_t)ot * kO;
+  // this CTA's block of the job's output: rows [o0, min(o0 + 128, n64))
+  float* out_job = out + ((int64_t)job * n64 + o0) * dp;
+  const int out_rows = (int)(n64 - o0 < kO ? n64 - o0 : kO);
+  const int tiles = n64 / kSB;
+  const Live live(flags, tiles);
+  const bool go = live.gz(2 * ot) || live.gz(2 * ot + 1);
+  const bool co = live.c(2 * ot) || live.c(2 * ot + 1);
+  auto live_from = [&](int u) {
+    while (u < tiles && !Live::pair(job, go, co, live.gz(u), live.c(u))) ++u;
+    return u;
+  };
+  const int first = live_from(0);
+  if (first >= tiles) {  // no live pair: zeros
+    for (int i = tid; i < out_rows * dp / 4; i += kThreads)
+      reinterpret_cast<float4*>(out_job)[i] = make_float4(0.f, 0.f, 0.f,
+                                                          0.f);
+    return;
+  }
+  if (tid < kO) {
+    const int64_t r = o0 + tid;
+    const bool in = r < n;
+    ov[tid] = in ? g[r] : 0.f;
+    ov[kO + tid] = in ? den[r] : 0.f;
+    ov[2 * kO + tid] = in ? col[r] : 0.f;
+  }
+
+  // the ring's items: per tile, k1 product-1 slots, then kSB / kBK
+  // product-2 slots of 8 streamed rows by dp
+  const int k1 = (d + kBK - 1) / kBK, items = k1 + kSB / kBK;
+  const int ldz = dp + 4;
+  const Rows own_rows = rows_of(own, o0, n, d);
+  int pu = first, pi = 0;  // producer: tile, item
+  Rows st_rows = rows_of<kSB / 32>(st, (int64_t)pu * kSB, n, d);
+  auto issue = [&](int slot) {
+    if (pu < tiles) {
+      float* sl = ring + slot * kP2;
+      if (pi < k1) {
+        load_p1<kSB>(sl, own_rows, st_rows, st, pi * kBK, d);
+      } else {
+        const int64_t r0 = (int64_t)pu * kSB + (int64_t)(pi - k1) * kBK;
+        if (vec) {
+          const int per_row = dp / 4;
+          for (int e = tid; e < kBK * per_row; e += kThreads) {
+            const int r = e / per_row, c = (e % per_row) * 4;
+            const bool ok = r0 + r < n && c < d;
+            cp16(sl + r * ldz + c, ok ? st + (r0 + r) * d + c : st, ok);
+          }
+        } else {
+          for (int e = tid; e < kBK * dp; e += kThreads) {
+            const int r = e / dp, c = e % dp;
+            const bool ok = r0 + r < n && c < d;
+            cp4(sl + r * ldz + c, ok ? st + (r0 + r) * d + c : st, ok);
+          }
+        }
+      }
+      if (++pi == items) {
+        pi = 0;
+        pu = live_from(pu + 1);
+        st_rows = rows_of<kSB / 32>(st, (int64_t)pu * kSB, n, d);
+      }
+    }
+    commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+
+  float4 acc[8][4];  // rows of8(ty, i), columns 64 q + 4 tx + (0..3)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float inv_tau = 1.f / tau;
+  int slot = 0;
+  // the next ring slot: waits until it has landed for every thread
+  // and the slot the next load overwrites is read by none, issues
+  // that load
+  auto next_slot = [&]() {
+    wait_ring();
+    __syncthreads();
+    issue((slot + kStages - 1) % kStages);
+    const float* sl = ring + slot * kP2;
+    slot = (slot + 1) % kStages;
+    return sl;
+  };
+  for (int u = first; u < tiles; u = live_from(u + 1)) {
+    const int64_t s0 = (int64_t)u * kSB;
+    // the streamed (g, den, col); the previous tile's readers passed the
+    // barrier after its cotangents
+    if (tid < kSB) {
+      const int64_t r = s0 + tid;
+      const bool in = r < n;
+      sv[tid] = in ? g[r] : 0.f;
+      sv[kSB + tid] = in ? den[r] : 0.f;
+      sv[2 * kSB + tid] = in ? col[r] : 0.f;
+    }
+    float l[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) l[i][j] = 0.f;
+    for (int it = 0; it < k1; ++it) mma_p1<kSB>(next_slot(), l);
+    // the cotangents of the rows and columns this thread holds
+    // (rows of8(ty, i), columns 4 tx + j), staged transposed for
+    // the second product
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = of8(ty, i);
+      const int64_t o = o0 + r;
+      const float g_o = ov[r], den_o = ov[kO + r];
+      const float col_o = ov[2 * kO + r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * tx + j;
+        const int64_t s = s0 + c;
+        const float x = l[i][j] * inv_tau;
+        const bool diag = job == 1 && o == s;  // see cotangent()
+        float w = 0.f;
+        if (job != 2)
+          w = g_o * __expf((diag ? kNeg : x + sv[2 * kSB + c]) - den_o);
+        if (job != 0)
+          w += sv[c] * __expf((diag ? kNeg : x + col_o) - sv[kSB + c]);
+        if (s >= n || o >= n) w = 0.f;
+        l[i][j] = w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float* wr = wt + (4 * tx + j) * kLdW + 4 * ty;
+      *reinterpret_cast<float4*>(wr) =
+          make_float4(l[0][j], l[1][j], l[2][j], l[3][j]);
+      *reinterpret_cast<float4*>(wr + 64) =
+          make_float4(l[4][j], l[5][j], l[6][j], l[7][j]);
+    }
+    __syncthreads();
+    for (int it = k1; it < items; ++it) {
+      const float* sl = next_slot();
+      // 8 streamed rows: acc += w[:, rows] . z[rows, :], in row order;
+      // all four column blocks, also past dp (inside the shared
+      // allocation, never stored): no branch between loads and products
+      const float* wr = wt + (it - k1) * kBK * kLdW + 4 * ty;
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) {
+        const float4 w0 = *reinterpret_cast<const float4*>(wr + kk * kLdW);
+        const float4 w1 =
+            *reinterpret_cast<const float4*>(wr + kk * kLdW + 64);
+        const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+        const float* zr = sl + kk * ldz + 4 * tx;
+        float4 z[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          z[q] = *reinterpret_cast<const float4*>(zr + 64 * q);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[i][q].x = fmaf(w[i], z[q].x, acc[i][q].x);
+            acc[i][q].y = fmaf(w[i], z[q].y, acc[i][q].y);
+            acc[i][q].z = fmaf(w[i], z[q].z, acc[i][q].z);
+            acc[i][q].w = fmaf(w[i], z[q].w, acc[i][q].w);
+          }
+      }
+    }
+  }
+  wait_all();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = of8(ty, i);
+    if (r >= out_rows) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 64 * q + 4 * tx;
+      if (c < dp) {
+        const float4 a = acc[i][q];
+        *reinterpret_cast<float4*>(out_job + (int64_t)r * dp + c) =
+            make_float4(a.x * inv_tau, a.y * inv_tau, a.z * inv_tau,
+                        a.w * inv_tau);
+      }
+    }
+  }
+}
+
+}  // namespace wide
+
 int round16(int d) { return (d + 15) / 16 * 16; }
 
 // the own and streamed tiles, the float logit tile, and backward: the bf16
@@ -529,86 +1151,208 @@ bool use_vec(const void* an, const void* bn, int d) {
          ((uintptr_t)an | (uintptr_t)bn) % 16 == 0;
 }
 
-// a kernel's dynamic shared memory, the whole carveout given to shared
-// memory so that two bf16 CTAs fit on an SM
+// a kernel's dynamic shared memory; with max_carveout the whole carveout
+// given to shared memory, so that two first-design CTAs fit on an SM where
+// their registers allow (wide_f32's leave the CUDA driver its choice: the
+// L1 that a shared-memory-only carveout takes away cost its forward 11 %
+// on an H100)
 template <typename K>
-cudaError_t set_smem(K* kernel, size_t bytes) {
+cudaError_t set_smem(K* kernel, size_t bytes, bool max_carveout = true) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !max_carveout) return err;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <typename T>
-int launch_fwd(const void* an, const void* bn, const void* col, void* den,
-               int n, int d, float tau, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+enum Design { kFirstF32 = 0, kFirstBf16 = 1, kSkipBf16 = 2, kWideF32 = 3 };
+
+template <typename T, bool kSkip>
+int launch_fwd(const void* an, const void* bn, const void* col,
+               const uint8_t* flags, void* den, int n, int d, float tau,
+               cudaStream_t stream) {
   const int dp = round16(d);
   const size_t bytes = smem_bytes<T>(dp, false);
-  const cudaError_t err = set_smem(fwd_kernel<T>, bytes);
+  const cudaError_t err = set_smem(fwd_kernel<T, kSkip>, bytes);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((n + kRows - 1) / kRows);
-  fwd_kernel<T><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+  fwd_kernel<T, kSkip><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(an), static_cast<const T*>(bn),
-      static_cast<const float*>(col), static_cast<float*>(den), n, d, dp,
-      tau, use_vec<T>(an, bn, d));
+      static_cast<const float*>(col), flags, static_cast<float*>(den), n, d,
+      dp, tau, use_vec<T>(an, bn, d));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kSkip>
 int launch_bwd(const void* an, const void* bn, const void* col,
-               const void* den, const void* g, void* out, int n, int d,
-               float tau, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+               const void* den, const void* g, const uint8_t* flags,
+               void* out, int n, int d, float tau, cudaStream_t stream) {
   const int dp = round16(d);
   const int n64 = (n + kRows - 1) / kRows * kRows;
   const size_t bytes = smem_bytes<T>(dp, true);
-  const cudaError_t err = set_smem(bwd_kernel<T>, bytes);
+  const cudaError_t err = set_smem(bwd_kernel<T, kSkip>, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(n64 / kRows), kJobs);
-  bwd_kernel<T><<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+  bwd_kernel<T, kSkip><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(an), static_cast<const T*>(bn),
       static_cast<const float*>(col), static_cast<const float*>(den),
-      static_cast<const float*>(g), static_cast<float*>(out), n, n64, d, dp,
-      tau, use_vec<T>(an, bn, d));
+      static_cast<const float*>(g), flags, static_cast<float*>(out), n, n64,
+      d, dp, tau, use_vec<T>(an, bn, d));
   return (int)cudaGetLastError();
+}
+
+// wide_f32's forward slices per 128-row tile: the fewest (up to 8) whose
+// grid fills at least 90 % of its last wave, else the fullest; a wave is
+// the card's SMs times the CTAs an SM holds
+int wide_splits(int n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  if (set_smem(wide::fwd_f32, wide::kFwdSmem, false) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, wide::fwd_f32, wide::kThreads, wide::kFwdSmem) !=
+          cudaSuccess ||
+      sms * per_sm <= 0)
+    return -1;
+  const int64_t wave = (int64_t)sms * per_sm;
+  const int64_t rows = (n + wide::kO - 1) / wide::kO;
+  int best = 1;
+  double best_fill = 0.0;
+  for (int s = 1; s <= 8; ++s) {
+    const int64_t ctas = rows * s, waves = (ctas + wave - 1) / wave;
+    const double fill = (double)ctas / (double)(waves * wave);
+    if (fill >= 0.9) return s;
+    if (fill > best_fill + 1e-9) best = s, best_fill = fill;
+  }
+  return best;
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. an, bn (n, d) contiguous, float32 or bf16
-// by the function's name; col, den, g (n,) float32; d <= 256. Forward: den
-// (n,) written. Backward: out (3, ceil(n / 64) * 64, round_up(d, 16))
-// float32, every element written (job-major; rows past n and columns past
-// d are padding the caller drops). Nothing is allocated and nothing
-// synchronises. Returns the cudaError_t of the launch (0 = success).
-extern "C" int flashnce_fwd_f32(const void* an, const void* bn,
-                                const void* col, void* den, int n, int d,
-                                float tau, void* stream) {
-  return launch_fwd<float>(an, bn, col, den, n, d, tau, stream);
+// as the design takes them; col, den, g (n,) float32; d <= 256; flags
+// (2, ceil(n / 64)) uint8 (ops/flashnce.py::live_tiles; the first designs
+// 0 and 1 do not read it). Nothing is allocated and nothing synchronises.
+// Each returns the cudaError_t of the launch (0 = success); an unknown
+// design is cudaErrorInvalidValue.
+
+// wide_f32's forward slices for n rows (the size of its workspace), or -1.
+extern "C" int flashnce_fwd_splits(int n) { return wide_splits(n); }
+
+// den (n,) written. wide_f32 with splits > 1 takes a workspace of splits *
+// ceil(n / 128) * 128 doubles (part_s) and as many floats (part_m), and
+// ceil(n / 128) tickets, zero on entry; the others ignore them.
+extern "C" int flashnce_fwd(int design, const void* an, const void* bn,
+                            const void* col, const void* flags, void* den,
+                            void* part_s, void* part_m, void* tickets,
+                            int splits, int n, int d, float tau,
+                            void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* fl = static_cast<const uint8_t*>(flags);
+  switch (design) {
+    case kFirstF32:
+      return launch_fwd<float, false>(an, bn, col, fl, den, n, d, tau, st);
+    case kFirstBf16:
+      return launch_fwd<__nv_bfloat16, false>(an, bn, col, fl, den, n, d,
+                                              tau, st);
+    case kSkipBf16:
+      return launch_fwd<__nv_bfloat16, true>(an, bn, col, fl, den, n, d, tau,
+                                             st);
+    case kWideF32: {
+      if (splits < 1 || splits > 8) return (int)cudaErrorInvalidValue;
+      const cudaError_t err = set_smem(wide::fwd_f32, wide::kFwdSmem, false);
+      if (err != cudaSuccess) return (int)err;
+      const dim3 grid((unsigned)((n + wide::kO - 1) / wide::kO),
+                      (unsigned)splits);
+      wide::fwd_f32<<<grid, wide::kThreads, wide::kFwdSmem, st>>>(
+          static_cast<const float*>(an), static_cast<const float*>(bn),
+          static_cast<const float*>(col), fl, static_cast<float*>(den),
+          static_cast<double*>(part_s), static_cast<float*>(part_m),
+          static_cast<int*>(tickets), n, d, tau);
+      return (int)cudaGetLastError();
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int flashnce_fwd_bf16(const void* an, const void* bn,
-                                 const void* col, void* den, int n, int d,
-                                 float tau, void* stream) {
-  return launch_fwd<__nv_bfloat16>(an, bn, col, den, n, d, tau, stream);
+// out (3, ceil(n / 64) * 64, round_up(d, 16)) float32, every element
+// written (job-major; rows past n and columns past d are padding the
+// caller drops).
+extern "C" int flashnce_bwd(int design, const void* an, const void* bn,
+                            const void* col, const void* den, const void* g,
+                            const void* flags, void* out, int n, int d,
+                            float tau, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* fl = static_cast<const uint8_t*>(flags);
+  switch (design) {
+    case kFirstF32:
+      return launch_bwd<float, false>(an, bn, col, den, g, fl, out, n, d,
+                                      tau, st);
+    case kFirstBf16:
+      return launch_bwd<__nv_bfloat16, false>(an, bn, col, den, g, fl, out,
+                                              n, d, tau, st);
+    case kSkipBf16:
+      return launch_bwd<__nv_bfloat16, true>(an, bn, col, den, g, fl, out, n,
+                                             d, tau, st);
+    case kWideF32: {
+      const cudaError_t err = set_smem(wide::bwd_f32, wide::kBwdSmem, false);
+      if (err != cudaSuccess) return (int)err;
+      const int dp = round16(d), n64 = (n + 63) / 64 * 64;
+      const dim3 grid((unsigned)((n64 + wide::kO - 1) / wide::kO), kJobs);
+      const bool vec = d % 4 == 0 && ((uintptr_t)an | (uintptr_t)bn) % 16 == 0;
+      wide::bwd_f32<<<grid, wide::kThreads, wide::kBwdSmem, st>>>(
+          static_cast<const float*>(an), static_cast<const float*>(bn),
+          static_cast<const float*>(col), static_cast<const float*>(den),
+          static_cast<const float*>(g), fl, static_cast<float*>(out), n, n64,
+          d, dp, tau, vec);
+      return (int)cudaGetLastError();
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int flashnce_bwd_f32(const void* an, const void* bn,
-                                const void* col, const void* den,
-                                const void* g, void* out, int n, int d,
-                                float tau, void* stream) {
-  return launch_bwd<float>(an, bn, col, den, g, out, n, d, tau, stream);
-}
-
-extern "C" int flashnce_bwd_bf16(const void* an, const void* bn,
-                                 const void* col, const void* den,
-                                 const void* g, void* out, int n, int d,
-                                 float tau, void* stream) {
-  return launch_bwd<__nv_bfloat16>(an, bn, col, den, g, out, n, d, tau,
-                                   stream);
+// What the compiler made of a kernel (cudaFuncGetAttributes): attrs gets
+// registers a thread, local (spill) bytes a thread, static shared bytes,
+// and the most threads a CTA. backward 0 / 1, design as above.
+extern "C" int flashnce_attributes(int backward, int design, int* attrs) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (design * 2 + (backward ? 1 : 0)) {
+    case 2 * kFirstF32:
+      err = cudaFuncGetAttributes(&a, fwd_kernel<float, false>);
+      break;
+    case 2 * kFirstF32 + 1:
+      err = cudaFuncGetAttributes(&a, bwd_kernel<float, false>);
+      break;
+    case 2 * kFirstBf16:
+      err = cudaFuncGetAttributes(&a, fwd_kernel<__nv_bfloat16, false>);
+      break;
+    case 2 * kFirstBf16 + 1:
+      err = cudaFuncGetAttributes(&a, bwd_kernel<__nv_bfloat16, false>);
+      break;
+    case 2 * kSkipBf16:
+      err = cudaFuncGetAttributes(&a, fwd_kernel<__nv_bfloat16, true>);
+      break;
+    case 2 * kSkipBf16 + 1:
+      err = cudaFuncGetAttributes(&a, bwd_kernel<__nv_bfloat16, true>);
+      break;
+    case 2 * kWideF32:
+      err = cudaFuncGetAttributes(&a, wide::fwd_f32);
+      break;
+    case 2 * kWideF32 + 1:
+      err = cudaFuncGetAttributes(&a, wide::bwd_f32);
+      break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  attrs[0] = a.numRegs;
+  attrs[1] = (int)a.localSizeBytes;
+  attrs[2] = (int)a.sharedSizeBytes;
+  attrs[3] = a.maxThreadsPerBlock;
+  return 0;
 }

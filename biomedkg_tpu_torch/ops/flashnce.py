@@ -11,17 +11,30 @@ the caller.
 
 On a CUDA tensor the forward and the backward run the hand-written Hopper
 kernels of ``csrc/flashnce.cu`` (built at first use by ops/_build.py), for
-any N and any d up to 256. The backward follows the Pallas design's flash
-split into a rows side and a columns side, so that no output element is
-written by two CTAs: one launch runs three jobs, rows-inter,
-columns-inter and intra (both sides at once: ``an_i·an_j`` is the logit at
-(i, j) and at (j, i), and both cotangents multiply ``an_j`` into row i),
-each rebuilding its logit tiles from the saved ``den``, without atomics,
-deterministic; this wrapper sums them (``d_an`` = rows-inter + intra,
-``d_bn`` = columns-inter). That is six N × N × d products, as many as the
-other choice, one pass with float32 atomics for the columns side, which
-would land every (tile, column) partial sum as an atomic: 1.1·10¹⁰ of them
-at GRACE's N = 37,376, d = 256.
+any N and any d up to 256, in the design ``flash_design`` picks from the
+type: ``wide_f32`` (full float32 on register tiles of 8 x 8 and 8 x 4
+logits a thread fed by a cp.async ring) and ``skip_bf16`` (the first
+design's WMMA kernels); ``first_f32`` and ``first_bf16``, the first
+design with every tile computed, stay for the A/B on the card.
+Both path designs skip the tiles whose terms are all exactly 0:
+``live_tiles`` reads from ``col`` and ``g`` which 64-row tiles hold a real
+column and which a nonzero cotangent, and the kernels leave out a column
+tile without a real column (forward) and a tile pair whose rows term and
+columns term are both 0 (backward). The backward follows the Pallas
+design's flash split into a rows side and a columns side, so that no
+output element is written by two CTAs: one launch runs three jobs,
+rows-inter, columns-inter and intra (both sides at once: ``an_i·an_j`` is
+the logit at (i, j) and at (j, i), and both cotangents multiply ``an_j``
+into row i), each rebuilding its logit tiles from the saved ``den``,
+without atomics, deterministic; this wrapper sums them (``d_an`` =
+rows-inter + intra, ``d_bn`` = columns-inter). That is six N × N × d
+products, as many as the other choice, one pass with float32 atomics for
+the columns side, which would land every (tile, column) partial sum as an
+atomic: 1.1·10¹⁰ of them at GRACE's N = 37,376, d = 256.
+Besides the kernel, a skipping forward launches ``live_tiles``'s three
+small kernels (a zero fill, a compare, a reduction) and, for ``wide_f32``
+with more than one slice, one zero fill of its tickets; a skipping
+backward four (a second compare, for ``g``).
 
 On a CPU tensor it runs the plain version: a torch port of the reference's
 XLA flash path (``_flash_pos_denom``, gcl_module.py:59-140, without its
@@ -45,19 +58,66 @@ from ._build import CudaLibrary, check_launch, stream_of
 
 NEG = torch.finfo(torch.float32).min
 MAX_D = 256
-TILE = 64          # the kernels' tile: rows per CTA and per streamed tile
+TILE = 64          # rows per live flag, and the first design's tile
+WIDE_ROWS = 128    # wide_f32's own rows per CTA (csrc/flashnce.cu wide::kO)
 JOBS = 3           # the backward's: rows-inter, intra, columns-inter
 PLAIN_BLOCK = 1024  # rows per tile of the plain version by default
+# csrc/flashnce.cu's designs, in the order of their launch codes, and the
+# type each takes
+DESIGNS = {"first_f32": torch.float32, "first_bf16": torch.bfloat16,
+           "skip_bf16": torch.bfloat16, "wide_f32": torch.float32}
+PATH = {torch.float32: "wide_f32", torch.bfloat16: "skip_bf16"}
+FIRST = {torch.float32: "first_f32", torch.bfloat16: "first_bf16"}
+SKIPPING = set(PATH.values())  # the designs that read live_tiles' flags
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# an, bn, col, den, n, d, tau, stream
-_FWD = [_P, _P, _P, _P, _I, _I, ctypes.c_float, _P]
-# an, bn, col, den, g, out, n, d, tau, stream
-_BWD = [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _P]
 LIBRARY = CudaLibrary("flashnce.cu", {
-    "flashnce_fwd_f32": _FWD, "flashnce_fwd_bf16": _FWD,
-    "flashnce_bwd_f32": _BWD, "flashnce_bwd_bf16": _BWD})
+    # design, an, bn, col, flags, den, part_s, part_m, tickets, splits, n,
+    # d, tau, stream
+    "flashnce_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     ctypes.c_float, _P],
+    # design, an, bn, col, den, g, flags, out, n, d, tau, stream
+    "flashnce_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     ctypes.c_float, _P],
+    "flashnce_fwd_splits": [_I],
+    "flashnce_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)]})
 NAME = "flash_denom"
+
+
+def flash_design(dtype: torch.dtype) -> str:
+    """The design a call on the card runs for ``dtype``."""
+    return PATH[dtype]
+
+
+def live_tiles(col: torch.Tensor, g: torch.Tensor = None,
+               tile: int = TILE) -> torch.Tensor:
+    """(2, ceil(N / tile)) bool flags of ``tile``-row tiles: row 0 whether
+    any column mask in the tile is real (``col > NEG``), row 1 whether any
+    cotangent in it is nonzero (all False without ``g``). Read from the
+    data alone; the same on the CPU and the card."""
+    n = col.shape[0]
+    t = -(-n // tile)
+    flags = torch.zeros(2, t * tile, dtype=torch.bool, device=col.device)
+    torch.gt(col, NEG, out=flags[0, :n])
+    if g is not None:
+        torch.ne(g, 0, out=flags[1, :n])
+    return flags.view(2, t, tile).any(2)
+
+
+def attributes(backward: bool, design: str) -> dict:
+    """What the compiler made of one kernel (cudaFuncGetAttributes):
+    registers and local (spill) bytes a thread, static shared bytes, the
+    most threads a CTA."""
+    out = (ctypes.c_int * 4)()
+    check_launch(LIBRARY.lib().flashnce_attributes(
+        int(backward), list(DESIGNS).index(design), out),
+        f"{NAME} attributes")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "max_threads"), out))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check(an, bn, col):
@@ -76,6 +136,21 @@ def _check(an, bn, col):
                          f"{col.device}")
 
 
+def _check_flags(what: str, flags, col):
+    """Live flags given by the caller: (2, ceil(N / TILE)) bool or uint8,
+    contiguous, on col's device."""
+    want = (2, -(-col.shape[0] // TILE))
+    if tuple(flags.shape) != want or flags.dtype not in (torch.bool,
+                                                         torch.uint8) \
+            or not flags.is_contiguous():
+        raise ValueError(f"{what}: flags must be a contiguous {want} bool "
+                         f"or uint8 tensor, got {tuple(flags.shape)} "
+                         f"{flags.dtype}")
+    if flags.device != col.device:
+        raise ValueError(f"{what}: flags on {flags.device}, inputs on "
+                         f"{col.device}")
+
+
 def _check_cuda(what: str, *tensors):
     for t in tensors:
         if t.device.type != "cuda":
@@ -88,45 +163,96 @@ def _check_cuda(what: str, *tensors):
                          f"{MAX_D}")
 
 
-class FlashForward:
-    """The forward kernel's wrapper: (N,) float32 denominators.
-    ``launches`` goes up by one for each kernel launch and nowhere else."""
+def _design(what: str, dtype) -> str:
+    design = flash_design(dtype)
+    if DESIGNS[design] != dtype:
+        raise TypeError(f"{what}: design {design} takes {DESIGNS[design]}, "
+                        f"got {dtype}")
+    return design
 
-    name = NAME
 
-    def __init__(self):
+class _Wrapper:
+    """``launches`` goes up by one for each kernel launch and nowhere else;
+    ``by_design`` counts the same launches by design."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.reset()
+
+    def reset(self):
         self.launches = 0
+        self.by_design = dict.fromkeys(DESIGNS, 0)
 
-    def __call__(self, an, bn, col, tau: float) -> torch.Tensor:
+    def _counted(self, err: int, design: str):
+        check_launch(err, self.name)
+        self.launches += 1
+        self.by_design[design] += 1
+
+
+class FlashForward(_Wrapper):
+    """The forward kernel's wrapper: (N,) float32 denominators. ``flags``
+    (``live_tiles(col)``) is computed here, for the designs that skip,
+    unless the caller passes it."""
+
+    _splits = {}  # (device, N) -> wide_f32's forward slices
+
+    def splits(self, n: int, device) -> int:
+        """The slices wide_f32's forward cuts each row tile's live column
+        tiles into at N = n on ``device`` (a CUDA device)."""
+        key = (torch.device(device), n)
+        if key not in self._splits:
+            with torch.cuda.device(key[0]):
+                splits = LIBRARY.lib().flashnce_fwd_splits(n)
+            if splits < 1:
+                raise RuntimeError(f"{self.name}: no occupancy for "
+                                   f"wide_f32")
+            self._splits[key] = splits
+        return self._splits[key]
+
+    def __call__(self, an, bn, col, tau: float, flags=None) -> torch.Tensor:
         _check(an, bn, col)
+        if flags is not None:
+            _check_flags(self.name, flags, col)
         _check_cuda(self.name, an, bn, col)
         n, d = an.shape
         den = torch.empty(n, dtype=torch.float32, device=an.device)
         if n == 0:
             return den
+        design = _design(self.name, an.dtype)
         lib = LIBRARY.lib()
-        fn = lib.flashnce_fwd_f32 if an.dtype == torch.float32 else \
-            lib.flashnce_fwd_bf16
         with torch.cuda.device(an.device):
-            err = fn(an.data_ptr(), bn.data_ptr(), col.data_ptr(),
-                     den.data_ptr(), n, d, float(tau), stream_of(an))
-        check_launch(err, self.name)
-        self.launches += 1
+            if flags is None and design in SKIPPING:
+                flags = live_tiles(col)
+            splits, part_s, part_m, tickets = 1, None, None, None
+            if design == "wide_f32":
+                splits = self.splits(n, an.device)
+            if splits > 1:
+                tiles = -(-n // WIDE_ROWS)
+                part_s = torch.empty(splits, tiles * WIDE_ROWS,
+                                     dtype=torch.float64, device=an.device)
+                part_m = torch.empty(splits, tiles * WIDE_ROWS,
+                                     dtype=torch.float32, device=an.device)
+                tickets = torch.zeros(tiles, dtype=torch.int32,
+                                      device=an.device)
+            err = lib.flashnce_fwd(
+                list(DESIGNS).index(design), an.data_ptr(), bn.data_ptr(),
+                col.data_ptr(), _ptr(flags), den.data_ptr(),
+                *map(_ptr, (part_s, part_m, tickets)),
+                splits, n, d, float(tau), stream_of(an))
+        self._counted(err, design)
         return den
 
 
-class FlashBackward:
+class FlashBackward(_Wrapper):
     """The backward kernel's wrapper: (d_an, d_bn) in an's type from the
-    saved denominators and their cotangent ``g``. ``launches`` goes up by
-    one for each kernel launch (three jobs) and nowhere else."""
+    saved denominators and their cotangent ``g``; one launch runs three
+    jobs. ``flags`` (``live_tiles(col, g)``) is computed here, for the
+    designs that skip, unless the caller passes it."""
 
-    name = NAME + "_bwd"
-
-    def __init__(self):
-        self.launches = 0
-
-    def __call__(self, an, bn, col, den, g, tau: float):
+    def __call__(self, an, bn, col, den, g, tau: float, flags=None):
         _check(an, bn, col)
+        if flags is not None:
+            _check_flags(self.name, flags, col)
         _check_cuda(self.name, an, bn, col, den, g)
         if den.dtype != torch.float32 or g.dtype != torch.float32 \
                 or den.shape != col.shape or g.shape != col.shape:
@@ -134,24 +260,26 @@ class FlashBackward:
         n, d = an.shape
         if n == 0:
             return an.new_zeros(an.shape), bn.new_zeros(bn.shape)
+        design = _design(self.name, an.dtype)
         n_pad, d_pad = -(-n // TILE) * TILE, -(-d // 16) * 16
         out = torch.empty(JOBS, n_pad, d_pad, dtype=torch.float32,
                           device=an.device)
         lib = LIBRARY.lib()
-        fn = lib.flashnce_bwd_f32 if an.dtype == torch.float32 else \
-            lib.flashnce_bwd_bf16
         with torch.cuda.device(an.device):
-            err = fn(an.data_ptr(), bn.data_ptr(), col.data_ptr(),
-                     den.data_ptr(), g.data_ptr(), out.data_ptr(), n, d,
-                     float(tau), stream_of(an))
-        check_launch(err, self.name)
-        self.launches += 1
+            if flags is None and design in SKIPPING:
+                flags = live_tiles(col, g)
+            err = lib.flashnce_bwd(
+                list(DESIGNS).index(design), an.data_ptr(), bn.data_ptr(),
+                col.data_ptr(), den.data_ptr(), g.data_ptr(),
+                _ptr(flags), out.data_ptr(), n, d, float(tau),
+                stream_of(an))
+        self._counted(err, design)
         out = out[:, :n, :d]
         return (out[0] + out[1]).to(an.dtype), out[2].to(bn.dtype)
 
 
-FORWARD = FlashForward()
-BACKWARD = FlashBackward()
+FORWARD = FlashForward(NAME)
+BACKWARD = FlashBackward(NAME + "_bwd")
 KERNELS = {k.name: k for k in (FORWARD, BACKWARD)}
 
 

@@ -87,20 +87,27 @@ Phases; any failure ends the run with a non-zero exit:
  8. Stage B, GCL pretraining on the gene/protein graph of the same
     synthetic PrimeKG++ (train_gcl.py:37), through the flash InfoNCE
     kernels ``flash_denom`` (forward and backward) and the segsum:
-    (a) both flash kernels against the plain version off the path (N of
-    1,000, 333, 200 and 130, d of 100, 36, 30 and 256, with and without a
-    padded tail), float32 and bf16; (b) the GRACE training step at full
-    width (GCN 768→256×4, projection 256→256→256, τ = 0.2, Adam with cosine
-    warm-up 0.2, clip 1.0) on [30, 30, 30] neighbour batches of 128 seeds in
-    the dst layout with device-resident features, in bf16 and in float32
-    (the config's type): warm-up steps, timed steps with every launch count
-    set to 0 just before and read just after (segsum 8, flash 2 + 2 per
-    step), ms per step, nodes per second, the envelope, peak memory and a
-    torch.profiler window; one batch's loss and every gradient with the
-    kernels against the plain versions; the loss falling on a fixed batch;
-    (c) both flash kernels at the path's shape (the envelope's node slots,
-    d = 256, its pad tail), float32 and bf16, timed beside their bounds and
-    the plain version, and the segsum at the step's shape (the batch's edge
+    (a) both flash kernels, in each type's path design (``wide_f32``,
+    ``skip_bf16``) and first design (``first_f32``, ``first_bf16``),
+    against the plain version off the path (N of 1,000, 333, 200, 130 and
+    700, d of 100, 36, 30 and 256, with and without a padded tail, every
+    slot a pad, scattered pads, g nonzero on pads), float32 and bf16, and
+    every flash kernel's registers and spills; (b) the GRACE training
+    step at full width (GCN 768→256×4, projection 256→256→256, τ = 0.2,
+    Adam with cosine warm-up 0.2, clip 1.0) on [30, 30, 30] neighbour
+    batches of 128 seeds in the dst layout with device-resident
+    features, in bf16 and in float32 (the config's type): warm-up steps,
+    timed steps with every launch count set to 0 just before and read
+    just after (segsum 8, flash 2 + 2 per step), ms per step, nodes per
+    second, the envelope, peak memory and a torch.profiler window, and one
+    more on the first-design flash kernels;
+    one batch's loss and every gradient with the kernels against the plain
+    versions; the loss falling on a fixed batch; (c) both flash kernels at
+    the path's shape (the envelope's node slots, d = 256, its pad tail),
+    float32 and bf16, ``skip_bf16`` bitwise against ``first_bf16``, each
+    path design timed against its first design in turns beside the bounds
+    (over the envelope and over the live tile pairs) and the plain
+    version, and the segsum at the step's shape (the batch's edge
     slots × 256 into its node slots), timed beside index_add_; (d) one DGI
     and one GGD step at the same width, kernels against plain versions
     (segsum 8, flash 0); (e) ``python -m biomedkg_tpu_torch.train_gcl
@@ -268,9 +275,14 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.1, 5e-2)}
 # in the plain version itself; DGI's loss sits near 0. At 30 times the
 # features the similarities spread.
 COMPARE_FEATURE_SCALE = 30.0
-# phase 8a: (N, d, pad rows) off the path
+# phase 8a: (N, d, pad rows) off the path, the pads a tail
 FLASH_ODD = [(1000, 100, 0), (333, 36, 40), (1000, 36, 57), (333, 100, 0),
              (130, 256, 5), (200, 30, 9)]
+# and pad layouts the pad-tile skip must not assume away (flash_inputs):
+# (N, d, layout)
+FLASH_PADS = [(1000, 100, "all pads"), (1000, 256, "scattered pads"),
+              (333, 36, "scattered pads"), (1000, 100, "g on pads"),
+              (700, 256, "g on pads")]
 # the TPU functions the flash kernels replace (flashnce.py pallas_call lines)
 FLASH_REPLACES = {False: "212", True: "238/250"}
 
@@ -405,22 +417,26 @@ def launch_counts() -> dict:
             **{name: k.launches for name, k in relmm.KERNELS.items()},
             **{relmm_key(k, inst): c for k in relmm.KERNELS.values()
                for inst, c in k.by_instance.items()},
-            **{name: k.launches for name, k in flashnce.KERNELS.items()}}
+            **{name: k.launches for name, k in flashnce.KERNELS.items()},
+            **{relmm_key(k, design): c for k in flashnce.KERNELS.values()
+               for design, c in k.by_design.items()}}
 
 
 def reset_launch_counts():
     segsum.KERNEL.launches = 0
-    for k in (*negscore.KERNELS.values(), *flashnce.KERNELS.values()):
+    for k in negscore.KERNELS.values():
         k.launches = 0
-    for k in relmm.KERNELS.values():
+    for k in (*relmm.KERNELS.values(), *flashnce.KERNELS.values()):
         k.reset()
 
 
 def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
-                      flash_n: int = 0, relmm_instance: str = None) -> dict:
+                      flash_n: int = 0, relmm_instance: str = None,
+                      flash_design: str = None) -> dict:
     """Every count 0 but segsum's, the ``kernel`` negscore pair's (none
     when ``kernel`` is None), relmm's (forward, d_msg), all of them on
-    ``relmm_instance``, and the flash pair's (forward, backward)."""
+    ``relmm_instance``, and the flash pair's (forward, backward), all of
+    them on ``flash_design``."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update({"sorted_segment_sum": segsum_n, relmm.NAME: relmm_n[0],
                  relmm.NAME + "_bwd": relmm_n[1], flashnce.NAME: flash_n,
@@ -428,6 +444,9 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
     if any(relmm_n):
         want[relmm_key(relmm.FORWARD, relmm_instance)] = relmm_n[0]
         want[relmm_key(relmm.BACKWARD, relmm_instance)] = relmm_n[1]
+    if flash_n:
+        for k in flashnce.KERNELS.values():
+            want[relmm_key(k, flash_design)] = flash_n
     if kernel is not None:
         want.update({kernel: n, kernel + "_bwd": n})
     return want
@@ -473,6 +492,29 @@ def first_design_relmm():
         yield
     finally:
         relmm.relmm_instance = saved
+
+
+@contextlib.contextmanager
+def flash_designs(by_type: dict):
+    """The flash wrappers running ``by_type[dtype]`` (a design per type;
+    a type not named keeps its path design)."""
+    saved = flashnce.flash_design
+    flashnce.flash_design = lambda dtype: by_type.get(dtype) or saved(dtype)
+    try:
+        yield
+    finally:
+        flashnce.flash_design = saved
+
+
+def on_flash_design(design: str):
+    """The flash wrappers running ``design`` for its type."""
+    return flash_designs({flashnce.DESIGNS[design]: design})
+
+
+def first_design_flash():
+    """The flash wrappers running the first design (every tile computed)
+    in both types: the A/B of the redesign and the skip."""
+    return flash_designs(flashnce.FIRST)
 
 
 def serve_requests(scorer: KGEScorer, rng) -> dict:
@@ -1563,14 +1605,34 @@ def rgat_phase(dm, dev, tmp, table, rgat_run, scorer_module):
 
 # -- phase 8: Stage B GCL pretraining and the flash InfoNCE kernels --------
 
-def flash_bound_ms(n: int, d: int, dtype, backward: bool):
+def flash_live_fraction(col, g, backward: bool) -> float:
+    """The share of the envelope's tile pairs (64-row tiles, TILE) whose
+    terms are not all 0 on this input, as the kernels' skip reads them
+    (flashnce.live_tiles): forward the column tiles with a real column;
+    backward the mean over the three jobs of the pairs with a live rows
+    term (job 0), either term (job 1), a live columns term (job 2). Where
+    no column is real every tile counts."""
+    flags = flashnce.live_tiles(col, g if backward else None)
+    c, gz = flags[0], flags[1]
+    if not bool(c.any()):
+        c = torch.ones_like(c)
+    if not backward:
+        return float(c.float().mean())
+    rows = gz[:, None] & c[None, :]
+    return float((2 * rows.float().mean()
+                  + (rows | rows.T).float().mean()) / 3)
+
+
+def flash_bound_ms(n: int, d: int, dtype, backward: bool,
+                   live: float = 1.0):
     """Least time for one flash_denom call, as (ms, "bytes" or
     "operations", the term that sets it): an and bn read once and the
     outputs written once (backward: col, den and g in, d_an and d_bn out)
     over HBM bandwidth; the products over the peak of the instance's unit
     (forward two N x N x d products, backward six: the logits rebuilt once
-    and the four cotangent products); the exps on the special-function
-    units (2 N^2 each way)."""
+    and the four cotangent products) and the exps on the special-function
+    units (2 N^2 each way), both times ``live``, the share of the tile
+    pairs whose terms are not all 0 (1: the envelope)."""
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = 2 * n * d * size + 8 * n
     if backward:
@@ -1579,8 +1641,9 @@ def flash_bound_ms(n: int, d: int, dtype, backward: bool):
     terms = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
         f"{str(dtype)[6:]} operations": (6 if backward else 2) * 2 * n * n
-        * d / peak * 1e3,
-        "special-function operations": 2 * n * n / SFU_OP_PER_S * 1e3}
+        * d * live / peak * 1e3,
+        "special-function operations": 2 * n * n * live / SFU_OP_PER_S
+        * 1e3}
     term = max(terms, key=terms.get)
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
@@ -1590,101 +1653,190 @@ def unit_rows(n: int, d: int, gen, dtype) -> torch.Tensor:
     return (x / x.norm(dim=1, keepdim=True)).to(dtype).contiguous()
 
 
+def flash_kernels(an, bn, col, g):
+    """The denominators and (d_an, d_bn) through the wrappers, in the
+    design flashnce.flash_design picks now."""
+    den = flashnce.FORWARD(an, bn, col, GCL_TAU)
+    return den, flashnce.BACKWARD(an, bn, col, den, g, GCL_TAU)
+
+
 def flash_check(an, bn, col, g, what: str):
-    """The flash kernels against the plain version on one input: the
-    denominators (float32 within FLASH_TOL of |den| per row; bf16 within
-    FLASH_TOL absolute of the float32 plain version's) and d_an, d_bn
-    (within FLASH_TOL of their max, against the plain version in the same
-    type); returns (max abs den error, max abs gradient error)."""
+    """The flash kernels, in the path's design and in the first design,
+    against the plain version on one input: the denominators (float32
+    within FLASH_TOL of |den| per row; bf16 within FLASH_TOL absolute of
+    the float32 plain version's) and d_an, d_bn (within FLASH_TOL of their
+    max, against the plain version in the same type); returns the path
+    design's (max abs den error, max abs gradient error)."""
     dtype = an.dtype
-    den_k = flashnce.FORWARD(an, bn, col, GCL_TAU)
-    grads_k = flashnce.BACKWARD(an, bn, col, den_k, g, GCL_TAU)
     den_32 = flashnce.denominators_plain(an.float(), bn.float(), col,
                                          GCL_TAU)
     den_p = den_32 if dtype == torch.float32 else \
         flashnce.denominators_plain(an, bn, col, GCL_TAU)
     grads_p = flashnce.denominator_grads_plain(an, bn, col, den_p, g,
                                                GCL_TAU)
-    torch.cuda.synchronize()
     val_tol, grad_tol = FLASH_TOL[dtype]
-    den_err = (den_k - den_32).abs()
-    if dtype == torch.float32:
-        den_ok = bool(torch.all(den_err <= val_tol
-                                * den_32.abs().clamp(min=1.0)))
-    else:
-        den_ok = float(den_err.max()) <= val_tol
-    errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
-    grad_abs = max(float((a.float() - b.float()).abs().max())
-                   for a, b in zip(grads_k, grads_p))
-    print(f"flash {what} {str(dtype)[6:]}: N = {an.shape[0]}, d = "
-          f"{an.shape[1]}, {int((col != 0).sum())} pad rows: den max abs "
-          f"err {float(den_err.max()):.3g} (tol {val_tol:g}"
-          f"{'·max(|den|, 1)' if dtype == torch.float32 else ''}); d_an, "
-          f"d_bn rel-to-max {errs[0]:.3g}, {errs[1]:.3g} (tol {grad_tol:g})")
-    check(den_ok, f"flash {what} {dtype}: denominators disagree")
-    check(max(errs) <= grad_tol, f"flash {what} {dtype}: gradients disagree")
-    return float(den_err.max()), grad_abs
+    out = None
+    for design in (flashnce.PATH[dtype], flashnce.FIRST[dtype]):
+        with on_flash_design(design):
+            den_k, grads_k = flash_kernels(an, bn, col, g)
+        torch.cuda.synchronize()
+        den_err = (den_k - den_32).abs()
+        if dtype == torch.float32:
+            den_ok = bool(torch.all(den_err <= val_tol
+                                    * den_32.abs().clamp(min=1.0)))
+        else:
+            den_ok = float(den_err.max()) <= val_tol
+        errs = [rel_err(a, b) for a, b in zip(grads_k, grads_p)]
+        grad_abs = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(grads_k, grads_p))
+        print(f"flash {what} [{design}]: N = {an.shape[0]}, d = "
+              f"{an.shape[1]}, {int((col != 0).sum())} pad rows, "
+              f"{int((g != 0).sum())} nonzero g: den max abs err "
+              f"{float(den_err.max()):.3g} (tol {val_tol:g}"
+              f"{'·max(|den|, 1)' if dtype == torch.float32 else ''}); "
+              f"d_an, d_bn rel-to-max {errs[0]:.3g}, {errs[1]:.3g} (tol "
+              f"{grad_tol:g})")
+        check(den_ok, f"flash {what} {design}: denominators disagree")
+        check(max(errs) <= grad_tol,
+              f"flash {what} {design}: gradients disagree")
+        out = out or (float(den_err.max()), grad_abs)
+    return out
 
 
-def flash_inputs(n, d, pads, gen, dtype):
+def flash_inputs(n, d, pads, gen, dtype, layout: str = "tail"):
+    """Unit rows, the column mask and the cotangent g. ``layout``: "tail"
+    (the last ``pads`` rows pads, g 0 there, as the neighbour batch lays
+    them out); "all pads" (g nonzero on every row: with no real column the
+    terms are exp(0), none skipped); "scattered pads" (every third 64-row
+    tile all
+    pads, the others pads at random); "g on pads" (the scattered pads, g
+    nonzero on them, and every fourth tile's g all 0 beside real
+    columns)."""
     an, bn = unit_rows(n, d, gen, dtype), unit_rows(n, d, gen, dtype)
-    real = torch.arange(n, device=gen.device) < n - pads
+    rows = torch.arange(n, device=gen.device)
+    tile = rows // flashnce.TILE
+    if layout == "tail":
+        real = rows < n - pads
+    elif layout == "all pads":
+        real = torch.zeros(n, dtype=torch.bool, device=gen.device)
+    else:
+        real = (torch.rand(n, device=gen.device, generator=gen) > 0.4) \
+            & (tile % 3 != 1)
     col = torch.where(real, 0.0, flashnce.NEG).float()
-    g = torch.rand(n, device=gen.device, generator=gen) * real
+    g = torch.rand(n, device=gen.device, generator=gen)
+    if layout == "g on pads":
+        g = g * (tile % 4 != 2)
+    elif layout != "all pads":
+        g = g * real
     return an, bn, col, g
 
 
 def flash_odd_checks(dev):
-    """Phase 8a: both flash kernels against the plain version off the
+    """Phase 8a: the flash kernels against the plain version off the
     path: N no multiple of the 64-row tile, d of 100, 36 and 30 (the
     scalar tile loads), one case at d = 256 across tiles, with and without
-    a padded tail."""
+    a padded tail; then every slot a pad, scattered pads (whole pad tiles
+    between live ones) and g nonzero on pads (FLASH_PADS); float32 and
+    bf16, each in the path's design and the first design."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
-    for n, d, pads in FLASH_ODD:
+    cases = [(n, d, pads, "tail") for n, d, pads in FLASH_ODD] \
+        + [(n, d, 0, layout) for n, d, layout in FLASH_PADS]
+    for n, d, pads, layout in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            flash_check(*flash_inputs(n, d, pads, gen, dtype),
-                        "off the path")
+            flash_check(*flash_inputs(n, d, pads, gen, dtype, layout),
+                        f"off the path ({layout})")
+
+
+def flash_attributes():
+    """Registers and spills of every flash kernel (cudaFuncGetAttributes:
+    local memory a thread, where ptxas puts spilled registers)."""
+    for design in flashnce.DESIGNS:
+        for backward in (False, True):
+            a = flashnce.attributes(backward, design)
+            print(f"flash {design} {'backward' if backward else 'forward'}"
+                  f": {a['registers']} registers, {a['local_bytes']} bytes "
+                  f"of local memory (spills) a thread, {a['static_smem']} "
+                  f"bytes static shared")
 
 
 def flash_path_records(dev, node_mask, launches):
     """Phase 8c: both kernels at the path's shape (the neighbour batch's
     node slots, d = 256, its pad tail), float32 and bf16, against the plain
-    version, timed beside their bounds; returns the two ``kernels``
-    records (float32, the config's type)."""
+    version; the skipping bf16 kernels bitwise against the first design;
+    timed in one call, the first design and the path's in turns (first,
+    path, path, first) beside the plain version and the bounds over the
+    envelope and over the live tile pairs; returns the two ``kernels``
+    records (float32, the config's type, its path design)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     n, d = node_mask.shape[0], GCL["hidden_dim"]
     col = torch.where(node_mask, 0.0, flashnce.NEG).float()
     g = torch.rand(n, device=dev, generator=gen) * node_mask
+    live = {False: flash_live_fraction(col, g, False),
+            True: flash_live_fraction(col, g, True)}
+    print(f"flash path shape: N = {n}, {int(node_mask.sum())} real slots "
+          f"({float(node_mask.float().mean()):.4f} of the batch); live "
+          f"tile pairs {live[False]:.4f} of the forward's, {live[True]:.4f} "
+          f"of the backward's")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         an, bn = unit_rows(n, d, gen, dtype), unit_rows(n, d, gen, dtype)
         errs = flash_check(an, bn, col, g, "at the path's shape")
+        path, first = flashnce.PATH[dtype], flashnce.FIRST[dtype]
+        if dtype == torch.bfloat16:
+            got = flash_kernels(an, bn, col, g)
+            with first_design_flash():
+                want = flash_kernels(an, bn, col, g)
+            same = torch.equal(got[0], want[0]) and all(
+                torch.equal(a, b) for a, b in zip(got[1], want[1]))
+            print(f"flash {path} against {first} at the path's shape: "
+                  f"bitwise equal {same}")
+            check(same, f"flash {path} differs from {first}")
+            del got, want
         den = flashnce.FORWARD(an, bn, col, GCL_TAU)
-        t = {"fwd": time_ms(lambda: flashnce.FORWARD(an, bn, col, GCL_TAU)),
-             "bwd": time_ms(lambda: flashnce.BACKWARD(an, bn, col, den, g,
-                                                      GCL_TAU))}
+        t = {}
+        for design in (first, path, path, first):
+            with on_flash_design(design):
+                for key, fn in (
+                        ("fwd", lambda: flashnce.FORWARD(an, bn, col,
+                                                         GCL_TAU)),
+                        ("bwd", lambda: flashnce.BACKWARD(
+                            an, bn, col, den, g, GCL_TAU))):
+                    t.setdefault((design, key), []).append(time_ms(fn))
         t["plain_fwd"] = time_ms(lambda: flashnce.denominators_plain(
             an, bn, col, GCL_TAU))
         t["plain_bwd"] = time_ms(lambda: flashnce.denominator_grads_plain(
             an, bn, col, den, g, GCL_TAU))
         for backward, key in ((False, "fwd"), (True, "bwd")):
-            bound, by, term = flash_bound_ms(n, d, dtype, backward)
+            ms, ms_first = min(t[path, key]), min(t[first, key])
+            t[key] = ms
+            env, _, _ = flash_bound_ms(n, d, dtype, backward)
+            bound, by, term = flash_bound_ms(n, d, dtype, backward,
+                                             live[backward])
             print(f"flash_denom{'_bwd' if backward else ''} time "
-                  f"({str(dtype)[6:]}, N = {n}, d = {d}): kernel "
-                  f"{t[key]:.4f} ms, plain {t['plain_' + key]:.4f} ms, "
-                  f"bound {bound:.4f} ms ({term}), kernel at "
-                  f"{bound / t[key]:.1%} of bound; no single PyTorch call "
-                  f"returns these denominators (attention kernels return a "
-                  f"row logsumexp only through private ops, without the "
-                  f"two-table concat, the column mask or the masked "
-                  f"diagonal)")
+                  f"({str(dtype)[6:]}, N = {n}, d = {d}, CUDA events, "
+                  f"min of two medians): {path} {ms:.4f} ms (runs "
+                  f"{', '.join(f'{v:.4f}' for v in t[path, key])}), "
+                  f"{first} {ms_first:.4f} ms (runs "
+                  f"{', '.join(f'{v:.4f}' for v in t[first, key])}), "
+                  f"{ms_first / ms:.2f}x; plain {t['plain_' + key]:.4f} ms; "
+                  f"bound over the envelope {env:.4f} ms, over the live "
+                  f"tile pairs ({live[backward]:.4f}) {bound:.4f} ms "
+                  f"({term}): {path} at {bound / ms:.1%} of the live "
+                  f"bound, {first} at {bound / ms_first:.1%}; no single "
+                  f"PyTorch call returns these denominators (attention "
+                  f"kernels return a row logsumexp only through private "
+                  f"ops, without the two-table concat, the column mask or "
+                  f"the masked diagonal)")
         out[dtype] = (t, errs)
         del an, bn, den
+    print(f"flash wide_f32 forward slices of each 128-row tile's live "
+          f"column tiles: {flashnce.FORWARD.splits(n, dev)}")
     t, errs = out[torch.float32]
     records = []
     for backward, key in ((False, "fwd"), (True, "bwd")):
         name = flashnce.NAME + ("_bwd" if backward else "")
-        bound, by, _ = flash_bound_ms(n, d, torch.float32, backward)
+        bound, by, _ = flash_bound_ms(n, d, torch.float32, backward,
+                                      live[backward])
         records.append({
             "name": name, "route": "cuda",
             "source": "biomedkg_tpu_torch/csrc/flashnce.cu",
@@ -1746,8 +1898,9 @@ def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
                     batch, draws)
         check(not any(launch_counts().values()),
               "the plain versions launched a kernel")
-        check(used == expected_launches(SEGSUM_PER_GCL_STEP, None, 0,
-                                        flash_n=flash_n),
+        check(used == expected_launches(
+            SEGSUM_PER_GCL_STEP, None, 0, flash_n=flash_n,
+            flash_design=flashnce.flash_design(dtype)),
               f"{what}: launches in one step: {used}")
         loss_tol, grad_tol = STEP_TOL[dtype]
         loss_err = abs(loss_k - loss_p) / max(abs(loss_p), 1.0)
@@ -1846,11 +1999,16 @@ def grace_phase(dev, table, batches):
             work=real_nodes)
         check(launches == expected_launches(
             SEGSUM_PER_GCL_STEP * steps, None, 0,
-            flash_n=FLASH_PER_STEP * steps),
+            flash_n=FLASH_PER_STEP * steps,
+            flash_design=flashnce.flash_design(dtype)),
             f"{what}: launches {launches}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         profile_steps(module, state, batches[-profiled:], gen, what)
+        with first_design_flash():
+            profile_steps(module, state, batches[-profiled:], gen,
+                          f"{what} with the first-design flash kernels "
+                          f"({flashnce.FIRST[dtype]})")
         gcl_compare_step(gcl_module.GRACEModule, sd, table, dev, batches[0],
                          FLASH_PER_STEP, dtypes=(dtype,))
         gcl_loss_falls(gcl_module_for(gcl_module.GRACEModule, sd, table, dev,
@@ -1928,6 +2086,7 @@ def encode_train_gcl(gcl_run, dm, dev):
 def gcl_phase(dev, tmp, gcl_run):
     """Phase 8; returns the flash kernels' records and the segsum launches
     of its paths."""
+    flash_attributes()
     flash_odd_checks(dev)
     dm, batches = gcl_batches(dev, tmp)
     table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)

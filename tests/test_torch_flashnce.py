@@ -126,3 +126,138 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flashnce.flash_denom(a, b, c, TAU).numpy(), den.numpy())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flashnce.flash_denom(a.double(), b.double(), c, TAU)
+
+
+# -- the pad-tile skip -------------------------------------------------------
+
+def _layout(n, layout, seed):
+    """(col, g) float32 numpy for a pad layout: "tail" (the last fifth
+    pads, g 0 there), "no pads", "all pads" (g on every row), "scattered"
+    (every third 64-row tile all pads, the others pads at random, g 0 on
+    pads), "g on pads" (the scattered pads, g nonzero on them and every
+    fourth tile's g all 0)."""
+    rng = np.random.default_rng(seed)
+    tile = np.arange(n) // flashnce.TILE
+    real = {"tail": np.arange(n) < n - n // 5,
+            "no pads": np.ones(n, bool),
+            "all pads": np.zeros(n, bool)}.get(layout)
+    if real is None:
+        real = (rng.random(n) > 0.4) & (tile % 3 != 1)
+    col = np.where(real, 0.0, np.finfo(np.float32).min).astype(np.float32)
+    g = rng.random(n).astype(np.float32)
+    if layout == "g on pads":
+        g *= tile % 4 != 2
+    elif layout != "all pads":
+        g *= real
+    return col, g
+
+
+LAYOUTS = ["tail", "no pads", "all pads", "scattered", "g on pads"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_live_tiles_against_brute_force(layout):
+    """live_tiles's flags: a real column, a nonzero g, per 64-row tile
+    (the last one ragged), against a loop over the tiles."""
+    n = 777
+    col, g = _layout(n, layout, seed=3)
+    flags = flashnce.live_tiles(torch.tensor(col), torch.tensor(g))
+    t = -(-n // flashnce.TILE)
+    assert flags.shape == (2, t) and flags.dtype == torch.bool
+    for i in range(t):
+        rows = slice(i * flashnce.TILE, (i + 1) * flashnce.TILE)
+        assert bool(flags[0, i]) == any(c > np.finfo(np.float32).min
+                                        for c in col[rows])
+        assert bool(flags[1, i]) == any(v != 0 for v in g[rows])
+    no_g = flashnce.live_tiles(torch.tensor(col))
+    assert torch.equal(no_g[0], flags[0]) and not no_g[1].any()
+
+
+def _sums64(an, bn, col, g, live=None):
+    """den, d_an, d_bn in float64 (numpy), over every term, or with the
+    (col, g) flags ``live`` over the live tiles only, as the kernels skip:
+    the forward's column tiles with a real column (all of them where none
+    has), the backward's terms whose g-tile row and column-tile column are
+    both live."""
+    n = an.shape[0]
+    inter = an @ bn.T / TAU + col[None, :]
+    intra = an @ an.T / TAU + col[None, :]
+    intra[np.arange(n), np.arange(n)] = np.finfo(np.float32).min
+    keep = np.ones((n, n), bool)
+    if live is not None:
+        tile = np.arange(n) // flashnce.TILE
+        c_live = live[0] if live[0].any() else np.ones_like(live[0])
+        cols = c_live[tile]
+        keep = live[1][tile][:, None] & cols[None, :]
+        inter, intra = inter[:, cols], intra[:, cols]
+    both = np.concatenate([inter, intra], 1)
+    m = both.max(1)
+    den = m + np.log(np.exp(both - m[:, None]).sum(1))
+    inter = an @ bn.T / TAU + col[None, :]
+    intra = an @ an.T / TAU + col[None, :]
+    intra[np.arange(n), np.arange(n)] = np.finfo(np.float32).min
+    gi = np.where(keep, g[:, None] * np.exp(inter - den[:, None]), 0.0)
+    gt = np.where(keep, g[:, None] * np.exp(intra - den[:, None]), 0.0)
+    return den, (gi @ bn + gt @ an + gt.T @ an) / TAU, gi.T @ an / TAU
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_skip_is_exact(layout):
+    """The sums over the live tile pairs alone equal the sums over every
+    pair to 1e-12 relative (float64): every term the kernels skip is an
+    exact 0, whatever the pad layout and wherever g is nonzero. The full
+    float64 sums equal the plain version (float32) to 1e-5."""
+    n, d = 333, 24
+    an, bn, _, _, _ = _inputs(n, d, 0, seed=17)
+    col, g = _layout(n, layout, seed=4)
+    a64, b64 = an.astype(np.float64), bn.astype(np.float64)
+    c64, g64 = col.astype(np.float64), g.astype(np.float64)
+    live = flashnce.live_tiles(torch.tensor(col), torch.tensor(g)).numpy()
+    full = _sums64(a64, b64, c64, g64)
+    skipped = _sums64(a64, b64, c64, g64, live)
+    for got, want in zip(skipped, full):
+        scale = max(np.abs(want).max(), 1e-300)
+        assert np.abs(got - want).max() <= 1e-12 * scale
+    den = flashnce.denominators_plain(torch.tensor(an), torch.tensor(bn),
+                                      torch.tensor(col), TAU)
+    grads = flashnce.denominator_grads_plain(
+        torch.tensor(an), torch.tensor(bn), torch.tensor(col), den,
+        torch.tensor(g), TAU)
+    np.testing.assert_allclose(den.numpy(), full[0], rtol=1e-5)
+    for got, want in zip(grads, full[1:]):
+        assert np.abs(got.numpy() - want).max() \
+            <= 1e-5 * np.abs(want).max()
+
+
+def test_kernel_wrappers_refuse_bad_flags():
+    """Live flags passed by the caller must be (2, ceil(N / 64)) bool or
+    uint8 on the inputs' device: the wrappers refuse others before they
+    look for a card."""
+    an, bn, col, w, _ = _inputs(130, 16, 3, seed=2)
+    a, b, c = torch.tensor(an), torch.tensor(bn), torch.tensor(col)
+    g = torch.tensor(w)
+    den = flashnce.denominators_plain(a, b, c, TAU)
+    good = flashnce.live_tiles(c, g)
+    assert good.shape == (2, 3)
+    bad = [good[:, :2], good.float(), torch.zeros(2, 3, dtype=torch.bool,
+                                                   device="meta"),
+           good.T.contiguous().T]
+    for flags in bad:
+        with pytest.raises(ValueError, match="flags"):
+            flashnce.FORWARD(a, b, c, TAU, flags=flags)
+        with pytest.raises(ValueError, match="flags"):
+            flashnce.BACKWARD(a, b, c, den, g, TAU, flags=flags)
+    with pytest.raises(ValueError, match="CUDA"):
+        flashnce.FORWARD(a, b, c, TAU, flags=good)
+    assert flashnce.FORWARD.launches == flashnce.BACKWARD.launches == 0
+
+
+def test_designs_and_path():
+    """Each type's path design and first design take that type; the
+    wrappers count launches by design."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert flashnce.DESIGNS[flashnce.flash_design(dtype)] == dtype
+        assert flashnce.DESIGNS[flashnce.FIRST[dtype]] == dtype
+    assert flashnce.PATH == {torch.float32: "wide_f32",
+                             torch.bfloat16: "skip_bf16"}
+    assert set(flashnce.FORWARD.by_design) == set(flashnce.DESIGNS)
