@@ -97,6 +97,7 @@
 // per SM in the forward. Not done yet: bf16 on wgmma with the logits in
 // registers.
 
+#include <cuda.h>  // CUtensorMap (the encoder comes through the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
@@ -1130,6 +1131,747 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 
 }  // namespace wide
 
+// ===== bf16 redesign (wgmma_bf16) ===========================================
+//
+// Both kernels are warp-specialised: warpgroups 0 and 1 consume, warpgroup
+// 2's first warp produces. The producer reads every tile by TMA (one box
+// of rows x 64 columns per 128-byte swizzled panel, four panels at d =
+// 256; rows and columns past the table come in as zeros) into a ring of
+// stages with a full and an empty mbarrier each, and writes beside each
+// tile the streamed rows' vectors (col; backward also g and den), which
+// hold 0 and -inf past the last row, so that those logits are masked by
+// global index and col is never read past N. A CTA owns 128 rows (its own
+// tile, loaded once), 64 per consumer warpgroup, and each warpgroup runs
+// wgmma on its 64 rows against the streamed tiles, float32 accumulators in
+// registers. One swizzled copy of a streamed tile serves both products: as
+// a K-major B it gives the logits own . streamed^T (K = d), as an N-major B
+// the backward's cotangents . streamed (K = the streamed rows, N = d).
+//
+// Forward (128 streamed rows a tile, a ring of 2): per live column tile of
+// 128 (either 64-row half live), bn's tile then an's; the 64 x 128 logit
+// tile (64 registers a thread) is scaled, masked and folded into a running
+// max and sum per row in the registers that hold it, as wide_f32 does
+// (the thread's 32 columns of its two rows; the quad merges once at the
+// end). The slices and the ticket merge of wide_f32's forward fill the
+// last wave (FlashForward.splits).
+//
+// Backward (64 streamed rows a tile, a ring of 4): the three jobs of the
+// first design, without atomics. Per live pair (the own 128 rows' flags
+// against the streamed 64's, as wide_f32), the 64 x 64 logit tile (32
+// registers) becomes the softmax cotangents in place; they are rounded to
+// bf16 and passed from registers as the A operand of the second wgmma
+// (m64n256k16: the accumulator fragment of m64n64 is the A fragment of
+// four k16 steps, no shuffle), whose 64 x 256 float32 output block (128
+// registers a thread) stays in the accumulators across the whole stream.
+// The second product is 256 wide whatever d: a stage's panels past d are
+// zeroed once and never loaded.
+//
+// Registers: one CTA per SM, 168 registers a thread at launch; the producer
+// keeps 40 and the consumers take 232 (128 x 40 + 256 x 232 <= 65,536).
+// Shared memory: the own tile 64 KB and the ring, 128 KB either way.
+namespace wg {
+
+using wide::smem_u32;
+
+constexpr int kThreads = 384;      // consumer warpgroups 0 and 1, producer 2
+constexpr int kConsumerWarps = 8;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kO = 128;            // own rows per CTA
+constexpr int kFS = 128;           // forward: streamed rows per tile
+constexpr int kBS = 64;            // backward: streamed rows per tile
+constexpr int kFwdStages = 2, kBwdStages = 4;
+constexpr int kPanel = 64;         // bf16 columns of one 128-byte panel
+constexpr int kPanels = kMaxD / kPanel;
+constexpr int kRowBytes = 128;     // one row of a panel
+constexpr int kOwnBytes = kPanels * kO * kRowBytes;
+constexpr int kFwdTile = kPanels * kFS * kRowBytes;
+constexpr int kBwdTile = kPanels * kBS * kRowBytes;
+constexpr int kFwdVec = kFS;       // floats beside a forward tile: col
+constexpr int kBwdVec = 3 * kBS;   // beside a backward tile: g, den, col
+
+// the own tile, the ring's tiles and vectors, the barriers (full and empty
+// per stage, the own tile's), and 1024 bytes to align the tiles (the
+// 128-byte swizzle repeats every 1024)
+constexpr size_t smem_bytes(int stages, int tile, int vec) {
+  return 1024 + kOwnBytes + (size_t)stages * (tile + vec * sizeof(float)) +
+         (2 * stages + 1) * 8;
+}
+constexpr size_t kFwdSmem = smem_bytes(kFwdStages, kFwdTile, kFwdVec);
+constexpr size_t kBwdSmem = smem_bytes(kBwdStages, kBwdTile, kBwdVec);
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// an arrival that also expects `bytes` of TMA transfer
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Rows [r0, r0 + rows) of a table into the tile at dst: one box per panel,
+// each panel rows x 128 bytes.
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int panels, int rows,
+                                          int64_t r0) {
+  for (int p = 0; p < panels; ++p)
+    tma_load_2d(dst + p * rows * kRowBytes, map, bar, p * kPanel, (int)r0);
+}
+
+// A shared-memory matrix descriptor for the 128-byte swizzle: the start
+// address, the leading and stride byte offsets (16-byte units), layout 1.
+// K-major operands use the stride offset alone, 1024 bytes per 8 rows;
+// the N-major B steps lbo bytes from one 64-column panel to the next.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// Keep the compiler from moving register reads or writes across the
+// asynchronous wgmma (after its wait: the registers are settled here).
+template <int kN>
+__device__ __forceinline__ void fence_regs(float (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// the 256 consumer threads only (the producer warps have left)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
+// both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B from shared memory,
+// both K-major; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 256] += A[64 x 16] B[16 x 256], A from registers (the bf16 pairs
+// a[0..3] of the m64k16 fragment), B from shared memory N-major.
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The shared memory of a kernel with kStages stages of kTile bytes and
+// kVec floats each, from its 1024-byte aligned base: the own tile, the
+// ring's tiles, the ring's vectors, the barriers.
+template <int kStages, int kTile, int kVec>
+struct Layout {
+  uint8_t* raw;  // the generic address of `own`
+  uint32_t own, bars;
+  __device__ explicit Layout(uint8_t* smem) {
+    const uint32_t at = smem_u32(smem);
+    own = (at + 1023) & ~1023u;
+    raw = smem + (own - at);
+    bars = own + kOwnBytes + kStages * (kTile + kVec * 4);
+  }
+  __device__ uint32_t tile(int s) const { return own + kOwnBytes + s * kTile; }
+  __device__ float* vec(int s) const {
+    return reinterpret_cast<float*>(raw + kOwnBytes + kStages * kTile) +
+           s * kVec;
+  }
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (kStages + s); }
+  __device__ uint32_t own_bar() const { return bars + 16 * kStages; }
+  // thread 0: a full barrier waits for the producer warp's 32 lanes and
+  // the tile's bytes, an empty one for the consumers' 8 warps
+  __device__ void init() const {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), kConsumerWarps);
+    }
+    mbar_init(own_bar(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// The ring position of the it-th tile: its stage and the parity of its
+// round.
+template <int kStages>
+struct Slot {
+  int s;
+  uint32_t parity;
+  __device__ explicit Slot(int it) : s(it % kStages), parity((it / kStages) & 1) {}
+};
+
+
+// ---- forward ----------------------------------------------------------------
+
+// Folds one 64 x 128 logit tile into the running max and sum of this
+// thread's two rows (acc[4 i + 2 j + c]: local row rl + 8 j of the own
+// tile, column 8 i + 2 q + c of the streamed tile): scaled by 1 / tau, the
+// column masks cv added (-inf past the last column), with kDiag the
+// diagonal (local row == local column: the streamed tile is the own one)
+// at -FLT_MAX. Partial maxima and sums two a row, for the latency.
+template <bool kDiag>
+__device__ __forceinline__ void fold(float (&acc)[64], const float* cv, int rl,
+                                     int q, float inv_tau, float (&m)[2],
+                                     double (&sum)[2]) {
+  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 c2 = *reinterpret_cast<const float2*>(cv + 8 * i + 2 * q);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = acc[4 * i + 2 * j + c];
+        x = x * inv_tau + (c ? c2.y : c2.x);
+        if (kDiag && 8 * i + 2 * q + c == rl + 8 * j) x = kNeg;
+        mx[j][c] = fmaxf(mx[j][c], x);
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float m_new = fmaxf(m[j], fmaxf(mx[j][0], mx[j][1]));
+    float e[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) e[c] += __expf(acc[4 * i + 2 * j + c] - m_new);
+    sum[j] = sum[j] * (double)expf(m[j] - m_new) + (double)(e[0] + e[1]);
+    m[j] = m_new;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_bf16(const __grid_constant__ CUtensorMap map_a,
+             const __grid_constant__ CUtensorMap map_b,
+             const float* __restrict__ col, const uint8_t* __restrict__ flags,
+             float* __restrict__ den, double* __restrict__ part_s,
+             float* __restrict__ part_m, int* __restrict__ tickets, int n,
+             int d, float tau) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int last;
+  const Layout<kFwdStages, kFwdTile, kFwdVec> sm(smem_raw);
+  const int tid = threadIdx.x;
+  const int64_t o0 = (int64_t)blockIdx.x * kO;
+  const int64_t rows = (int64_t)gridDim.x * kO;  // the workspace's rows
+  const int splits = gridDim.y, p = blockIdx.y;
+  const int tiles = (n + kFS - 1) / kFS;
+  const Live live(flags, (n + 63) / 64);
+  auto col_live = [&](int u) { return live.c(2 * u) || live.c(2 * u + 1); };
+  auto live_from = [&](int u) {
+    while (u < tiles && !col_live(u)) ++u;
+    return u;
+  };
+  // this slice: the live column tiles of rank [lo, lo + count)
+  int total = 0;
+  for (int base = 0; base < tiles; base += kThreads)
+    total += __syncthreads_count(base + tid < tiles && col_live(base + tid));
+  const int lo = (int)((int64_t)total * p / splits);
+  const int count = (int)((int64_t)total * (p + 1) / splits) - lo;
+  int u0 = live_from(0);
+  for (int k = 0; k < lo; ++k) u0 = live_from(u0 + 1);
+  const int panels = (d + kPanel - 1) / kPanel;
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  const int group = tid / 128;
+  if (group == 2) {  // producer: the first warp, every lane
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid >= 2 * 128 + 32) return;
+    const int lane = tid % 32;
+    if (lane == 0) {
+      mbar_expect_tx(sm.own_bar(), panels * kO * kRowBytes);
+      load_rows(sm.own, &map_a, sm.own_bar(), panels, kO, o0);
+    }
+    int it = 0;
+    for (int t = 0, u = u0; t < count; ++t, u = live_from(u + 1))
+      for (int intra = 0; intra < 2; ++intra, ++it) {
+        const Slot<kFwdStages> at(it);
+        mbar_wait(sm.empty(at.s), at.parity ^ 1);
+        float* cv = sm.vec(at.s);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t c = (int64_t)u * kFS + 4 * lane + k;
+          cv[4 * lane + k] = c < n ? col[c] : -INFINITY;
+        }
+        if (lane == 0) {  // the vectors first, then this lane's arrival
+          mbar_expect_tx(sm.full(at.s), panels * kFS * kRowBytes);
+          load_rows(sm.tile(at.s), intra ? &map_a : &map_b, sm.full(at.s),
+                    panels, kFS, (int64_t)u * kFS);
+        } else {
+          mbar_arrive(sm.full(at.s));
+        }
+      }
+    return;
+  }
+
+  // consumers: warpgroup `group` owns local rows 64 group .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = (tid / 32) % 4, lane = tid % 32, q = lane % 4;
+  const int rl = 64 * group + 16 * warp + lane / 4;  // local row, j = 0
+  const int ksteps = (d + 15) / 16;
+  const float inv_tau = 1.f / tau;
+  const uint32_t own = sm.own + group * 64 * kRowBytes;
+  // the running max and sum of this thread's rows over its columns; the
+  // sum a double, as in the other designs
+  float m[2] = {kNeg, kNeg};
+  double sum[2] = {0.0, 0.0};
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  mbar_wait(sm.own_bar(), 0);
+  int it = 0;
+  for (int t = 0, u = u0; t < count; ++t, u = live_from(u + 1))
+    for (int intra = 0; intra < 2; ++intra, ++it) {
+      const Slot<kFwdStages> at(it);
+      mbar_wait(sm.full(at.s), at.parity);
+      const uint32_t st = sm.tile(at.s);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll 4
+      for (int k = 0; k < ksteps; ++k) {
+        const uint32_t kb = (k % 4) * 32;
+        wgmma_m64n128k16_ss(
+            acc, desc_sw128(own + (k / 4) * kO * kRowBytes + kb, 16, 1024),
+            desc_sw128(st + (k / 4) * kFS * kRowBytes + kb, 16, 1024), k > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (intra && (int64_t)u * kFS == o0)
+        fold<true>(acc, sm.vec(at.s), rl, q, inv_tau, m, sum);
+      else
+        fold<false>(acc, sm.vec(at.s), rl, q, inv_tau, m, sum);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sm.empty(at.s));
+    }
+
+  // merge the quad's four threads of each row
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int w = 1; w < 4; w *= 2) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[j], w);
+      const double so = __shfl_xor_sync(0xffffffffu, sum[j], w);
+      const float mn = fmaxf(m[j], mo);
+      sum[j] = sum[j] * (double)expf(m[j] - mn) + so * (double)expf(mo - mn);
+      m[j] = mn;
+    }
+  if (splits == 1) {
+    if (q == 0)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int64_t row = o0 + rl + 8 * j;
+        if (row < n) den[row] = m[j] + logf((float)sum[j]);
+      }
+    return;
+  }
+  if (q == 0)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int64_t i = p * rows + o0 + rl + 8 * j;
+      part_m[i] = m[j];
+      part_s[i] = sum[j];
+    }
+  // the slice that finishes last merges, in slice order (wide_f32's)
+  __threadfence();
+  consumers_sync();
+  if (tid == 0) last = atomicAdd(tickets + blockIdx.x, 1) == splits - 1;
+  consumers_sync();
+  if (!last) return;
+  __threadfence();
+  const int64_t row = o0 + tid;
+  if (tid < kO && row < n) {
+    float mx = kNeg;
+    for (int s = 0; s < splits; ++s)
+      mx = fmaxf(mx, __ldcg(part_m + s * rows + row));
+    double total_s = 0.0;
+    for (int s = 0; s < splits; ++s)
+      total_s += __ldcg(part_s + s * rows + row) *
+                 (double)expf(__ldcg(part_m + s * rows + row) - mx);
+    den[row] = mx + logf((float)total_s);
+  }
+}
+
+// ---- backward ---------------------------------------------------------------
+
+// The softmax cotangents of one 64 x 64 logit tile, in place (l[4 i + 2 j +
+// c]: local row rl + 8 j of the own tile, column 8 i + 2 q + c of the
+// streamed tile): kJob 0 the rows term, 2 the columns term, 1 both, as
+// cotangent() above; kDiag: the tile holds the intra diagonal, where local
+// row == column + shift. v holds the streamed (g, den, col); the own rows'
+// are (g_o, den_o, col_o). Rows past the last are zeros with (0, 0, -inf)
+// on either side, so every term there is an exact 0.
+template <int kJob, bool kDiag>
+__device__ __forceinline__ void cotangents(float (&l)[32], const float* v,
+                                           int rl, int q, int shift,
+                                           const float (&g_o)[2],
+                                           const float (&den_o)[2],
+                                           const float (&col_o)[2],
+                                           float inv_tau) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c0 = 8 * i + 2 * q;
+    float2 gs = make_float2(0.f, 0.f), ds = gs, cs = gs;
+    if (kJob != 0) {
+      gs = *reinterpret_cast<const float2*>(v + c0);
+      ds = *reinterpret_cast<const float2*>(v + kBS + c0);
+    }
+    if (kJob != 2) cs = *reinterpret_cast<const float2*>(v + 2 * kBS + c0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = l[4 * i + 2 * j + c];
+        const float xs = x * inv_tau;
+        const bool diag = kDiag && c0 + c + shift == rl + 8 * j;
+        float w = 0.f;
+        if (kJob != 2)
+          w = g_o[j] *
+              __expf((diag ? kNeg : xs + (c ? cs.y : cs.x)) - den_o[j]);
+        if (kJob != 0)
+          w += (c ? gs.y : gs.x) *
+               __expf((diag ? kNeg : xs + col_o[j]) - (c ? ds.y : ds.x));
+        x = w;
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_bf16(const __grid_constant__ CUtensorMap own_a,
+             const __grid_constant__ CUtensorMap own_b,
+             const __grid_constant__ CUtensorMap st_a,
+             const __grid_constant__ CUtensorMap st_b,
+             const float* __restrict__ col, const float* __restrict__ den,
+             const float* __restrict__ g, const uint8_t* __restrict__ flags,
+             float* __restrict__ out, int n, int n64, int d, int dp,
+             float tau) {
+  extern __shared__ uint8_t smem_raw[];
+  const Layout<kBwdStages, kBwdTile, kBwdVec> sm(smem_raw);
+  const int tid = threadIdx.x, job = blockIdx.y, ot = blockIdx.x;
+  const int64_t o0 = (int64_t)ot * kO;
+  // this CTA's block of the job's output: rows [o0, min(o0 + 128, n64))
+  float* out_job = out + ((int64_t)job * n64 + o0) * dp;
+  const int out_rows = (int)(n64 - o0 < kO ? n64 - o0 : kO);
+  const int tiles = n64 / kBS;
+  const Live live(flags, tiles);
+  const bool go = live.gz(2 * ot) || live.gz(2 * ot + 1);
+  const bool co = live.c(2 * ot) || live.c(2 * ot + 1);
+  auto live_from = [&](int u) {
+    while (u < tiles && !Live::pair(job, go, co, live.gz(u), live.c(u))) ++u;
+    return u;
+  };
+  const int first = live_from(0);
+  if (first >= tiles) {  // no live pair: zeros
+    for (int i = tid; i < out_rows * dp / 4; i += kThreads)
+      reinterpret_cast<float4*>(out_job)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const int panels = (d + kPanel - 1) / kPanel;
+  // the panels past d, read as zeros by the second product
+  const int zero_from = panels * kBS * kRowBytes;
+  for (int s = 0; s < kBwdStages; ++s) {
+    uint4* z = reinterpret_cast<uint4*>(sm.raw + kOwnBytes + s * kBwdTile +
+                                        zero_from);
+    for (int i = tid; i < (kBwdTile - zero_from) / 16; i += kThreads)
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  const int group = tid / 128;
+  if (group == 2) {  // producer: the first warp, every lane
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid >= 2 * 128 + 32) return;
+    const int lane = tid % 32;
+    if (lane == 0) {
+      mbar_expect_tx(sm.own_bar(), panels * kO * kRowBytes);
+      load_rows(sm.own, job == 2 ? &own_b : &own_a, sm.own_bar(), panels, kO,
+                o0);
+    }
+    const CUtensorMap* st = job == 0 ? &st_b : &st_a;
+    int it = 0;
+    for (int u = first; u < tiles; u = live_from(u + 1), ++it) {
+      const Slot<kBwdStages> at(it);
+      mbar_wait(sm.empty(at.s), at.parity ^ 1);
+      float* v = sm.vec(at.s);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int r = 2 * lane + k;
+        const int64_t s = (int64_t)u * kBS + r;
+        const bool in = s < n;
+        v[r] = in ? g[s] : 0.f;
+        v[kBS + r] = in ? den[s] : 0.f;
+        v[2 * kBS + r] = in ? col[s] : -INFINITY;
+      }
+      if (lane == 0) {  // the vectors first, then this lane's arrival
+        mbar_expect_tx(sm.full(at.s), panels * kBS * kRowBytes);
+        load_rows(sm.tile(at.s), st, sm.full(at.s), panels, kBS,
+                  (int64_t)u * kBS);
+      } else {
+        mbar_arrive(sm.full(at.s));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup `group` owns local rows 64 group .. + 63
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int warp = (tid / 32) % 4, lane = tid % 32, q = lane % 4;
+  const int rl = 64 * group + 16 * warp + lane / 4;  // local row, j = 0
+  float g_o[2], den_o[2], col_o[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int64_t o = o0 + rl + 8 * j;
+    const bool in = o < n;
+    g_o[j] = in ? g[o] : 0.f;
+    den_o[j] = in ? den[o] : 0.f;
+    col_o[j] = in ? col[o] : -INFINITY;
+  }
+  const int ksteps = (d + 15) / 16;
+  const float inv_tau = 1.f / tau;
+  const uint32_t own = sm.own + group * 64 * kRowBytes;
+  // acc[4 i + 2 j + c]: local row rl + 8 j, column 8 i + 2 q + c
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  mbar_wait(sm.own_bar(), 0);
+  int it = 0;
+  for (int u = first; u < tiles; u = live_from(u + 1), ++it) {
+    const Slot<kBwdStages> at(it);
+    mbar_wait(sm.full(at.s), at.parity);
+    const uint32_t st = sm.tile(at.s);
+    float l[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) l[i] = 0.f;
+    fence_regs(l);
+    wgmma_fence();
+#pragma unroll 4
+    for (int k = 0; k < ksteps; ++k) {
+      const uint32_t kb = (k % 4) * 32;
+      wgmma_m64n64k16_ss(
+          l, desc_sw128(own + (k / 4) * kO * kRowBytes + kb, 16, 1024),
+          desc_sw128(st + (k / 4) * kBS * kRowBytes + kb, 16, 1024), k > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(l);
+    const float* v = sm.vec(at.s);
+    const int64_t s0 = (int64_t)u * kBS;
+    const int shift = (int)(s0 - o0);
+    if (job == 0)
+      cotangents<0, false>(l, v, rl, q, shift, g_o, den_o, col_o, inv_tau);
+    else if (job == 2)
+      cotangents<2, false>(l, v, rl, q, shift, g_o, den_o, col_o, inv_tau);
+    else if (shift >= 0 && shift < kO)
+      cotangents<1, true>(l, v, rl, q, shift, g_o, den_o, col_o, inv_tau);
+    else
+      cotangents<1, false>(l, v, rl, q, shift, g_o, den_o, col_o, inv_tau);
+    // the cotangents as the A fragments of four k16 steps: columns
+    // 16 k .. + 15 are l[8 k .. 8 k + 7]
+    uint32_t a[4][4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[k][r] = pack_bf16x2(l[8 * k + 2 * r], l[8 * k + 2 * r + 1]);
+    fence_regs(a);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wgmma_m64n256k16_rs(
+          acc, a[k],
+          desc_sw128(st + k * 16 * kRowBytes, kBS * kRowBytes, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(a);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty(at.s));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int c = 8 * i + 2 * q;
+    if (c < dp)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = rl + 8 * j;
+        if (r < out_rows)
+          *reinterpret_cast<float2*>(out_job + (int64_t)r * dp + c) =
+              make_float2(acc[4 * i + 2 * j] * inv_tau,
+                          acc[4 * i + 2 * j + 1] * inv_tau);
+      }
+  }
+}
+
+}  // namespace wg
+
 int round16(int d) { return (d + 15) / 16 * 16; }
 
 // the own and streamed tiles, the float logit tile, and backward: the bf16
@@ -1166,7 +1908,13 @@ cudaError_t set_smem(K* kernel, size_t bytes, bool max_carveout = true) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-enum Design { kFirstF32 = 0, kFirstBf16 = 1, kSkipBf16 = 2, kWideF32 = 3 };
+enum Design {
+  kFirstF32 = 0,
+  kFirstBf16 = 1,
+  kSkipBf16 = 2,
+  kWideF32 = 3,
+  kWgmmaBf16 = 4
+};
 
 template <typename T, bool kSkip>
 int launch_fwd(const void* an, const void* bn, const void* col,
@@ -1202,18 +1950,19 @@ int launch_bwd(const void* an, const void* bn, const void* col,
   return (int)cudaGetLastError();
 }
 
-// wide_f32's forward slices per 128-row tile: the fewest (up to 8) whose
-// grid fills at least 90 % of its last wave, else the fullest; a wave is
-// the card's SMs times the CTAs an SM holds
-int wide_splits(int n) {
+// The forward slices per 128-row tile of a design that slices (wide_f32,
+// wgmma_bf16): the fewest (up to 8) whose grid fills at least 90 % of its
+// last wave, else the fullest; a wave is the card's SMs times the CTAs an
+// SM holds.
+template <typename K>
+int fwd_splits(K* kernel, int threads, size_t smem, int n) {
   int dev = 0, sms = 0, per_sm = 0;
-  if (set_smem(wide::fwd_f32, wide::kFwdSmem, false) != cudaSuccess ||
+  if (set_smem(kernel, smem, false) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, wide::fwd_f32, wide::kThreads, wide::kFwdSmem) !=
-          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                    smem) != cudaSuccess ||
       sms * per_sm <= 0)
     return -1;
   const int64_t wave = (int64_t)sms * per_sm;
@@ -1229,6 +1978,98 @@ int wide_splits(int n) {
   return best;
 }
 
+// ---- wgmma_bf16's tensor maps -------------------------------------------------
+
+// cuTensorMapEncodeTiled from libcuda, fetched through the runtime so
+// that the library links no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The bf16 (n, d) row-major table at base as boxes of `rows` rows x 64
+// columns with the 128-byte swizzle; zeros past its rows and columns.
+bool table_map(CUtensorMap* map, const void* base, int n, int d, int rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {wg::kPanel, (cuuint32_t)rows};
+  const cuuint32_t ones[2] = {1, 1};
+  const EncodeTiled encode = encoder();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What ops/flashnce.py::flash_design sends to wgmma_bf16: TMA wants
+// 16-byte aligned bases and row strides (d a multiple of 8).
+bool wgmma_takes(const void* an, const void* bn, int d) {
+  return d % 8 == 0 && ((uintptr_t)an | (uintptr_t)bn) % 16 == 0;
+}
+
+int launch_wgmma_fwd(const void* an, const void* bn, const void* col,
+                     const uint8_t* flags, void* den, void* part_s,
+                     void* part_m, void* tickets, int splits, int n, int d,
+                     float tau, cudaStream_t stream) {
+  if (!wgmma_takes(an, bn, d) || splits < 1 || splits > 8)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;  // own and streamed rows alike: 128-row boxes
+  if (!table_map(&map_a, an, n, d, wg::kO) ||
+      !table_map(&map_b, bn, n, d, wg::kFS))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(wg::fwd_bf16, wg::kFwdSmem, false);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((n + wg::kO - 1) / wg::kO), (unsigned)splits);
+  wg::fwd_bf16<<<grid, wg::kThreads, wg::kFwdSmem, stream>>>(
+      map_a, map_b, static_cast<const float*>(col), flags,
+      static_cast<float*>(den), static_cast<double*>(part_s),
+      static_cast<float*>(part_m), static_cast<int*>(tickets), n, d, tau);
+  return (int)cudaGetLastError();
+}
+
+int launch_wgmma_bwd(const void* an, const void* bn, const void* col,
+                     const void* den, const void* g, const uint8_t* flags,
+                     void* out, int n, int d, float tau, cudaStream_t stream) {
+  if (!wgmma_takes(an, bn, d)) return (int)cudaErrorInvalidValue;
+  CUtensorMap own_a, own_b, st_a, st_b;
+  if (!table_map(&own_a, an, n, d, wg::kO) ||
+      !table_map(&own_b, bn, n, d, wg::kO) ||
+      !table_map(&st_a, an, n, d, wg::kBS) ||
+      !table_map(&st_b, bn, n, d, wg::kBS))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = set_smem(wg::bwd_bf16, wg::kBwdSmem, false);
+  if (err != cudaSuccess) return (int)err;
+  const int dp = round16(d), n64 = (n + 63) / 64 * 64;
+  const dim3 grid((unsigned)((n64 + wg::kO - 1) / wg::kO), kJobs);
+  wg::bwd_bf16<<<grid, wg::kThreads, wg::kBwdSmem, stream>>>(
+      own_a, own_b, st_a, st_b, static_cast<const float*>(col),
+      static_cast<const float*>(den), static_cast<const float*>(g), flags,
+      static_cast<float*>(out), n, n64, d, dp, tau);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. an, bn (n, d) contiguous, float32 or bf16
@@ -1238,12 +2079,24 @@ int wide_splits(int n) {
 // Each returns the cudaError_t of the launch (0 = success); an unknown
 // design is cudaErrorInvalidValue.
 
-// wide_f32's forward slices for n rows (the size of its workspace), or -1.
-extern "C" int flashnce_fwd_splits(int n) { return wide_splits(n); }
+// The forward slices of design (wide_f32 or wgmma_bf16) for n rows (the
+// size of its workspace), or -1.
+extern "C" int flashnce_fwd_splits(int design, int n) {
+  switch (design) {
+    case kWideF32:
+      return fwd_splits(wide::fwd_f32, wide::kThreads, wide::kFwdSmem, n);
+    case kWgmmaBf16:
+      return fwd_splits(wg::fwd_bf16, wg::kThreads, wg::kFwdSmem, n);
+  }
+  return -1;
+}
 
-// den (n,) written. wide_f32 with splits > 1 takes a workspace of splits *
-// ceil(n / 128) * 128 doubles (part_s) and as many floats (part_m), and
-// ceil(n / 128) tickets, zero on entry; the others ignore them.
+// den (n,) written. wide_f32 and wgmma_bf16 with splits > 1 take a
+// workspace of splits * ceil(n / 128) * 128 doubles (part_s) and as many
+// floats (part_m), and ceil(n / 128) tickets, zero on entry; the others
+// ignore them. wgmma_bf16 refuses (cudaErrorInvalidValue) a d that is no
+// multiple of 8, bases that are not 16-byte aligned, and a tensor map that
+// does not encode.
 extern "C" int flashnce_fwd(int design, const void* an, const void* bn,
                             const void* col, const void* flags, void* den,
                             void* part_s, void* part_m, void* tickets,
@@ -1275,6 +2128,9 @@ extern "C" int flashnce_fwd(int design, const void* an, const void* bn,
           static_cast<int*>(tickets), n, d, tau);
       return (int)cudaGetLastError();
     }
+    case kWgmmaBf16:
+      return launch_wgmma_fwd(an, bn, col, fl, den, part_s, part_m, tickets,
+                              splits, n, d, tau, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1313,6 +2169,8 @@ extern "C" int flashnce_bwd(int design, const void* an, const void* bn,
           d, dp, tau, vec);
       return (int)cudaGetLastError();
     }
+    case kWgmmaBf16:
+      return launch_wgmma_bwd(an, bn, col, den, g, fl, out, n, d, tau, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1347,6 +2205,12 @@ extern "C" int flashnce_attributes(int backward, int design, int* attrs) {
       break;
     case 2 * kWideF32 + 1:
       err = cudaFuncGetAttributes(&a, wide::bwd_f32);
+      break;
+    case 2 * kWgmmaBf16:
+      err = cudaFuncGetAttributes(&a, wg::fwd_bf16);
+      break;
+    case 2 * kWgmmaBf16 + 1:
+      err = cudaFuncGetAttributes(&a, wg::bwd_bf16);
       break;
   }
   if (err != cudaSuccess) return (int)err;

@@ -12,11 +12,14 @@ the caller.
 On a CUDA tensor the forward and the backward run the hand-written Hopper
 kernels of ``csrc/flashnce.cu`` (built at first use by ops/_build.py), for
 any N and any d up to 256, in the design ``flash_design`` picks from the
-type: ``wide_f32`` (full float32 on register tiles of 8 x 8 and 8 x 4
-logits a thread fed by a cp.async ring) and ``skip_bf16`` (the first
+type, d and the bases' alignment: ``wide_f32`` (full float32 on register
+tiles of 8 x 8 and 8 x 4 logits a thread fed by a cp.async ring) and, in
+bf16, ``wgmma_bf16`` (TMA-fed wgmma, the logits and cotangents in
+registers) where TMA takes the tables, else ``skip_bf16`` (the first
 design's WMMA kernels); ``first_f32`` and ``first_bf16``, the first
-design with every tile computed, stay for the A/B on the card.
-Both path designs skip the tiles whose terms are all exactly 0:
+design with every tile computed, stay for the A/B on the card, as does
+``skip_bf16`` where wgmma_bf16 runs.
+The designs but the first skip the tiles whose terms are all exactly 0:
 ``live_tiles`` reads from ``col`` and ``g`` which 64-row tiles hold a real
 column and which a nonzero cotangent, and the kernels leave out a column
 tile without a real column (forward) and a tile pair whose rows term and
@@ -32,9 +35,10 @@ products, as many as the other choice, one pass with float32 atomics for
 the columns side, which would land every (tile, column) partial sum as an
 atomic: 1.1·10¹⁰ of them at GRACE's N = 37,376, d = 256.
 Besides the kernel, a skipping forward launches ``live_tiles``'s three
-small kernels (a zero fill, a compare, a reduction) and, for ``wide_f32``
-with more than one slice, one zero fill of its tickets; a skipping
-backward four (a second compare, for ``g``).
+small kernels (a zero fill, a compare, a reduction) and, for a design
+that slices (``wide_f32``, ``wgmma_bf16``) into more than one slice, one
+zero fill of its tickets; a skipping backward four (a second compare, for
+``g``).
 
 On a CPU tensor it runs the plain version: a torch port of the reference's
 XLA flash path (``_flash_pos_denom``, gcl_module.py:59-140, without its
@@ -59,16 +63,23 @@ from ._build import CudaLibrary, check_launch, stream_of
 NEG = torch.finfo(torch.float32).min
 MAX_D = 256
 TILE = 64          # rows per live flag, and the first design's tile
-WIDE_ROWS = 128    # wide_f32's own rows per CTA (csrc/flashnce.cu wide::kO)
+OWN_ROWS = 128     # own rows per CTA of wide_f32 and wgmma_bf16 (wide::kO,
+                   # wg::kO), the forward's column tile, and a slice's rows
 JOBS = 3           # the backward's: rows-inter, intra, columns-inter
 PLAIN_BLOCK = 1024  # rows per tile of the plain version by default
 # csrc/flashnce.cu's designs, in the order of their launch codes, and the
 # type each takes
 DESIGNS = {"first_f32": torch.float32, "first_bf16": torch.bfloat16,
-           "skip_bf16": torch.bfloat16, "wide_f32": torch.float32}
-PATH = {torch.float32: "wide_f32", torch.bfloat16: "skip_bf16"}
+           "skip_bf16": torch.bfloat16, "wide_f32": torch.float32,
+           "wgmma_bf16": torch.bfloat16}
+# per type: the path's design where the widths and bases allow (every call
+# of GRACE's path), the one that takes any, and the first design
+PATH = {torch.float32: "wide_f32", torch.bfloat16: "wgmma_bf16"}
+GENERAL = {torch.float32: "wide_f32", torch.bfloat16: "skip_bf16"}
 FIRST = {torch.float32: "first_f32", torch.bfloat16: "first_bf16"}
-SKIPPING = set(PATH.values())  # the designs that read live_tiles' flags
+SLICING = {"wide_f32", "wgmma_bf16"}  # forwards cut into slices
+# the designs that read live_tiles' flags
+SKIPPING = set(PATH.values()) | set(GENERAL.values())
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("flashnce.cu", {
@@ -79,13 +90,22 @@ LIBRARY = CudaLibrary("flashnce.cu", {
     # design, an, bn, col, den, g, flags, out, n, d, tau, stream
     "flashnce_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                      ctypes.c_float, _P],
-    "flashnce_fwd_splits": [_I],
+    # design, n
+    "flashnce_fwd_splits": [_I, _I],
     "flashnce_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)]})
 NAME = "flash_denom"
 
 
-def flash_design(dtype: torch.dtype) -> str:
-    """The design a call on the card runs for ``dtype``."""
+def flash_design(dtype: torch.dtype, d: int, *addresses: int) -> str:
+    """The design a call on the card runs for an (N, d) table pair of
+    ``dtype`` at ``addresses`` (an's and bn's bases): the path's design
+    where it takes them, else the general one. wgmma_bf16's TMA maps need
+    16-byte aligned bases and row strides (d a multiple of 8); wide_f32
+    takes any. A fixed rule on the widths and bases: a failed build,
+    launch or tensor map raises, it never sends a call elsewhere."""
+    if dtype == torch.bfloat16 and not (
+            d % 8 == 0 and all(a % 16 == 0 for a in addresses)):
+        return GENERAL[dtype]
     return PATH[dtype]
 
 
@@ -102,6 +122,40 @@ def live_tiles(col: torch.Tensor, g: torch.Tensor = None,
     if g is not None:
         torch.ne(g, 0, out=flags[1, :n])
     return flags.view(2, t, tile).any(2)
+
+
+def _coarse(flags_row: torch.Tensor, rows: int) -> torch.Tensor:
+    """A row of live flags over tiles of ``rows`` (a multiple of TILE):
+    live where any of its 64-row tiles is."""
+    k = rows // TILE
+    pad = -flags_row.shape[0] % k
+    return torch.cat([flags_row, flags_row.new_zeros(pad)]).view(-1, k) \
+        .any(1)
+
+
+def live_columns(flags: torch.Tensor, rows: int = TILE) -> torch.Tensor:
+    """The forward's skip rule (csrc/flashnce.cu ``Live``): which column
+    tiles of ``rows`` (64: the first design; 128: wide_f32 and
+    wgmma_bf16) a skipping forward computes, from ``live_tiles``' flags:
+    those with a real column, or every one where no column is real."""
+    c = flags[0] if bool(flags[0].any()) else torch.ones_like(flags[0])
+    return _coarse(c, rows)
+
+
+def live_pairs(flags: torch.Tensor, job: int,
+               own_rows: int = TILE) -> torch.Tensor:
+    """The backward's pair rule (csrc/flashnce.cu ``Live::pair``): (own
+    tiles of ``own_rows``, 64-row streamed tiles) bool, True where a
+    skipping backward computes the pair for ``job`` (0 rows-inter, 1
+    intra, 2 columns-inter): the rows term needs a nonzero g among the own
+    rows and a real column among the streamed ones, the columns term the
+    same swapped, job 1 either. Own tiles of 128 rows (wide_f32,
+    wgmma_bf16) are live where either 64-row half is."""
+    c = flags[0] if bool(flags[0].any()) else torch.ones_like(flags[0])
+    g = flags[1]
+    rows = _coarse(g, own_rows)[:, None] & c[None, :]
+    cols = _coarse(c, own_rows)[:, None] & g[None, :]
+    return rows if job == 0 else cols if job == 2 else rows | cols
 
 
 def attributes(backward: bool, design: str) -> dict:
@@ -163,8 +217,9 @@ def _check_cuda(what: str, *tensors):
                          f"{MAX_D}")
 
 
-def _design(what: str, dtype) -> str:
-    design = flash_design(dtype)
+def _design(what: str, an, bn) -> str:
+    dtype = an.dtype
+    design = flash_design(dtype, an.shape[1], an.data_ptr(), bn.data_ptr())
     if DESIGNS[design] != dtype:
         raise TypeError(f"{what}: design {design} takes {DESIGNS[design]}, "
                         f"got {dtype}")
@@ -194,18 +249,20 @@ class FlashForward(_Wrapper):
     (``live_tiles(col)``) is computed here, for the designs that skip,
     unless the caller passes it."""
 
-    _splits = {}  # (device, N) -> wide_f32's forward slices
+    _splits = {}  # (device, N, design) -> the forward's slices
 
-    def splits(self, n: int, device) -> int:
-        """The slices wide_f32's forward cuts each row tile's live column
-        tiles into at N = n on ``device`` (a CUDA device)."""
-        key = (torch.device(device), n)
+    def splits(self, n: int, device, design: str) -> int:
+        """The slices the forward of ``design`` (one of SLICING) cuts each
+        row tile's live column tiles into at N = n on ``device`` (a CUDA
+        device)."""
+        key = (torch.device(device), n, design)
         if key not in self._splits:
             with torch.cuda.device(key[0]):
-                splits = LIBRARY.lib().flashnce_fwd_splits(n)
+                splits = LIBRARY.lib().flashnce_fwd_splits(
+                    list(DESIGNS).index(design), n)
             if splits < 1:
                 raise RuntimeError(f"{self.name}: no occupancy for "
-                                   f"wide_f32")
+                                   f"{design}")
             self._splits[key] = splits
         return self._splits[key]
 
@@ -218,19 +275,19 @@ class FlashForward(_Wrapper):
         den = torch.empty(n, dtype=torch.float32, device=an.device)
         if n == 0:
             return den
-        design = _design(self.name, an.dtype)
+        design = _design(self.name, an, bn)
         lib = LIBRARY.lib()
         with torch.cuda.device(an.device):
             if flags is None and design in SKIPPING:
                 flags = live_tiles(col)
             splits, part_s, part_m, tickets = 1, None, None, None
-            if design == "wide_f32":
-                splits = self.splits(n, an.device)
+            if design in SLICING:
+                splits = self.splits(n, an.device, design)
             if splits > 1:
-                tiles = -(-n // WIDE_ROWS)
-                part_s = torch.empty(splits, tiles * WIDE_ROWS,
+                tiles = -(-n // OWN_ROWS)
+                part_s = torch.empty(splits, tiles * OWN_ROWS,
                                      dtype=torch.float64, device=an.device)
-                part_m = torch.empty(splits, tiles * WIDE_ROWS,
+                part_m = torch.empty(splits, tiles * OWN_ROWS,
                                      dtype=torch.float32, device=an.device)
                 tickets = torch.zeros(tiles, dtype=torch.int32,
                                       device=an.device)
@@ -260,7 +317,7 @@ class FlashBackward(_Wrapper):
         n, d = an.shape
         if n == 0:
             return an.new_zeros(an.shape), bn.new_zeros(bn.shape)
-        design = _design(self.name, an.dtype)
+        design = _design(self.name, an, bn)
         n_pad, d_pad = -(-n // TILE) * TILE, -(-d // 16) * 16
         out = torch.empty(JOBS, n_pad, d_pad, dtype=torch.float32,
                           device=an.device)

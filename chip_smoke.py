@@ -87,12 +87,14 @@ Phases; any failure ends the run with a non-zero exit:
  8. Stage B, GCL pretraining on the gene/protein graph of the same
     synthetic PrimeKG++ (train_gcl.py:37), through the flash InfoNCE
     kernels ``flash_denom`` (forward and backward) and the segsum:
-    (a) both flash kernels, in each type's path design (``wide_f32``,
-    ``skip_bf16``) and first design (``first_f32``, ``first_bf16``),
-    against the plain version off the path (N of 1,000, 333, 200, 130 and
-    700, d of 100, 36, 30 and 256, with and without a padded tail, every
-    slot a pad, scattered pads, g nonzero on pads), float32 and bf16, and
-    every flash kernel's registers and spills; (b) the GRACE training
+    (a) both flash kernels, in the design ``flash_design`` picks
+    (``wide_f32``; in bf16 ``wgmma_bf16`` where d is a multiple of 8,
+    else ``skip_bf16``), in ``skip_bf16`` where ``wgmma_bf16`` runs, and
+    in the first design (``first_f32``, ``first_bf16``), against the plain
+    version off the path (N of 1,000, 333, 200, 130 and 700, d of 100, 72,
+    36, 30, 136, 8 and 256, with and without a padded tail, every slot a
+    pad, scattered pads, g nonzero on pads), float32 and bf16, and every
+    flash kernel's registers and spills; (b) the GRACE training
     step at full width (GCN 768→256×4, projection 256→256→256, τ = 0.2,
     Adam with cosine warm-up 0.2, clip 1.0) on [30, 30, 30] neighbour
     batches of 128 seeds in the dst layout with device-resident
@@ -100,14 +102,14 @@ Phases; any failure ends the run with a non-zero exit:
     timed steps with every launch count set to 0 just before and read
     just after (segsum 8, flash 2 + 2 per step), ms per step, nodes per
     second, the envelope, peak memory and a torch.profiler window, and one
-    more on the first-design flash kernels;
+    more on the first-design flash kernels (bf16 also on ``skip_bf16``);
     one batch's loss and every gradient with the kernels against the plain
     versions; the loss falling on a fixed batch; (c) both flash kernels at
     the path's shape (the envelope's node slots, d = 256, its pad tail),
     float32 and bf16, ``skip_bf16`` bitwise against ``first_bf16``, each
-    path design timed against its first design in turns beside the bounds
-    (over the envelope and over the live tile pairs) and the plain
-    version, and the segsum at the step's shape (the batch's edge
+    path design timed against its first design (bf16 also ``skip_bf16``)
+    in turns beside the bounds (over the envelope and over the live tile
+    pairs) and the plain version, and the segsum at the step's shape (the batch's edge
     slots × 256 into its node slots), timed beside index_add_; (d) one DGI
     and one GGD step at the same width, kernels against plain versions
     (segsum 8, flash 0); (e) ``python -m biomedkg_tpu_torch.train_gcl
@@ -275,14 +277,16 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.1, 5e-2)}
 # in the plain version itself; DGI's loss sits near 0. At 30 times the
 # features the similarities spread.
 COMPARE_FEATURE_SCALE = 30.0
-# phase 8a: (N, d, pad rows) off the path, the pads a tail
+# phase 8a: (N, d, pad rows) off the path, the pads a tail; bf16 takes
+# wgmma_bf16 where d is a multiple of 8 (256, 72, 136, 8), else skip_bf16
 FLASH_ODD = [(1000, 100, 0), (333, 36, 40), (1000, 36, 57), (333, 100, 0),
-             (130, 256, 5), (200, 30, 9)]
+             (130, 256, 5), (200, 30, 9), (1000, 72, 57), (333, 136, 40),
+             (130, 8, 5)]
 # and pad layouts the pad-tile skip must not assume away (flash_inputs):
 # (N, d, layout)
 FLASH_PADS = [(1000, 100, "all pads"), (1000, 256, "scattered pads"),
               (333, 36, "scattered pads"), (1000, 100, "g on pads"),
-              (700, 256, "g on pads")]
+              (700, 256, "g on pads"), (1000, 256, "all pads")]
 # the TPU functions the flash kernels replace (flashnce.py pallas_call lines)
 FLASH_REPLACES = {False: "212", True: "238/250"}
 
@@ -499,7 +503,8 @@ def flash_designs(by_type: dict):
     """The flash wrappers running ``by_type[dtype]`` (a design per type;
     a type not named keeps its path design)."""
     saved = flashnce.flash_design
-    flashnce.flash_design = lambda dtype: by_type.get(dtype) or saved(dtype)
+    flashnce.flash_design = \
+        lambda dtype, *shape: by_type.get(dtype) or saved(dtype, *shape)
     try:
         yield
     finally:
@@ -1613,14 +1618,10 @@ def flash_live_fraction(col, g, backward: bool) -> float:
     term (job 0), either term (job 1), a live columns term (job 2). Where
     no column is real every tile counts."""
     flags = flashnce.live_tiles(col, g if backward else None)
-    c, gz = flags[0], flags[1]
-    if not bool(c.any()):
-        c = torch.ones_like(c)
     if not backward:
-        return float(c.float().mean())
-    rows = gz[:, None] & c[None, :]
-    return float((2 * rows.float().mean()
-                  + (rows | rows.T).float().mean()) / 3)
+        return float(flashnce.live_columns(flags).float().mean())
+    return sum(float(flashnce.live_pairs(flags, job).float().mean())
+               for job in range(flashnce.JOBS)) / flashnce.JOBS
 
 
 def flash_bound_ms(n: int, d: int, dtype, backward: bool,
@@ -1655,17 +1656,27 @@ def unit_rows(n: int, d: int, gen, dtype) -> torch.Tensor:
 
 def flash_kernels(an, bn, col, g):
     """The denominators and (d_an, d_bn) through the wrappers, in the
-    design flashnce.flash_design picks now."""
+    design flashnce.flash_design picks for them now."""
     den = flashnce.FORWARD(an, bn, col, GCL_TAU)
     return den, flashnce.BACKWARD(an, bn, col, den, g, GCL_TAU)
 
 
+def flash_designs_of(an, bn):
+    """The design the wrappers pick for an, bn, then the other skipping
+    bf16 design where that is wgmma_bf16, then the first design."""
+    picked = flashnce.flash_design(an.dtype, an.shape[1], an.data_ptr(),
+                                   bn.data_ptr())
+    others = [flashnce.GENERAL[an.dtype]] if picked != \
+        flashnce.GENERAL[an.dtype] else []
+    return [picked, *others, flashnce.FIRST[an.dtype]]
+
+
 def flash_check(an, bn, col, g, what: str):
-    """The flash kernels, in the path's design and in the first design,
-    against the plain version on one input: the denominators (float32
-    within FLASH_TOL of |den| per row; bf16 within FLASH_TOL absolute of
-    the float32 plain version's) and d_an, d_bn (within FLASH_TOL of their
-    max, against the plain version in the same type); returns the path
+    """The flash kernels, in every design of ``flash_designs_of``, against
+    the plain version on one input: the denominators (float32 within
+    FLASH_TOL of |den| per row; bf16 within FLASH_TOL absolute of the
+    float32 plain version's) and d_an, d_bn (within FLASH_TOL of their
+    max, against the plain version in the same type); returns the picked
     design's (max abs den error, max abs gradient error)."""
     dtype = an.dtype
     den_32 = flashnce.denominators_plain(an.float(), bn.float(), col,
@@ -1676,7 +1687,7 @@ def flash_check(an, bn, col, g, what: str):
                                                GCL_TAU)
     val_tol, grad_tol = FLASH_TOL[dtype]
     out = None
-    for design in (flashnce.PATH[dtype], flashnce.FIRST[dtype]):
+    for design in flash_designs_of(an, bn):
         with on_flash_design(design):
             den_k, grads_k = flash_kernels(an, bn, col, g)
         torch.cuda.synchronize()
@@ -1734,10 +1745,12 @@ def flash_inputs(n, d, pads, gen, dtype, layout: str = "tail"):
 def flash_odd_checks(dev):
     """Phase 8a: the flash kernels against the plain version off the
     path: N no multiple of the 64-row tile, d of 100, 36 and 30 (the
-    scalar tile loads), one case at d = 256 across tiles, with and without
-    a padded tail; then every slot a pad, scattered pads (whole pad tiles
-    between live ones) and g nonzero on pads (FLASH_PADS); float32 and
-    bf16, each in the path's design and the first design."""
+    scalar tile loads; skip_bf16 in bf16), d of 72, 136 and 8 (wgmma_bf16
+    with a ragged last 64-column panel, and a single k step), one
+    case at d = 256 across tiles, with and without a padded tail; then
+    every slot a pad, scattered pads (whole pad tiles between live ones)
+    and g nonzero on pads (FLASH_PADS); float32 and bf16, each in every
+    design of ``flash_designs_of``."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     cases = [(n, d, pads, "tail") for n, d, pads in FLASH_ODD] \
         + [(n, d, 0, layout) for n, d, layout in FLASH_PADS]
@@ -1762,39 +1775,54 @@ def flash_attributes():
 def flash_path_records(dev, node_mask, launches):
     """Phase 8c: both kernels at the path's shape (the neighbour batch's
     node slots, d = 256, its pad tail), float32 and bf16, against the plain
-    version; the skipping bf16 kernels bitwise against the first design;
-    timed in one call, the first design and the path's in turns (first,
-    path, path, first) beside the plain version and the bounds over the
-    envelope and over the live tile pairs; returns the two ``kernels``
-    records (float32, the config's type, its path design)."""
+    version; ``skip_bf16`` bitwise against ``first_bf16``; timed in one
+    call, the designs in turns (float32 first, path, path, first; bf16
+    first, skip, path, path, skip, first) beside the plain version and the
+    bounds over the envelope and over the live tile pairs; returns the
+    ``kernels`` records of the path designs, float32 (the config's type)
+    under the kernels' names and bf16 under the kernel and its design."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     n, d = node_mask.shape[0], GCL["hidden_dim"]
     col = torch.where(node_mask, 0.0, flashnce.NEG).float()
     g = torch.rand(n, device=dev, generator=gen) * node_mask
     live = {False: flash_live_fraction(col, g, False),
             True: flash_live_fraction(col, g, True)}
+    flags = flashnce.live_tiles(col, g)
+    computed = (float(flashnce.live_columns(flags, flashnce.OWN_ROWS)
+                      .float().mean()),
+                sum(float(flashnce.live_pairs(flags, job, flashnce.OWN_ROWS)
+                          .float().mean())
+                    for job in range(flashnce.JOBS)) / flashnce.JOBS)
     print(f"flash path shape: N = {n}, {int(node_mask.sum())} real slots "
           f"({float(node_mask.float().mean()):.4f} of the batch); live "
           f"tile pairs {live[False]:.4f} of the forward's, {live[True]:.4f} "
-          f"of the backward's")
+          f"of the backward's (64-row tiles); wide_f32 and wgmma_bf16 "
+          f"compute {computed[0]:.4f} and {computed[1]:.4f} of them (their "
+          f"128-row tiles)")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         an, bn = unit_rows(n, d, gen, dtype), unit_rows(n, d, gen, dtype)
-        errs = flash_check(an, bn, col, g, "at the path's shape")
         path, first = flashnce.PATH[dtype], flashnce.FIRST[dtype]
+        check(flash_designs_of(an, bn)[0] == path,
+              f"flash {dtype}: the path's shape does not take {path}")
+        errs = flash_check(an, bn, col, g, "at the path's shape")
+        turns = (first, path, path, first)
         if dtype == torch.bfloat16:
-            got = flash_kernels(an, bn, col, g)
+            skip = flashnce.GENERAL[dtype]
+            with on_flash_design(skip):
+                got = flash_kernels(an, bn, col, g)
             with first_design_flash():
                 want = flash_kernels(an, bn, col, g)
             same = torch.equal(got[0], want[0]) and all(
                 torch.equal(a, b) for a, b in zip(got[1], want[1]))
-            print(f"flash {path} against {first} at the path's shape: "
+            print(f"flash {skip} against {first} at the path's shape: "
                   f"bitwise equal {same}")
-            check(same, f"flash {path} differs from {first}")
+            check(same, f"flash {skip} differs from {first}")
             del got, want
+            turns = (first, skip, path, path, skip, first)
         den = flashnce.FORWARD(an, bn, col, GCL_TAU)
         t = {}
-        for design in (first, path, path, first):
+        for design in turns:
             with on_flash_design(design):
                 for key, fn in (
                         ("fwd", lambda: flashnce.FORWARD(an, bn, col,
@@ -1807,44 +1835,51 @@ def flash_path_records(dev, node_mask, launches):
         t["plain_bwd"] = time_ms(lambda: flashnce.denominator_grads_plain(
             an, bn, col, den, g, GCL_TAU))
         for backward, key in ((False, "fwd"), (True, "bwd")):
-            ms, ms_first = min(t[path, key]), min(t[first, key])
-            t[key] = ms
+            ms = {dz: min(t[dz, key]) for dz in dict.fromkeys(turns)}
+            t[key] = ms[path]
             env, _, _ = flash_bound_ms(n, d, dtype, backward)
             bound, by, term = flash_bound_ms(n, d, dtype, backward,
                                              live[backward])
             print(f"flash_denom{'_bwd' if backward else ''} time "
                   f"({str(dtype)[6:]}, N = {n}, d = {d}, CUDA events, "
-                  f"min of two medians): {path} {ms:.4f} ms (runs "
-                  f"{', '.join(f'{v:.4f}' for v in t[path, key])}), "
-                  f"{first} {ms_first:.4f} ms (runs "
-                  f"{', '.join(f'{v:.4f}' for v in t[first, key])}), "
-                  f"{ms_first / ms:.2f}x; plain {t['plain_' + key]:.4f} ms; "
-                  f"bound over the envelope {env:.4f} ms, over the live "
-                  f"tile pairs ({live[backward]:.4f}) {bound:.4f} ms "
-                  f"({term}): {path} at {bound / ms:.1%} of the live "
-                  f"bound, {first} at {bound / ms_first:.1%}; no single "
-                  f"PyTorch call returns these denominators (attention "
-                  f"kernels return a row logsumexp only through private "
-                  f"ops, without the two-table concat, the column mask or "
-                  f"the masked diagonal)")
+                  f"min of two medians): "
+                  + ", ".join(
+                      f"{dz} {v:.4f} ms (runs "
+                      f"{', '.join(f'{r:.4f}' for r in t[dz, key])}; "
+                      f"{bound / v:.1%} of the live bound)"
+                      for dz, v in ms.items())
+                  + f"; {path} {ms[first] / ms[path]:.2f}x faster than "
+                  f"{first}; plain {t['plain_' + key]:.4f} ms; bound over "
+                  f"the envelope {env:.4f} ms, over the live tile pairs "
+                  f"({live[backward]:.4f}) {bound:.4f} ms ({term}); no "
+                  f"single PyTorch call returns these denominators "
+                  f"(attention kernels return a row logsumexp only through "
+                  f"private ops, without the two-table concat, the column "
+                  f"mask or the masked diagonal)")
         out[dtype] = (t, errs)
         del an, bn, den
-    print(f"flash wide_f32 forward slices of each 128-row tile's live "
-          f"column tiles: {flashnce.FORWARD.splits(n, dev)}")
-    t, errs = out[torch.float32]
+    for design in sorted(flashnce.SLICING):
+        print(f"flash {design} forward slices of each 128-row tile's live "
+              f"column tiles: {flashnce.FORWARD.splits(n, dev, design)}")
     records = []
-    for backward, key in ((False, "fwd"), (True, "bwd")):
-        name = flashnce.NAME + ("_bwd" if backward else "")
-        bound, by, _ = flash_bound_ms(n, d, torch.float32, backward,
-                                      live[backward])
-        records.append({
-            "name": name, "route": "cuda",
-            "source": "biomedkg_tpu_torch/csrc/flashnce.cu",
-            "replaces": "biomedkg_tpu/ops/pallas/flashnce.py:"
-                        f"{FLASH_REPLACES[backward]}",
-            "launches": launches[name], "max_abs_err": errs[backward],
-            "ms": t[key], "plain_ms": t["plain_" + key], "bound_ms": bound,
-            "bound_by": by, "library_ms": None})
+    for dtype in (torch.float32, torch.bfloat16):
+        t, errs = out[dtype]
+        path = flashnce.PATH[dtype]
+        for backward, key in ((False, "fwd"), (True, "bwd")):
+            kernel = flashnce.BACKWARD if backward else flashnce.FORWARD
+            name = kernel.name if dtype == torch.float32 \
+                else relmm_key(kernel, path)
+            bound, by, _ = flash_bound_ms(n, d, dtype, backward,
+                                          live[backward])
+            records.append({
+                "name": name, "route": "cuda",
+                "source": "biomedkg_tpu_torch/csrc/flashnce.cu",
+                "replaces": "biomedkg_tpu/ops/pallas/flashnce.py:"
+                            f"{FLASH_REPLACES[backward]}",
+                "launches": launches[relmm_key(kernel, path)],
+                "max_abs_err": errs[backward],
+                "ms": t[key], "plain_ms": t["plain_" + key],
+                "bound_ms": bound, "bound_by": by, "library_ms": None})
     return records
 
 
@@ -1900,7 +1935,7 @@ def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
               "the plain versions launched a kernel")
         check(used == expected_launches(
             SEGSUM_PER_GCL_STEP, None, 0, flash_n=flash_n,
-            flash_design=flashnce.flash_design(dtype)),
+            flash_design=flashnce.PATH[dtype]),
               f"{what}: launches in one step: {used}")
         loss_tol, grad_tol = STEP_TOL[dtype]
         loss_err = abs(loss_k - loss_p) / max(abs(loss_p), 1.0)
@@ -2000,11 +2035,16 @@ def grace_phase(dev, table, batches):
         check(launches == expected_launches(
             SEGSUM_PER_GCL_STEP * steps, None, 0,
             flash_n=FLASH_PER_STEP * steps,
-            flash_design=flashnce.flash_design(dtype)),
+            flash_design=flashnce.PATH[dtype]),
             f"{what}: launches {launches}")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         profile_steps(module, state, batches[-profiled:], gen, what)
+        if flashnce.GENERAL[dtype] != flashnce.PATH[dtype]:
+            with on_flash_design(flashnce.GENERAL[dtype]):
+                profile_steps(module, state, batches[-profiled:], gen,
+                              f"{what} with the {flashnce.GENERAL[dtype]} "
+                              f"flash kernels")
         with first_design_flash():
             profile_steps(module, state, batches[-profiled:], gen,
                           f"{what} with the first-design flash kernels "

@@ -253,11 +253,130 @@ def test_kernel_wrappers_refuse_bad_flags():
 
 
 def test_designs_and_path():
-    """Each type's path design and first design take that type; the
+    """Each type's path, general and first design take that type; the
     wrappers count launches by design."""
     for dtype in (torch.float32, torch.bfloat16):
-        assert flashnce.DESIGNS[flashnce.flash_design(dtype)] == dtype
+        assert flashnce.DESIGNS[flashnce.flash_design(dtype, 256, 0)] \
+            == dtype
+        assert flashnce.DESIGNS[flashnce.GENERAL[dtype]] == dtype
         assert flashnce.DESIGNS[flashnce.FIRST[dtype]] == dtype
     assert flashnce.PATH == {torch.float32: "wide_f32",
-                             torch.bfloat16: "skip_bf16"}
+                             torch.bfloat16: "wgmma_bf16"}
+    assert flashnce.GENERAL == {torch.float32: "wide_f32",
+                                torch.bfloat16: "skip_bf16"}
     assert set(flashnce.FORWARD.by_design) == set(flashnce.DESIGNS)
+
+
+def test_launch_codes_match_the_source():
+    """DESIGNS' order is the launch codes of csrc/flashnce.cu's Design
+    enum: wgmma_bf16 takes 4, the earlier designs keep theirs."""
+    import os
+    import re
+    with open(os.path.join(os.path.dirname(flashnce.__file__), "..", "csrc",
+                           "flashnce.cu")) as f:
+        enum = re.search(r"enum Design \{([^}]*)\}", f.read()).group(1)
+    codes = {m.group(1): int(m.group(2))
+             for m in re.finditer(r"k(\w+) = (\d+)", enum)}
+    names = {"FirstF32": "first_f32", "FirstBf16": "first_bf16",
+             "SkipBf16": "skip_bf16", "WideF32": "wide_f32",
+             "WgmmaBf16": "wgmma_bf16"}
+    assert {names[k]: v for k, v in codes.items()} \
+        == {d: i for i, d in enumerate(flashnce.DESIGNS)}
+    assert list(flashnce.DESIGNS) == ["first_f32", "first_bf16", "skip_bf16",
+                                      "wide_f32", "wgmma_bf16"]
+    assert flashnce.SLICING == {"wide_f32", "wgmma_bf16"}
+    assert flashnce.SKIPPING == {"skip_bf16", "wide_f32", "wgmma_bf16"}
+
+
+def _bases(n, d, dtype, offset=0):
+    """an, bn (n, d) views whose bases lie ``offset`` elements past a
+    fresh (16-byte aligned) allocation."""
+    flat = torch.zeros(2, n * d + 8, dtype=dtype)
+    return [flat[i, offset:offset + n * d].view(n, d) for i in range(2)]
+
+
+@pytest.mark.parametrize("dtype,d,offsets,want", [
+    (torch.bfloat16, 256, (0, 0), "wgmma_bf16"),   # GRACE's path
+    (torch.bfloat16, 8, (0, 0), "wgmma_bf16"),
+    (torch.bfloat16, 72, (0, 0), "wgmma_bf16"),
+    (torch.bfloat16, 136, (0, 0), "wgmma_bf16"),
+    (torch.bfloat16, 100, (0, 0), "skip_bf16"),    # no multiple of 8
+    (torch.bfloat16, 36, (0, 0), "skip_bf16"),
+    (torch.bfloat16, 30, (0, 0), "skip_bf16"),
+    (torch.bfloat16, 256, (1, 0), "skip_bf16"),    # an 2 bytes off
+    (torch.bfloat16, 256, (0, 4), "skip_bf16"),    # bn 8 bytes off
+    (torch.bfloat16, 256, (8, 8), "wgmma_bf16"),   # 16 bytes off
+    (torch.float32, 256, (0, 0), "wide_f32"),
+    (torch.float32, 100, (1, 3), "wide_f32"),
+    (torch.float32, 30, (0, 0), "wide_f32"),
+])
+def test_flash_design_picker(dtype, d, offsets, want):
+    """flash_design: bf16 takes wgmma_bf16 where d is a multiple of 8 and
+    both bases are 16-byte aligned (TMA's rule), else skip_bf16; float32
+    always wide_f32. The wrappers pick by the tensors' own bases."""
+    an = _bases(37 if d > 8 else 130, d, dtype, offsets[0])[0]
+    bn = _bases(an.shape[0], d, dtype, offsets[1])[1]
+    assert flashnce.flash_design(dtype, d, an.data_ptr(),
+                                 bn.data_ptr()) == want
+    assert flashnce._design("flash", an, bn) == want
+
+
+def _nonzero_terms(an, bn, col, g):
+    """The backward's terms in float64, as (own row, streamed row) bool
+    matrices per job: whether the term is nonzero. Job 0 (own an, streamed
+    bn) the rows term g_o exp(inter_os - den_o); job 2 (own bn, streamed
+    an) the columns term g_s exp(inter_so - den_s); job 1 (own an,
+    streamed an) both intra terms, the diagonal at finfo(float32).min."""
+    n = an.shape[0]
+    neg = np.finfo(np.float32).min
+    inter = an @ bn.T / TAU + col[None, :]
+    intra = an @ an.T / TAU + col[None, :]
+    intra[np.arange(n), np.arange(n)] = neg
+    both = np.concatenate([inter, intra], 1)
+    m = both.max(1)
+    den = m + np.log(np.exp(both - m[:, None]).sum(1))
+    gi = g[:, None] * np.exp(inter - den[:, None])
+    gt = g[:, None] * np.exp(intra - den[:, None])
+    return {0: gi != 0, 1: (gt != 0) | (gt.T != 0), 2: gi.T != 0}
+
+
+@pytest.mark.parametrize("own_rows", [64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_live_pairs_against_brute_force(layout, own_rows):
+    """live_pairs, the kernels' pair rule over the flags (128 own rows:
+    wide_f32's and wgmma_bf16's CTAs, either 64-row half live), equals a
+    brute force over the terms: a pair is computed exactly when one of its
+    terms is nonzero, per job, whatever the pad layout."""
+    n, d = 777, 16
+    an, bn, _, _, _ = _inputs(n, d, 0, seed=23)
+    col, g = _layout(n, layout, seed=5)
+    flags = flashnce.live_tiles(torch.tensor(col), torch.tensor(g))
+    terms = _nonzero_terms(an.astype(np.float64), bn.astype(np.float64),
+                           col.astype(np.float64), g.astype(np.float64))
+    t = -(-n // flashnce.TILE)
+    for job in range(flashnce.JOBS):
+        got = flashnce.live_pairs(flags, job, own_rows).numpy()
+        assert got.shape == (-(-t * flashnce.TILE // own_rows), t)
+        for o in range(got.shape[0]):
+            for s in range(t):
+                block = terms[job][o * own_rows:(o + 1) * own_rows,
+                                   s * flashnce.TILE:(s + 1) * flashnce.TILE]
+                assert got[o, s] == bool(block.any()), (job, o, s)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_live_columns_against_brute_force(layout, rows):
+    """live_columns, the forward's rule over the flags (128-row column
+    tiles: wide_f32's and wgmma_bf16's), equals a brute force: a column
+    tile is computed exactly when one of its terms exp(logit + col - m)
+    is not an exact 0, which is every tile where no column is real."""
+    n = 777
+    col, _ = _layout(n, layout, seed=6)
+    flags = flashnce.live_tiles(torch.tensor(col))
+    got = flashnce.live_columns(flags, rows).numpy()
+    assert got.shape == (-(-n // rows),)
+    real = col > np.finfo(np.float32).min
+    for u in range(got.shape[0]):
+        assert got[u] == bool(real[u * rows:(u + 1) * rows].any()
+                              or not real.any())
