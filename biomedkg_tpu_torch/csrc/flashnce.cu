@@ -77,8 +77,11 @@
 //                 equal to first_bf16 (it leaves out adds of an exact 0)
 //   3 wide_f32    the float32 redesign (namespace wide below), with the
 //                 skip
-// The path runs wide_f32 and skip_bf16; the first designs stay for the
-// A/B in chip_smoke.py.
+//   4 wgmma_bf16  the bf16 redesign (namespace wg below), with the skip;
+//                 for d a multiple of 8 and 16-byte aligned tables (TMA)
+// The path runs wide_f32 and wgmma_bf16 (ops/flashnce.py::flash_design;
+// skip_bf16 where TMA cannot take the tables); the first designs and
+// skip_bf16 stay for the A/B in chip_smoke.py.
 //
 // Bound. At GRACE's path shape (N = 37,376, d = 256) a forward makes two
 // N x N x d products, 1.43e12 operations: 21.3 ms on the float32 units at
@@ -94,8 +97,8 @@
 // logit micro-tile, and a shared-memory round trip for every logit. The
 // redesign (namespace wide): 8 x 8 and 8 x 4 register tiles fed by a
 // cp.async ring, the logits and cotangents formed in registers, two CTAs
-// per SM in the forward. Not done yet: bf16 on wgmma with the logits in
-// registers.
+// per SM in the forward. The bf16 redesign (namespace wg): wgmma fed by
+// TMA, the logits and cotangents in registers.
 
 #include <cuda.h>  // CUtensorMap (the encoder comes through the runtime)
 #include <cuda_bf16.h>
@@ -1169,6 +1172,19 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 // Registers: one CTA per SM, 168 registers a thread at launch; the producer
 // keeps 40 and the consumers take 232 (128 x 40 + 256 x 232 <= 65,536).
 // Shared memory: the own tile 64 KB and the ring, 128 KB either way.
+//
+// What bounds them (an H100 at GRACE's shape, PERF.md): both run at about
+// 40 % of the tensor cores' peak over the live tile pairs, for reasons not
+// yet measured inside the kernel. The forward's products and feeds alone
+// take 70 % of its time (each 128 x 128 x d product drains the wgmma
+// pipeline before its softmax: a suspect, untested); these did not
+// shorten either kernel: the two warpgroups taking turns to issue
+// (FlashAttention-3's ping-pong), the forward's own rows as register A
+// fragments with a third stage, a backward turn issuing one tile's second
+// product with the next tile's logits, and TMA multicast of the streamed
+// tiles to a cluster of two CTAs (slower: the pair waits on each other).
+// Keep every wgmma outside branches that ptxas cannot prove uniform: it
+// serialises them there (C7520).
 namespace wg {
 
 using wide::smem_u32;
