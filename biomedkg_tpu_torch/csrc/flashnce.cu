@@ -42,10 +42,11 @@
 // other, rebuilds each logit tile (one product), turns it into softmax
 // cotangents from the saved den and g, and accumulates their product with
 // the streamed tile (the second product) into a 64 x d float32 block kept
-// in registers: 6 N^2 d multiply-adds per backward, as many as a design
-// that rebuilt both logit tiles once and wrote the column side with atomics
-// (the alternative the Pallas comment names). The wrapper sums the jobs:
-// d_an = job 0 + job 1, d_bn = job 2.
+// in registers: 6 N^2 d multiply-adds per backward, where the function
+// needs 5 (jobs 0 and 2 both rebuild the inter logits; a design that built
+// them once would write the column side with atomics, the alternative the
+// Pallas comment names). The wrapper sums the jobs: d_an = job 0 + job 1,
+// d_bn = job 2.
 //
 // Precision. float32 runs SIMT in full float32 (no TF32, ROADMAP.md hazard
 // H1). bfloat16 feeds both products to the tensor cores (WMMA 16 x 16 x 16,
@@ -86,7 +87,7 @@
 // Bound. At GRACE's path shape (N = 37,376, d = 256) a forward makes two
 // N x N x d products, 1.43e12 operations: 21.3 ms on the float32 units at
 // 67 TFLOP/s, 1.45 ms on the bf16 tensor cores, plus 2.8e9 exps; the
-// backward needs at least six such products. Operations bound both, over
+// backward needs five such products. Operations bound both, over
 // the live tile pairs only; device-memory traffic is a few MB. The first
 // design: the own tile is read once per CTA and each streamed tile once
 // per CTA pass, both products of a tile share its shared-memory copy, and
@@ -106,6 +107,8 @@
 #include <float.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -663,9 +666,7 @@ constexpr int kP1 = kBK * (kLdA + kLdB);  // floats of a product-1 slot
 constexpr int kP2 = kBK * (kMaxD + 4);    // floats of a product-2 slot
 constexpr int kFwdMinBlocks = 2, kBwdMinBlocks = 1;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using hopper::smem_u32;
 __device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -1173,12 +1174,14 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 // keeps 40 and the consumers take 232 (128 x 40 + 256 x 232 <= 65,536).
 // Shared memory: the own tile 64 KB and the ring, 128 KB either way.
 //
-// What bounds them (an H100 at GRACE's shape, PERF.md): both run at about
-// 40 % of the tensor cores' peak over the live tile pairs, for reasons not
-// yet measured inside the kernel. The forward's products and feeds alone
-// take 70 % of its time (each 128 x 128 x d product drains the wgmma
-// pipeline before its softmax: a suspect, untested); these did not
-// shorten either kernel: the two warpgroups taking turns to issue
+// What bounds them (an H100 at GRACE's shape, PERF.md): clock64 probes
+// inside both kernels show the tensor cores idle while the warpgroups fold
+// the logits (forward) or form the cotangents (backward): both warpgroups
+// do it at the same time, and the fold is about the exps' cost on the
+// special-function units. A warpgroup alone issues its wgmma at 62 % of the
+// SM's rate, two together at 93 %, so turns trade the fold's overlap for
+// slower products. These did not shorten either kernel: the two
+// warpgroups taking turns to issue
 // (FlashAttention-3's ping-pong), the forward's own rows as register A
 // fragments with a third stage, a backward turn issuing one tile's second
 // product with the next tile's logits, and TMA multicast of the streamed
@@ -1187,7 +1190,7 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 // serialises them there (C7520).
 namespace wg {
 
-using wide::smem_u32;
+using namespace hopper;
 
 constexpr int kThreads = 384;      // consumer warpgroups 0 and 1, producer 2
 constexpr int kConsumerWarps = 8;
@@ -1215,50 +1218,6 @@ constexpr size_t smem_bytes(int stages, int tile, int vec) {
 constexpr size_t kFwdSmem = smem_bytes(kFwdStages, kFwdTile, kFwdVec);
 constexpr size_t kBwdSmem = smem_bytes(kBwdStages, kBwdTile, kBwdVec);
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// an arrival that also expects `bytes` of TMA transfer
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // Rows [r0, r0 + rows) of a table into the tile at dst: one box per panel,
 // each panel rows x 128 bytes.
 __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
@@ -1266,16 +1225,6 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map,
                                           int64_t r0) {
   for (int p = 0; p < panels; ++p)
     tma_load_2d(dst + p * rows * kRowBytes, map, bar, p * kPanel, (int)r0);
-}
-
-// A shared-memory matrix descriptor for the 128-byte swizzle: the start
-// address, the leading and stride byte offsets (16-byte units), layout 1.
-// K-major operands use the stride offset alone, 1024 bytes per 8 rows;
-// the N-major B steps lbo bytes from one 64-column panel to the next.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
 // Keep the compiler from moving register reads or writes across the
@@ -1305,11 +1254,6 @@ __device__ __forceinline__ void wgmma_wait_all() {
 // the 256 consumer threads only (the producer warps have left)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 // d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B from shared memory,
@@ -1996,47 +1940,13 @@ int fwd_splits(K* kernel, int threads, size_t smem, int n) {
 
 // ---- wgmma_bf16's tensor maps -------------------------------------------------
 
-// cuTensorMapEncodeTiled from libcuda, fetched through the runtime so
-// that the library links no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The bf16 (n, d) row-major table at base as boxes of `rows` rows x 64
 // columns with the 128-byte swizzle; zeros past its rows and columns.
 bool table_map(CUtensorMap* map, const void* base, int n, int d, int rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)n};
   const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
   const cuuint32_t box[2] = {wg::kPanel, (cuuint32_t)rows};
-  const cuuint32_t ones[2] = {1, 1};
-  const EncodeTiled encode = encoder();
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return hopper::encode_bf16(map, base, 2, dims, strides, box);
 }
 
 // What ops/flashnce.py::flash_design sends to wgmma_bf16: TMA wants

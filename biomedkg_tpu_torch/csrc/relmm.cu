@@ -67,6 +67,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 // The instances, in the order of ops/relmm.py's INSTANCES.
@@ -337,9 +339,7 @@ int start_general(const void* x, const void* w, const void* block_rel,
 
 // ===== shared by the redesigned instances ====================================
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using hopper::smem_u32;
 
 // A tile of output: tiles are numbered with the column tiles of one row
 // tile together, so that CTAs running at once share the x tile (read from
@@ -493,6 +493,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ===== bf16: wgmma fed by TMA ================================================
 namespace wg {
 
+using namespace hopper;
+
 constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 4;
 constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer 2
 constexpr int kTileBytes = kBM * kBK * 2;  // the x tile; W's (kBK x kBN) too
@@ -506,71 +508,9 @@ constexpr int kSmemBytes = kStages * kStageBytes + 1024 + 2 * kStages * 8;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr int kConsumerWarps = 8;
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor for the 128-byte swizzle: the start
-// address, the leading and stride byte offsets (16-byte units), layout 1.
-// K-major tiles (x; d_msg's W) use the stride offset alone, 1024 bytes per
-// 8 rows. The forward's N-major W tile also steps 8192 bytes from its first
-// 64 columns to its next (the leading offset).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
+// desc_sw128 (hopper.cuh): K-major tiles (x; d_msg's W) use the stride
+// offset alone; the forward's N-major W tile also steps 8192 bytes from its
+// first 64 columns to its next (the leading offset).
 
 __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
@@ -633,11 +573,6 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
         v[g | b] = got;
     }
   }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
 template <bool kTrans>
@@ -763,47 +698,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ===== host =================================================================
 
-// cuTensorMapEncodeTiled from libcuda, fetched through the runtime so
-// that the library links no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 map with the 128-byte swizzle; zeros past the edges.
-bool encode_bf16(CUtensorMap* map, const void* base, cuuint32_t rank,
-                 const cuuint64_t* dims, const cuuint64_t* strides,
-                 const cuuint32_t* box) {
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const EncodeTiled encode = encoder();
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(base), dims, strides, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // The 1-D grid of the redesigned instances: row tiles x column tiles.
 bool grid_1d(long long rows, int n, int block_size, int bm, int bn,
              int* tiles_per_block, int* col_tiles, unsigned* grid) {
@@ -833,8 +727,8 @@ int start_wgmma(const void* x, const void* w, const void* block_rel,
   const cuuint64_t w_dims[3] = {inner, outer, (cuuint64_t)num_rel};
   const cuuint64_t w_strides[2] = {inner * 2, inner * outer * 2};
   const cuuint32_t w_box[3] = {64, kTrans ? (cuuint32_t)wg::kBN : wg::kBK, 1};
-  if (!encode_bf16(&map_x, x, 2, x_dims, x_strides, x_box) ||
-      !encode_bf16(&map_w, w, 3, w_dims, w_strides, w_box))
+  if (!hopper::encode_bf16(&map_x, x, 2, x_dims, x_strides, x_box) ||
+      !hopper::encode_bf16(&map_w, w, 3, w_dims, w_strides, w_box))
     return (int)cudaErrorInvalidValue;
   const auto kernel = wg::relmm_bf16_wgmma_kernel<kTrans>;
   static const cudaError_t attr = cudaFuncSetAttribute(

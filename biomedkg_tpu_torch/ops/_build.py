@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into ``csrc/build/``
-(gitignored). The file name carries a hash of the source and the flags, so
-an edited source is rebuilt and a stale library is never loaded. The
+(gitignored). The file name carries a hash of the source, of the headers
+it includes from ``csrc/`` (``#include "name"``) and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded. The
 library is bound through ``ctypes``. Every failure raises: no nvcc, a
 compile error, a library that does not load. Nothing here falls back.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +28,26 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_text(path: str, seen=None) -> bytes:
+    """The bytes of ``path`` and of every header it includes by a quoted
+    name, found beside it, each once, in the order of first inclusion."""
+    seen = set() if seen is None else seen
+    path = os.path.abspath(path)
+    if path in seen:
+        return b""
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    parts = [text]
+    for name in _LOCAL_INCLUDE.findall(text):
+        parts.append(source_text(
+            os.path.join(os.path.dirname(path), name.decode()), seen))
+    return b"".join(parts)
 
 
 def _nvcc() -> str:
@@ -62,12 +84,16 @@ class CudaLibrary:
             self._lib = self._load()
         return self._lib
 
-    def _load(self):
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    def built_path(self) -> str:
+        """Where the library of the source as it stands now is built."""
+        digest = hashlib.sha256(
+            source_text(self.source)
+            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         stem = os.path.splitext(os.path.basename(self.source))[0]
-        so = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+        return os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+
+    def _load(self):
+        so = self.built_path()
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")

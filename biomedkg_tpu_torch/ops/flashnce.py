@@ -31,9 +31,10 @@ the logit at (i, j) and at (j, i), and both cotangents multiply ``an_j``
 into row i), each rebuilding its logit tiles from the saved ``den``,
 without atomics, deterministic; this wrapper sums them (``d_an`` =
 rows-inter + intra, ``d_bn`` = columns-inter). That is six N × N × d
-products, as many as the other choice, one pass with float32 atomics for
-the columns side, which would land every (tile, column) partial sum as an
-atomic: 1.1·10¹⁰ of them at GRACE's N = 37,376, d = 256.
+products where the function needs five, since jobs 0 and 2 both rebuild
+the inter logits; the one-pass choice, which builds them once and writes
+the columns side with float32 atomics, would land every (tile, column)
+partial sum as an atomic: 1.1·10¹⁰ of them at GRACE's N = 37,376, d = 256.
 Besides the kernel, a skipping forward launches ``live_tiles``'s three
 small kernels (a zero fill, a compare, a reduction) and, for a design
 that slices (``wide_f32``, ``wgmma_bf16``) into more than one slice, one

@@ -1123,40 +1123,59 @@ def train_phase(dm, dev, tmp):
 def odd_shape_checks(dev):
     """Every negscore kernel against its plain version off the path, in
     float32: d not a multiple of the warp (nor the pair offset d/2), K·E
-    not a multiple of the chunk, ids out of range (clipped)."""
+    not a multiple of the chunk, ids out of range (clipped); and rotate
+    where pairs sit below the distance's clamp (|u| < 1e-6): tails that
+    are their heads moved by 1e-7 in the pairs whose phase is 0, where
+    both take du = −ds·u / 1e-6 (the reference's _distance_bwd)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n, m, r = 37, 5000, 5
     worst = 0.0
+
+    def draw(lo, hi, size):
+        return torch.randint(lo, hi, size, device=dev, generator=gen).int()
+
+    def compare(mode, z, ns, nd, rel, rel_emb, what):
+        ds = torch.randn(ns.shape[0], device=dev, generator=gen)
+        re = negscore.relation_table(mode, rel_emb,
+                                     torch.float32).contiguous()
+        errs = []
+        for dual in (False, True):
+            name = negscore.kernel_name(mode, dual)
+            got = (negscore.KERNELS[name](z, ns, nd, rel, re),
+                   *negscore.KERNELS[name + "_bwd"](z, ns, nd, rel, re, ds))
+            zp = z.clone().requires_grad_(True)
+            rp = rel_emb.clone().requires_grad_(True)
+            s_p = negscore.plain_scores(mode, zp, ns, nd, rel, rp)
+            want = (s_p.detach(), *torch.autograd.grad(s_p, (zp, rp), ds))
+            errs += [rel_err(a, b) for a, b in zip(got, want)]
+            check(max(errs) <= 1e-4,
+                  f"{name} {what}: kernels disagree ({errs})")
+        return max(errs)
+
     for mode in negscore.MODES:
         for d in (6, 100) if mode in negscore.PAIRED else (7, 100):
-            def draw(lo, hi, size):
-                return torch.randint(lo, hi, size, device=dev,
-                                     generator=gen).int()
             z = torch.randn(n, d, device=dev, generator=gen)
             ns = torch.sort(draw(-2, n + 3, (m,)))[0]
             nd, rel = draw(-2, n + 3, (m,)), draw(-1, r + 1, (m,))
             rel_emb = torch.randn(r, d // 2 if mode == "rotate" else d,
                                   device=dev, generator=gen)
-            ds = torch.randn(m, device=dev, generator=gen)
-            re = negscore.relation_table(mode, rel_emb,
-                                         torch.float32).contiguous()
-            for dual in (False, True):
-                name = negscore.kernel_name(mode, dual)
-                got = (negscore.KERNELS[name](z, ns, nd, rel, re),
-                       *negscore.KERNELS[name + "_bwd"](z, ns, nd, rel, re,
-                                                        ds))
-                zp = z.clone().requires_grad_(True)
-                rp = rel_emb.clone().requires_grad_(True)
-                s_p = negscore.plain_scores(mode, zp, ns, nd, rel, rp)
-                want = (s_p.detach(),
-                        *torch.autograd.grad(s_p, (zp, rp), ds))
-                errs = [rel_err(a, b) for a, b in zip(got, want)]
-                check(max(errs) <= 1e-4,
-                      f"{name} at d = {d}: kernels disagree ({errs})")
-                worst = max(worst, *errs)
+            worst = max(worst, compare(mode, z, ns, nd, rel, rel_emb,
+                                       f"at d = {d}"))
+    d, half = 100, n // 2
+    z = torch.randn(n, d, device=dev, generator=gen)
+    z[half:2 * half] = z[:half]
+    z[half:2 * half, :d // 2] += 1e-7
+    rel_emb = torch.randn(r, d // 2, device=dev, generator=gen)
+    rel_emb[:, ::2] = 0.0
+    ns = torch.sort(draw(0, half, (m,)))[0]
+    nd = torch.where(torch.arange(m, device=dev) % 2 == 0, ns + half,
+                     draw(0, n, (m,)))
+    clamp_err = compare("rotate", z, ns, nd, draw(0, r, (m,)), rel_emb,
+                        "below the clamp")
     print(f"negscore kernels off the path (float32, N = {n}, K·E = {m}, "
           f"d of 6 or 7 and 100, ids out of range): max rel-to-max error "
-          f"{worst:.3g} (tol 1e-4)")
+          f"{worst:.3g}; rotate with pairs below the distance's clamp "
+          f"{clamp_err:.3g} (tol 1e-4)")
 
 
 def decoder_phase(dm, dev, tmp, batches, feature_table, rotate_run):
@@ -1610,30 +1629,39 @@ def rgat_phase(dm, dev, tmp, table, rgat_run, scorer_module):
 
 # -- phase 8: Stage B GCL pretraining and the flash InfoNCE kernels --------
 
-def flash_live_fraction(col, g, backward: bool) -> float:
-    """The share of the envelope's tile pairs (64-row tiles, TILE) whose
-    terms are not all 0 on this input, as the kernels' skip reads them
-    (flashnce.live_tiles): forward the column tiles with a real column;
-    backward the mean over the three jobs of the pairs with a live rows
-    term (job 0), either term (job 1), a live columns term (job 2). Where
-    no column is real every tile counts."""
+def flash_live_work(col, g, backward: bool):
+    """What one flash_denom call needs on this input, as (N x N x d
+    products, N^2 exps), each counted over the share of the 64-row tile
+    pairs (TILE) whose terms are not all 0 (flashnce.live_tiles; where no
+    column is real every tile counts). Forward: the inter and the intra
+    logits and their exps on the column tiles with a real column.
+    Backward: the inter logits, G_inter bn and G_inter^T an on the pairs
+    with a live rows term (job 0's pairs; job 2's are the same swapped),
+    the intra logits and (G_intra + G_intra^T) an on the pairs with either
+    term (job 1's), and one exp per softmax cotangent, inter and intra,
+    each nonzero only on job 0's pairs. Each product counts once, as the
+    function needs it: the designs rebuild the inter logits in job 2 too,
+    which is not counted; the symmetry of an an^T is not used."""
     flags = flashnce.live_tiles(col, g if backward else None)
     if not backward:
-        return float(flashnce.live_columns(flags).float().mean())
-    return sum(float(flashnce.live_pairs(flags, job).float().mean())
-               for job in range(flashnce.JOBS)) / flashnce.JOBS
+        cols = float(flashnce.live_columns(flags).float().mean())
+        return 2 * cols, 2 * cols
+    rows, either = (float(flashnce.live_pairs(flags, job).float().mean())
+                    for job in (0, 1))
+    return 3 * rows + 2 * either, 2 * rows
 
 
-def flash_bound_ms(n: int, d: int, dtype, backward: bool,
-                   live: float = 1.0):
+FLASH_ENVELOPE_WORK = {False: (2, 2), True: (5, 2)}
+
+
+def flash_bound_ms(n: int, d: int, dtype, backward: bool, work=None):
     """Least time for one flash_denom call, as (ms, "bytes" or
     "operations", the term that sets it): an and bn read once and the
     outputs written once (backward: col, den and g in, d_an and d_bn out)
-    over HBM bandwidth; the products over the peak of the instance's unit
-    (forward two N x N x d products, backward six: the logits rebuilt once
-    and the four cotangent products) and the exps on the special-function
-    units (2 N^2 each way), both times ``live``, the share of the tile
-    pairs whose terms are not all 0 (1: the envelope)."""
+    over HBM bandwidth; ``work`` (``flash_live_work``'s products and exps;
+    by default the envelope's, every tile pair live) over the peak of the
+    products' unit and of the special-function units."""
+    products, exps = work or FLASH_ENVELOPE_WORK[backward]
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = 2 * n * d * size + 8 * n
     if backward:
@@ -1641,10 +1669,9 @@ def flash_bound_ms(n: int, d: int, dtype, backward: bool,
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     terms = {
         "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-        f"{str(dtype)[6:]} operations": (6 if backward else 2) * 2 * n * n
-        * d * live / peak * 1e3,
-        "special-function operations": 2 * n * n * live / SFU_OP_PER_S
-        * 1e3}
+        f"{str(dtype)[6:]} operations": products * 2 * n * n * d / peak
+        * 1e3,
+        "special-function operations": exps * n * n / SFU_OP_PER_S * 1e3}
     term = max(terms, key=terms.get)
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
@@ -1785,8 +1812,8 @@ def flash_path_records(dev, node_mask, launches):
     n, d = node_mask.shape[0], GCL["hidden_dim"]
     col = torch.where(node_mask, 0.0, flashnce.NEG).float()
     g = torch.rand(n, device=dev, generator=gen) * node_mask
-    live = {False: flash_live_fraction(col, g, False),
-            True: flash_live_fraction(col, g, True)}
+    work = {False: flash_live_work(col, g, False),
+            True: flash_live_work(col, g, True)}
     flags = flashnce.live_tiles(col, g)
     computed = (float(flashnce.live_columns(flags, flashnce.OWN_ROWS)
                       .float().mean()),
@@ -1794,10 +1821,13 @@ def flash_path_records(dev, node_mask, launches):
                           .float().mean())
                     for job in range(flashnce.JOBS)) / flashnce.JOBS)
     print(f"flash path shape: N = {n}, {int(node_mask.sum())} real slots "
-          f"({float(node_mask.float().mean()):.4f} of the batch); live "
-          f"tile pairs {live[False]:.4f} of the forward's, {live[True]:.4f} "
-          f"of the backward's (64-row tiles); wide_f32 and wgmma_bf16 "
-          f"compute {computed[0]:.4f} and {computed[1]:.4f} of them (their "
+          f"({float(node_mask.float().mean()):.4f} of the batch); over "
+          f"its live 64-row tile pairs the function needs "
+          f"{work[False][0]:.4f} N x N x d products and {work[False][1]:.4f} "
+          f"N^2 exps forward, {work[True][0]:.4f} and {work[True][1]:.4f} "
+          f"backward (the envelope 2 and 2, 5 and 2); wide_f32 and "
+          f"wgmma_bf16 compute {computed[0]:.4f} of the forward's tile pairs "
+          f"and {computed[1]:.4f} of the backward's three jobs' (their "
           f"128-row tiles)")
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1839,7 +1869,7 @@ def flash_path_records(dev, node_mask, launches):
             t[key] = ms[path]
             env, _, _ = flash_bound_ms(n, d, dtype, backward)
             bound, by, term = flash_bound_ms(n, d, dtype, backward,
-                                             live[backward])
+                                             work[backward])
             print(f"flash_denom{'_bwd' if backward else ''} time "
                   f"({str(dtype)[6:]}, N = {n}, d = {d}, CUDA events, "
                   f"min of two medians): "
@@ -1851,7 +1881,8 @@ def flash_path_records(dev, node_mask, launches):
                   + f"; {path} {ms[first] / ms[path]:.2f}x faster than "
                   f"{first}; plain {t['plain_' + key]:.4f} ms; bound over "
                   f"the envelope {env:.4f} ms, over the live tile pairs "
-                  f"({live[backward]:.4f}) {bound:.4f} ms ({term}); no "
+                  f"({work[backward][0]:.4f} products) {bound:.4f} ms "
+                  f"({term}); no "
                   f"single PyTorch call returns these denominators "
                   f"(attention kernels return a row logsumexp only through "
                   f"private ops, without the two-table concat, the column "
@@ -1870,7 +1901,7 @@ def flash_path_records(dev, node_mask, launches):
             name = kernel.name if dtype == torch.float32 \
                 else relmm_key(kernel, path)
             bound, by, _ = flash_bound_ms(n, d, dtype, backward,
-                                          live[backward])
+                                          work[backward])
             records.append({
                 "name": name, "route": "cuda",
                 "source": "biomedkg_tpu_torch/csrc/flashnce.cu",

@@ -154,6 +154,37 @@ def test_rotate_gradient_is_the_phases():
     np.testing.assert_allclose(dtheta, want.numpy(), rtol=1e-5, atol=1e-5)
 
 
+def test_rotate_gradient_below_the_distance_clamp():
+    """Where a pair's |h∘e^{iθ} − t| is below 1e-6 (the distance's clamp
+    at 1e-12), the plain version's gradients follow the reference's Pallas
+    backward, ``_distance_bwd``: du = −ds·u / max(|u|, 1e-6), not the zero
+    that autograd through the clamp gives. Slot 0's pair 1 has θ = 0 and
+    t = h + 2⁻²² there (|u| = 2.4e-7, exact in float32); slot 1 meets its
+    tail in every pair that has θ = 0; slot 2 is far from the clamp."""
+    rng = np.random.default_rng(3)
+    d, half = 8, 4
+    th = rng.uniform(-np.pi, np.pi, (R, half)).astype(np.float32)
+    th[0, 1] = th[1, :2] = 0.0
+    z = rng.uniform(0.25, 0.5, (6, d)).astype(np.float32)
+    ns = np.array([0, 2, 4], np.int32)
+    nd = np.array([1, 3, 5], np.int32)
+    rel = np.array([0, 1, 2], np.int32)
+    z[1, [1, half + 1]] = z[0, [1, half + 1]]
+    z[1, 1] += np.float32(2.0 ** -22)
+    z[3, [0, 1, half, half + 1]] = z[2, [0, 1, half, half + 1]]
+    cot = np.array([0.7, -1.3, 0.4], np.float32)
+    _, gz, gth = _port(negscore.rotate_neg_scores, z, ns, nd, rel, th, cot,
+                       torch.float32)
+    r_rows = np.concatenate([np.cos(th), np.sin(th)], 1)[rel]
+    dh, dt, dth = (np.asarray(x) for x in jax_negscore._distance_bwd(
+        "rotate", jnp.asarray(z[ns]), jnp.asarray(z[nd]),
+        jnp.asarray(r_rows), jnp.asarray(cot[:, None])))
+    assert abs(dh[0, 1]) > 0.1     # the clamp's pair: not autograd's zero
+    np.testing.assert_allclose(gz[ns], dh, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gz[nd], dt, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(gth[rel], dth, rtol=1e-5, atol=1e-6)
+
+
 def test_transe_normalises_the_table_first():
     """TransE's plain version is the L1-normalised table through the
     kernels' arithmetic: z to float32, rows over max(Σ|row|, 1e-12), back
