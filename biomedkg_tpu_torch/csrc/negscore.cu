@@ -42,20 +42,20 @@
 // move (z, three int32 index arrays, the table, the scores; ds, dz and
 // d(re) backward) are 8-11 MB at the envelope, 2-3 us at 3.35 TB/s, below
 // the 5-25 us of operations at 67 TFLOP/s. chip_smoke.py prints each
-// kernel's bound and time (PERF.md); this simple design is far from the
+// kernel's bound and time (PERF.md); these designs are far from the
 // bound, since each slot costs dependent L2 round trips (indices, then
-// rows) and the backward's atomics queue in L2.
+// rows), and the first design's backward atomics queue in L2.
 //
 // Streamed family (any order of ns and nd; fast for ascending ns):
 //  * forward: one warp per slot, kUnroll slots in flight per warp (half as
 //    many for the paired modes, which load twice the rows), each lane
 //    reading 16 bytes of z[ns] and z[nd] per feature pack; the relation
 //    table in shared memory; a warp-shuffle sum ends a slot;
-//  * backward: a warp walks a contiguous run of slots, its lanes on
-//    consecutive units so each warp-wide atomic is coalesced; it keeps a
-//    running float32 row of the current src id's gradient in shared
-//    memory and flushes it with one atomicAdd per feature when the id
-//    changes (ns sorted: about 140 slots per id at the envelope); the dst
+//  * backward (first design): a warp walks a contiguous run of slots, its
+//    lanes on consecutive units so each warp-wide atomic is coalesced; it
+//    keeps a running float32 row of the current src id's gradient in
+//    shared memory and flushes it with one atomicAdd per feature when the
+//    id changes (ns sorted: about 140 slots per id at the envelope); the dst
 //    side adds into dz[nd] with float32 atomics that resolve in L2; the
 //    relation gradient is summed per block in shared memory and flushed
 //    once per block.
@@ -66,14 +66,14 @@
 //  * it finds the chunk's src and dst id spans (a block min/max);
 //  * a span of at most `cap` rows is staged from z into shared memory as
 //    float32 rows, read there by every slot of the chunk;
-//  * backward, the gradients of a staged side are summed into a float32
-//    band of the same rows in shared memory and flushed to dz once per
-//    chunk, one atomicAdd per row and feature: about 1.6 M global atomics
-//    per step at the envelope where the streamed backward makes about
-//    105 M for the dst side alone. Each warp walks a contiguous run of the
-//    chunk with a running src row (one band atomic per id change, as the
-//    streamed backward); the dst side and the relation gradient take
-//    shared atomics;
+//  * backward (first design), the gradients of a staged side are summed
+//    into a float32 band of the same rows in shared memory and flushed to
+//    dz once per chunk, one atomicAdd per row and feature: about 1.6 M
+//    global atomics per step at the envelope where the streamed backward
+//    makes about 105 M for the dst side alone. Each warp walks a
+//    contiguous run of the chunk with a running src row (one band atomic
+//    per id change, as the streamed backward); the dst side and the
+//    relation gradient take shared atomics;
 //  * a side whose span exceeds `cap` (a band that wraps the id range,
 //    about one chunk per step, or nd in any order) reads z and adds into
 //    dz directly with global atomics, in the same kernel: every input stays
@@ -82,10 +82,46 @@
 // card's opt-in shared memory per block cannot hold 2 (forward) or 4
 // (backward) cap x d float32 buffers beside the tables and the running
 // rows.
+//
+// The backwards above are the first design, kept for the A/B. The path's
+// backward, for both families, is the owner design: every dz row is written
+// exactly once, without atomics, by the group of warps that owns its node
+// id.
+//  * bucket_kernel (one cooperative launch) sorts the slot ids by clipped
+//    ns and by clipped nd, stably (a counting sort: per-warp counts of a
+//    contiguous tile of slots in shared memory, their prefixes over the
+//    warps of a block, over the blocks and over the ids, then a second walk
+//    of each tile that places each slot at its bucket's next position);
+//    offsets (n + 1 per side) and the slot ids in bucket order (m per side)
+//    go to device memory. Two grid barriers; any order of ns and nd.
+//  * owner_kernel: a group of kGroupWarps warps owns an id v; each warp
+//    walks its share of v's src bucket (the slots whose h is v) and of its
+//    dst bucket (the slots whose t is v). Lane l holds pack l (V features,
+//    16 bytes where the widths allow) of v's own row in registers, gathers
+//    the other endpoint's pack of each slot from L2 with kOwnSlots (paired
+//    modes half as many) slots in flight, each batch's slot metadata
+//    loaded a batch ahead, and sums the unit gradients in float32
+//    registers. The group's rows meet in shared memory and its first warp
+//    writes dz[v] once, in z's type. A width of more than 32 packs takes
+//    more passes over the same buckets. The relation gradient is summed in
+//    the src walk only (each slot counts once), into one partial (r, dr)
+//    table a warp in shared memory that only its lanes touch, each its own
+//    columns (lane major, 16-byte accesses without bank conflicts); the
+//    block adds the sum of its warps' partials into dre with one 16-byte
+//    vector atomic per 4 floats. Each slot's unit terms are computed twice,
+//    once by each owner. A group, and not one warp, owns an id because
+//    under "sorted2" an id's dst bucket is the sum of the chunk bands that
+//    cover it, up to six times the mean, and the longest walk sets the time.
+// Bound: the same function, so the same bound; the design gathers 2 rows a
+// slot from L2 (z is 1.5 MB in bf16 at the envelope) where the first
+// design makes 105 M float32 atomics on the dst side alone.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <type_traits>
 
 namespace {
 
@@ -103,6 +139,18 @@ constexpr int kDefaultSmem = 48 * 1024;     // dynamic shared memory without
 constexpr int kDsThreads = 512;             // threads per block (dual-sorted)
 constexpr int kDsWarps = kDsThreads / 32;
 constexpr int kSpanCap = 32;                // rows per side staged per chunk
+constexpr int kBucketThreads = 256;         // threads per block (buckets)
+constexpr int kBucketWarps = kBucketThreads / 32;   // 8: two int4 a key
+static_assert(kBucketWarps == 8, "a key's warp counters are two int4");
+constexpr int kOwnWarps = 8;                // warps per block (owner), at most
+constexpr int kOwnSlots = 4;                // slots in flight per owner warp
+constexpr int kOwnBlocksPerSm = 2;          // register budget: 128 a thread
+constexpr int kGroupWarps = 4;              // warps that share a node id
+constexpr int kKeyChunks = 16;              // 32-slot chunks of keys a bucket
+                                            // warp holds in registers
+constexpr int kMaxBlockRun = 32;            // bucket blocks a warp prefixes
+constexpr int kScanPerThread = 8;           // keys a thread scans at once
+constexpr int kScanChunk = kScanPerThread * kBucketThreads;
 
 // slots in flight per warp: the paired modes hold twice the rows
 template <int M>
@@ -217,7 +265,9 @@ struct UnitGrad {
   float dh0, dh1, dt0, dt1, dr0, dr1;
 };
 
-template <int M>
+// kFast (the owner design): rotate's 1/dist from one rsqrt (within 2 ulp)
+// where the first design takes a sqrt and two divides.
+template <int M, bool kFast = false>
 __device__ __forceinline__ UnitGrad unit_grad(float g, float h0, float h1,
                                               float t0, float t1, float r0,
                                               float r1) {
@@ -245,9 +295,16 @@ __device__ __forceinline__ UnitGrad unit_grad(float g, float h0, float h1,
     const float rot1 = h0 * r1 + h1 * r0;
     const float u0 = rot0 - t0;
     const float u1 = rot1 - t1;
-    const float dist = sqrtf(fmaxf(u0 * u0 + u1 * u1, 1e-12f));
-    const float du0 = -g * u0 / dist;
-    const float du1 = -g * u1 / dist;
+    float du0, du1;
+    if constexpr (kFast) {
+      const float scale = -g * rsqrtf(fmaxf(u0 * u0 + u1 * u1, 1e-12f));
+      du0 = scale * u0;
+      du1 = scale * u1;
+    } else {
+      const float dist = sqrtf(fmaxf(u0 * u0 + u1 * u1, 1e-12f));
+      du0 = -g * u0 / dist;
+      du1 = -g * u1 / dist;
+    }
     o.dh0 = du0 * r0 + du1 * r1;
     o.dh1 = -du0 * r1 + du1 * r0;
     o.dt0 = -du0;
@@ -711,6 +768,661 @@ __global__ void __launch_bounds__(kDsThreads)
 }
 
 // ---------------------------------------------------------------------------
+// Owner design: bucket build
+
+__device__ __forceinline__ unsigned lanemask_lt() {
+  unsigned mask;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(mask));
+  return mask;
+}
+
+// All blocks of a cooperative launch wait here for each other. `bar` is
+// zeroed before the launch; `round` counts the barriers this block passed.
+__device__ void grid_barrier(unsigned* bar, unsigned& round) {
+  __syncthreads();
+  ++round;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const unsigned target = round * gridDim.x;
+    while (*reinterpret_cast<volatile unsigned*>(bar) < target) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// exclusive prefix sum of one int a thread over the block (`sh` holds
+// kBucketThreads ints), and the block's total; ends with the block
+// synchronised
+__device__ int block_exclusive_sum(int v, int* sh, int* total) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int o = 1; o < kBucketThreads; o <<= 1) {
+    const int x = threadIdx.x >= o ? sh[threadIdx.x - o] : 0;
+    __syncthreads();
+    sh[threadIdx.x] += x;
+    __syncthreads();
+  }
+  const int inclusive = sh[threadIdx.x];
+  *total = sh[kBucketThreads - 1];
+  __syncthreads();
+  return inclusive - v;
+}
+
+// The warp's keys on one side for its slots s + 32c + lane, c <
+// kKeyChunks, all loaded before any is used: the clipped id relative to the
+// key range [k0, k0 + kn), or -1 outside it or at or past `end`.
+__device__ __forceinline__ void load_keys(const int32_t* __restrict__ ids,
+                                          int64_t s, int64_t end, int n,
+                                          int k0, int kn,
+                                          int (&key)[kKeyChunks]) {
+  const int lane = threadIdx.x & 31;
+  bool ok[kKeyChunks];
+#pragma unroll
+  for (int c = 0; c < kKeyChunks; ++c) {
+    const int64_t i = s + c * 32 + lane;
+    ok[c] = i < end;
+    key[c] = ok[c] ? __ldg(ids + i) : 0;
+  }
+#pragma unroll
+  for (int c = 0; c < kKeyChunks; ++c) {
+    const int k = clip(key[c], n - 1) - k0;
+    key[c] = ok[c] && k >= 0 && k < kn ? k : -1;
+  }
+}
+
+// Counts of the keys in [k0, k0 + kn) over each warp's tile [t0, t1),
+// turned into their exclusive prefix over the block's warps in
+// cnt[side][key][warp]; with `blk`, the block's totals go to
+// blk[side][block][k0 + key]. A key's kBucketWarps counters are adjacent,
+// so its prefix takes two 16-byte reads and writes.
+__device__ void count_range(const int32_t* __restrict__ ns,
+                            const int32_t* __restrict__ nd, int64_t t0,
+                            int64_t t1, int n, int k0, int kn, int cap,
+                            int* cnt, int32_t* __restrict__ blk) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < 2 * cap * kBucketWarps / 4;
+       i += kBucketThreads)
+    reinterpret_cast<int4*>(cnt)[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  int* col0 = cnt + warp;
+  int* col1 = cnt + cap * kBucketWarps + warp;
+  for (int64_t s = t0; s < t1; s += 32 * kKeyChunks) {
+    int key0[kKeyChunks], key1[kKeyChunks];
+    load_keys(ns, s, t1, n, k0, kn, key0);
+    load_keys(nd, s, t1, n, k0, kn, key1);
+#pragma unroll
+    for (int c = 0; c < kKeyChunks; ++c) {   // both sides at once
+      const unsigned peers0 = __match_any_sync(0xffffffffu, key0[c]);
+      const unsigned peers1 = __match_any_sync(0xffffffffu, key1[c]);
+      if (key0[c] >= 0 && lane == __ffs(peers0) - 1)
+        col0[key0[c] * kBucketWarps] += __popc(peers0);
+      if (key1[c] >= 0 && lane == __ffs(peers1) - 1)
+        col1[key1[c] * kBucketWarps] += __popc(peers1);
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * kn; i += kBucketThreads) {
+    const int side = i / kn, key = i % kn;
+    int4* c = reinterpret_cast<int4*>(cnt + (side * cap + key) * kBucketWarps);
+    const int4 lo = c[0], hi = c[1];
+    int run = 0;
+    c[0] = make_int4(run, run + lo.x, run + lo.x + lo.y,
+                     run + lo.x + lo.y + lo.z);
+    run += lo.x + lo.y + lo.z + lo.w;
+    c[1] = make_int4(run, run + hi.x, run + hi.x + hi.y,
+                     run + hi.x + hi.y + hi.z);
+    run += hi.x + hi.y + hi.z + hi.w;
+    if (blk)
+      blk[((int64_t)side * gridDim.x + blockIdx.x) * n + k0 + key] = run;
+  }
+  __syncthreads();
+}
+
+// A stable counting sort of the slots by clipped ns (side 0) and clipped nd
+// (side 1), as torch.argsort(keys, stable=True): off[side] (n + 1) holds
+// each id's first position, ord[side] (m) the slot ids in bucket order.
+// Warp w of block g owns the w-th tile of the g-th run of slots, so tiles
+// in (g, w) order cover the slots in order, and a slot's position is its
+// id's offset, plus its id's count in earlier blocks, in earlier warps of
+// its block, and in earlier slots of its tile. Keys are taken in ranges of
+// `cap` (the shared counters' room); `blk` (2, G, n) and `tot` (2, n) are
+// scratch; `bar` is zeroed before the launch; G <= kBucketWarps *
+// kMaxBlockRun. Every phase issues its loads together before it uses them:
+// a walk over a tile holds kKeyChunks chunks of keys in registers.
+// Shared memory: cnt[2][cap][kBucketWarps] ints.
+__global__ void __launch_bounds__(kBucketThreads)
+    bucket_kernel(const int32_t* __restrict__ ns,
+                  const int32_t* __restrict__ nd, int64_t m, int n, int cap,
+                  int32_t* __restrict__ blk, int32_t* __restrict__ tot,
+                  int32_t* __restrict__ off, int32_t* __restrict__ ord,
+                  unsigned* bar) {
+  extern __shared__ __align__(16) int cnt[];
+  __shared__ int scan[kBucketThreads];
+  __shared__ __align__(16) int stage[kScanChunk];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int blocks = gridDim.x, g = blockIdx.x;
+  const int64_t tiles = (int64_t)blocks * kBucketWarps;
+  const int64_t per = (m + tiles - 1) / tiles;
+  const int64_t first = ((int64_t)g * kBucketWarps + warp) * per;
+  const int64_t t0 = first < m ? first : m;
+  const int64_t t1 = t0 + per < m ? t0 + per : m;
+  const int ranges = (n + cap - 1) / cap;
+  unsigned round = 0;
+
+  for (int k0 = 0; k0 < n; k0 += cap)
+    count_range(ns, nd, t0, t1, n, k0, min(cap, n - k0), cap, cnt, blk);
+  grid_barrier(bar, round);
+
+  // each key's exclusive prefix over the blocks (in place), and its total:
+  // a block takes 32 keys of a side, warp w the blocks [w*pb, (w+1)*pb).
+  // What other blocks wrote before a barrier is read past L1 (__ldcg).
+  const int groups = (n + 31) / 32;
+  const int pb = (blocks + kBucketWarps - 1) / kBucketWarps;
+  for (int item = g; item < 2 * groups; item += blocks) {
+    const int side = item / groups, key = (item % groups) * 32 + lane;
+    const int ga = min(blocks, warp * pb), gb = min(blocks, ga + pb);
+    int32_t* col = blk + (int64_t)side * blocks * n + key;
+    int vals[kMaxBlockRun];
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < kMaxBlockRun; ++i) {
+      vals[i] = key < n && ga + i < gb ? __ldcg(col + (int64_t)(ga + i) * n)
+                                       : 0;
+      sum += vals[i];
+    }
+    scan[threadIdx.x] = sum;
+    __syncthreads();
+    int run = 0;
+    for (int w = 0; w < warp; ++w) run += scan[w * 32 + lane];
+    if (key < n) {
+#pragma unroll
+      for (int i = 0; i < kMaxBlockRun; ++i) {
+        if (ga + i < gb) col[(int64_t)(ga + i) * n] = run;
+        run += vals[i];
+      }
+      if (warp == kBucketWarps - 1) tot[side * n + key] = run;
+    }
+    __syncthreads();
+  }
+  grid_barrier(bar, round);
+
+  // each key's first position in this block: its offset (the exclusive
+  // prefix of the totals over the keys) plus its count in earlier blocks,
+  // into this block's own row of blk; block 0 writes the offsets. The keys
+  // go kScanChunk at a time through shared memory: loaded and stored by
+  // consecutive threads, scanned 8 adjacent keys a thread.
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const int32_t* t = tot + side * n;
+    int32_t* base = blk + ((int64_t)side * blocks + g) * n;
+    int carry = 0;
+    for (int c0 = 0; c0 < n; c0 += kScanChunk) {
+      const int len = min(kScanChunk, n - c0);
+      int v[kScanPerThread];
+#pragma unroll
+      for (int u = 0; u < kScanPerThread; ++u) {
+        const int i = threadIdx.x + u * kBucketThreads;
+        v[u] = i < len ? __ldcg(t + c0 + i) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanPerThread; ++u)
+        stage[threadIdx.x + u * kBucketThreads] = v[u];
+      __syncthreads();
+      int4* mine = reinterpret_cast<int4*>(stage) + 2 * threadIdx.x;
+      const int4 lo = mine[0], hi = mine[1];
+      int total = 0;
+      int run = carry + block_exclusive_sum(lo.x + lo.y + lo.z + lo.w + hi.x +
+                                                hi.y + hi.z + hi.w,
+                                            scan, &total);
+      carry += total;
+      int4 plo, phi;
+      plo.x = run;
+      plo.y = plo.x + lo.x;
+      plo.z = plo.y + lo.y;
+      plo.w = plo.z + lo.z;
+      phi.x = plo.w + lo.w;
+      phi.y = phi.x + hi.x;
+      phi.z = phi.y + hi.y;
+      phi.w = phi.z + hi.z;
+      mine[0] = plo;
+      mine[1] = phi;
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kScanPerThread; ++u) {
+        const int i = threadIdx.x + u * kBucketThreads;
+        v[u] = i < len ? __ldcg(base + c0 + i) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanPerThread; ++u) {
+        const int i = threadIdx.x + u * kBucketThreads;
+        if (i < len) {
+          base[c0 + i] = stage[i] + v[u];
+          if (g == 0) off[side * (n + 1) + c0 + i] = stage[i];
+        }
+      }
+      __syncthreads();
+    }
+    if (g == 0 && threadIdx.x == 0) off[side * (n + 1) + n] = (int)m;
+  }
+  __syncthreads();
+
+  // per key range: each (warp, key) counter becomes the key's position for
+  // the warp's first slot of that key (consecutive threads on consecutive
+  // keys); then each warp places its tile
+  for (int k0 = 0; k0 < n; k0 += cap) {
+    const int kn = min(cap, n - k0);
+    if (ranges > 1)
+      count_range(ns, nd, t0, t1, n, k0, kn, cap, cnt, nullptr);
+    for (int i0 = threadIdx.x; i0 < 2 * kn;
+         i0 += kBucketThreads * kKeyChunks) {
+      int add[kKeyChunks];
+#pragma unroll
+      for (int u = 0; u < kKeyChunks; ++u) {
+        const int i = i0 + u * kBucketThreads;
+        add[u] = i < 2 * kn
+                     ? blk[((int64_t)(i / kn) * blocks + g) * n + k0 + i % kn]
+                     : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kKeyChunks; ++u) {
+        const int i = i0 + u * kBucketThreads;
+        if (i >= 2 * kn) break;
+        int4* c = reinterpret_cast<int4*>(
+            cnt + ((i / kn) * cap + i % kn) * kBucketWarps);
+        const int4 lo = c[0], hi = c[1];
+        c[0] = make_int4(lo.x + add[u], lo.y + add[u], lo.z + add[u],
+                         lo.w + add[u]);
+        c[1] = make_int4(hi.x + add[u], hi.y + add[u], hi.z + add[u],
+                         hi.w + add[u]);
+      }
+    }
+    __syncthreads();
+    int* col0 = cnt + warp;
+    int* col1 = cnt + cap * kBucketWarps + warp;
+    for (int64_t s = t0; s < t1; s += 32 * kKeyChunks) {
+      int key0[kKeyChunks], key1[kKeyChunks];
+      load_keys(ns, s, t1, n, k0, kn, key0);
+      load_keys(nd, s, t1, n, k0, kn, key1);
+      const unsigned below = lanemask_lt();
+#pragma unroll
+      for (int c = 0; c < kKeyChunks; ++c) {   // both sides at once
+        const int32_t slot = (int32_t)(s + c * 32 + lane);
+        const unsigned peers0 = __match_any_sync(0xffffffffu, key0[c]);
+        const unsigned peers1 = __match_any_sync(0xffffffffu, key1[c]);
+        if (key0[c] >= 0)
+          ord[col0[key0[c] * kBucketWarps] + __popc(peers0 & below)] = slot;
+        if (key1[c] >= 0)
+          ord[m + col1[key1[c] * kBucketWarps] + __popc(peers1 & below)] =
+              slot;
+        __syncwarp();
+        if (key0[c] >= 0 && lane == __ffs(peers0) - 1)
+          col0[key0[c] * kBucketWarps] += __popc(peers0);
+        if (key1[c] >= 0 && lane == __ffs(peers1) - 1)
+          col1[key1[c] * kBucketWarps] += __popc(peers1);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Owner design: the backward
+
+// two 16-byte loads' worth of a row (eight floats)
+struct alignas(16) Raw32 {
+  uint4 lo, hi;
+};
+
+// V consecutive features of a row as the bytes a lane loads at once (32 as
+// two 16-byte loads, 16, 8, 4 or 2), converted to or from float32.
+template <typename T, int V>
+struct Raw {
+  static constexpr int kBytes = V * (int)sizeof(T);
+  using Type = typename std::conditional<
+      kBytes == 32, Raw32,
+      typename std::conditional<
+          kBytes == 16, uint4,
+          typename std::conditional<
+              kBytes == 8, uint2,
+              typename std::conditional<kBytes == 4, uint32_t,
+                                        uint16_t>::type>::type>::type>::type;
+
+  static __device__ __forceinline__ Type load(const T* p) {
+    if constexpr (kBytes == 32) {
+      const uint4* q = reinterpret_cast<const uint4*>(p);
+      return Raw32{__ldg(q), __ldg(q + 1)};
+    } else {
+      return __ldg(reinterpret_cast<const Type*>(p));
+    }
+  }
+  static __device__ __forceinline__ void to_float(const Type& raw,
+                                                  float* out) {
+    T v[V];
+    memcpy(v, &raw, kBytes);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if constexpr (std::is_same<T, float>::value) {
+        out[k] = v[k];
+      } else {
+        out[k] = __bfloat162float(v[k]);
+      }
+    }
+  }
+  static __device__ __forceinline__ void store(T* p, const float* in) {
+    T v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if constexpr (std::is_same<T, float>::value) {
+        v[k] = in[k];
+      } else {
+        v[k] = __float2bfloat16(in[k]);
+      }
+    }
+    Type raw;
+    memcpy(&raw, v, kBytes);
+    *reinterpret_cast<Type*>(p) = raw;
+  }
+};
+
+// The owner kernel's shared tables (the relation table and the partial
+// gradients) keep each half of a row (its `units` columns, packs * V) lane
+// major: lane p's pack (columns p*V .. p*V + V-1) is cut into groups of E =
+// min(V, 4) columns, and group k sits at (k * packs + p) * E, so that one
+// access of a warp reads a group of every lane without bank conflicts, as
+// one 16-byte access a lane when E = 4. For V < 4 this is the plain layout.
+template <int V>
+struct Lanes {
+  static constexpr int E = V < 4 ? V : 4;
+
+  // where column c of a half lives
+  static __device__ __forceinline__ int index(int c, int packs) {
+    const int p = c / V, v = c % V;
+    return ((v / E) * packs + p) * E + v % E;
+  }
+  // the first column of group q (q = k * packs + p) of a half
+  static __device__ __forceinline__ int column(int q, int packs) {
+    return (q % packs) * V + (q / packs) * E;
+  }
+  static __device__ __forceinline__ void read(const float* half, int packs,
+                                              int p, float* out) {
+#pragma unroll
+    for (int k = 0; k < V / E; ++k) {
+      const float* q = half + (k * packs + p) * E;
+      if constexpr (E == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(q);
+        out[4 * k] = x.x;
+        out[4 * k + 1] = x.y;
+        out[4 * k + 2] = x.z;
+        out[4 * k + 3] = x.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) out[E * k + e] = q[e];
+      }
+    }
+  }
+  static __device__ __forceinline__ void add(float* half, int packs, int p,
+                                             const float* x) {
+#pragma unroll
+    for (int k = 0; k < V / E; ++k) {
+      float* q = half + (k * packs + p) * E;
+      if constexpr (E == 4) {
+        float4 a = *reinterpret_cast<float4*>(q);
+        a.x += x[4 * k];
+        a.y += x[4 * k + 1];
+        a.z += x[4 * k + 2];
+        a.w += x[4 * k + 3];
+        *reinterpret_cast<float4*>(q) = a;
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) q[e] += x[E * k + e];
+      }
+    }
+  }
+};
+
+// One slot's other endpoint, relation and upstream gradient (id 0, 0, 0
+// for s < 0).
+struct SlotMeta {
+  int id, rs;
+  float g;
+};
+
+__device__ __forceinline__ SlotMeta slot_meta(const int32_t* __restrict__ other,
+                                              const int32_t* __restrict__ rel,
+                                              const float* __restrict__ ds,
+                                              int s, int n, int r) {
+  SlotMeta x{0, 0, 0.f};
+  if (s >= 0) {
+    x.id = clip(other[s], n - 1);
+    x.rs = clip(rel[s], r - 1);
+    x.g = ds[s];
+  }
+  return x;
+}
+
+// One walk of an owner over one of its buckets: slots ord[begin..end), in
+// which the owner's id is h (kSrc) or t, the other endpoint's id read from
+// `other` (nd or ns). Adds the owner's unit gradients into acc0/acc1 and,
+// in the src walk, the relation gradient into the warp's partial table
+// `part` (r, dr; Lanes layout). The lane handles pack p, features j = p*V
+// .. j+V-1 (and j + off ..), `live` when its pack lies inside the row;
+// every lane runs the shuffles.
+// A batch is 32 slots, lane i holding slot i's metadata; the next batch's
+// metadata and the one after's slot ids are loaded before this batch's
+// rows are gathered, kOwnSlots (paired modes half as many) at a time.
+template <int M, typename T, int V, bool kSrc>
+__device__ __forceinline__ void owner_walk(
+    const T* __restrict__ z, const int32_t* __restrict__ other,
+    const int32_t* __restrict__ rel, const float* __restrict__ ds,
+    const int32_t* __restrict__ ord, int begin, int end, int n, int d,
+    int r, int dr, int off, int packs, int p, bool live, const float* own0,
+    const float* own1, const float* sre, float* part, float* acc0,
+    float* acc1) {
+  constexpr int U = kPaired<M> ? kOwnSlots / 2 : kOwnSlots;
+  using R = Raw<T, V>;
+  using L = Lanes<V>;
+  const int j = p * V;
+  const int lane = threadIdx.x & 31;
+  SlotMeta cur = slot_meta(other, rel, ds,
+                           begin + lane < end ? ord[begin + lane] : -1, n, r);
+  int ahead = begin + 32 + lane < end ? ord[begin + 32 + lane] : -1;
+  for (int b0 = begin; b0 < end; b0 += 32) {
+    const int count = min(32, end - b0);
+    const SlotMeta next = slot_meta(other, rel, ds, ahead, n, r);
+    ahead = b0 + 64 + lane < end ? ord[b0 + 64 + lane] : -1;
+    for (int k0 = 0; k0 < count; k0 += U) {
+      typename R::Type raw0[U], raw1[U];
+      int rk[U];
+      float gk[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int row = __shfl_sync(0xffffffffu, cur.id, k0 + u);
+        rk[u] = __shfl_sync(0xffffffffu, cur.rs, k0 + u);
+        gk[u] = __shfl_sync(0xffffffffu, cur.g, k0 + u);
+        if (live && k0 + u < count) {
+          raw0[u] = R::load(z + (int64_t)row * d + j);
+          if constexpr (kPaired<M>)
+            raw1[u] = R::load(z + (int64_t)row * d + off + j);
+        }
+      }
+      if (!live) continue;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (k0 + u >= count) break;
+        float x0[V], x1[V], r0[V], r1[V], dr0[V], dr1[V];
+        R::to_float(raw0[u], x0);
+        L::read(sre + rk[u] * d, packs, p, r0);
+        if constexpr (kPaired<M>) {
+          R::to_float(raw1[u], x1);
+          L::read(sre + rk[u] * d + off, packs, p, r1);
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float o1 = kPaired<M> ? own1[v] : 0.f;
+          const float y1 = kPaired<M> ? x1[v] : 0.f;
+          const float q1 = kPaired<M> ? r1[v] : 0.f;
+          if constexpr (kSrc) {
+            const UnitGrad o =
+                unit_grad<M, true>(gk[u], own0[v], o1, x0[v], y1, r0[v], q1);
+            acc0[v] += o.dh0;
+            acc1[v] += o.dh1;
+            dr0[v] = o.dr0;
+            dr1[v] = o.dr1;
+          } else {
+            const UnitGrad o =
+                unit_grad<M, true>(gk[u], x0[v], y1, own0[v], o1, r0[v], q1);
+            acc0[v] += o.dt0;
+            acc1[v] += o.dt1;
+          }
+        }
+        if constexpr (kSrc) {
+          L::add(part + rk[u] * dr, packs, p, dr0);
+          if constexpr (M == kComplex)
+            L::add(part + rk[u] * dr + off, packs, p, dr1);
+        }
+      }
+    }
+    cur = next;
+  }
+}
+
+// A group of `group` warps (the block's warps in groups, each group's
+// warps adjacent) owns a node id; ids are strided over the grid's groups.
+// Each warp of the group walks its share of the id's src and dst buckets
+// (a contiguous quarter of each for a group of four), and the group's
+// first warp adds the warps' float32 rows in warp order and writes the
+// dz row once. off/ord are bucket_kernel's output: side 0 (ns) at
+// off[0..n], ord[0..m), side 1 (nd) at off[n+1..2n+1], ord[m..2m). dz (n,
+// d) in z's type is written whole; dre (r, dr) float32 must be zeroed.
+// Shared memory: re (r*d), one partial (r, dr) relation-gradient table a
+// warp, both in the Lanes layout (each half of a row: the paired modes'
+// two, or complex's two gradient halves), and one row-pack stage a warp
+// (32 * V floats, twice that for the paired modes), lane major.
+template <int M, typename T, int V>
+__global__ void __launch_bounds__(kOwnWarps * 32, kOwnBlocksPerSm)
+    owner_kernel(const T* __restrict__ z, const int32_t* __restrict__ ns,
+                 const int32_t* __restrict__ nd,
+                 const int32_t* __restrict__ rel,
+                 const float* __restrict__ re, const float* __restrict__ ds,
+                 const int32_t* __restrict__ off,
+                 const int32_t* __restrict__ ord, T* __restrict__ dz,
+                 float* __restrict__ dre, int64_t m, int n, int d, int r,
+                 int group) {
+  using R = Raw<T, V>;
+  using L = Lanes<V>;
+  constexpr int H = kPaired<M> ? 2 : 1;      // row halves a lane holds
+  extern __shared__ __align__(16) float smem[];
+  const int dr = grad_width<M>(d);
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int member = warp % group;
+  const int groups = warps / group;
+  const int table = r * dr;
+  const int units = kPaired<M> ? d / 2 : d;
+  const int packs = units / V;
+  float* sre = smem;
+  float* part = smem + r * d + warp * table;
+  float* stages = smem + r * d + warps * table;
+  float* stage = stages + warp * 32 * V * H;
+  for (int i = threadIdx.x; i < r * d; i += blockDim.x) {
+    const int row = i / d, c = i % d;
+    sre[row * d + (c / units) * units + L::index(c % units, packs)] = re[i];
+  }
+  for (int i = lane; i < table; i += 32) part[i] = 0.f;
+  __syncthreads();
+
+  const int half = kPaired<M> ? d / 2 : 0;
+  const unsigned barrier = 1 + warp / group;  // the group's named barrier
+  for (int v = blockIdx.x * groups + warp / group; v < n;
+       v += gridDim.x * groups) {
+    const int s0 = off[v], s1 = off[v + 1];
+    const int d0 = off[n + 1 + v], d1 = off[n + 2 + v];
+    // this warp's share of each bucket
+    const int sa = s0 + (int)((int64_t)(s1 - s0) * member / group);
+    const int sb = s0 + (int)((int64_t)(s1 - s0) * (member + 1) / group);
+    const int da = d0 + (int)((int64_t)(d1 - d0) * member / group);
+    const int db = d0 + (int)((int64_t)(d1 - d0) * (member + 1) / group);
+    for (int p0 = 0; p0 < packs; p0 += 32) {
+      const bool live = p0 + lane < packs;
+      const int p = live ? p0 + lane : 0;
+      const int j = p * V;
+      float own0[V], own1[V], acc0[V], acc1[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) own0[k] = own1[k] = acc0[k] = acc1[k] = 0.f;
+      if (live) {
+        R::to_float(R::load(z + (int64_t)v * d + j), own0);
+        if constexpr (kPaired<M>)
+          R::to_float(R::load(z + (int64_t)v * d + half + j), own1);
+      }
+      owner_walk<M, T, V, true>(z, nd, rel, ds, ord, sa, sb, n, d, r, dr,
+                                half, packs, p, live, own0, own1, sre, part,
+                                acc0, acc1);
+      owner_walk<M, T, V, false>(z, ns, rel, ds, ord + m, da, db, n, d, r,
+                                 dr, half, packs, p, live, own0, own1, sre,
+                                 part, acc0, acc1);
+      if (group > 1) {      // the group's rows meet in shared memory
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          stage[k * 32 + lane] = acc0[k];
+          if constexpr (kPaired<M>) stage[(V + k) * 32 + lane] = acc1[k];
+        }
+        asm volatile("bar.sync %0, %1;" ::"r"(barrier), "r"(group * 32)
+                     : "memory");
+        if (member == 0) {
+          for (int w = 1; w < group; ++w) {
+            const float* q = stage + w * 32 * V * H;
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              acc0[k] += q[k * 32 + lane];
+              if constexpr (kPaired<M>) acc1[k] += q[(V + k) * 32 + lane];
+            }
+          }
+        }
+        asm volatile("bar.sync %0, %1;" ::"r"(barrier), "r"(group * 32)
+                     : "memory");
+      }
+      if (live && member == 0) {
+        R::store(dz + (int64_t)v * d + j, acc0);
+        if constexpr (kPaired<M>)
+          R::store(dz + (int64_t)v * d + half + j, acc1);
+      }
+    }
+  }
+  __syncthreads();
+  // the block's warps' partials, summed, into dre, a group of E columns at
+  // a time: one 16-byte vector atomic a group when E = 4 (dre 16-byte
+  // aligned), else E scalar ones
+  constexpr int E = L::E;
+  const float* parts = smem + r * d;
+  for (int i = threadIdx.x * E; i < table; i += blockDim.x * E) {
+    float x[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) x[e] = 0.f;
+    for (int w = 0; w < warps; ++w)
+#pragma unroll
+      for (int e = 0; e < E; ++e) x[e] += parts[w * table + i + e];
+    const int row = i / dr, within = i % dr;
+    float* out = dre + row * dr + (within / units) * units +
+                 L::column((within % units) / E, packs);
+    if constexpr (E == 4) {
+      if (x[0] != 0.f || x[1] != 0.f || x[2] != 0.f || x[3] != 0.f)
+        atomicAdd(reinterpret_cast<float4*>(out),
+                  make_float4(x[0], x[1], x[2], x[3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (x[e] != 0.f) atomicAdd(out + e, x[e]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers
 
 int device_attr(cudaDeviceAttr attr, int* value) {
@@ -838,6 +1550,104 @@ int launch_ds_bwd(const void* z, const void* ns, const void* nd,
           static_cast<float*>(dz), static_cast<float*>(dre), m, n, d, r,
           chunk, cap);
   return (int)cudaGetLastError();
+}
+
+int launch_buckets(const void* ns, const void* nd, long long m, int n,
+                   int blocks, void* blk, void* tot, void* off, void* ord,
+                   void* bar, void* stream) {
+  if (blocks <= 0 || blocks > kBucketWarps * kMaxBlockRun || n <= 0 ||
+      m <= 0 || m > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  int err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit);
+  if (err != cudaSuccess) return err;
+  // keys per range: two sides' counters for every warp, beside the static
+  // scan and stage arrays (and 1 KB to spare)
+  const int room = (limit - (int)((kBucketThreads + kScanChunk) * sizeof(int)) -
+                    1024) / (int)(2 * kBucketWarps * sizeof(int));
+  const int cap = n < room ? n : room;
+  const size_t smem = (size_t)2 * kBucketWarps * cap * sizeof(int);
+  err = allow_smem(bucket_kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0, per_sm = 0;
+  err = device_attr(cudaDevAttrMultiProcessorCount, &sms);
+  if (err != cudaSuccess) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, bucket_kernel, kBucketThreads, smem);
+  if (err != cudaSuccess) return err;
+  if ((long long)blocks > (long long)sms * per_sm)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int32_t* ns_p = static_cast<const int32_t*>(ns);
+  const int32_t* nd_p = static_cast<const int32_t*>(nd);
+  int64_t m64 = m;
+  int32_t* blk_p = static_cast<int32_t*>(blk);
+  int32_t* tot_p = static_cast<int32_t*>(tot);
+  int32_t* off_p = static_cast<int32_t*>(off);
+  int32_t* ord_p = static_cast<int32_t*>(ord);
+  unsigned* bar_p = static_cast<unsigned*>(bar);
+  void* args[] = {&ns_p, &nd_p, &m64, &n, (void*)&cap, &blk_p,
+                  &tot_p, &off_p, &ord_p, &bar_p};
+  err = (int)cudaLaunchCooperativeKernel((const void*)bucket_kernel,
+                                         dim3(blocks), dim3(kBucketThreads),
+                                         args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return err;
+  return (int)cudaGetLastError();
+}
+
+template <int M, typename T, int V>
+int launch_owner(const void* z, const void* ns, const void* nd,
+                 const void* rel, const void* re, const void* ds,
+                 const void* off, const void* ord, void* dz, void* dre,
+                 long long m, int n, int d, int r, void* stream) {
+  if (reinterpret_cast<uintptr_t>(dre) % 16) return (int)cudaErrorInvalidValue;
+  int sms = 0, limit = 0, per_sm = 0;
+  int err = device_attr(cudaDevAttrMultiProcessorCount, &sms);
+  if (err != cudaSuccess) return err;
+  err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit);
+  if (err != cudaSuccess) return err;
+  // the relation table and one partial gradient table a warp: as many warps
+  // a block as fit, up to kOwnWarps
+  const size_t table = (size_t)r * d * sizeof(float);
+  const size_t part = (size_t)r * grad_width<M>(d) * sizeof(float);
+  const size_t stage = (size_t)32 * V * (kPaired<M> ? 2 : 1) * sizeof(float);
+  int warps = kOwnWarps;
+  while (warps > 0 && table + warps * (part + stage) > (size_t)limit) --warps;
+  if (warps == 0) return (int)cudaErrorInvalidValue;
+  const int group = warps < kGroupWarps ? warps : kGroupWarps;
+  warps -= warps % group;
+  const size_t smem = table + warps * (part + stage);
+  auto kernel = owner_kernel<M, T, V>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, warps * 32, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int groups = warps / group;
+  int64_t blocks = (n + groups - 1) / groups;
+  if (blocks > (int64_t)sms * per_sm) blocks = (int64_t)sms * per_sm;
+  kernel<<<(unsigned)blocks, warps * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(z), static_cast<const int32_t*>(ns),
+      static_cast<const int32_t*>(nd), static_cast<const int32_t*>(rel),
+      static_cast<const float*>(re), static_cast<const float*>(ds),
+      static_cast<const int32_t*>(off), static_cast<const int32_t*>(ord),
+      static_cast<T*>(dz), static_cast<float*>(dre), m, n, d, r, group);
+  return (int)cudaGetLastError();
+}
+
+// The features a lane of the owner kernel loads at once: the largest V
+// (up to 32 bytes) that divides the (half-)width, that z's and dz's bases
+// allow, and that still gives the 32 lanes a pack each, else 1.
+int owner_vector(int units, size_t elem, const void* z, const void* dz,
+                 int widest) {
+  for (int v = widest; v > 1; v /= 2) {
+    const size_t bytes = v * elem;
+    if (units % v == 0 && units / v >= 32 &&
+        reinterpret_cast<uintptr_t>(z) % bytes == 0 &&
+        reinterpret_cast<uintptr_t>(dz) % bytes == 0)
+      return v;
+  }
+  return 1;
 }
 
 // mode checks shared by every entry point: a known mode, and an even d for
@@ -972,6 +1782,70 @@ extern "C" int negscore_ds_bwd_bf16(int mode, const void* z, const void* ns,
 #define CALL(M)                                                          \
   launch_ds_bwd<M, __nv_bfloat16>(z, ns, nd, rel, re, ds, dz, dre, m, n, \
                                   d, r, chunk, stream)
+  NEGSCORE_DISPATCH(CALL)
+#undef CALL
+}
+
+// The owner design. negscore_buckets: the stable counting sort of the m
+// slots by clipped ns and nd over n ids (bucket_kernel), one cooperative
+// launch of `blocks` blocks (at most one a multiprocessor is safe: the
+// kernel asks for the room of one); scratch blk (2 * blocks * n ints), tot
+// (2 * n ints), outputs off (2 * (n + 1) ints) and ord (2 * m ints); `bar`
+// one zeroed unsigned int. negscore_owner_bwd_{f32,bf16}: the backward
+// from those buckets; dz (n*d, z's type) is written whole, dre (r*d, or
+// r*d/2 for rotate, float32, 16-byte aligned) must be zeroed.
+extern "C" int negscore_buckets(const void* ns, const void* nd, long long m,
+                                int n, int blocks, void* blk, void* tot,
+                                void* off, void* ord, void* bar,
+                                void* stream) {
+  return launch_buckets(ns, nd, m, n, blocks, blk, tot, off, ord, bar,
+                        stream);
+}
+
+extern "C" int negscore_owner_bwd_f32(int mode, const void* z, const void* ns,
+                                      const void* nd, const void* rel,
+                                      const void* re, const void* ds,
+                                      const void* off, const void* ord,
+                                      void* dz, void* dre, long long m, int n,
+                                      int d, int r, void* stream) {
+  if (bad_mode(mode, d)) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || d <= 0 || n <= 0) return (int)cudaSuccess;
+  const int units = (mode == kComplex || mode == kRotatE) ? d / 2 : d;
+  const int v = owner_vector(units, sizeof(float), z, dz, 8);
+#define CALL(M)                                                             \
+  (v == 8   ? launch_owner<M, float, 8>(z, ns, nd, rel, re, ds, off, ord,   \
+                                        dz, dre, m, n, d, r, stream)        \
+   : v == 4 ? launch_owner<M, float, 4>(z, ns, nd, rel, re, ds, off, ord,   \
+                                        dz, dre, m, n, d, r, stream)        \
+   : v == 2 ? launch_owner<M, float, 2>(z, ns, nd, rel, re, ds, off, ord,   \
+                                        dz, dre, m, n, d, r, stream)        \
+            : launch_owner<M, float, 1>(z, ns, nd, rel, re, ds, off, ord,   \
+                                        dz, dre, m, n, d, r, stream))
+  NEGSCORE_DISPATCH(CALL)
+#undef CALL
+}
+
+extern "C" int negscore_owner_bwd_bf16(int mode, const void* z,
+                                       const void* ns, const void* nd,
+                                       const void* rel, const void* re,
+                                       const void* ds, const void* off,
+                                       const void* ord, void* dz, void* dre,
+                                       long long m, int n, int d, int r,
+                                       void* stream) {
+  if (bad_mode(mode, d)) return (int)cudaErrorInvalidValue;
+  if (m <= 0 || d <= 0 || n <= 0) return (int)cudaSuccess;
+  const int units = (mode == kComplex || mode == kRotatE) ? d / 2 : d;
+  const int v = owner_vector(units, sizeof(__nv_bfloat16), z, dz, 8);
+  using B = __nv_bfloat16;
+#define CALL(M)                                                               \
+  (v == 8   ? launch_owner<M, B, 8>(z, ns, nd, rel, re, ds, off, ord, dz,     \
+                                    dre, m, n, d, r, stream)                  \
+   : v == 4 ? launch_owner<M, B, 4>(z, ns, nd, rel, re, ds, off, ord, dz,     \
+                                    dre, m, n, d, r, stream)                  \
+   : v == 2 ? launch_owner<M, B, 2>(z, ns, nd, rel, re, ds, off, ord, dz,     \
+                                    dre, m, n, d, r, stream)                  \
+            : launch_owner<M, B, 1>(z, ns, nd, rel, re, ds, off, ord, dz,     \
+                                    dre, m, n, d, r, stream))
   NEGSCORE_DISPATCH(CALL)
 #undef CALL
 }

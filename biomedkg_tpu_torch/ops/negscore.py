@@ -31,6 +31,21 @@ L1 normalisation is plain torch around the kernels (z to float32, each row
 divided by max(Σ|row|, 1e-12), back to z's type), so autograd carries its
 gradient, as XLA does in the reference. The backward returns ``dz`` in z's
 type and the relation gradient in rel_emb's.
+
+The backward runs in the design ``negscore_design`` names: "owner" for
+every call the kernels take, both families. ``BUCKETS`` (one cooperative
+launch) sorts the slot ids stably by clipped ns and by clipped nd into
+buckets; the owner kernel then gives each node id a group of four warps,
+which walk its src bucket and its dst bucket, sum its row's gradient in
+registers and write dz's row once, in z's type (no atomics on dz); the
+relation gradient is summed in the src walk, per warp and then per block,
+into a zeroed buffer. A call makes three device launches: one zero fill (the
+relation gradient and the bucket build's barrier), the bucket build, the
+owner kernel. ``buckets_plain`` and ``owner_grads_plain`` are their plain
+versions, the latter summing ``unit_grads`` in the owner's order. The
+first design (``bwd_kernel`` / ``ds_bwd_kernel``: float32 atomics on dz,
+two zero fills and a cast around it) stays for the A/B on the card; only
+a caller that replaces ``negscore_design`` reaches it.
 """
 
 from __future__ import annotations
@@ -55,11 +70,35 @@ _FWD = [_I, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]
 _BWD = [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
         _P]
 _BWD_DS = _BWD[:-1] + [_I, _P]
+# mode, z, ns, nd, rel, re, ds, off, ord, dz, dre, m, n, d, r, stream
+_OWNER = [_I] + [_P] * 10 + [ctypes.c_longlong, _I, _I, _I, _P]
+# ns, nd, m, n, blocks, blk, tot, off, ord, bar, stream
+_BUCKETS = [_P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P]
 LIBRARY = CudaLibrary("negscore.cu", {
     **{f"negscore_{fam}fwd_{t}": _FWD
        for fam in ("", "ds_") for t in ("f32", "bf16")},
     **{f"negscore_bwd_{t}": _BWD for t in ("f32", "bf16")},
-    **{f"negscore_ds_bwd_{t}": _BWD_DS for t in ("f32", "bf16")}})
+    **{f"negscore_ds_bwd_{t}": _BWD_DS for t in ("f32", "bf16")},
+    **{f"negscore_owner_bwd_{t}": _OWNER for t in ("f32", "bf16")},
+    "negscore_buckets": _BUCKETS})
+# the backward's designs: the first (atomics on dz) and the node-owned one
+DESIGNS = ("first", "owner")
+BUCKETS_NAME = "negscore_buckets"
+BUCKET_THREADS = 256     # csrc/negscore.cu kBucketThreads
+
+
+def negscore_design(mode: str, dual: bool, dtype: torch.dtype,
+                    d: int) -> str:
+    """The backward design a call on the card runs: "owner" for every
+    mode, family, type and width the kernels take (an even d for the
+    paired modes). A fixed rule: a failed build or launch raises, it never
+    sends a call to the first design."""
+    if mode not in MODES or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"negscore: no kernel for mode {mode!r} in "
+                         f"{dtype}")
+    if mode in PAIRED and d % 2:
+        raise ValueError(f"negscore: mode {mode!r} needs an even d, got {d}")
+    return "owner"
 
 
 def kernel_name(mode: str, dual: bool) -> str:
@@ -151,16 +190,74 @@ class NegScoreForward:
         return out
 
 
+def bucket_blocks(m: int, device) -> int:
+    """The bucket build's blocks for m slots: one a multiprocessor at most
+    (the cooperative launch needs them all resident), none idle."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(sms, -(-m // BUCKET_THREADS)))
+
+
+class BucketBuild:
+    """The owner design's bucket build (``bucket_kernel``): ``launches``
+    goes up by one for each launch and nowhere else. For (M,) int32 ns
+    and nd and n ids, returns int32 ``offsets`` (2, n + 1) and ``order``
+    (2, M): row 0 by clipped ns, row 1 by clipped nd, as
+    ``buckets_plain``. ``barrier`` is one zeroed int32 (or float32) element
+    on the same card; the wrapper makes one when it is None."""
+
+    name = BUCKETS_NAME
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, ns, nd, n: int, barrier=None):
+        _on_card(ns, nd)
+        m = ns.shape[0] if ns.dim() == 1 else -1
+        if ns.dtype != torch.int32 or nd.dtype != torch.int32 \
+                or nd.shape != (m,):
+            raise TypeError(f"{self.name}: ns and nd must be int32 (M,)")
+        if n <= 0 or m >= 2 ** 31:
+            raise ValueError(f"{self.name}: need n > 0 ids and fewer than "
+                             f"2**31 slots, got n = {n}, M = {m}")
+        blocks = bucket_blocks(max(m, 1), ns.device)
+        ints = torch.empty(2 * blocks * n + 2 * n + 2 * (n + 1) + 2 * m,
+                           dtype=torch.int32, device=ns.device)
+        blk, tot, off, order = torch.split(
+            ints, [2 * blocks * n, 2 * n, 2 * (n + 1), 2 * m])
+        off, order = off.view(2, n + 1), order.view(2, m)
+        if m == 0:
+            return off.zero_(), order
+        if barrier is None:
+            barrier = torch.zeros(1, dtype=torch.int32, device=ns.device)
+        with torch.cuda.device(ns.device):
+            err = LIBRARY.lib().negscore_buckets(
+                ns.data_ptr(), nd.data_ptr(), m, n, blocks, blk.data_ptr(),
+                tot.data_ptr(), off.data_ptr(), order.data_ptr(),
+                barrier.data_ptr(), stream_of(ns))
+        check_launch(err, self.name)
+        self.launches += 1
+        return off, order
+
+
+BUCKETS = BucketBuild()
+
+
 class NegScoreBackward:
     """One backward kernel's wrapper: ``launches`` goes up by one for each
-    kernel launch and nowhere else. Returns float32 (dz (N, d), d(rel)
-    (R, d), or dθ (R, d/2) for "rotate") for the float32 upstream
-    gradient ``ds`` (M,)."""
+    backward kernel launch and nowhere else, ``by_design`` counts the same
+    launches by design (the owner design's bucket build counts in
+    ``BUCKETS``). Returns (dz (N, d), d(rel) (R, d), or dθ (R, d/2) for
+    "rotate", float32) for the float32 upstream gradient ``ds`` (M,): dz in
+    z's type from the owner design, in float32 from the first."""
 
     def __init__(self, mode: str, dual: bool):
         self.mode, self.dual = mode, dual
         self.name = kernel_name(mode, dual) + "_bwd"
+        self.reset()
+
+    def reset(self):
         self.launches = 0
+        self.by_design = dict.fromkeys(DESIGNS, 0)
 
     def __call__(self, z, ns, nd, rel, re, ds):
         _check(self.name, self.mode, z, ns, nd, rel, re, z.shape[-1])
@@ -170,9 +267,12 @@ class NegScoreBackward:
             raise TypeError(f"{self.name} kernel: re and ds must be "
                             f"float32, ds shaped like ns")
         (n, d), m, r = z.shape, ns.shape[0], re.shape[0]
+        design = negscore_design(self.mode, self.dual, z.dtype, d)
+        dr = _rel_width(self.mode, d)
+        if design == "owner":
+            return self._owner(z, ns, nd, rel, re, ds, n, d, m, r, dr)
         dz = torch.zeros(n, d, dtype=torch.float32, device=z.device)
-        dre = torch.zeros(r, _rel_width(self.mode, d), dtype=torch.float32,
-                          device=z.device)
+        dre = torch.zeros(r, dr, dtype=torch.float32, device=z.device)
         if m == 0 or d == 0:
             return dz, dre
         kind = "f32" if z.dtype == torch.float32 else "bf16"
@@ -185,9 +285,34 @@ class NegScoreBackward:
             args.append(BLOCK)
         with torch.cuda.device(z.device):
             err = fn(*args, stream_of(z))
-        check_launch(err, f"{self.name}")
-        self.launches += 1
+        self._counted(err, design)
         return dz, dre
+
+    def _owner(self, z, ns, nd, rel, re, ds, n, d, m, r, dr):
+        # one zero fill: the relation gradient, then (16 bytes on, so the
+        # gradient's base stays 16-byte aligned for the vector atomics) the
+        # bucket build's barrier counter
+        scratch = torch.zeros(r * dr + 4, dtype=torch.float32,
+                              device=z.device)
+        dre = scratch[:r * dr].view(r, dr)
+        if m == 0 or d == 0:
+            return torch.zeros(n, d, dtype=z.dtype, device=z.device), dre
+        off, order = BUCKETS(ns, nd, n, barrier=scratch[r * dr:])
+        dz = torch.empty(n, d, dtype=z.dtype, device=z.device)
+        kind = "f32" if z.dtype == torch.float32 else "bf16"
+        with torch.cuda.device(z.device):
+            err = getattr(LIBRARY.lib(), f"negscore_owner_bwd_{kind}")(
+                MODES.index(self.mode), z.data_ptr(), ns.data_ptr(),
+                nd.data_ptr(), rel.data_ptr(), re.data_ptr(), ds.data_ptr(),
+                off.data_ptr(), order.data_ptr(), dz.data_ptr(),
+                dre.data_ptr(), m, n, d, r, stream_of(z))
+        self._counted(err, "owner")
+        return dz, dre
+
+    def _counted(self, err: int, design: str):
+        check_launch(err, f"{self.name} [{design}]")
+        self.launches += 1
+        self.by_design[design] += 1
 
 
 # one wrapper per (mode, family, direction), by the name chip_smoke reports
@@ -270,6 +395,75 @@ def plain_scores(mode, z, ns, nd, rel, rel_emb) -> torch.Tensor:
         onehot = rel[:, None] == torch.arange(r, device=z.device)
         return torch.where(onehot, all_rel, 0.0).sum(1)
     return slot_terms(mode, h.float(), t.float(), take_rows(table, rel)).sum(1)
+
+
+def buckets_plain(ns, nd, n: int):
+    """The bucket build's plain version: ``offsets`` (2, n + 1) int32, each
+    id's first position in its side's order (the exclusive prefix of its
+    bincount, then M), and ``order`` (2, M) int32, the slot ids stably
+    sorted by clipped ns (row 0) and clipped nd (row 1)."""
+    offsets, order = [], []
+    for ids in (ns, nd):
+        keys = ids.long().clamp(0, n - 1)
+        counts = torch.bincount(keys, minlength=n)
+        offsets.append(torch.cat([counts.new_zeros(1), counts.cumsum(0)]))
+        order.append(torch.argsort(keys, stable=True))
+    return (torch.stack(offsets).int(), torch.stack(order).int())
+
+
+def unit_grads(mode: str, h, t, r, g):
+    """Each slot's unit gradients, as the kernels compute them: (dh (M, d),
+    dt (M, d), the relation row's gradient (M, d), or dθ (M, d/2) for
+    "rotate") of the float32 rows h, t, r and the upstream gradient g
+    (M,). RotatE's follows the reference's ``_distance_bwd`` (du =
+    −g·u / max(|u|, 1e-6))."""
+    g = g[:, None]
+    if mode == "distmult":
+        gr = g * r
+        return gr * t, gr * h, g * h * t
+    if mode == "transe":
+        gs = g * torch.sign(h + r - t)
+        return -gs, gs, -gs
+    half = h.shape[1] // 2
+    h0, h1, t0, t1 = h[:, :half], h[:, half:], t[:, :half], t[:, half:]
+    r0, r1 = r[:, :half], r[:, half:]
+    if mode == "complex":
+        return (torch.cat([g * (r0 * t0 + r1 * t1),
+                           g * (r0 * t1 - r1 * t0)], 1),
+                torch.cat([g * (r0 * h0 - r1 * h1),
+                           g * (r0 * h1 + r1 * h0)], 1),
+                torch.cat([g * (h0 * t0 + h1 * t1),
+                           g * (h0 * t1 - h1 * t0)], 1))
+    rot0, rot1 = h0 * r0 - h1 * r1, h0 * r1 + h1 * r0
+    u0, u1 = rot0 - t0, rot1 - t1
+    dist = torch.sqrt(torch.clamp(u0 * u0 + u1 * u1, min=1e-12))
+    du0, du1 = -g * u0 / dist, -g * u1 / dist
+    return (torch.cat([du0 * r0 + du1 * r1, -du0 * r1 + du1 * r0], 1),
+            torch.cat([-du0, -du1], 1), -du0 * rot1 + du1 * rot0)
+
+
+def owner_grads_plain(mode, z, ns, nd, rel, re, ds, terms=None):
+    """The owner design's plain version: float32 (dz (N, d), the relation
+    gradient (R, dr)) as per-bucket sums in the owner's order: each id's
+    row is its src bucket's dh terms, then its dst bucket's dt terms, in
+    bucket order; the relation gradient sums the slots in src-bucket order.
+    ``re`` is the float32 (R, d) table; ``terms`` (dh, dt, dr per slot)
+    replaces ``unit_grads``'s, for a caller that computes them otherwise."""
+    (n, d), r = z.shape, re.shape[0]
+    ks, kd = ns.long().clamp(0, n - 1), nd.long().clamp(0, n - 1)
+    rel = rel.long().clamp(0, r - 1)
+    if terms is None:
+        terms = unit_grads(mode, z[ks].float(), z[kd].float(), re[rel],
+                           ds.float())
+    dh, dt, dr = terms
+    _, order = buckets_plain(ns, nd, n)
+    src, dst = order[0].long(), order[1].long()
+    dz = torch.zeros(n, d, dtype=torch.float32, device=z.device)
+    dz.index_add_(0, ks[src], dh[src].float())
+    dz.index_add_(0, kd[dst], dt[dst].float())
+    dre = torch.zeros(r, dr.shape[1], dtype=torch.float32, device=z.device)
+    dre.index_add_(0, rel[src], dr[src].float())
+    return dz, dre
 
 
 class _NegScores(torch.autograd.Function):

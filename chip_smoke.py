@@ -32,11 +32,18 @@ Phases; any failure ends the run with a non-zero exit:
     a synchronise, and CUDA events) with every kernel's launch count set to
     0 just before and read just after; ms per step, triplets per second,
     the envelope, peak memory and a torch.profiler breakdown of PROFILED
-    steps with its idle share;
+    steps with its idle share, and the same window with the first-design
+    negscore backward (``first_design_negscore``);
     one batch's loss and every gradient with the kernels against the same
     step with the plain versions (bf16 and float32); the negscore kernels
     and the segsum kernel against their plain versions at the path's
-    shapes, timed beside their bounds; the loss falling on a fixed batch;
+    shapes, timed beside their bounds (the negscore kernels on the device,
+    the backward in its owner design against the first design in turns);
+    the owner design's bucket build against ``buckets_plain`` at the
+    path's shape and at odd sizes, timed; the device launches of one
+    negscore backward call per design (torch.profiler; the owner's fill,
+    bucket build and kernel, at most the first design's four); the loss
+    falling on a fixed batch;
     ``python -m biomedkg_tpu_torch.train_kge`` for a few steps on the card
     on the same PrimeKG++-scale graph and its checkpoint served by
     ``KGEScorer`` (with it, concurrently, the RotatE + "sorted2" run of
@@ -46,13 +53,17 @@ Phases; any failure ends the run with a non-zero exit:
     "sorted" negatives and all four decoders with "sorted2". For each:
     warm-up steps, then P6_STEPS timed steps with every launch count set to
     0 just before and read just after (the mode's streamed or dual-sorted
-    negscore pair 1 + 1 per step, segsum 6); one batch's loss and every
+    negscore pair 1 + 1 per step, the backward on the owner design with
+    one bucket build, segsum 6); one batch's loss and every
     gradient with the kernels against the plain versions (bf16 and
     float32); the mode's two kernels against the plain version at the
     path's shapes (the dual-sorted ones also on an input whose nd is in any
-    order), timed beside their bounds; the loss falling on a fixed batch;
-    for RotatE + "sorted2" a torch.profiler breakdown as in phase 5.
-    Before them every negscore kernel on small shapes off the path.
+    order, both types), timed beside their bounds; the loss falling on a
+    fixed batch; for RotatE + "sorted2" a torch.profiler breakdown as in
+    phase 5, with either backward design. Before them every negscore
+    kernel, both backward designs, on small shapes off the path in both
+    types (odd widths, ids clipped, ns in any order; RotatE below the
+    distance's clamp in float32).
     Then ``train_kge model.decoder_name=rotate model.neg_sampler=sorted2``'s
     checkpoint served, its ``score`` and ``topk_tails`` answers checked
     against a float64 host recomputation;
@@ -325,13 +336,16 @@ def time_ms(fn) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn) -> float:
+def device_ms(fn, only: str = None) -> float:
     """The device time of one call of ``fn`` in ms, after warm-up: the
-    kernel times torch.profiler records over ITERS calls, summed and
-    divided by ITERS. The host's time between kernels does not enter.
-    CUPTI now and then hands a window back with no kernel in it: such a
-    window is profiled again, and after PROFILE_TRIES empty windows the
-    CUDA-event time (time_ms, host gaps included) stands in, said so."""
+    kernels torch.profiler records over ITERS calls (those whose name
+    holds ``only``, if given), each kernel's mean time a record times its
+    records a call, summed. The host's time between kernels does not
+    enter. CUPTI drops a record now and then (a kernel counted 18 or 19
+    times over 20 calls), so a window's total would read low; the means
+    do not. A window with no kernel in it is profiled again, and after
+    PROFILE_TRIES such windows the CUDA-event time (time_ms, host gaps
+    included) stands in, said so."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -341,9 +355,11 @@ def device_ms(fn) -> float:
             for _ in range(ITERS):
                 fn()
             torch.cuda.synchronize()
-        ms = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA) \
-            / 1e3 / ITERS
+        ms = sum(e.self_device_time_total / e.count
+                 * max(1, round(e.count / ITERS))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.count and (only is None or only in e.key)) / 1e3
         if ms > 0:
             return ms
     ms = time_ms(fn)
@@ -395,13 +411,9 @@ def negscore_bound_ms(mode, z, m, r, backward: bool):
     out backward) moved once over HBM bandwidth; the mode's float32
     operations over the float32 peak; its special-function operations over
     their peak."""
-    n, d = z.shape
-    nbytes = n * d * z.element_size() + 3 * 4 * m + r * d * 4 + 4 * m
-    if backward:
-        dr = d // 2 if mode == "rotate" else d
-        nbytes += n * d * 4 + r * dr * 4
+    d = z.shape[1]
     terms = {
-        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bytes": neg_bytes(mode, z, m, r, backward) / HBM_BYTES_PER_S * 1e3,
         "float32 operations": NEG_FLOPS[mode][backward] * m * d
         / FP32_FLOP_PER_S * 1e3,
         "special-function operations": NEG_SFU.get(mode, (0, 0))[backward]
@@ -410,14 +422,39 @@ def negscore_bound_ms(mode, z, m, r, backward: bool):
     return terms[term], "bytes" if term == "bytes" else "operations", term
 
 
+def neg_bytes(mode, z, m, r, backward: bool) -> int:
+    """The bytes one negscore call must move: the z table, three int32
+    index arrays, the float32 relation table and the scores; backward also
+    ds in, and dz (in z's type) and the relation gradient out."""
+    n, d = z.shape
+    nbytes = n * d * z.element_size() + 3 * 4 * m + r * d * 4 + 4 * m
+    if backward:
+        dr = d // 2 if mode == "rotate" else d
+        nbytes += n * d * z.element_size() + r * dr * 4
+    return nbytes
+
+
+def owner_l2_bytes(z, m: int) -> int:
+    """What the owner backward reads from L2 per call: each slot's other
+    endpoint's row once in each of its two owners' walks, and per walk
+    the slot id and the slot's other id, relation and ds (4 bytes each);
+    each owner's own row once."""
+    n, d = z.shape
+    return 2 * m * (d * z.element_size() + 16) + n * d * z.element_size()
+
+
 def relmm_key(kernel, instance: str) -> str:
     return f"{kernel.name}[{instance}]"
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches; relmm's also by instance."""
+    """Every kernel's launches; relmm's also by instance, the flash
+    kernels' and the negscore backwards' by design."""
     return {"sorted_segment_sum": segsum.KERNEL.launches,
             **{name: k.launches for name, k in negscore.KERNELS.items()},
+            **{relmm_key(k, design): c for k in negscore.KERNELS.values()
+               for design, c in getattr(k, "by_design", {}).items()},
+            negscore.BUCKETS_NAME: negscore.BUCKETS.launches,
             **{name: k.launches for name, k in relmm.KERNELS.items()},
             **{relmm_key(k, inst): c for k in relmm.KERNELS.values()
                for inst, c in k.by_instance.items()},
@@ -428,19 +465,25 @@ def launch_counts() -> dict:
 
 def reset_launch_counts():
     segsum.KERNEL.launches = 0
+    negscore.BUCKETS.launches = 0
     for k in negscore.KERNELS.values():
-        k.launches = 0
+        if hasattr(k, "reset"):
+            k.reset()
+        else:
+            k.launches = 0
     for k in (*relmm.KERNELS.values(), *flashnce.KERNELS.values()):
         k.reset()
 
 
 def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
                       flash_n: int = 0, relmm_instance: str = None,
-                      flash_design: str = None) -> dict:
+                      flash_design: str = None,
+                      neg_design: str = "owner") -> dict:
     """Every count 0 but segsum's, the ``kernel`` negscore pair's (none
-    when ``kernel`` is None), relmm's (forward, d_msg), all of them on
-    ``relmm_instance``, and the flash pair's (forward, backward), all of
-    them on ``flash_design``."""
+    when ``kernel`` is None), its backward's all on ``neg_design`` (the
+    owner design's with one bucket build each), relmm's (forward, d_msg),
+    all of them on ``relmm_instance``, and the flash pair's (forward,
+    backward), all of them on ``flash_design``."""
     want = dict.fromkeys(launch_counts(), 0)
     want.update({"sorted_segment_sum": segsum_n, relmm.NAME: relmm_n[0],
                  relmm.NAME + "_bwd": relmm_n[1], flashnce.NAME: flash_n,
@@ -452,7 +495,11 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
         for k in flashnce.KERNELS.values():
             want[relmm_key(k, flash_design)] = flash_n
     if kernel is not None:
-        want.update({kernel: n, kernel + "_bwd": n})
+        want.update({kernel: n, kernel + "_bwd": n,
+                     relmm_key(negscore.KERNELS[kernel + "_bwd"],
+                               neg_design): n})
+        if neg_design == "owner":
+            want[negscore.BUCKETS_NAME] = n
     return want
 
 
@@ -496,6 +543,24 @@ def first_design_relmm():
         yield
     finally:
         relmm.relmm_instance = saved
+
+
+@contextlib.contextmanager
+def negscore_design_as(design: str):
+    """The negscore backward wrappers running ``design`` for every call."""
+    saved = negscore.negscore_design
+    negscore.negscore_design = lambda *_: design
+    try:
+        yield
+    finally:
+        negscore.negscore_design = saved
+
+
+def first_design_negscore():
+    """The negscore backward wrappers running the first design
+    (``bwd_kernel`` / ``ds_bwd_kernel``, float32 atomics on dz) for every
+    call: the A/B of the owner design on its paths."""
+    return negscore_design_as("first")
 
 
 @contextlib.contextmanager
@@ -646,9 +711,14 @@ def real_nodes(batches):
             "nodes/s (real nodes per batch)")
 
 
+# every kernel's launches over the timed steps of every path
+PATH_LAUNCHES = {}
+
+
 def timed_steps(module, state, batches, gen, what: str, work=triplets):
     """Run ``batches`` with every launch count set to 0 just before and
-    read just after; returns (state, launches, ms per step)."""
+    read just after (and added into PATH_LAUNCHES); returns (state,
+    launches, ms per step)."""
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
@@ -663,6 +733,8 @@ def timed_steps(module, state, batches, gen, what: str, work=triplets):
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     event_ms = start.elapsed_time(end) / steps
     launches = launch_counts()
+    for name, count in launches.items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss = float(logs["train_loss"])
     count, unit = work(batches)
@@ -845,7 +917,7 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
     for dtype in (torch.bfloat16, torch.float32):
         zt, re = kernel_table(dtype)
         inputs = [("", nd)]
-        if nd_wide is not None and dtype == torch.float32:
+        if nd_wide is not None:
             inputs.append((", nd in any order", nd_wide))
         for label, ndc in inputs:
             s_k = fwd(zt, ns, ndc, rel, re)
@@ -881,9 +953,15 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
             if not label:
                 err[dtype] = (abs_errs[0], max(abs_errs[1:]))
 
+    # device times (the host's time in the wrappers does not enter); the
+    # owner backward against the first design in turns
     zt, re = kernel_table(torch.bfloat16)
-    fwd_ms = time_ms(lambda: fwd(zt, ns, nd, rel, re))
-    bwd_ms = time_ms(lambda: bwd(zt, ns, nd, rel, re, ds))
+    fwd_ms = device_ms(lambda: fwd(zt, ns, nd, rel, re))
+    turns = []
+    for design in ("owner", "first", "first", "owner"):
+        with negscore_design_as(design):
+            turns.append(device_ms(lambda: bwd(zt, ns, nd, rel, re, ds)))
+    bwd_ms, first_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
     with torch.no_grad():
         plain_fwd_ms = time_ms(lambda: negscore.plain_scores(
             mode, zt, ns, nd, rel, rel_emb))
@@ -897,12 +975,21 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
                                    (True, bwd_ms, plain_bwd_ms)):
         bound, by, term = negscore_bound_ms(mode, zt, m, r, backward)
         kname = name + ("_bwd" if backward else "")
-        print(f"{kname} time (bf16, training shape): kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({term}), "
-              f"kernel at {bound / ms:.1%} of bound; no single PyTorch "
-              f"call computes this function")
+        extra = ""
+        if backward:
+            extra = (f"; first design {first_ms:.4f} ms (turns "
+                     f"{', '.join(f'{t:.4f}' for t in turns)}); the owner "
+                     f"design gathers {owner_l2_bytes(zt, m) / 1e6:.1f} MB "
+                     f"from L2 against "
+                     f"{neg_bytes(mode, zt, m, r, True) / 1e6:.2f} MB that "
+                     f"the function must move")
+        print(f"{kname} time (bf16, training shape, device): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+              f"({term}), kernel at {bound / ms:.1%} of bound{extra}; no "
+              f"single PyTorch call computes this function")
         records.append({
-            "name": kname, "route": "cuda",
+            "name": kname, "design": "owner" if backward else "first",
+            "route": "cuda",
             "source": "biomedkg_tpu_torch/csrc/negscore.cu",
             "replaces": "biomedkg_tpu/ops/pallas/negscore.py:"
                         f"{NEG_REPLACES[dual, backward]}",
@@ -1045,6 +1132,91 @@ def serve_rotate_requests(scorer: KGEScorer, rng):
           "RotatE served answers disagree with the host recomputation")
 
 
+def bucket_checks(dev, negatives, n: int):
+    """The owner design's bucket build against ``buckets_plain`` at the
+    path's shape (``negatives`` over ``n`` node slots) and at odd sizes:
+    out-of-range ids (clipped), empty buckets, ns in any order, more ids
+    than slots, more ids than one key range holds; its ``kernels``
+    record, timed on the device."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ns, nd, _ = negatives
+    m = ns.shape[0]
+
+    def draw(lo, hi, size):
+        return torch.randint(lo, hi, (size,), device=dev, generator=gen).int()
+
+    cases = [("path", ns, nd, n),
+             ("path, ns in any order", ns[torch.randperm(
+                 m, device=dev, generator=gen)].contiguous(), nd, n)]
+    for size, ids in ((1, 1), (100, 7), (5000, 37), (3001, 20000),
+                      (70000, 9000)):
+        cases.append((f"M = {size}, N = {ids}, clipped, sorted ns",
+                      torch.sort(draw(-3, ids + 3, size))[0],
+                      draw(-3, ids + 3, size), ids))
+        cases.append((f"M = {size}, N = {ids}, clipped, ns in any order",
+                      draw(-3, ids + 3, size), draw(-3, ids + 3, size), ids))
+    for what, a, b, ids in cases:
+        got = negscore.BUCKETS(a, b, ids)
+        want = negscore.buckets_plain(a, b, ids)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"bucket build disagrees with buckets_plain ({what})")
+    print(f"negscore bucket build: offsets and stable order equal "
+          f"buckets_plain in {len(cases)} cases (the path's M = {m}, N = "
+          f"{n}; odd sizes to N = 20,000, ids clipped, ns in any order)")
+    ms = device_ms(lambda: negscore.BUCKETS(ns, nd, n), only="bucket_kernel")
+    plain_ms = time_ms(lambda: negscore.buckets_plain(ns, nd, n))
+    nbytes = 2 * 4 * m + 2 * 4 * m + 2 * 4 * (n + 1)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{negscore.BUCKETS_NAME} time (training shape, device): kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+          f"(bytes: ns and nd read, both orders and offsets written), "
+          f"kernel at {bound / ms:.1%} of bound; no single PyTorch call "
+          f"computes both sides' offsets and orders")
+    return {"name": negscore.BUCKETS_NAME, "design": "owner",
+            "route": "cuda", "source": "biomedkg_tpu_torch/csrc/negscore.cu",
+            "replaces": "biomedkg_tpu/ops/pallas/negscore.py:"
+                        f"{NEG_REPLACES[False, True]}",
+            "launches": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": None}
+
+
+def backward_launches(z, negatives, rel_emb, ds) -> dict:
+    """Device launches of one DistMult backward call on the path (bf16 z
+    through the dispatcher and autograd), counted by torch.profiler, per
+    design: at most the first design's four (two zero fills, the kernel,
+    the cast to z's type)."""
+    ns, nd, rel = negatives
+    counts = {}
+    for design in negscore.DESIGNS:
+        zp = z.to(torch.bfloat16).requires_grad_(True)
+        rp = rel_emb.clone().requires_grad_(True)
+        with negscore_design_as(design):
+            s = negscore.distmult_neg_scores(zp, ns, nd, rel, rp)
+            torch.autograd.grad(s, (zp, rp), ds)       # warm
+            for _ in range(PROFILE_TRIES):     # CUPTI may hand back nothing
+                s = negscore.distmult_neg_scores(zp, ns, nd, rel, rp)
+                torch.cuda.synchronize()
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    torch.autograd.grad(s, (zp, rp), ds)
+                    torch.cuda.synchronize()
+                events = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                if events:
+                    break
+        counts[design] = (sum(e.count for e in events),
+                          {e.key[:40]: e.count for e in events})
+    print(f"device launches per negscore backward call (torch.profiler, "
+          f"bf16 DistMult at the training shape): "
+          + "; ".join(f"{d} {c} {k}" for d, (c, k) in counts.items()))
+    check(0 < counts["owner"][0] <= 4,
+          f"the owner backward launched {counts['owner'][0]} device "
+          f"kernels in one call (at most 4)")
+    return {d: c for d, (c, _) in counts.items()}
+
+
 def train_phase(dm, dev, tmp):
     """Phase 5; returns the distmult negscore kernels' records, the segsum
     kernel's launches on this path, the device batches, the feature table
@@ -1085,6 +1257,9 @@ def train_phase(dm, dev, tmp):
           f"launches per step on the training path: {launches}")
 
     profile_steps(module, state, batches[-PROFILED:], gen, "train step")
+    with first_design_negscore():
+        profile_steps(module, state, batches[-PROFILED:], gen,
+                      "train step with the first-design negscore backward")
 
     # -- one step: kernels against the plain versions ---------------------
     batch = batches[0]
@@ -1094,9 +1269,12 @@ def train_phase(dm, dev, tmp):
     # -- the negscore kernels against the plain version -------------------
     z = encoded(module, batch)
     ds = torch.randn(m, generator=gen, device=dev)
-    records = negscore_records(
-        "distmult", False, z, path_negatives(batch, gen, False),
-        module.model.decoder.rel_emb.detach(), ds, launches)
+    negatives = path_negatives(batch, gen, False)
+    rel_emb = module.model.decoder.rel_emb.detach()
+    records = negscore_records("distmult", False, z, negatives, rel_emb, ds,
+                               launches)
+    records.append(bucket_checks(dev, negatives, z.shape[0]))
+    backward_launches(z, negatives, rel_emb, ds)
 
     segsum_batch_times(batch, TRAIN["hidden_dim"], torch.bfloat16, gen,
                        "conv (training shape)")
@@ -1121,46 +1299,60 @@ def train_phase(dm, dev, tmp):
 
 
 def odd_shape_checks(dev):
-    """Every negscore kernel against its plain version off the path, in
-    float32: d not a multiple of the warp (nor the pair offset d/2), K·E
-    not a multiple of the chunk, ids out of range (clipped); and rotate
-    where pairs sit below the distance's clamp (|u| < 1e-6): tails that
-    are their heads moved by 1e-7 in the pairs whose phase is 0, where
-    both take du = −ds·u / 1e-6 (the reference's _distance_bwd)."""
+    """Every negscore kernel against its plain version off the path, the
+    backwards in both designs, in float32 and bf16: d not a multiple of the
+    warp (nor the pair offset d/2), K·E not a multiple of the chunk, ids
+    out of range (clipped), ns in any order; and rotate (float32) where
+    pairs sit below the distance's clamp (|u| < 1e-6): tails that are
+    their heads moved by 1e-7 in the pairs whose phase is 0, where both
+    take du = −ds·u / 1e-6 (the reference's _distance_bwd). Tolerances
+    relative to each result's max: float32 1e-4, bf16 NEG_TOL_BF16."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n, m, r = 37, 5000, 5
-    worst = 0.0
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
 
     def draw(lo, hi, size):
         return torch.randint(lo, hi, size, device=dev, generator=gen).int()
 
-    def compare(mode, z, ns, nd, rel, rel_emb, what):
+    def compare(mode, z, ns, nd, rel, rel_emb, what, dtype=torch.float32):
         ds = torch.randn(ns.shape[0], device=dev, generator=gen)
-        re = negscore.relation_table(mode, rel_emb,
-                                     torch.float32).contiguous()
+        z = z.to(dtype)
+        re = negscore.relation_table(mode, rel_emb, dtype).contiguous()
+        val_tol, grad_tol = ((1e-4, 1e-4) if dtype == torch.float32
+                             else NEG_TOL_BF16)
         errs = []
-        for dual in (False, True):
+        for design, dual in itertools.product(negscore.DESIGNS,
+                                              (False, True)):
             name = negscore.kernel_name(mode, dual)
-            got = (negscore.KERNELS[name](z, ns, nd, rel, re),
-                   *negscore.KERNELS[name + "_bwd"](z, ns, nd, rel, re, ds))
+            with negscore_design_as(design):
+                got = (negscore.KERNELS[name](z, ns, nd, rel, re),
+                       *negscore.KERNELS[name + "_bwd"](z, ns, nd, rel, re,
+                                                        ds))
             zp = z.clone().requires_grad_(True)
             rp = rel_emb.clone().requires_grad_(True)
             s_p = negscore.plain_scores(mode, zp, ns, nd, rel, rp)
             want = (s_p.detach(), *torch.autograd.grad(s_p, (zp, rp), ds))
-            errs += [rel_err(a, b) for a, b in zip(got, want)]
-            check(max(errs) <= 1e-4,
-                  f"{name} {what}: kernels disagree ({errs})")
+            e = [rel_err(a, b) for a, b in zip(got, want)]
+            errs += e
+            check(e[0] <= val_tol and max(e[1:]) <= grad_tol,
+                  f"{name} {design} {dtype} {what}: kernels disagree ({e})")
+        worst[dtype] = max(worst[dtype], max(errs))
         return max(errs)
 
     for mode in negscore.MODES:
-        for d in (6, 100) if mode in negscore.PAIRED else (7, 100):
-            z = torch.randn(n, d, device=dev, generator=gen)
-            ns = torch.sort(draw(-2, n + 3, (m,)))[0]
-            nd, rel = draw(-2, n + 3, (m,)), draw(-1, r + 1, (m,))
-            rel_emb = torch.randn(r, d // 2 if mode == "rotate" else d,
-                                  device=dev, generator=gen)
-            worst = max(worst, compare(mode, z, ns, nd, rel, rel_emb,
-                                       f"at d = {d}"))
+        width = (lambda d: d // 2 if mode == "rotate" else d)
+        for dtype in (torch.float32, torch.bfloat16):
+            for d in (6, 100) if mode in negscore.PAIRED else (7, 100):
+                z = torch.randn(n, d, device=dev, generator=gen)
+                ns = torch.sort(draw(-2, n + 3, (m,)))[0]
+                nd, rel = draw(-2, n + 3, (m,)), draw(-1, r + 1, (m,))
+                rel_emb = torch.randn(r, width(d), device=dev, generator=gen)
+                compare(mode, z, ns, nd, rel, rel_emb, f"at d = {d}", dtype)
+            z = torch.randn(n, 100, device=dev, generator=gen)
+            rel_emb = torch.randn(r, width(100), device=dev, generator=gen)
+            compare(mode, z, draw(-2, n + 3, (m,)), draw(-2, n + 3, (m,)),
+                    draw(-1, r + 1, (m,)), rel_emb, "with ns in any order",
+                    dtype)
     d, half = 100, n // 2
     z = torch.randn(n, d, device=dev, generator=gen)
     z[half:2 * half] = z[:half]
@@ -1172,10 +1364,13 @@ def odd_shape_checks(dev):
                      draw(0, n, (m,)))
     clamp_err = compare("rotate", z, ns, nd, draw(0, r, (m,)), rel_emb,
                         "below the clamp")
-    print(f"negscore kernels off the path (float32, N = {n}, K·E = {m}, "
-          f"d of 6 or 7 and 100, ids out of range): max rel-to-max error "
-          f"{worst:.3g}; rotate with pairs below the distance's clamp "
-          f"{clamp_err:.3g} (tol 1e-4)")
+    print(f"negscore kernels off the path (both backward designs; N = {n}, "
+          f"K·E = {m}, d of 6 or 7 and 100, ids out of range, ns sorted "
+          f"and in any order): max rel-to-max error float32 "
+          f"{worst[torch.float32]:.3g} (tol 1e-4), bf16 "
+          f"{worst[torch.bfloat16]:.3g} (tol {NEG_TOL_BF16[0]:g} / "
+          f"{NEG_TOL_BF16[1]:g}); rotate with pairs below the distance's "
+          f"clamp {clamp_err:.3g} (float32, tol 1e-4)")
 
 
 def decoder_phase(dm, dev, tmp, batches, feature_table, rotate_run):
@@ -1209,6 +1404,10 @@ def decoder_phase(dm, dev, tmp, batches, feature_table, rotate_run):
         if (decoder_name, sampler) == PROFILED6:
             profile_steps(module, state, batches[-PROFILED:], step_gen,
                           f"{what} train step")
+            with first_design_negscore():
+                profile_steps(module, state, batches[-PROFILED:], step_gen,
+                              f"{what} train step with the first-design "
+                              f"negscore backward")
         compare_step(sd, feature_table, dev, batch, kernel, what, **over)
         negatives = path_negatives(batch, gen, dual)
         nd_wide = path_negatives(batch, gen, False)[1] if dual else None
@@ -1545,6 +1744,8 @@ def serve_rgat(rgat_run, graph, tmp, dev):
     torch.cuda.reset_peak_memory_stats()
     served = serve_checkpoint(ckpt, tmp, "train_kge RGAT")
     launches = launch_counts()
+    for name, count in launches.items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(type(served.module.model.encoder).__name__ == "RGAT"
           and served.module.edge_layout == "relation",
@@ -2371,6 +2572,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         flash_records, gcl_segsum = gcl_phase(dev, tmp, gcl_run)
 
+    for record in neg_records:
+        if record["name"] == negscore.BUCKETS_NAME:
+            record["launches"] = PATH_LAUNCHES[negscore.BUCKETS_NAME]
     ms, plain_ms, lib_ms, bound_ms, bound_by = timed["conv f32"]
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum", "route": "cuda",
