@@ -16,14 +16,19 @@ Phases; any failure ends the run with a non-zero exit:
     seeded torch.Generator, saved with the port's save_checkpoint), then
     requests through ``score``, ``score_many``, ``topk_tails`` and the
     ``serve`` loop, checked against a float64 host recomputation. Every
-    kernel's launch count is set to 0 just before and read just after;
- 3. every kernel against its plain torch version at the path's shapes,
-    with CUDA-event times (median of ITERS after warm-up) of the kernel,
-    the plain version and the one-call library yardstick, and the bound;
- 4. the encode timed, its launch count per encode, z with the kernels
-    against z with the plain versions on the card, and a small graph on
-    the card against the CPU path (the path the CPU tests hold against the
-    JAX package);
+    kernel's launch count is set to 0 just before and read just after
+    (the segsum's 5 all on the owner design's ``packed`` instance);
+ 3. the segsum against its plain torch version at the serving shapes: the
+    conv's messages and the count table in float32 and bf16 (the count
+    table exactly), ids in any order, -1 pads anywhere, one hub segment
+    over a tenth of the slots, odd widths (SEGSUM_ODD_WIDTHS) in both
+    types; the conv and the count table timed on the device in turns
+    against the first design (``first_design_segsum``), beside the plain
+    version, one index_add_ and the bound;
+ 4. the encode timed, its launch count per encode, its device-busy time
+    with either segsum design, z with the kernels against z with the
+    plain versions on the card, and a small graph on the card against the
+    CPU path (the path the CPU tests hold against the JAX package);
  5. the training main path: the KGE training step on GraphSAINT batches of
     the same graph (128 roots, walk 10, fill 0.92, dst layout, block 256,
     device-resident features), RGCN 768→256×4 + DistMult, K = 10 sorted
@@ -33,14 +38,17 @@ Phases; any failure ends the run with a non-zero exit:
     0 just before and read just after; ms per step, triplets per second,
     the envelope, peak memory and a torch.profiler breakdown of PROFILED
     steps with its idle share, and the same window with the first-design
-    negscore backward (``first_design_negscore``);
+    segsum and, apart, the first-design negscore backward
+    (``first_design_negscore``);
     one batch's loss and every gradient with the kernels against the same
     step with the plain versions (bf16 and float32); the negscore kernels
     and the segsum kernel against their plain versions at the path's
     shapes, timed beside their bounds (the negscore kernels on the device,
     the backward in its owner design against the first design in turns);
     the owner design's bucket build against ``buckets_plain`` at the
-    path's shape and at odd sizes, timed; the device launches of one
+    path's shape and at odd sizes, timed; the segsum at the step's conv
+    (and tail-gather backward) shape and its count table, timed on the
+    device against the first design; the device launches of one
     negscore backward call per design (torch.profiler; the owner's fill,
     bucket build and kernel, at most the first design's four); the loss
     falling on a fixed batch;
@@ -112,16 +120,18 @@ Phases; any failure ends the run with a non-zero exit:
     features, in bf16 and in float32 (the config's type): warm-up steps,
     timed steps with every launch count set to 0 just before and read
     just after (segsum 8, flash 2 + 2 per step), ms per step, nodes per
-    second, the envelope, peak memory and a torch.profiler window, and one
-    more on the first-design flash kernels (bf16 also on ``skip_bf16``);
+    second, the envelope, peak memory and a torch.profiler window, one
+    with the first-design segsum, and one more on the first-design flash
+    kernels (bf16 also on ``skip_bf16``);
     one batch's loss and every gradient with the kernels against the plain
     versions; the loss falling on a fixed batch; (c) both flash kernels at
     the path's shape (the envelope's node slots, d = 256, its pad tail),
     float32 and bf16, ``skip_bf16`` bitwise against ``first_bf16``, each
     path design timed against its first design (bf16 also ``skip_bf16``)
     in turns beside the bounds (over the envelope and over the live tile
-    pairs) and the plain version, and the segsum at the step's shape (the batch's edge
-    slots × 256 into its node slots), timed beside index_add_; (d) one DGI
+    pairs) and the plain version, and the segsum at the step's shape (the
+    batch's edge slots × 256 into its node slots, both types), timed on the
+    device against the first design beside index_add_; (d) one DGI
     and one GGD step at the same width, kernels against plain versions
     (segsum 8, flash 0); (e) ``python -m biomedkg_tpu_torch.train_gcl
     model.model_name=grace data.node_type=gene`` (started beside phase 5's
@@ -192,6 +202,9 @@ SEGSUM_PER_ENCODE = 1 + CONVS    # count table + one per conv
 # kernel vs plain: float32 sums differ only in order; the bound scales with
 # the segment's Σ|x| (count tables sum ones: exact)
 SUM_RTOL = 1e-5
+# the segsum off the path: widths the 16-byte packs cannot take in one type
+# or the other (d = 100 is whole packs in float32 only)
+SEGSUM_ODD_WIDTHS = (7, 100, 257)
 Z_RTOL = 1e-4                    # through 4 convs, relative to max|z|
 
 # -- the training main path (bench.py:64-68,108-121; train_kge.py:50-67) --
@@ -368,30 +381,66 @@ def device_ms(fn, only: str = None) -> float:
     return ms
 
 
-def segsum_batch_times(batch, d: int, dtype, gen, what: str):
-    """The segsum kernel at a batch's shape, (edge slots, d) messages in
-    ``dtype`` into its node slots by its dst ids: against the plain
-    version (SUM_RTOL of Σ|x| per segment), timed beside the plain version,
-    one float32 index_add_ and the bound."""
+def segsum_times(data, ids, n: int, what: str, exact: bool = False) -> dict:
+    """The segsum kernel at one shape: against the plain version (exact
+    for count tables, else SUM_RTOL of Σ|x| per segment), and timed on the
+    device (device_ms) in turns against the first design (owner, first,
+    first, owner; the first design's fill included), beside the plain
+    version, one float32 index_add_ and the bound. Returns the numbers."""
+    got = segsum.KERNEL(data, ids, n)
+    want = segsum.segsum_plain(data, ids, n)
+    scale = segsum.segsum_plain(data.abs(), ids, n)
+    err = (got - want).abs()
+    check(bool(torch.all(err <= (0.0 if exact else SUM_RTOL) * scale)),
+          f"segsum kernel disagrees at the {what}")
+    instance = segsum.segsum_instance(data.dtype, data.shape[1],
+                                      data.data_ptr(), ids.data_ptr(),
+                                      got.data_ptr())
+
+    def timed(first: bool) -> float:
+        with first_design_segsum() if first else contextlib.nullcontext():
+            return device_ms(lambda: segsum.KERNEL(data, ids, n))
+    turns = [timed(first) for first in (False, True, True, False)]
+    ids64 = ids.long()
+    yard = torch.zeros(n, data.shape[1], device=data.device)
+    out = dict(ms=min(turns[0], turns[3]), first_ms=min(turns[1:3]),
+               plain_ms=device_ms(lambda: segsum.segsum_plain(data, ids, n)),
+               library_ms=device_ms(
+                   lambda: yard.index_add_(0, ids64, data.float())),
+               max_abs_err=float(err.max()))
+    out["bound_ms"], out["bound_by"] = segsum_bound_ms(data, n)
+    print(f"segsum {what} {str(data.dtype)[6:]} ({tuple(data.shape)} into "
+          f"{n}), device times: {instance} {turns[0]:.4f} / {turns[3]:.4f} "
+          f"ms, first (fill included) {turns[1]:.4f} / {turns[2]:.4f}; "
+          f"plain {out['plain_ms']:.4f}, index_add_ {out['library_ms']:.4f}, "
+          f"bound {out['bound_ms']:.4f} ({out['bound_by']}); {instance} at "
+          f"{out['bound_ms'] / out['ms']:.1%} of bound, first at "
+          f"{out['bound_ms'] / out['first_ms']:.1%}; max abs err "
+          f"{out['max_abs_err']:.3g}")
+    return out
+
+
+def count_table(etype, emask, r: int) -> torch.Tensor:
+    """The RGCN's (edge slots, R) float32 one-hots of the real edges'
+    relations, as models/encoders.py sums them by dst."""
+    return ((etype[:, None] == torch.arange(r, device=etype.device)[None, :])
+            & emask[:, None].bool()).float()
+
+
+def segsum_batch_times(batch, d: int, dtype, gen, what: str,
+                       counts: bool = False):
+    """segsum_times at a batch's shape: (edge slots, d) random messages in
+    ``dtype`` into its node slots by its dst ids; with ``counts``, also
+    its count table."""
     dst = batch.edge_index[1].int()
     n_pad = batch.node_mask.shape[0]
     data = torch.randn(dst.shape[0], d, device=dst.device,
                        generator=gen).to(dtype)
-    got = segsum.KERNEL(data, dst, n_pad)
-    want = segsum.segsum_plain(data, dst, n_pad)
-    scale = segsum.segsum_plain(data.abs(), dst, n_pad)
-    check(bool(torch.all((got - want).abs() <= SUM_RTOL * scale)),
-          f"segsum kernel disagrees at the {what}")
-    yard = torch.zeros(n_pad, d, device=dst.device)
-    ms = time_ms(lambda: segsum.KERNEL(data, dst, n_pad))
-    plain_ms = time_ms(lambda: segsum.segsum_plain(data, dst, n_pad))
-    lib_ms = time_ms(lambda: yard.index_add_(0, dst.long(), data.float()))
-    bound, by = segsum_bound_ms(data, n_pad)
-    print(f"segsum {what} {str(dtype)[6:]} time ({tuple(data.shape)} into "
-          f"{n_pad}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"index_add_ {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), kernel "
-          f"at {bound / ms:.1%} of bound; max abs err "
-          f"{float((got - want).abs().max()):.3g}")
+    segsum_times(data, dst, n_pad, what)
+    if counts:
+        segsum_times(count_table(batch.edge_type, batch.edge_mask,
+                                 HPARAMS["num_relation"]), dst, n_pad,
+                     f"{what} count table", exact=True)
 
 
 def segsum_bound_ms(data: torch.Tensor, num_segments: int):
@@ -448,9 +497,11 @@ def relmm_key(kernel, instance: str) -> str:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launches; relmm's also by instance, the flash
-    kernels' and the negscore backwards' by design."""
+    """Every kernel's launches; the segsum's and relmm's also by instance,
+    the flash kernels' and the negscore backwards' by design."""
     return {"sorted_segment_sum": segsum.KERNEL.launches,
+            **{relmm_key(segsum.KERNEL, inst): c
+               for inst, c in segsum.KERNEL.by_instance.items()},
             **{name: k.launches for name, k in negscore.KERNELS.items()},
             **{relmm_key(k, design): c for k in negscore.KERNELS.values()
                for design, c in getattr(k, "by_design", {}).items()},
@@ -464,7 +515,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    segsum.KERNEL.launches = 0
+    segsum.KERNEL.reset()
     negscore.BUCKETS.launches = 0
     for k in negscore.KERNELS.values():
         if hasattr(k, "reset"):
@@ -479,13 +530,16 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
                       flash_n: int = 0, relmm_instance: str = None,
                       flash_design: str = None,
                       neg_design: str = "owner") -> dict:
-    """Every count 0 but segsum's, the ``kernel`` negscore pair's (none
+    """Every count 0 but segsum's (all of them on the owner design's
+    ``packed`` instance), the ``kernel`` negscore pair's (none
     when ``kernel`` is None), its backward's all on ``neg_design`` (the
     owner design's with one bucket build each), relmm's (forward, d_msg),
     all of them on ``relmm_instance``, and the flash pair's (forward,
     backward), all of them on ``flash_design``."""
     want = dict.fromkeys(launch_counts(), 0)
-    want.update({"sorted_segment_sum": segsum_n, relmm.NAME: relmm_n[0],
+    want.update({"sorted_segment_sum": segsum_n,
+                 relmm_key(segsum.KERNEL, "packed"): segsum_n,
+                 relmm.NAME: relmm_n[0],
                  relmm.NAME + "_bwd": relmm_n[1], flashnce.NAME: flash_n,
                  flashnce.NAME + "_bwd": flash_n})
     if any(relmm_n):
@@ -543,6 +597,24 @@ def first_design_relmm():
         yield
     finally:
         relmm.relmm_instance = saved
+
+
+@contextlib.contextmanager
+def segsum_instance_as(instance: str):
+    """The segsum wrapper running ``instance`` for every call."""
+    saved = segsum.segsum_instance
+    segsum.segsum_instance = lambda *_: instance
+    try:
+        yield
+    finally:
+        segsum.segsum_instance = saved
+
+
+def first_design_segsum():
+    """The segsum wrapper running the first design (``first_kernel``: one
+    element a lane into a zero-filled output, float32 atomics) for every
+    call: the A/B of the owner design on its paths."""
+    return segsum_instance_as("first")
 
 
 @contextlib.contextmanager
@@ -1257,6 +1329,9 @@ def train_phase(dm, dev, tmp):
           f"launches per step on the training path: {launches}")
 
     profile_steps(module, state, batches[-PROFILED:], gen, "train step")
+    with first_design_segsum():
+        profile_steps(module, state, batches[-PROFILED:], gen,
+                      "train step with the first-design segsum")
     with first_design_negscore():
         profile_steps(module, state, batches[-PROFILED:], gen,
                       "train step with the first-design negscore backward")
@@ -1277,7 +1352,7 @@ def train_phase(dm, dev, tmp):
     backward_launches(z, negatives, rel_emb, ds)
 
     segsum_batch_times(batch, TRAIN["hidden_dim"], torch.bfloat16, gen,
-                       "conv (training shape)")
+                       "conv and tail gather (training shape)", counts=True)
 
     # -- training makes progress on a fixed batch -------------------------
     loss_falls(sd, module.feature_table, dev, batch, "train")
@@ -2272,6 +2347,9 @@ def grace_phase(dev, table, batches):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         profile_steps(module, state, batches[-profiled:], gen, what)
+        with first_design_segsum():
+            profile_steps(module, state, batches[-profiled:], gen,
+                          f"{what} with the first-design segsum")
         if flashnce.GENERAL[dtype] != flashnce.PATH[dtype]:
             with on_flash_design(flashnce.GENERAL[dtype]):
                 profile_steps(module, state, batches[-profiled:], gen,
@@ -2415,14 +2493,16 @@ def main() -> int:
         dm = PrimeKGModule(**data, seed=SEED)
 
         torch.cuda.reset_peak_memory_stats()
-        segsum.KERNEL.launches = 0
+        segsum.KERNEL.reset()
         t0 = time.perf_counter()
         scorer = KGEScorer(ckpt, dm, device="cuda")
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         lat = serve_requests(scorer, np.random.default_rng(SEED))
         torch.cuda.synchronize()
-        launches = {"sorted_segment_sum": segsum.KERNEL.launches}
+        launches = {"sorted_segment_sum": segsum.KERNEL.launches,
+                    **{relmm_key(segsum.KERNEL, inst): c for inst, c
+                       in segsum.KERNEL.by_instance.items()}}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         g = dm.graph
         print(f"main path: graph {g.num_nodes} nodes, {g.num_edges} edges, "
@@ -2431,7 +2511,9 @@ def main() -> int:
               f"peak device memory {peak_gb:.2f} GB; launches {launches}")
         check(g.num_nodes > 50_000 and g.num_edges > 1_000_000,
               "not the PrimeKG++-scale graph")
-        check(launches["sorted_segment_sum"] == SEGSUM_PER_ENCODE,
+        check(launches["sorted_segment_sum"] == SEGSUM_PER_ENCODE
+              and launches[relmm_key(segsum.KERNEL, "packed")]
+              == SEGSUM_PER_ENCODE,
               f"segsum launches on the main path: {launches}")
 
     # -- 3. kernel vs plain version at the path's shapes ------------------
@@ -2444,20 +2526,29 @@ def main() -> int:
     cuda_gen = torch.Generator(device=dev).manual_seed(SEED)
     conv = torch.randn(m, HPARAMS["hidden_dim"], device=dev,
                        generator=cuda_gen)
-    counts = ((etype[:, None] == torch.arange(HPARAMS["num_relation"],
-                                              device=dev)[None, :])
-              & emask[:, None]).float()
+    counts = count_table(etype, emask, HPARAMS["num_relation"])
     perm = torch.randperm(m, device=dev, generator=cuda_gen)
     pads = dst.clone()
     pads[torch.randperm(m, device=dev, generator=cuda_gen)[: m // 100]] = -1
     pads[~emask] = -1
+    # one hub segment over a tenth of the slots, still ascending
+    hub = dst.clone()
+    hub[m // 3: m // 3 + m // 10] = hub[m // 3]
+    hub = torch.sort(hub).values
     cases = [
         ("conv f32", conv, dst),
         ("count table f32", counts, dst),
         ("conv bf16", conv.bfloat16(), dst),
+        ("count table bf16", counts.bfloat16(), dst),
         ("conv f32 unsorted", conv[perm].contiguous(), dst[perm].contiguous()),
         ("conv f32 -1 pads", conv, pads),
-    ]
+        ("conv bf16 -1 pads", conv.bfloat16(), pads),
+        ("conv f32 hub", conv, hub),
+        ("conv bf16 hub", conv.bfloat16(), hub),
+    ] + [(f"d={d} {name}", torch.randn(m, d, device=dev, generator=cuda_gen)
+          .to(dtype), dst)
+         for d in SEGSUM_ODD_WIDTHS
+         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))]
     results = {}
     for name, data_t, ids in cases:
         got = segsum.KERNEL(data_t, ids, num_nodes)
@@ -2468,31 +2559,24 @@ def main() -> int:
         tol = 0.0 if name.startswith("count") else SUM_RTOL
         ok = bool(torch.all(err <= tol * scale))
         max_err = float(err.max())
-        print(f"segsum {name}: data {tuple(data_t.shape)} "
+        instance = segsum.segsum_instance(
+            data_t.dtype, data_t.shape[1], data_t.data_ptr(), ids.data_ptr(),
+            got.data_ptr())
+        print(f"segsum {name} ({instance}): data {tuple(data_t.shape)} "
               f"{str(data_t.dtype)[6:]}, {num_nodes} segments: "
               f"max_abs_err={max_err:.3g}, tol {tol:g}·Σ|x| per segment, "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"segsum kernel disagrees with its plain version ({name})")
         results[name] = max_err
-
-    ids64 = dst.long()
-    timed = {}
-    for name, data_t in (("conv f32", conv), ("count table f32", counts)):
-        yard = torch.zeros(num_nodes, data_t.shape[1], device=dev)
-        ms = time_ms(lambda: segsum.KERNEL(data_t, dst, num_nodes))
-        plain_ms = time_ms(lambda: segsum.segsum_plain(data_t, dst,
-                                                       num_nodes))
-        lib_ms = time_ms(lambda: yard.index_add_(0, ids64, data_t))
-        bound_ms, bound_by = segsum_bound_ms(data_t, num_nodes)
-        timed[name] = (ms, plain_ms, lib_ms, bound_ms, bound_by)
-        print(f"segsum {name} time: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), kernel at "
-              f"{bound_ms / ms:.1%} of bound")
+    del cases
+    timed = {"conv f32": segsum_times(conv, dst, num_nodes, "serving conv"),
+             "count table f32": segsum_times(counts, dst, num_nodes,
+                                             "serving count table",
+                                             exact=True)}
 
     # -- 4. the encode: time, launches, kernels vs plain versions ---------
     dev_batch = batch_to_device(batch, dev)
-    segsum.KERNEL.launches = 0
+    segsum.KERNEL.reset()
     enc_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2500,8 +2584,10 @@ def main() -> int:
         z = scorer.module.encode(dev_batch)
         torch.cuda.synchronize()
         enc_ms.append((time.perf_counter() - t0) * 1e3)
-    check(segsum.KERNEL.launches == 3 * SEGSUM_PER_ENCODE,
-          f"segsum launches per encode: {segsum.KERNEL.launches / 3}")
+    check(segsum.KERNEL.launches == 3 * SEGSUM_PER_ENCODE
+          and segsum.KERNEL.by_instance["packed"] == 3 * SEGSUM_PER_ENCODE,
+          f"segsum launches per encode: {segsum.KERNEL.launches / 3}, by "
+          f"instance {segsum.KERNEL.by_instance}")
     encoders.sorted_segment_sum = segsum.segsum_plain
     try:
         plain_enc_ms = []
@@ -2514,19 +2600,24 @@ def main() -> int:
     finally:
         encoders.sorted_segment_sum = segsum.sorted_segment_sum
     print(f"encode with the plain segment-sum: {plain_enc_ms} ms")
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        scorer.module.encode(dev_batch)
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"encode device kernels (torch.profiler): {busy:.3f} ms busy; "
-          + "; ".join(f"{e.key[:70]} x{e.count} "
-                      f"{e.self_device_time_total / 1e3:.3f} ms"
-                      for e in kernels[:10]))
+    # device-busy time of one encode, in turns with the first-design segsum
+    for design in ("owner", "first", "first", "owner"):
+        with first_design_segsum() if design == "first" \
+                else contextlib.nullcontext():
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                scorer.module.encode(dev_batch)
+                torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"encode device kernels (torch.profiler, {design}-design "
+              f"segsum): {busy:.3f} ms busy; "
+              + "; ".join(f"{e.key[:70]} x{e.count} "
+                          f"{e.self_device_time_total / 1e3:.3f} ms"
+                          for e in kernels[:10]))
     scale = float(z_plain.abs().max())
     z_err = float((z - z_plain).abs().max())
     print(f"encode: {enc_ms} ms (host clock, synchronised); "
@@ -2575,16 +2666,19 @@ def main() -> int:
     for record in neg_records:
         if record["name"] == negscore.BUCKETS_NAME:
             record["launches"] = PATH_LAUNCHES[negscore.BUCKETS_NAME]
-    ms, plain_ms, lib_ms, bound_ms, bound_by = timed["conv f32"]
+    serving = timed["conv f32"]
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum", "route": "cuda",
         "source": "biomedkg_tpu_torch/csrc/segsum.cu",
         "replaces": "biomedkg_tpu/ops/pallas/segsum.py:74",
+        "design": "owner", "instance": "packed",
         "launches": launches["sorted_segment_sum"] + train_segsum
         + gcl_segsum,
         "max_abs_err": max(results.values()),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": lib_ms}] + neg_records
+        "ms": serving["ms"], "first_design_ms": serving["first_ms"],
+        "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
+        "bound_by": serving["bound_by"],
+        "library_ms": serving["library_ms"]}] + neg_records
         + relmm_records + flash_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
