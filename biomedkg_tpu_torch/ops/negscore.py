@@ -32,6 +32,21 @@ divided by max(Σ|row|, 1e-12), back to z's type), so autograd carries its
 gradient, as XLA does in the reference. The backward returns ``dz`` in z's
 type and the relation gradient in rel_emb's.
 
+The forward runs in the design ``negscore_fwd_design`` names: "run" for
+the streamed family, "staged" for the dual-sorted one. In both a warp walks
+a contiguous run of slots, holds its share of the current src row in
+registers (reloaded only where ns changes), reads the relation row from a
+float32 table in shared memory and the slot's t, and sums eight slots'
+partials at once (a transpose reduction over the lanes): "run" gathers t
+from z (in L2),
+"staged" from the rows of the block's spans of ids, staged in shared
+memory in z's type (a band that wraps the id range staged whole, as one
+span of rotated ids). ``lane_scores_plain`` is their plain version in the
+kernels' order of sums. The first design (``fwd_kernel`` /
+``ds_fwd_kernel``: both rows gathered every slot, one warp-shuffle sum a
+slot) stays for the A/B on the card; only a caller that replaces
+``negscore_fwd_design`` reaches it.
+
 The backward runs in the design ``negscore_design`` names: "owner" for
 every call the kernels take, both families. ``BUCKETS`` (one cooperative
 launch) sorts the slot ids stably by clipped ns and by clipped nd into
@@ -66,6 +81,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # mode, z, ns, nd, rel, re, out, m, n, d, r, [vec | chunk], stream
 _FWD = [_I, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P]
+_RUN = _FWD[:-2] + [_P]
 # mode, z, ns, nd, rel, re, ds, dz, dre, m, n, d, r, [chunk], stream
 _BWD = [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, _I, _I, _I,
         _P]
@@ -76,15 +92,28 @@ _OWNER = [_I] + [_P] * 10 + [ctypes.c_longlong, _I, _I, _I, _P]
 _BUCKETS = [_P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P]
 LIBRARY = CudaLibrary("negscore.cu", {
     **{f"negscore_{fam}fwd_{t}": _FWD
-       for fam in ("", "ds_") for t in ("f32", "bf16")},
+       for fam in ("", "ds_", "staged_") for t in ("f32", "bf16")},
+    **{f"negscore_run_fwd_{t}": _RUN for t in ("f32", "bf16")},
     **{f"negscore_bwd_{t}": _BWD for t in ("f32", "bf16")},
     **{f"negscore_ds_bwd_{t}": _BWD_DS for t in ("f32", "bf16")},
     **{f"negscore_owner_bwd_{t}": _OWNER for t in ("f32", "bf16")},
     "negscore_buckets": _BUCKETS})
 # the backward's designs: the first (atomics on dz) and the node-owned one
 DESIGNS = ("first", "owner")
+# the forward's: the first (both rows gathered a slot) and the redesigns
+FWD_DESIGNS = ("first", "run", "staged")
+STAGED_SLOTS = BLOCK // 4   # slots a "staged" block takes (kStagedSplit)
+SPAN_CAP = 32               # rows a side it stages at most (kSpanCap)
 BUCKETS_NAME = "negscore_buckets"
 BUCKET_THREADS = 256     # csrc/negscore.cu kBucketThreads
+
+
+def _takes(mode: str, dtype: torch.dtype, d: int):
+    if mode not in MODES or dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"negscore: no kernel for mode {mode!r} in "
+                         f"{dtype}")
+    if mode in PAIRED and d % 2:
+        raise ValueError(f"negscore: mode {mode!r} needs an even d, got {d}")
 
 
 def negscore_design(mode: str, dual: bool, dtype: torch.dtype,
@@ -93,12 +122,28 @@ def negscore_design(mode: str, dual: bool, dtype: torch.dtype,
     mode, family, type and width the kernels take (an even d for the
     paired modes). A fixed rule: a failed build or launch raises, it never
     sends a call to the first design."""
-    if mode not in MODES or dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"negscore: no kernel for mode {mode!r} in "
-                         f"{dtype}")
-    if mode in PAIRED and d % 2:
-        raise ValueError(f"negscore: mode {mode!r} needs an even d, got {d}")
+    _takes(mode, dtype, d)
     return "owner"
+
+
+def negscore_fwd_design(mode: str, dual: bool, dtype: torch.dtype,
+                        d: int) -> str:
+    """The forward design a call on the card runs: "run" for the streamed
+    family and "staged" for the dual-sorted one, for every mode, type and
+    width the kernels take. A fixed rule, as ``negscore_design``."""
+    _takes(mode, dtype, d)
+    return "staged" if dual else "run"
+
+
+def fwd_lane_features(units: int) -> int:
+    """The features a lane of the forward redesign takes at once from each
+    half-row of ``units`` features (csrc/negscore.cu ``fwd_vector``, for a
+    z whose base is 32-byte aligned): 8, else 4, where that divides the
+    width and leaves the 32 lanes a pack each; else 1."""
+    for v in (8, 4):
+        if units % v == 0 and units // v >= 32:
+            return v
+    return 1
 
 
 def kernel_name(mode: str, dual: bool) -> str:
@@ -150,7 +195,8 @@ def _on_card(*tensors):
 
 class NegScoreForward:
     """One forward kernel's wrapper (a mode, streamed or dual-sorted):
-    ``launches`` goes up by one for each kernel launch and nowhere else.
+    ``launches`` goes up by one for each kernel launch and nowhere else,
+    ``by_design`` counts the same launches by design.
 
     ``re`` is the float32 relation table (R, d) from ``relation_table``;
     returns the (M,) float32 scores."""
@@ -158,7 +204,11 @@ class NegScoreForward:
     def __init__(self, mode: str, dual: bool):
         self.mode, self.dual = mode, dual
         self.name = kernel_name(mode, dual)
+        self.reset()
+
+    def reset(self):
         self.launches = 0
+        self.by_design = dict.fromkeys(FWD_DESIGNS, 0)
 
     def __call__(self, z, ns, nd, rel, re) -> torch.Tensor:
         _check(self.name, self.mode, z, ns, nd, rel, re, z.shape[-1])
@@ -172,21 +222,27 @@ class NegScoreForward:
             return out
         if d == 0:
             return out.zero_()
+        design = negscore_fwd_design(self.mode, self.dual, z.dtype, d)
         kind = "f32" if z.dtype == torch.float32 else "bf16"
-        fn = getattr(LIBRARY.lib(),
-                     f"negscore_{'ds_' if self.dual else ''}fwd_{kind}")
-        if self.dual:
-            last = BLOCK
+        if design == "run":
+            fn, last = f"negscore_run_fwd_{kind}", []
+        elif design == "staged":
+            fn, last = f"negscore_staged_fwd_{kind}", [BLOCK]
+        elif self.dual:
+            fn, last = f"negscore_ds_fwd_{kind}", [BLOCK]
         else:   # 16-byte loads of each row's (half-)width
             units = d // 2 if self.mode in PAIRED else d
-            last = int(units % (16 // z.element_size()) == 0
-                       and z.data_ptr() % 16 == 0)
+            fn, last = f"negscore_fwd_{kind}", [int(
+                units % (16 // z.element_size()) == 0
+                and z.data_ptr() % 16 == 0)]
         with torch.cuda.device(z.device):
-            err = fn(MODES.index(self.mode), z.data_ptr(), ns.data_ptr(),
-                     nd.data_ptr(), rel.data_ptr(), re.data_ptr(),
-                     out.data_ptr(), m, n, d, r, last, stream_of(z))
-        check_launch(err, f"{self.name} forward")
+            err = getattr(LIBRARY.lib(), fn)(
+                MODES.index(self.mode), z.data_ptr(), ns.data_ptr(),
+                nd.data_ptr(), rel.data_ptr(), re.data_ptr(), out.data_ptr(),
+                m, n, d, r, *last, stream_of(z))
+        check_launch(err, f"{self.name} forward [{design}]")
         self.launches += 1
+        self.by_design[design] += 1
         return out
 
 
@@ -395,6 +451,42 @@ def plain_scores(mode, z, ns, nd, rel, rel_emb) -> torch.Tensor:
         onehot = rel[:, None] == torch.arange(r, device=z.device)
         return torch.where(onehot, all_rel, 0.0).sum(1)
     return slot_terms(mode, h.float(), t.float(), take_rows(table, rel)).sum(1)
+
+
+def lane_scores_plain(mode, z, ns, nd, rel, re, terms=None):
+    """The forward redesign's plain version: the (M,) float32 scores as
+    the kernels sum them. Each slot's units (features, or pairs for the
+    paired modes) go in packs of ``fwd_lane_features(units)`` to the 32
+    lanes, 32 packs a pass; a lane adds its pack's unit terms in order;
+    the lanes' partials are summed as a tree (lanes l and l + 16, then
+    halving over 16, 8, 4, 2); a later pass's tree sum is added to the
+    earlier ones'. ``re`` is the float32 (R, d) table; ``terms`` (M,
+    units) replaces ``slot_terms``'s, for a caller that computes them
+    otherwise."""
+    (n, d), r = z.shape, re.shape[0]
+    if terms is None:
+        terms = slot_terms(mode, z[ns.long().clamp(0, n - 1)].float(),
+                           z[nd.long().clamp(0, n - 1)].float(),
+                           re[rel.long().clamp(0, r - 1)].float())
+    m, units = terms.shape
+    v = fwd_lane_features(units)
+    packs = units // v
+    lanes = -(-packs // 32) * 32
+    by_pack = torch.zeros(m, lanes * v, dtype=torch.float32,
+                          device=terms.device)
+    by_pack[:, :units] = terms.float()
+    by_pack = by_pack.view(m, lanes, v)
+    partial = by_pack[:, :, 0]
+    for k in range(1, v):
+        partial = partial + by_pack[:, :, k]
+    out = None
+    for p0 in range(0, lanes, 32):
+        x = partial[:, p0:p0 + 32]
+        while x.shape[1] > 1:
+            half = x.shape[1] // 2
+            x = x[:, :half] + x[:, half:]
+        out = x[:, 0] if out is None else out + x[:, 0]
+    return out
 
 
 def buckets_plain(ns, nd, n: int):

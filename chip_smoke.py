@@ -39,12 +39,15 @@ Phases; any failure ends the run with a non-zero exit:
     the envelope, peak memory and a torch.profiler breakdown of PROFILED
     steps with its idle share, and the same window with the first-design
     segsum and, apart, the first-design negscore backward
-    (``first_design_negscore``);
+    (``first_design_negscore``) and forward (``first_design_negscore_fwd``);
     one batch's loss and every gradient with the kernels against the same
     step with the plain versions (bf16 and float32); the negscore kernels
     and the segsum kernel against their plain versions at the path's
-    shapes, timed beside their bounds (the negscore kernels on the device,
-    the backward in its owner design against the first design in turns);
+    shapes, timed beside their bounds (the negscore kernels on the device:
+    the forward in its redesign, "run" or "staged", and in its first
+    design, checked in both types and timed in turns in both, with the L2
+    bytes each gathers; the backward in its owner design against the first
+    design in turns);
     the owner design's bucket build against ``buckets_plain`` at the
     path's shape and at odd sizes, timed; the segsum at the step's conv
     (and tail-gather backward) shape and its count table, timed on the
@@ -61,17 +64,19 @@ Phases; any failure ends the run with a non-zero exit:
     "sorted" negatives and all four decoders with "sorted2". For each:
     warm-up steps, then P6_STEPS timed steps with every launch count set to
     0 just before and read just after (the mode's streamed or dual-sorted
-    negscore pair 1 + 1 per step, the backward on the owner design with
-    one bucket build, segsum 6); one batch's loss and every
+    negscore pair 1 + 1 per step, the forward on "run" or "staged", the
+    backward on the owner design with one bucket build, segsum 6); one
+    batch's loss and every
     gradient with the kernels against the plain versions (bf16 and
     float32); the mode's two kernels against the plain version at the
     path's shapes (the dual-sorted ones also on an input whose nd is in any
     order, both types), timed beside their bounds; the loss falling on a
     fixed batch; for RotatE + "sorted2" a torch.profiler breakdown as in
-    phase 5, with either backward design. Before them every negscore
-    kernel, both backward designs, on small shapes off the path in both
-    types (odd widths, ids clipped, ns in any order; RotatE below the
-    distance's clamp in float32).
+    phase 5, with either design of each direction. Before them every
+    negscore kernel, both designs of each direction, on small shapes off
+    the path in both types (odd widths, d of 128 and 256, ids clipped, ns
+    in any order, a dst band that wraps the id range, one src id over
+    many blocks; RotatE below the distance's clamp in float32).
     Then ``train_kge model.decoder_name=rotate model.neg_sampler=sorted2``'s
     checkpoint served, its ``score`` and ``topk_tails`` answers checked
     against a float64 host recomputation;
@@ -532,8 +537,10 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
                       neg_design: str = "owner") -> dict:
     """Every count 0 but segsum's (all of them on the owner design's
     ``packed`` instance), the ``kernel`` negscore pair's (none
-    when ``kernel`` is None), its backward's all on ``neg_design`` (the
-    owner design's with one bucket build each), relmm's (forward, d_msg),
+    when ``kernel`` is None), its forward's all on the family's redesign
+    ("run" streamed, "staged" dual-sorted), its backward's all on
+    ``neg_design`` (the owner design's with one bucket build each),
+    relmm's (forward, d_msg),
     all of them on ``relmm_instance``, and the flash pair's (forward,
     backward), all of them on ``flash_design``."""
     want = dict.fromkeys(launch_counts(), 0)
@@ -549,7 +556,9 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
         for k in flashnce.KERNELS.values():
             want[relmm_key(k, flash_design)] = flash_n
     if kernel is not None:
+        fwd = negscore.KERNELS[kernel]
         want.update({kernel: n, kernel + "_bwd": n,
+                     relmm_key(fwd, "staged" if fwd.dual else "run"): n,
                      relmm_key(negscore.KERNELS[kernel + "_bwd"],
                                neg_design): n})
         if neg_design == "owner":
@@ -633,6 +642,24 @@ def first_design_negscore():
     (``bwd_kernel`` / ``ds_bwd_kernel``, float32 atomics on dz) for every
     call: the A/B of the owner design on its paths."""
     return negscore_design_as("first")
+
+
+@contextlib.contextmanager
+def negscore_fwd_design_as(design: str):
+    """The negscore forward wrappers running ``design`` for every call."""
+    saved = negscore.negscore_fwd_design
+    negscore.negscore_fwd_design = lambda *_: design
+    try:
+        yield
+    finally:
+        negscore.negscore_fwd_design = saved
+
+
+def first_design_negscore_fwd():
+    """The negscore forward wrappers running the first design
+    (``fwd_kernel`` / ``ds_fwd_kernel``: both rows gathered every slot)
+    for every call: the A/B of "run" and "staged" on their paths."""
+    return negscore_fwd_design_as("first")
 
 
 @contextlib.contextmanager
@@ -967,14 +994,45 @@ def neg_magnitudes(mode, zt, ns, nd, rel, rel_emb, ds):
     return terms.detach().abs().sum(1), mag_dz, mag_dr
 
 
+def fwd_l2_bytes(design: str, z, ns, nd) -> int:
+    """What one forward call of ``design`` gathers from L2: the three
+    int32 ids a slot, and rows of z: the first design both rows every
+    slot; "run" t every slot and h once a run of equal ns (the least: a
+    warp's run also starts with one); "staged" each block's src and dst
+    spans of rotated ids once (a span above the kernel's cap reads a row a
+    slot), and the ids twice."""
+    n, d = z.shape
+    m, row = ns.shape[0], d * z.element_size()
+    if design == "first":
+        return 12 * m + 2 * m * row
+    if design == "run":
+        runs = 1 + int((ns[1:] != ns[:-1]).sum())
+        return 12 * m + (m + runs) * row
+    slots = negscore.STAGED_SLOTS
+    full = m // slots * slots
+    rows = 0
+    for ids in (ns, nd):
+        ids = ids.long().clamp(0, n - 1)
+        for x in (ids[:full].view(-1, slots), ids[full:].view(1, -1)):
+            if x.numel():
+                rot = torch.remainder(x - x[:, :1] + n // 2, n)
+                span = rot.max(1).values - rot.min(1).values + 1
+                rows += int(torch.where(span <= negscore.SPAN_CAP, span,
+                                        x.shape[1]).sum())
+    return 24 * m + rows * row
+
+
 def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
                      nd_wide=None):
     """The (mode, family) forward and backward kernels against the plain
     version at the path's shapes (scores, dz, the relation gradient; the
-    dual-sorted ones also with ``nd_wide``, ids in any order, in float32),
-    timed beside their bounds; returns their two ``kernels`` records."""
+    forward in its redesign and its first design; the dual-sorted ones
+    also with ``nd_wide``, ids in any order), in bf16 and float32, timed
+    beside their bounds (the forward in both types, the redesign against
+    the first design in turns); returns their two ``kernels`` records."""
     name = negscore.kernel_name(mode, dual)
     fwd, bwd = negscore.KERNELS[name], negscore.KERNELS[name + "_bwd"]
+    design = "staged" if dual else "run"
     ns, nd, rel = negatives
     m, r = ns.shape[0], rel_emb.shape[0]
 
@@ -993,22 +1051,27 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
             inputs.append((", nd in any order", nd_wide))
         for label, ndc in inputs:
             s_k = fwd(zt, ns, ndc, rel, re)
+            with first_design_negscore_fwd():
+                s_f = fwd(zt, ns, ndc, rel, re)
             dz_k, dre_k = bwd(zt, ns, ndc, rel, re, ds)
             zp = zt.clone().requires_grad_(True)
             rp = rel_emb.clone().requires_grad_(True)
             s_p = negscore.plain_scores(mode, zp, ns, ndc, rel, rp)
             dz_p, dre_p = torch.autograd.grad(s_p, (zp, rp), ds)
             torch.cuda.synchronize()
-            pairs = ((s_k, s_p.detach()), (dz_k, dz_p), (dre_k, dre_p))
+            pairs = ((s_k, s_p.detach()), (s_f, s_p.detach()),
+                     (dz_k, dz_p), (dre_k, dre_p))
             rel_errs = [rel_err(a, b) for a, b in pairs]
             abs_errs = [float((a.float() - b.float()).abs().max())
                         for a, b in pairs]
             if dtype == torch.bfloat16:
                 val_tol, grad_tol = NEG_TOL_BF16
-                ok = rel_errs[0] <= val_tol and max(rel_errs[1:]) <= grad_tol
+                ok = max(rel_errs[:2]) <= val_tol \
+                    and max(rel_errs[2:]) <= grad_tol
                 how = f"tol {val_tol:g} / {grad_tol:g}"
             else:
                 mags = neg_magnitudes(mode, zt, ns, ndc, rel, rel_emb, ds)
+                mags = (mags[0], *mags)
                 ratios = [float(((a.float() - b.float()).abs()
                                  / c.clamp(min=1e-30)).max())
                           for (a, b), c in zip(pairs, mags)]
@@ -1018,20 +1081,40 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
                        f"{SUM_RTOL:g}")
             print(f"{name} {str(dtype)[6:]}{label}: z {tuple(zt.shape)}, "
                   f"{m} slots, R = {r}: kernels vs plain rel-to-max scores "
-                  f"{rel_errs[0]:.3g}, dz {rel_errs[1]:.3g}, d(rel_emb) "
-                  f"{rel_errs[2]:.3g} ({how}); max abs {abs_errs}")
+                  f"{rel_errs[0]:.3g} ({design}), {rel_errs[1]:.3g} "
+                  f"(first), dz {rel_errs[2]:.3g}, d(rel_emb) "
+                  f"{rel_errs[3]:.3g} ({how}); max abs {abs_errs}")
             check(ok, f"{name} {dtype}{label}: kernels disagree with the "
                       f"plain version")
             if not label:
-                err[dtype] = (abs_errs[0], max(abs_errs[1:]))
+                err[dtype] = (abs_errs[0], max(abs_errs[2:]))
 
-    # device times (the host's time in the wrappers does not enter); the
-    # owner backward against the first design in turns
+    # device times (the host's time in the wrappers does not enter): the
+    # forward's redesign against its first design in turns, in both types;
+    # the owner backward against the first design in turns (bf16)
+    fwd_ms, first_fwd_ms, l2 = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        zt, re = kernel_table(dtype)
+        turns = []
+        for des in (design, "first", "first", design):
+            with negscore_fwd_design_as(des):
+                turns.append(device_ms(lambda: fwd(zt, ns, nd, rel, re)))
+        fwd_ms[dtype] = min(turns[0], turns[3])
+        first_fwd_ms[dtype] = min(turns[1], turns[2])
+        l2[dtype] = {des: fwd_l2_bytes(des, zt, ns, nd)
+                     for des in (design, "first")}
+        bound = negscore_bound_ms(mode, zt, m, r, False)
+        print(f"{name} forward {str(dtype)[6:]} (training shape, device): "
+              f"{design} {turns[0]:.4f} / {turns[3]:.4f} ms, first "
+              f"{turns[1]:.4f} / {turns[2]:.4f} ms, bound {bound[0]:.4f} "
+              f"({bound[2]}); {design} at {bound[0] / fwd_ms[dtype]:.1%} of "
+              f"bound, first at {bound[0] / first_fwd_ms[dtype]:.1%}; "
+              f"fwd_l2_bytes {design} {l2[dtype][design] / 1e6:.1f} MB, "
+              f"first {l2[dtype]['first'] / 1e6:.1f} MB")
     zt, re = kernel_table(torch.bfloat16)
-    fwd_ms = device_ms(lambda: fwd(zt, ns, nd, rel, re))
     turns = []
-    for design in ("owner", "first", "first", "owner"):
-        with negscore_design_as(design):
+    for bwd_design in ("owner", "first", "first", "owner"):
+        with negscore_design_as(bwd_design):
             turns.append(device_ms(lambda: bwd(zt, ns, nd, rel, re, ds)))
     bwd_ms, first_ms = min(turns[0], turns[3]), min(turns[1], turns[2])
     with torch.no_grad():
@@ -1043,7 +1126,8 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
     plain_bwd_ms = time_ms(lambda: torch.autograd.grad(
         s_p, (zp, rp), ds, retain_graph=True))
     records = []
-    for backward, ms, plain_ms in ((False, fwd_ms, plain_fwd_ms),
+    bf16 = torch.bfloat16
+    for backward, ms, plain_ms in ((False, fwd_ms[bf16], plain_fwd_ms),
                                    (True, bwd_ms, plain_bwd_ms)):
         bound, by, term = negscore_bound_ms(mode, zt, m, r, backward)
         kname = name + ("_bwd" if backward else "")
@@ -1059,16 +1143,30 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
               f"({term}), kernel at {bound / ms:.1%} of bound{extra}; no "
               f"single PyTorch call computes this function")
-        records.append({
-            "name": kname, "design": "owner" if backward else "first",
+        record = {
+            "name": kname, "design": "owner" if backward else design,
             "route": "cuda",
             "source": "biomedkg_tpu_torch/csrc/negscore.cu",
             "replaces": "biomedkg_tpu/ops/pallas/negscore.py:"
                         f"{NEG_REPLACES[dual, backward]}",
             "launches": launches[kname],
-            "max_abs_err": err[torch.bfloat16][backward], "ms": ms,
+            "max_abs_err": err[bf16][backward], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None}
+        if backward:
+            record["first_design_ms"] = first_ms
+        else:
+            f32 = torch.float32
+            record.update(
+                first_design_ms=first_fwd_ms[bf16],
+                ms_float32=fwd_ms[f32],
+                first_design_ms_float32=first_fwd_ms[f32],
+                bound_ms_float32=negscore_bound_ms(
+                    mode, kernel_table(f32)[0], m, r, False)[0],
+                max_abs_err_float32=err[f32][0],
+                fwd_l2_bytes=l2[bf16][design],
+                first_design_fwd_l2_bytes=l2[bf16]["first"])
+        records.append(record)
     return records
 
 
@@ -1335,6 +1433,9 @@ def train_phase(dm, dev, tmp):
     with first_design_negscore():
         profile_steps(module, state, batches[-PROFILED:], gen,
                       "train step with the first-design negscore backward")
+    with first_design_negscore_fwd():
+        profile_steps(module, state, batches[-PROFILED:], gen,
+                      "train step with the first-design negscore forward")
 
     # -- one step: kernels against the plain versions ---------------------
     batch = batches[0]
@@ -1374,10 +1475,14 @@ def train_phase(dm, dev, tmp):
 
 
 def odd_shape_checks(dev):
-    """Every negscore kernel against its plain version off the path, the
-    backwards in both designs, in float32 and bf16: d not a multiple of the
-    warp (nor the pair offset d/2), K·E not a multiple of the chunk, ids
-    out of range (clipped), ns in any order; and rotate (float32) where
+    """Every negscore kernel against its plain version off the path, each
+    direction in both designs (the forward's first design with the
+    backward's, "run" / "staged" with "owner"), in float32 and bf16: d not
+    a multiple of the warp (nor the pair offset d/2), d of 128 and 256 (the
+    redesigned forward's 4- and 8-feature lanes), K·E not a multiple of the
+    chunk, ids out of range (clipped), ns in any order (nd is in any order
+    throughout), a "sorted2" band that wraps the id range, one src id over
+    3,000 slots (many staged blocks and warps); and rotate (float32) where
     pairs sit below the distance's clamp (|u| < 1e-6): tails that are
     their heads moved by 1e-7 in the pairs whose phase is 0, where both
     take du = −ds·u / 1e-6 (the reference's _distance_bwd). Tolerances
@@ -1399,7 +1504,10 @@ def odd_shape_checks(dev):
         for design, dual in itertools.product(negscore.DESIGNS,
                                               (False, True)):
             name = negscore.kernel_name(mode, dual)
-            with negscore_design_as(design):
+            fwd_design = ("first" if design == "first"
+                          else "staged" if dual else "run")
+            with negscore_design_as(design), \
+                    negscore_fwd_design_as(fwd_design):
                 got = (negscore.KERNELS[name](z, ns, nd, rel, re),
                        *negscore.KERNELS[name + "_bwd"](z, ns, nd, rel, re,
                                                         ds))
@@ -1417,7 +1525,8 @@ def odd_shape_checks(dev):
     for mode in negscore.MODES:
         width = (lambda d: d // 2 if mode == "rotate" else d)
         for dtype in (torch.float32, torch.bfloat16):
-            for d in (6, 100) if mode in negscore.PAIRED else (7, 100):
+            for d in ((6, 100, 256) if mode in negscore.PAIRED
+                      else (7, 100, 128, 256)):
                 z = torch.randn(n, d, device=dev, generator=gen)
                 ns = torch.sort(draw(-2, n + 3, (m,)))[0]
                 nd, rel = draw(-2, n + 3, (m,)), draw(-1, r + 1, (m,))
@@ -1428,6 +1537,19 @@ def odd_shape_checks(dev):
             compare(mode, z, draw(-2, n + 3, (m,)), draw(-2, n + 3, (m,)),
                     draw(-1, r + 1, (m,)), rel_emb, "with ns in any order",
                     dtype)
+            # the sampler's sorted2 bands over 300 ids, each chunk's band
+            # of 12 ids starting 6 below the top, so that it wraps
+            wide = 300
+            z = torch.randn(wide, 256, device=dev, generator=gen)
+            rel_emb = torch.randn(r, width(256), device=dev, generator=gen)
+            ns = torch.sort(draw(0, wide, (m,)))[0]
+            band = torch.remainder(wide - 6 + draw(0, 12, (m,)), wide).int()
+            compare(mode, z, ns, band, draw(0, r, (m,)), rel_emb,
+                    "with a dst band that wraps the id range", dtype)
+            ns = torch.sort(torch.where(torch.arange(m, device=dev) < 3000,
+                                        7, draw(0, wide, (m,))))[0].int()
+            compare(mode, z, ns, draw(0, wide, (m,)), draw(0, r, (m,)),
+                    rel_emb, "with one src id over 3,000 slots", dtype)
     d, half = 100, n // 2
     z = torch.randn(n, d, device=dev, generator=gen)
     z[half:2 * half] = z[:half]
@@ -1439,9 +1561,10 @@ def odd_shape_checks(dev):
                      draw(0, n, (m,)))
     clamp_err = compare("rotate", z, ns, nd, draw(0, r, (m,)), rel_emb,
                         "below the clamp")
-    print(f"negscore kernels off the path (both backward designs; N = {n}, "
-          f"K·E = {m}, d of 6 or 7 and 100, ids out of range, ns sorted "
-          f"and in any order): max rel-to-max error float32 "
+    print(f"negscore kernels off the path (both designs of each direction; "
+          f"N = {n} and 300, K·E = {m}, d of 6 or 7, 100, 128 and 256, ids "
+          f"out of range, ns sorted and in any order, a dst band that "
+          f"wraps, one src id over 3,000 slots): max rel-to-max error float32 "
           f"{worst[torch.float32]:.3g} (tol 1e-4), bf16 "
           f"{worst[torch.bfloat16]:.3g} (tol {NEG_TOL_BF16[0]:g} / "
           f"{NEG_TOL_BF16[1]:g}); rotate with pairs below the distance's "
@@ -1483,6 +1606,10 @@ def decoder_phase(dm, dev, tmp, batches, feature_table, rotate_run):
                 profile_steps(module, state, batches[-PROFILED:], step_gen,
                               f"{what} train step with the first-design "
                               f"negscore backward")
+            with first_design_negscore_fwd():
+                profile_steps(module, state, batches[-PROFILED:], step_gen,
+                              f"{what} train step with the first-design "
+                              f"negscore forward")
         compare_step(sd, feature_table, dev, batch, kernel, what, **over)
         negatives = path_negatives(batch, gen, dual)
         nd_wide = path_negatives(batch, gen, False)[1] if dual else None
