@@ -46,8 +46,8 @@
 // bound, since each slot costs dependent L2 round trips (indices, then
 // rows), and the first design's backward atomics queue in L2.
 //
-// The path's forwards are the redesign below ("run", "staged"); the first
-// design's stay for the A/B:
+// The path's forward, for both families, is the redesign below ("run");
+// the first design's stay for the A/B:
 //
 // Streamed family (any order of ns and nd; fast for ascending ns):
 //  * forward (first design): one warp per slot, kUnroll slots in flight
@@ -87,8 +87,9 @@
 // (backward) cap x d float32 buffers beside the tables and the running
 // rows.
 //
-// Forward redesign, both families ("run" streamed, "staged" dual-sorted):
-// a warp walks a contiguous run of slots. Lane p holds pack p of the
+// Forward redesign ("run"), both families: a warp walks a contiguous run
+// of slots (the grid's resident warps each take an equal run). Lane p
+// holds pack p of the
 // current src id's row in float32 registers (8 features, or 4 of each
 // half for the paired modes, at d = 256: 16 bytes of a bf16 row, every
 // lane busy in every mode), reloaded only where ns changes; per slot it
@@ -96,16 +97,12 @@
 // shared memory and adds its units in order; eight slots' partials are
 // summed together by a transpose reduction (9 shuffles). Slot ids come 32
 // at a time, a batch ahead, and a group of 8 slots with one src id runs
-// with no branch between its slots.
-//  * "run": t gathered from z in L2, 8 bf16 (4 float32) rows in flight a
-//    warp; the grid's resident warps each take an equal run. Only t moves
-//    from L2: half the first design's gathers.
-//  * "staged": a block takes a quarter of a sampler chunk (512 slots); it
-//    finds each side's span of ids rotated around its first slot's id (so
-//    that a dst band that wraps the id range is one span), stages spans of
-//    at most `cap` rows in z's type with 16-byte cp.async copies, and its
-//    warps walk contiguous shares reading t (and h) there; a wider span
-//    reads z. Any order of ns and nd stays exact.
+// with no branch between its slots. t is gathered from z in L2, 8 bf16 (4
+// float32) rows in flight a warp: half the first design's gathers. Any
+// order of ns and nd stays exact, so the dual-sorted family runs it too: a
+// design that staged each block's spans of ids in shared memory was slower
+// than this one on the same sorted2 inputs in every mode and both types
+// (PERF.md, PR 12) and was dropped.
 //
 // The backwards above are the first design, kept for the A/B. The path's
 // backward, for both families, is the owner design: every dz row is written
@@ -181,7 +178,6 @@ constexpr int kFwdSlots = 8;                // slots summed together a warp
 constexpr int kFwdRows = 8;                 // bf16 t rows in flight a warp
                                             // (float32 half as many)
 constexpr int kFwdBlocksPerSm = 2;          // register budget: 128 a thread
-constexpr int kStagedSplit = 4;             // staged blocks a sampler chunk
 
 // slots in flight per warp: the paired modes hold twice the rows
 template <int M>
@@ -1461,17 +1457,17 @@ __global__ void __launch_bounds__(kOwnWarps * 32, kOwnBlocksPerSm)
 }
 
 // ---------------------------------------------------------------------------
-// Forward redesign: "run" (streamed family) and "staged" (dual-sorted)
+// Forward redesign: "run" (both families)
 
-// A half-row (`units` features) as the forward keeps it in shared memory
-// (the float32 relation table, the staged rows in z's type): lane p's V
-// features are cut into groups of E (all V when they take at most 16
-// bytes, else 16 bytes), group k at (k * packs + p) * E, so that one
-// access of a warp reads a group of every lane without bank conflicts.
+// A half-row (`units` features) of the float32 relation table as the
+// forward keeps it in shared memory: lane p's V features are cut into
+// groups of E (all V when they take at most 16 bytes, else 16 bytes),
+// group k at (k * packs + p) * E, so that one access of a warp reads a
+// group of every lane without bank conflicts.
 // Only float32 with V = 8 splits (E = 4, two groups; the owner kernel's
 // Lanes layout); every other case is the plain layout.
 template <typename T, int V>
-struct Staged {
+struct TableLayout {
   static constexpr int E =
       V * (int)sizeof(T) > 16 ? 16 / (int)sizeof(T) : V;
   static_assert(E == V || 2 * E == V, "a lane's pack is one or two groups");
@@ -1492,63 +1488,23 @@ struct Staged {
   }
 };
 
-// where element c of a row sits in its staged copy
+// where element c of a row sits in its shared copy
 template <typename T, int V>
-__device__ __forceinline__ int staged_index(int c, int units, int packs) {
-  return c < units ? Staged<T, V>::index(c, packs)
-                   : units + Staged<T, V>::index(c - units, packs);
+__device__ __forceinline__ int table_index(int c, int units, int packs) {
+  return c < units ? TableLayout<T, V>::index(c, packs)
+                   : units + TableLayout<T, V>::index(c - units, packs);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// Ids rotated so that a band around a pivot q is contiguous: id -> id - q
-// + n/2 (mod n), and back.
-__device__ __forceinline__ int rotate_id(int id, int q, int n) {
-  const int x = id - q + (n >> 1);
-  return x < 0 ? x + n : (x >= n ? x - n : x);
-}
-
-__device__ __forceinline__ int unrotate_id(int x, int q, int n) {
-  const int id = x + q - (n >> 1);
-  return id < 0 ? id + n : (id >= n ? id - n : id);
-}
-
-// Where the forward reads one side's rows: z itself (stage == nullptr), or
-// the rows of the rotated ids lo, lo + 1, ... staged in shared memory.
-template <typename T>
-struct RowSource {
-  const T* stage;
-  int q, lo;
-};
-
-// One side's row of `id`, the lane's pack of each half (V features at j,
-// and at off + j for the paired modes), as raw bytes.
+// The row of `id`, the lane's pack p of each half (V features at p * V,
+// and at off + p * V for the paired modes), as raw bytes from z.
 template <int M, typename T, int V>
-__device__ __forceinline__ void fetch_row(const T* __restrict__ z,
-                                          const RowSource<T>& src, int id,
-                                          int n, int d, int off, int packs,
-                                          int p, typename Raw<T, V>::Type& x0,
+__device__ __forceinline__ void fetch_row(const T* __restrict__ z, int id,
+                                          int d, int off, int p,
+                                          typename Raw<T, V>::Type& x0,
                                           typename Raw<T, V>::Type& x1) {
-  using S = Staged<T, V>;
-  if (src.stage) {
-    const T* row = src.stage + (int64_t)(rotate_id(id, src.q, n) - src.lo) * d;
-    x0 = S::read(row, packs, p);
-    if constexpr (kPaired<M>) x1 = S::read(row + off, packs, p);
-  } else {
-    const T* row = z + (int64_t)id * d + p * V;
-    x0 = Raw<T, V>::load(row);
-    if constexpr (kPaired<M>) x1 = Raw<T, V>::load(row + off);
-  }
+  const T* row = z + (int64_t)id * d + p * V;
+  x0 = Raw<T, V>::load(row);
+  if constexpr (kPaired<M>) x1 = Raw<T, V>::load(row + off);
 }
 
 // the clipped (h, t, relation) ids of slot s (0, 0, 0 for s < 0)
@@ -1599,12 +1555,11 @@ __device__ __forceinline__ float reduce_slots(const float (&acc)[8]) {
 
 // The lane's pack of the src row of `id` into float32 registers.
 template <int M, typename T, int V>
-__device__ __forceinline__ void load_h(const T* __restrict__ z,
-                                       const RowSource<T>& src, int id, int n,
-                                       int d, int off, int packs, int p,
-                                       float* h0, float* h1) {
+__device__ __forceinline__ void load_h(const T* __restrict__ z, int id,
+                                       int d, int off, int p, float* h0,
+                                       float* h1) {
   typename Raw<T, V>::Type x0, x1;
-  fetch_row<M, T, V>(z, src, id, n, d, off, packs, p, x0, x1);
+  fetch_row<M, T, V>(z, id, d, off, p, x0, x1);
   Raw<T, V>::to_float(x0, h0);
   if constexpr (kPaired<M>) Raw<T, V>::to_float(x1, h1);
 }
@@ -1619,7 +1574,7 @@ __device__ __forceinline__ float lane_term(
     int packs, int p) {
   using R = Raw<T, V>;
   using Q = Raw<float, V>;
-  using S = Staged<float, V>;
+  using S = TableLayout<float, V>;
   float x0[V], x1[V], r0[V], r1[V];
   R::to_float(t0, x0);
   Q::to_float(S::read(rrow, packs, p), r0);
@@ -1642,10 +1597,9 @@ __device__ __forceinline__ float lane_term(
 // A warp's walk over the slots [begin, end): lane l holds pack p0 + l (V
 // features of each half; 32 packs a pass, more passes for wider rows) of
 // the current src id's row in float32 registers, reloaded only where ns
-// changes, and gathers each slot's t pack (from z in L2, or from the stage)
-// with kFwdRows slots in flight (float32 half as many: the same bytes);
-// the relation row comes from the shared float32 table `stab` (Staged
-// layout). Slots go in groups of kFwdSlots: a group with one src id (a
+// changes, and gathers each slot's t pack from z (in L2) with kFwdRows
+// slots in flight (float32 half as many: the same bytes); the relation
+// row comes from the shared float32 table `stab` (TableLayout). Slots go in groups of kFwdSlots: a group with one src id (a
 // vote) is computed with no branch between its slots, so that their loads
 // and sums overlap; a group where ns changes, slot by slot. Each group's
 // partials are summed by reduce_slots and stored by one lane each; a
@@ -1655,9 +1609,8 @@ template <int M, typename T, int V>
 __device__ __forceinline__ void fwd_walk(
     const T* __restrict__ z, const int32_t* __restrict__ ns,
     const int32_t* __restrict__ nd, const int32_t* __restrict__ rel,
-    const float* stab, const RowSource<T>& hsrc,
-    const RowSource<T>& tsrc, float* __restrict__ out, int64_t begin,
-    int64_t end, int n, int d, int r) {
+    const float* stab, float* __restrict__ out, int64_t begin, int64_t end,
+    int n, int d, int r) {
   using R = Raw<T, V>;
   constexpr int F = sizeof(T) == 4 ? kFwdRows / 2 : kFwdRows;
   static_assert(kFwdSlots == 8 && kFwdSlots % F == 0, "reduce_slots takes 8");
@@ -1685,7 +1638,7 @@ __device__ __forceinline__ void fwd_walk(
         const bool mine = lane >= k0 && lane < k0 + kFwdSlots && lane < count;
         const bool one_h = __all_sync(0xffffffffu, !mine || ids.h == hk0);
         if (one_h && hk0 != cur) {   // the group's one src id, loaded once
-          load_h<M, T, V>(z, hsrc, hk0, n, d, off, packs, p, h0, h1);
+          load_h<M, T, V>(z, hk0, d, off, p, h0, h1);
           cur = hk0;
         }
         float acc[kFwdSlots];
@@ -1696,7 +1649,7 @@ __device__ __forceinline__ void fwd_walk(
           for (int u = 0; u < F; ++u) {
             const int k = k0 + f0 + u;
             const int t = __shfl_sync(0xffffffffu, ids.t, k < count ? k : k0);
-            fetch_row<M, T, V>(z, tsrc, t, n, d, off, packs, p, t0[u], t1[u]);
+            fetch_row<M, T, V>(z, t, d, off, p, t0[u], t1[u]);
           }
           if (one_h) {     // no branch between the group's slots
 #pragma unroll
@@ -1715,7 +1668,7 @@ __device__ __forceinline__ void fwd_walk(
               const int h = __shfl_sync(0xffffffffu, ids.h, src);
               const int rr = __shfl_sync(0xffffffffu, ids.r, src);
               if (h != cur) {
-                load_h<M, T, V>(z, hsrc, h, n, d, off, packs, p, h0, h1);
+                load_h<M, T, V>(z, h, d, off, p, h0, h1);
                 cur = h;
               }
               acc[f0 + u] = lane_term<M, T, V>(h0, h1, t0[u], t1[u],
@@ -1740,7 +1693,7 @@ __device__ __forceinline__ void fwd_walk(
 }
 
 // the relation table (float32, already rounded to z's type) into shared
-// memory, each half-row in the Staged layout (block-wide)
+// memory, each half-row in the TableLayout (block-wide)
 template <int M, int V>
 __device__ __forceinline__ void stage_table(const float* __restrict__ re,
                                             int r, int d, float* stab) {
@@ -1749,17 +1702,11 @@ __device__ __forceinline__ void stage_table(const float* __restrict__ re,
 #pragma unroll 4
   for (int row = 0; row < r; ++row)
     for (int c = threadIdx.x; c < d; c += blockDim.x)
-      stab[row * d + staged_index<float, V>(c, units, packs)] =
+      stab[row * d + table_index<float, V>(c, units, packs)] =
           re[row * d + c];
 }
 
-// bytes of shared memory the forward's relation table takes, rounded up to
-// 16 (the staged rows follow it)
-__host__ __device__ __forceinline__ size_t fwd_table_bytes(int r, int d) {
-  return ((size_t)r * d * sizeof(float) + 15) / 16 * 16;
-}
-
-// Shared memory: the relation table (float32, Staged layout). Warp w of the
+// Shared memory: the relation table (float32, TableLayout). Warp w of the
 // grid walks slots [w * per_warp, (w + 1) * per_warp).
 template <int M, typename T, int V>
 __global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocksPerSm)
@@ -1775,109 +1722,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocksPerSm)
   const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int64_t begin = warp * per_warp;
   const int64_t end = begin + per_warp < m ? begin + per_warp : m;
-  const RowSource<T> global{nullptr, 0, 0};
   if (begin < end)
-    fwd_walk<M, T, V>(z, ns, nd, rel, stab, global, global, out, begin, end,
-                      n, d, r);
-}
-
-// One side's span into the stage: rows lo .. lo + rows - 1 of the rotated
-// ids around q, a warp a row, each in the Staged layout; 16-byte cp.async
-// copies when `vec` (z 16-byte aligned, a half-row whole 16-byte units),
-// else element by element. Block-wide; the caller waits and synchronises.
-template <int M, typename T, int V>
-__device__ __forceinline__ void stage_span(const T* __restrict__ z, int q,
-                                           int lo, int rows, int n, int d,
-                                           bool vec, T* stage) {
-  constexpr int C = 16 / (int)sizeof(T);      // elements a copy
-  const int units = kPaired<M> ? d / 2 : d;
-  const int packs = units / V;
-  const int lane = threadIdx.x & 31;
-  for (int k = threadIdx.x >> 5; k < rows; k += blockDim.x >> 5) {
-    const T* src = z + (int64_t)unrotate_id(lo + k, q, n) * d;
-    T* dst = stage + k * d;
-    if (vec) {
-      for (int c = lane * C; c < d; c += 32 * C)
-        cp_async16(dst + staged_index<T, V>(c, units, packs), src + c);
-    } else {
-      for (int c = lane; c < d; c += 32)
-        dst[staged_index<T, V>(c, units, packs)] = src[c];
-    }
-  }
-}
-
-// Shared memory: the relation table (float32, fwd_table_bytes), then the
-// staged src and dst rows (cap*d each, z's type). Block b takes
-// slots [b * slots, (b + 1) * slots): it finds each side's span of rotated
-// ids (pivot: its first slot's id, so that a dst band that wraps the id
-// range stays one span), stages a span of at most `cap` rows (the other
-// side reads z), and its warps walk contiguous shares of its slots.
-template <int M, typename T, int V>
-__global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocksPerSm)
-    staged_fwd_kernel(const T* __restrict__ z, const int32_t* __restrict__ ns,
-                      const int32_t* __restrict__ nd,
-                      const int32_t* __restrict__ rel,
-                      const float* __restrict__ re, float* __restrict__ out,
-                      int64_t m, int n, int d, int r, int slots, int cap,
-                      int vec) {
-  extern __shared__ __align__(16) unsigned char fwd_smem[];
-  __shared__ int part[4][kFwdWarps];
-  float* stab = reinterpret_cast<float*>(fwd_smem);
-  T* rows_s = reinterpret_cast<T*>(fwd_smem + fwd_table_bytes(r, d));
-  T* rows_d = rows_s + cap * d;
-  const int64_t c0 = (int64_t)blockIdx.x * slots;
-  const int64_t c1 = c0 + slots < m ? c0 + slots : m;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int qs = clip(__ldg(ns + c0), n - 1);
-  const int qd = clip(__ldg(nd + c0), n - 1);
-  int v[4] = {n, -1, n, -1};    // rotated lo_s, hi_s, lo_d, hi_d
-  for (int64_t s = c0 + threadIdx.x; s < c1; s += blockDim.x) {
-    const int a = rotate_id(clip(__ldg(ns + s), n - 1), qs, n);
-    const int b = rotate_id(clip(__ldg(nd + s), n - 1), qd, n);
-    v[0] = min(v[0], a);
-    v[1] = max(v[1], a);
-    v[2] = min(v[2], b);
-    v[3] = max(v[3], b);
-  }
-  stage_table<M, V>(re, r, d, stab);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v[0] = min(v[0], __shfl_xor_sync(0xffffffffu, v[0], o));
-    v[1] = max(v[1], __shfl_xor_sync(0xffffffffu, v[1], o));
-    v[2] = min(v[2], __shfl_xor_sync(0xffffffffu, v[2], o));
-    v[3] = max(v[3], __shfl_xor_sync(0xffffffffu, v[3], o));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) part[k][warp] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    v[k] = part[k][0];
-    for (int w = 1; w < warps; ++w)
-      v[k] = (k & 1) ? max(v[k], part[k][w]) : min(v[k], part[k][w]);
-  }
-  const bool staged_s = v[1] - v[0] < cap;
-  const bool staged_d = v[3] - v[2] < cap;
-  if (staged_s) stage_span<M, T, V>(z, qs, v[0], v[1] - v[0] + 1, n, d, vec,
-                                    rows_s);
-  if (staged_d) stage_span<M, T, V>(z, qd, v[2], v[3] - v[2] + 1, n, d, vec,
-                                    rows_d);
-  cp_async_wait_all();
-  __syncthreads();
-  const RowSource<T> hsrc{staged_s ? rows_s : nullptr, qs, v[0]};
-  const RowSource<T> tsrc{staged_d ? rows_d : nullptr, qd, v[2]};
-  // contiguous shares of whole groups of kFwdSlots slots
-  const int64_t share =
-      ((c1 - c0 + warps - 1) / warps + kFwdSlots - 1) / kFwdSlots * kFwdSlots;
-  const int64_t begin = c0 + warp * share;
-  const int64_t end = begin + share < c1 ? begin + share : c1;
-  if (begin < end)
-    fwd_walk<M, T, V>(z, ns, nd, rel, stab, hsrc, tsrc, out, begin, end, n,
-                      d, r);
+    fwd_walk<M, T, V>(z, ns, nd, rel, stab, out, begin, end, n, d, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -2126,7 +1972,7 @@ int launch_run_fwd(const void* z, const void* ns, const void* nd,
   int sms = 0;
   int err = device_attr(cudaDevAttrMultiProcessorCount, &sms);
   if (err != cudaSuccess) return err;
-  const size_t smem = fwd_table_bytes(r, d);
+  const size_t smem = (size_t)r * d * sizeof(float);
   auto kernel = run_fwd_kernel<M, T, V>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -2141,39 +1987,6 @@ int launch_run_fwd(const void* z, const void* ns, const void* nd,
       static_cast<const int32_t*>(nd), static_cast<const int32_t*>(rel),
       static_cast<const float*>(re), static_cast<float*>(out), m, n, d, r,
       per_warp);
-  return (int)cudaGetLastError();
-}
-
-template <int M, typename T, int V>
-int launch_staged_fwd(const void* z, const void* ns, const void* nd,
-                      const void* rel, const void* re, void* out,
-                      long long m, int n, int d, int r, int chunk,
-                      void* stream) {
-  if (chunk <= 0) return (int)cudaErrorInvalidValue;
-  int limit = 0;
-  int err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &limit);
-  if (err != cudaSuccess) return err;
-  // the table and two spans of up to cap rows, cap lowered from kSpanCap
-  // to fit (0: both sides read z)
-  const size_t table = fwd_table_bytes(r, d);
-  const size_t row = (size_t)d * sizeof(T);
-  const size_t room = (size_t)limit - 1024;   // the kernel's static array
-  int cap = kSpanCap;
-  while (cap > 0 && table + 2 * cap * row > room) --cap;
-  const size_t smem = table + 2 * cap * row;
-  auto kernel = staged_fwd_kernel<M, T, V>;
-  err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int units = kPaired<M> ? d / 2 : d;
-  const int vec = units * sizeof(T) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(z) % 16 == 0;
-  const int slots = chunk % kStagedSplit == 0 ? chunk / kStagedSplit : chunk;
-  const int64_t blocks = (m + slots - 1) / slots;
-  kernel<<<(unsigned)blocks, kFwdWarps * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(z), static_cast<const int32_t*>(ns),
-      static_cast<const int32_t*>(nd), static_cast<const int32_t*>(rel),
-      static_cast<const float*>(re), static_cast<float*>(out), m, n, d, r,
-      slots, cap, vec);
   return (int)cudaGetLastError();
 }
 
@@ -2231,10 +2044,8 @@ extern "C" int negscore_fwd_bf16(int mode, const void* z, const void* ns,
 #undef CALL
 }
 
-// The forward redesign: negscore_run_fwd_{f32,bf16} ("run", the streamed
-// family) and negscore_staged_fwd_{f32,bf16} ("staged", the dual-sorted
-// family; `chunk` the sampler's BLOCK, each chunk split over kStagedSplit
-// blocks). Both take any order of ns and nd and write all m scores.
+// The forward redesign: negscore_run_fwd_{f32,bf16} ("run", both
+// families). It takes any order of ns and nd and writes all m scores.
 extern "C" int negscore_run_fwd_f32(int mode, const void* z, const void* ns,
                                     const void* nd, const void* rel,
                                     const void* re, void* out, long long m,
@@ -2270,47 +2081,6 @@ extern "C" int negscore_run_fwd_bf16(int mode, const void* z, const void* ns,
                                       stream)                               \
             : launch_run_fwd<M, B, 1>(z, ns, nd, rel, re, out, m, n, d, r,  \
                                       stream))
-  NEGSCORE_DISPATCH(CALL)
-#undef CALL
-}
-
-extern "C" int negscore_staged_fwd_f32(int mode, const void* z,
-                                       const void* ns, const void* nd,
-                                       const void* rel, const void* re,
-                                       void* out, long long m, int n, int d,
-                                       int r, int chunk, void* stream) {
-  if (bad_mode(mode, d)) return (int)cudaErrorInvalidValue;
-  if (m <= 0 || d <= 0) return (int)cudaSuccess;
-  const int units = (mode == kComplex || mode == kRotatE) ? d / 2 : d;
-  const int v = fwd_vector(units, sizeof(float), z);
-#define CALL(M)                                                            \
-  (v == 8   ? launch_staged_fwd<M, float, 8>(z, ns, nd, rel, re, out, m, n, \
-                                             d, r, chunk, stream)          \
-   : v == 4 ? launch_staged_fwd<M, float, 4>(z, ns, nd, rel, re, out, m, n, \
-                                             d, r, chunk, stream)          \
-            : launch_staged_fwd<M, float, 1>(z, ns, nd, rel, re, out, m, n, \
-                                             d, r, chunk, stream))
-  NEGSCORE_DISPATCH(CALL)
-#undef CALL
-}
-
-extern "C" int negscore_staged_fwd_bf16(int mode, const void* z,
-                                        const void* ns, const void* nd,
-                                        const void* rel, const void* re,
-                                        void* out, long long m, int n, int d,
-                                        int r, int chunk, void* stream) {
-  if (bad_mode(mode, d)) return (int)cudaErrorInvalidValue;
-  if (m <= 0 || d <= 0) return (int)cudaSuccess;
-  const int units = (mode == kComplex || mode == kRotatE) ? d / 2 : d;
-  const int v = fwd_vector(units, sizeof(__nv_bfloat16), z);
-  using B = __nv_bfloat16;
-#define CALL(M)                                                             \
-  (v == 8   ? launch_staged_fwd<M, B, 8>(z, ns, nd, rel, re, out, m, n, d,  \
-                                         r, chunk, stream)                  \
-   : v == 4 ? launch_staged_fwd<M, B, 4>(z, ns, nd, rel, re, out, m, n, d,  \
-                                         r, chunk, stream)                  \
-            : launch_staged_fwd<M, B, 1>(z, ns, nd, rel, re, out, m, n, d,  \
-                                         r, chunk, stream))
   NEGSCORE_DISPATCH(CALL)
 #undef CALL
 }

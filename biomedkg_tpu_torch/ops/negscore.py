@@ -33,16 +33,13 @@ gradient, as XLA does in the reference. The backward returns ``dz`` in z's
 type and the relation gradient in rel_emb's.
 
 The forward runs in the design ``negscore_fwd_design`` names: "run" for
-the streamed family, "staged" for the dual-sorted one. In both a warp walks
-a contiguous run of slots, holds its share of the current src row in
-registers (reloaded only where ns changes), reads the relation row from a
-float32 table in shared memory and the slot's t, and sums eight slots'
-partials at once (a transpose reduction over the lanes): "run" gathers t
-from z (in L2),
-"staged" from the rows of the block's spans of ids, staged in shared
-memory in z's type (a band that wraps the id range staged whole, as one
-span of rotated ids). ``lane_scores_plain`` is their plain version in the
-kernels' order of sums. The first design (``fwd_kernel`` /
+both families. A warp walks a contiguous run of slots, holds its share of
+the current src row in registers (reloaded only where ns changes), reads
+the relation row from a float32 table in shared memory, gathers the
+slot's t from z (in L2), and sums eight slots' partials at once (a
+transpose reduction over the lanes). It takes ns and nd in any order, so
+the dual-sorted family's sorted2 inputs need no design of their own.
+``lane_scores_plain`` is its plain version in the kernel's order of sums. The first design (``fwd_kernel`` /
 ``ds_fwd_kernel``: both rows gathered every slot, one warp-shuffle sum a
 slot) stays for the A/B on the card; only a caller that replaces
 ``negscore_fwd_design`` reaches it.
@@ -92,7 +89,7 @@ _OWNER = [_I] + [_P] * 10 + [ctypes.c_longlong, _I, _I, _I, _P]
 _BUCKETS = [_P, _P, ctypes.c_longlong, _I, _I, _P, _P, _P, _P, _P, _P]
 LIBRARY = CudaLibrary("negscore.cu", {
     **{f"negscore_{fam}fwd_{t}": _FWD
-       for fam in ("", "ds_", "staged_") for t in ("f32", "bf16")},
+       for fam in ("", "ds_") for t in ("f32", "bf16")},
     **{f"negscore_run_fwd_{t}": _RUN for t in ("f32", "bf16")},
     **{f"negscore_bwd_{t}": _BWD for t in ("f32", "bf16")},
     **{f"negscore_ds_bwd_{t}": _BWD_DS for t in ("f32", "bf16")},
@@ -100,10 +97,8 @@ LIBRARY = CudaLibrary("negscore.cu", {
     "negscore_buckets": _BUCKETS})
 # the backward's designs: the first (atomics on dz) and the node-owned one
 DESIGNS = ("first", "owner")
-# the forward's: the first (both rows gathered a slot) and the redesigns
-FWD_DESIGNS = ("first", "run", "staged")
-STAGED_SLOTS = BLOCK // 4   # slots a "staged" block takes (kStagedSplit)
-SPAN_CAP = 32               # rows a side it stages at most (kSpanCap)
+# the forward's: the first (both rows gathered a slot) and the redesign
+FWD_DESIGNS = ("first", "run")
 BUCKETS_NAME = "negscore_buckets"
 BUCKET_THREADS = 256     # csrc/negscore.cu kBucketThreads
 
@@ -128,11 +123,11 @@ def negscore_design(mode: str, dual: bool, dtype: torch.dtype,
 
 def negscore_fwd_design(mode: str, dual: bool, dtype: torch.dtype,
                         d: int) -> str:
-    """The forward design a call on the card runs: "run" for the streamed
-    family and "staged" for the dual-sorted one, for every mode, type and
-    width the kernels take. A fixed rule, as ``negscore_design``."""
+    """The forward design a call on the card runs: "run" for both families
+    and every mode, type and width the kernels take. A fixed rule, as
+    ``negscore_design``."""
     _takes(mode, dtype, d)
-    return "staged" if dual else "run"
+    return "run"
 
 
 def fwd_lane_features(units: int) -> int:
@@ -226,8 +221,6 @@ class NegScoreForward:
         kind = "f32" if z.dtype == torch.float32 else "bf16"
         if design == "run":
             fn, last = f"negscore_run_fwd_{kind}", []
-        elif design == "staged":
-            fn, last = f"negscore_staged_fwd_{kind}", [BLOCK]
         elif self.dual:
             fn, last = f"negscore_ds_fwd_{kind}", [BLOCK]
         else:   # 16-byte loads of each row's (half-)width

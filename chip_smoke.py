@@ -44,7 +44,7 @@ Phases; any failure ends the run with a non-zero exit:
     step with the plain versions (bf16 and float32); the negscore kernels
     and the segsum kernel against their plain versions at the path's
     shapes, timed beside their bounds (the negscore kernels on the device:
-    the forward in its redesign, "run" or "staged", and in its first
+    the forward in its redesign, "run", and in its first
     design, checked in both types and timed in turns in both, with the L2
     bytes each gathers; the backward in its owner design against the first
     design in turns);
@@ -64,7 +64,7 @@ Phases; any failure ends the run with a non-zero exit:
     "sorted" negatives and all four decoders with "sorted2". For each:
     warm-up steps, then P6_STEPS timed steps with every launch count set to
     0 just before and read just after (the mode's streamed or dual-sorted
-    negscore pair 1 + 1 per step, the forward on "run" or "staged", the
+    negscore pair 1 + 1 per step, the forward on "run", the
     backward on the owner design with one bucket build, segsum 6); one
     batch's loss and every
     gradient with the kernels against the plain versions (bf16 and
@@ -537,8 +537,8 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
                       neg_design: str = "owner") -> dict:
     """Every count 0 but segsum's (all of them on the owner design's
     ``packed`` instance), the ``kernel`` negscore pair's (none
-    when ``kernel`` is None), its forward's all on the family's redesign
-    ("run" streamed, "staged" dual-sorted), its backward's all on
+    when ``kernel`` is None), its forward's all on the redesign "run"
+    (both families), its backward's all on
     ``neg_design`` (the owner design's with one bucket build each),
     relmm's (forward, d_msg),
     all of them on ``relmm_instance``, and the flash pair's (forward,
@@ -558,7 +558,7 @@ def expected_launches(segsum_n: int, kernel, n: int, relmm_n=(0, 0),
     if kernel is not None:
         fwd = negscore.KERNELS[kernel]
         want.update({kernel: n, kernel + "_bwd": n,
-                     relmm_key(fwd, "staged" if fwd.dual else "run"): n,
+                     relmm_key(fwd, "run"): n,
                      relmm_key(negscore.KERNELS[kernel + "_bwd"],
                                neg_design): n})
         if neg_design == "owner":
@@ -658,7 +658,7 @@ def negscore_fwd_design_as(design: str):
 def first_design_negscore_fwd():
     """The negscore forward wrappers running the first design
     (``fwd_kernel`` / ``ds_fwd_kernel``: both rows gathered every slot)
-    for every call: the A/B of "run" and "staged" on their paths."""
+    for every call: the A/B of "run" on both families' paths."""
     return negscore_fwd_design_as("first")
 
 
@@ -994,32 +994,17 @@ def neg_magnitudes(mode, zt, ns, nd, rel, rel_emb, ds):
     return terms.detach().abs().sum(1), mag_dz, mag_dr
 
 
-def fwd_l2_bytes(design: str, z, ns, nd) -> int:
-    """What one forward call of ``design`` gathers from L2: the three
-    int32 ids a slot, and rows of z: the first design both rows every
-    slot; "run" t every slot and h once a run of equal ns (the least: a
-    warp's run also starts with one); "staged" each block's src and dst
-    spans of rotated ids once (a span above the kernel's cap reads a row a
-    slot), and the ids twice."""
-    n, d = z.shape
-    m, row = ns.shape[0], d * z.element_size()
+def fwd_l2_bytes(design: str, z, ns) -> int:
+    """A model, not a measurement, of what one forward call of ``design``
+    gathers from L2: the three int32 ids a slot, and rows of z: the first
+    design both rows every slot; "run" t every slot and h once a run of
+    equal ns. The least: "run" also reloads h where a warp's run starts,
+    and once a pass and a group where ns changes."""
+    m, row = ns.shape[0], z.shape[1] * z.element_size()
     if design == "first":
         return 12 * m + 2 * m * row
-    if design == "run":
-        runs = 1 + int((ns[1:] != ns[:-1]).sum())
-        return 12 * m + (m + runs) * row
-    slots = negscore.STAGED_SLOTS
-    full = m // slots * slots
-    rows = 0
-    for ids in (ns, nd):
-        ids = ids.long().clamp(0, n - 1)
-        for x in (ids[:full].view(-1, slots), ids[full:].view(1, -1)):
-            if x.numel():
-                rot = torch.remainder(x - x[:, :1] + n // 2, n)
-                span = rot.max(1).values - rot.min(1).values + 1
-                rows += int(torch.where(span <= negscore.SPAN_CAP, span,
-                                        x.shape[1]).sum())
-    return 24 * m + rows * row
+    runs = 1 + int((ns[1:] != ns[:-1]).sum())
+    return 12 * m + (m + runs) * row
 
 
 def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
@@ -1032,7 +1017,7 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
     the first design in turns); returns their two ``kernels`` records."""
     name = negscore.kernel_name(mode, dual)
     fwd, bwd = negscore.KERNELS[name], negscore.KERNELS[name + "_bwd"]
-    design = "staged" if dual else "run"
+    design = "run"
     ns, nd, rel = negatives
     m, r = ns.shape[0], rel_emb.shape[0]
 
@@ -1101,7 +1086,7 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
                 turns.append(device_ms(lambda: fwd(zt, ns, nd, rel, re)))
         fwd_ms[dtype] = min(turns[0], turns[3])
         first_fwd_ms[dtype] = min(turns[1], turns[2])
-        l2[dtype] = {des: fwd_l2_bytes(des, zt, ns, nd)
+        l2[dtype] = {des: fwd_l2_bytes(des, zt, ns)
                      for des in (design, "first")}
         bound = negscore_bound_ms(mode, zt, m, r, False)
         print(f"{name} forward {str(dtype)[6:]} (training shape, device): "
@@ -1109,8 +1094,9 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
               f"{turns[1]:.4f} / {turns[2]:.4f} ms, bound {bound[0]:.4f} "
               f"({bound[2]}); {design} at {bound[0] / fwd_ms[dtype]:.1%} of "
               f"bound, first at {bound[0] / first_fwd_ms[dtype]:.1%}; "
-              f"fwd_l2_bytes {design} {l2[dtype][design] / 1e6:.1f} MB, "
-              f"first {l2[dtype]['first'] / 1e6:.1f} MB")
+              f"fwd_l2_bytes (modelled, the least) {design} "
+              f"{l2[dtype][design] / 1e6:.1f} MB, first "
+              f"{l2[dtype]['first'] / 1e6:.1f} MB")
     zt, re = kernel_table(torch.bfloat16)
     turns = []
     for bwd_design in ("owner", "first", "first", "owner"):
@@ -1161,11 +1147,7 @@ def negscore_records(mode, dual, z, negatives, rel_emb, ds, launches,
                 first_design_ms=first_fwd_ms[bf16],
                 ms_float32=fwd_ms[f32],
                 first_design_ms_float32=first_fwd_ms[f32],
-                bound_ms_float32=negscore_bound_ms(
-                    mode, kernel_table(f32)[0], m, r, False)[0],
-                max_abs_err_float32=err[f32][0],
-                fwd_l2_bytes=l2[bf16][design],
-                first_design_fwd_l2_bytes=l2[bf16]["first"])
+                max_abs_err_float32=err[f32][0])
         records.append(record)
     return records
 
@@ -1477,12 +1459,12 @@ def train_phase(dm, dev, tmp):
 def odd_shape_checks(dev):
     """Every negscore kernel against its plain version off the path, each
     direction in both designs (the forward's first design with the
-    backward's, "run" / "staged" with "owner"), in float32 and bf16: d not
+    backward's, "run" with "owner"), in float32 and bf16: d not
     a multiple of the warp (nor the pair offset d/2), d of 128 and 256 (the
     redesigned forward's 4- and 8-feature lanes), K·E not a multiple of the
     chunk, ids out of range (clipped), ns in any order (nd is in any order
     throughout), a "sorted2" band that wraps the id range, one src id over
-    3,000 slots (many staged blocks and warps); and rotate (float32) where
+    3,000 slots (many warps); and rotate (float32) where
     pairs sit below the distance's clamp (|u| < 1e-6): tails that are
     their heads moved by 1e-7 in the pairs whose phase is 0, where both
     take du = −ds·u / 1e-6 (the reference's _distance_bwd). Tolerances
@@ -1504,8 +1486,7 @@ def odd_shape_checks(dev):
         for design, dual in itertools.product(negscore.DESIGNS,
                                               (False, True)):
             name = negscore.kernel_name(mode, dual)
-            fwd_design = ("first" if design == "first"
-                          else "staged" if dual else "run")
+            fwd_design = "first" if design == "first" else "run"
             with negscore_design_as(design), \
                     negscore_fwd_design_as(fwd_design):
                 got = (negscore.KERNELS[name](z, ns, nd, rel, re),

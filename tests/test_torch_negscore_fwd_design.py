@@ -1,8 +1,8 @@
-"""The redesigned forwards of the port's negscore kernels (ops/negscore.py:
-"run" for the streamed family, "staged" for the dual-sorted one), on the
-CPU: which design a call takes, which features a lane takes, and the
-plain version of the kernels' order of sums (``lane_scores_plain``)
-against an independent float32 emulation, the port's plain version and
+"""The redesigned forward of the port's negscore kernels (ops/negscore.py:
+"run", for the streamed and the dual-sorted family), on the CPU: which
+design a call takes, which features a lane takes, and the plain version
+of the kernel's order of sums (``lane_scores_plain``) against an
+independent float32 emulation, the port's plain version and
 the JAX package's forward kernels (``_fwd_call`` and ``_fwd_call_ds`` in
 interpret mode, as tests/test_ops.py runs them).
 
@@ -65,12 +65,11 @@ def _assert_sums(got, want, magnitude, what):
 @pytest.mark.parametrize("mode", negscore.MODES)
 @pytest.mark.parametrize("dual", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fwd_design_is_run_or_staged_for_every_call(mode, dual, dtype):
+def test_fwd_design_is_run_for_every_call(mode, dual, dtype):
     widths = (2, 6, 100, 256) if mode in negscore.PAIRED else (1, 7, 100, 256)
     for d in widths:
-        assert negscore.negscore_fwd_design(mode, dual, dtype, d) == (
-            "staged" if dual else "run")
-    assert negscore.FWD_DESIGNS == ("first", "run", "staged")
+        assert negscore.negscore_fwd_design(mode, dual, dtype, d) == "run"
+    assert negscore.FWD_DESIGNS == ("first", "run")
 
 
 @pytest.mark.parametrize("mode,dtype,d,match", [
