@@ -5,11 +5,14 @@ biomedkg_tpu/data/modules.py::PrimeKGModule).
 ``edge_layout``, ``data``, ``graph``, ``edge_map_index``, and the loaders
 of every split: GraphSAINT random walks (``loader_type="saint"``) and
 [30, 30, 30] neighbour fan-outs (``"neighbor"``), each kind sharing one
-envelope probed once on the largest split graph; ``all_dataloader`` (the
-fan-outs over the whole graph) and ``subgraph_dataloader`` (the whole graph
-as one batch, for export). The full-batch training loader
-(``loader_type="full"``), the inductive split and the DPI module come in
-later slices (ROADMAP.md queue 1).
+envelope probed once on the largest split graph, and full batches
+(``"full"``: the split's whole graph as one ``FullGraphLoader`` batch,
+yielded ``SAINT_TRAIN_STEPS`` times for training and once for val and
+test; the Trainer copies it to the device once an epoch);
+``all_dataloader`` (the fan-outs over the whole graph) and
+``subgraph_dataloader`` (the whole graph as one batch, for export). The
+inductive split and the DPI module come in later slices (ROADMAP.md
+queue 1).
 """
 
 from __future__ import annotations
@@ -21,9 +24,6 @@ from ..sampling.loaders import (FullGraphLoader, NeighborBatchLoader,
 from . import node_encoders as node
 from .primekg import PrimeKG
 from .split import random_link_split
-
-_FULL = ("loader_type='full' (full-batch training) is not ported yet "
-         "(ROADMAP.md queue 1, item 2)")
 
 
 def get_node_encode_method(node_init_method: Optional[str], embed_dim: int):
@@ -120,11 +120,14 @@ class PrimeKGModule:
             with_features=not self.device_features,
             edge_layout=self.edge_layout)
 
+    def _full(self, split, steps: int) -> "RepeatedBatch":
+        return RepeatedBatch(FullGraphLoader(
+            split.graph, block_size=self.block_size,
+            edge_layout=self.edge_layout), steps)
+
     @staticmethod
     def _check_loader(loader_type: str):
-        if loader_type == "full":
-            raise NotImplementedError(_FULL)
-        if loader_type not in ("saint", "neighbor"):
+        if loader_type not in ("saint", "neighbor", "full"):
             raise ValueError(f"unknown loader_type {loader_type!r}")
 
     def train_dataloader(self, loader_type: str = "neighbor"):
@@ -132,18 +135,24 @@ class PrimeKGModule:
         if loader_type == "saint":
             return self._saint(self.train_data, self.SAINT_TRAIN_STEPS, 1,
                                fill_target=self.saint_fill_target)
+        if loader_type == "full":
+            return self._full(self.train_data, self.SAINT_TRAIN_STEPS)
         return self._neighbor(self.train_data, shuffle=True, seed_offset=1)
 
     def val_dataloader(self, loader_type: str = "neighbor"):
         self._check_loader(loader_type)
         if loader_type == "saint":
             return self._saint(self.val_data, self.SAINT_EVAL_STEPS, 2)
+        if loader_type == "full":
+            return self._full(self.val_data, 1)
         return self._neighbor(self.val_data, shuffle=False, seed_offset=2)
 
     def test_dataloader(self, loader_type: str = "neighbor"):
         self._check_loader(loader_type)
         if loader_type == "saint":
             return self._saint(self.test_data, self.SAINT_EVAL_STEPS, 3)
+        if loader_type == "full":
+            return self._full(self.test_data, 1)
         return self._neighbor(self.test_data, shuffle=False, seed_offset=3)
 
     def all_dataloader(self):
@@ -160,3 +169,21 @@ class PrimeKGModule:
         reference's export loader)."""
         return FullGraphLoader(self.graph, block_size=self.block_size,
                                edge_layout=self.edge_layout)
+
+
+class RepeatedBatch:
+    """One ``FullGraphLoader`` batch, the same host object ``steps`` times
+    (``sampling/loaders.py::prefetch_to_device`` copies it to the device
+    once)."""
+
+    def __init__(self, loader: FullGraphLoader, steps: int):
+        self.loader = loader
+        self.steps = steps
+
+    def __iter__(self):
+        batch = self.loader.batch()
+        for _ in range(self.steps):
+            yield batch
+
+    def __len__(self):
+        return self.steps

@@ -197,10 +197,16 @@ def _finish_batch(x, num_nodes, node_budget, node_ids, num_seed,
     )
 
 
-def batch_to_device(batch: GraphBatch, device) -> GraphBatch:
+def batch_to_device(batch: GraphBatch, device,
+                    pinned: bool = False) -> GraphBatch:
     """The batch as torch tensors on ``device``: float32 features, bool
-    masks, every index array widened to int64."""
+    masks, every index array widened to int64. ``pinned``: each array is
+    pinned and copied with ``non_blocking=True`` in its wire type, then
+    widened on the card, all on the caller's current stream."""
     def move(a, dtype):
+        if pinned:
+            host = torch.as_tensor(a).pin_memory()
+            return host.to(device, non_blocking=True).to(dtype)
         return torch.as_tensor(a).to(device=device, dtype=dtype)
 
     return GraphBatch(

@@ -1,15 +1,22 @@
 """Loaders (counterpart of biomedkg_tpu/sampling/loaders.py):
 ``SaintRandomWalkLoader`` (KGE training batches), ``NeighborBatchLoader``
-(fan-out batches, sampling/neighbor.py) and ``FullGraphLoader`` (the whole
-graph as one padded batch, for serving and export). The background
-prefetch comes later (ROADMAP.md queue 1).
+(fan-out batches, sampling/neighbor.py), ``FullGraphLoader`` (the whole
+graph as one padded batch, for full-batch training, serving and export),
+and the background prefetch the Trainer runs its loops on: ``prefetch``
+(an iterator on a thread, a bounded queue) and ``prefetch_to_device``
+(the same thread also copies each item to the card).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import queue
+import threading
+from typing import Iterable, Iterator
 
-from .batch import GraphBatch, pad_graph_batch
+import numpy as np
+import torch
+
+from .batch import GraphBatch, batch_to_device, pad_graph_batch
 from .csr import CSRGraph
 from .neighbor import NeighborBatchLoader  # noqa: F401  (re-exported)
 from .saint import SaintRandomWalkSampler, _round_up
@@ -58,3 +65,121 @@ class FullGraphLoader:
 
     def __len__(self):
         return 1
+
+
+def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
+    """Run ``iterable`` on a daemon thread, at most ``size`` items ahead.
+
+    An exception in the worker is raised in the consumer after the items
+    before it. Leaving the generator early (``break``) stops the worker,
+    drains the queue and joins the thread, so no thread stays blocked on
+    ``put`` holding batches. A generator given as ``iterable`` is closed on
+    the worker's thread."""
+    q: queue.Queue = queue.Queue(maxsize=size)
+    sentinel = object()
+    error: list = []
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterable:
+                if not put(item):
+                    break
+        except BaseException as e:  # raised again in the consumer
+            error.append(e)
+        finally:
+            close = getattr(iterable, "close", None)
+            if close is not None:
+                close()
+            put(sentinel)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if error:
+                    raise error[0]
+                return
+            yield item
+    finally:
+        stop.set()
+        try:
+            while True:
+                q.get_nowait()
+        except queue.Empty:
+            pass
+        t.join()
+
+
+def _copy_tree(tree, copy, memo: dict):
+    """Every host ``GraphBatch`` in ``tree`` (tuples and lists of them)
+    through ``copy``; a batch met just before (by identity: the full-batch
+    loader yields one object ``steps`` times) is copied once."""
+    if isinstance(tree, GraphBatch):
+        if id(tree) not in memo:
+            memo.clear()
+            memo[id(tree)] = (tree, copy(tree))
+        return memo[id(tree)][1]
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_copy_tree(t, copy, memo) for t in tree)
+    return tree
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (tuple, list)):
+        for item in tree:
+            yield from _tensors(item)
+
+
+def prefetch_to_device(iterable: Iterable, device, size: int = 2
+                       ) -> Iterator:
+    """``prefetch`` whose worker also copies every host ``GraphBatch`` of
+    each item (a batch, or tuples and lists holding batches) to
+    ``device``.
+
+    On the card the worker copies from pinned memory on a side CUDA stream
+    and records an event after each item; the consumer's stream waits on
+    that event (the host does not) before the item is yielded, and each of
+    its tensors is marked as used on the consumer's stream
+    (``record_stream``), so the caching allocator does not hand its memory
+    to a later copy while a step still reads it. On the CPU it is
+    ``batch_to_device`` on the worker's thread."""
+    device = torch.device(device)
+    memo: dict = {}
+    if device.type != "cuda":
+        yield from prefetch(
+            (_copy_tree(item, lambda b: batch_to_device(b, device), memo)
+             for item in iterable), size=size)
+        return
+
+    side = torch.cuda.Stream(device)
+
+    def copied():
+        with torch.cuda.stream(side):
+            for item in iterable:
+                moved = _copy_tree(
+                    item, lambda b: batch_to_device(b, device, pinned=True),
+                    memo)
+                event = torch.cuda.Event()
+                event.record(side)
+                yield moved, event
+
+    consumer = torch.cuda.current_stream(device)
+    for moved, event in prefetch(copied(), size=size):
+        consumer.wait_event(event)
+        for t in _tensors(moved):
+            t.record_stream(consumer)
+        yield moved

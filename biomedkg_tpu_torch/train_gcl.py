@@ -1,26 +1,33 @@
 """Stage B: graph contrastive pretraining of one node type's graph
-(counterpart of train_gcl.py at the repo root):
+(counterpart of train_gcl.py at the repo root), the reference's flow on
+the port's Trainer:
 
     python -m biomedkg_tpu_torch.train_gcl [key=value ...]
 
 Keys: ``model.model_name`` (ggd, dgi or grace; default ggd),
 ``data.node_type`` (gene, drug or disease; the default, the config's three
-types, is refused as the reference refuses it), ``epochs`` (100), ``steps``
-(neighbour batches per epoch; default all), ``seed`` (42), ``device``
-(cuda), ``ckpt_dir`` (./ckpt) and ``model.compute_dtype`` (float32 or
-bfloat16). The other settings are the defaults of configs/gcl.yaml,
-configs/model/gcl.yaml, configs/model/base.yaml and
-configs/data/primekg.yaml, written out below until the config layer is
-ported.
+types, is refused as the reference refuses it), ``epochs`` (100),
+``val_every_epoch`` (2), ``steps`` (neighbour batches per train epoch;
+default all; the val and test epochs stay whole), ``steps_per_execution``
+(8: batches per prefetch item), ``debug`` (false; true runs one train and
+one val batch and tests the trained weights), ``seed`` (42), ``device``
+(cuda), ``ckpt_dir`` (./ckpt), ``log_dir`` (./log) and
+``model.compute_dtype`` (float32 or bfloat16). The other settings are the
+defaults of configs/gcl.yaml, configs/model/gcl.yaml,
+configs/model/base.yaml and configs/data/primekg.yaml, written out below
+until the config layer is ported.
 
 It trains the model's GCN on [30, 30, 30] neighbour batches of 128 seeds
 from the node type's train split, destination-sorted (the GCN's sums on
 the CUDA segment-sum) with the features gathered from a device-resident
-table, Adam with the cosine warm-up and clip 1.0, and writes
-``<ckpt_dir>/gcl/<node_type>/<model>_<fuse>_<init>_<time>/last.ckpt``, the
-layout the reference's GCL node encoder globs; ``load_gcl_module`` loads
-it in either package. Validation and test epochs, top-1 checkpoints and
-early stopping wait for the Trainer (ROADMAP.md).
+table, Adam with the cosine warm-up and clip 1.0; validates on the val
+split's neighbour batches every ``val_every_epoch`` epochs, keeps the one
+checkpoint of least ``val_loss`` and stops after 5 validations without a
+better one; then tests that checkpoint on the test split. Checkpoints go
+to ``<ckpt_dir>/gcl/<node_type>/<model>_<fuse>_<init>_<time>/``, the
+layout the reference's GCL node encoder globs (``load_gcl_module`` loads
+them in either package), metrics to the same path under ``<log_dir>``.
+``train`` returns the path of the checkpoint the test loaded.
 """
 
 from __future__ import annotations
@@ -31,14 +38,14 @@ import sys
 import time
 from typing import List, Optional
 
-import torch
-
 from .data.modules import PrimeKGModule
 from .device import resolve_device
-from .sampling.batch import batch_to_device
 from .serve import PRIMEKG_DATA
-from .training.checkpoint import save_train_state
+from .train_kge import DEVICES, parse_bool
+from .training.checkpoint import EarlyStopping, ModelCheckpoint
 from .training.gcl_module import create_gcl_model
+from .training.logger import MetricsLogger
+from .training.trainer import Trainer
 
 MODEL = dict(model_name="ggd", in_dim=768, hidden_dim=256, out_dim=256,
              num_hidden_layers=2, compute_dtype="float32",
@@ -46,10 +53,13 @@ MODEL = dict(model_name="ggd", in_dim=768, hidden_dim=256, out_dim=256,
              warm_up_ratio=0.2, fuse_method="none")
 DEFAULTS = {"model.model_name": MODEL["model_name"],
             "data.node_type": ",".join(PRIMEKG_DATA["node_type"]),
-            "epochs": 100, "steps": None, "seed": 42, "device": None,
-            "ckpt_dir": "./ckpt",
+            "epochs": 100, "val_every_epoch": 2, "steps": None,
+            "steps_per_execution": 8, "debug": False, "seed": 42,
+            "device": None, "ckpt_dir": "./ckpt", "log_dir": "./log",
             "model.compute_dtype": MODEL["compute_dtype"]}
-_INTS = ("epochs", "steps", "seed")
+_INTS = ("epochs", "val_every_epoch", "steps", "steps_per_execution",
+         "seed")
+PATIENCE = 5
 GRAD_CLIP = 1.0
 
 
@@ -63,6 +73,8 @@ def parse_args(argv: List[str]) -> dict:
         if key in _INTS:
             args[key] = (None if key == "steps" and value.lower() in
                          ("none", "null", "") else int(value))
+        elif key == "debug":
+            args[key] = parse_bool(value)
         else:
             args[key] = value
     return args
@@ -77,8 +89,26 @@ def node_types(value: str) -> List[str]:
     return ["gene/protein" if names[0].startswith("gene") else names[0]]
 
 
-def train(args: dict) -> str:
-    """Train as ``args`` says; returns the checkpoint's path."""
+class FirstBatches:
+    """The first ``steps`` batches of ``loader`` each epoch."""
+
+    def __init__(self, loader, steps: int):
+        self.loader = loader
+        self.steps = steps
+
+    def set_epoch(self, epoch: int):
+        self.loader.set_epoch(epoch)
+
+    def __iter__(self):
+        return itertools.islice(self.loader, self.steps)
+
+    def __len__(self):
+        return self.steps
+
+
+def train(args: dict) -> Optional[str]:
+    """Train, validate and test as ``args`` says; returns the path of the
+    checkpoint the test loaded."""
     node_type = node_types(args["data.node_type"])
     device = resolve_device(args["device"])
     seed, epochs = args["seed"], args["epochs"]
@@ -86,8 +116,6 @@ def train(args: dict) -> str:
                  compute_dtype=args["model.compute_dtype"])
     log_name = (f"{model['model_name']}_{model['fuse_method']}_"
                 f"{PRIMEKG_DATA['node_init_method']}_{int(time.time())}")
-    path = os.path.join(args["ckpt_dir"], "gcl", args["data.node_type"],
-                        log_name, "last.ckpt")
 
     dm = PrimeKGModule(**dict(PRIMEKG_DATA, node_type=node_type), seed=seed)
     dm.setup(stage="split")
@@ -98,35 +126,41 @@ def train(args: dict) -> str:
     loader = dm.train_dataloader(loader_type="neighbor")
     steps = len(loader) if args["steps"] is None else min(args["steps"],
                                                           len(loader))
-    module.configure_optimizers(steps * epochs, grad_clip=GRAD_CLIP)
-    state = module.init_state(torch.Generator().manual_seed(seed))
-    generator = torch.Generator(device=device).manual_seed(seed)
+
+    checkpoint = ModelCheckpoint(
+        dirpath=os.path.join(args["ckpt_dir"], "gcl", args["data.node_type"],
+                             log_name),
+        monitor="val_loss", save_top_k=1, mode="min")
+    early_stopping = EarlyStopping(monitor="val_loss", mode="min",
+                                   patience=PATIENCE)
+    logger = MetricsLogger(
+        save_dir=os.path.join(args["log_dir"], "gcl", args["data.node_type"],
+                              log_name),
+        experiment_name=log_name, project_name=f"BioMedKG-GCL-{node_type}")
+    trainer = Trainer(max_epochs=epochs,
+                      check_val_every_n_epoch=args["val_every_epoch"],
+                      gradient_clip_val=GRAD_CLIP,
+                      callbacks=[checkpoint, early_stopping], logger=logger,
+                      fast_dev_run=args["debug"], log_every_n_steps=10,
+                      devices=DEVICES,
+                      steps_per_execution=args["steps_per_execution"])
     print(f"train_gcl: {model['model_name']} on {node_type[0]}: "
           f"{dm.graph.num_nodes} nodes, {dm.graph.num_edges} edges; "
           f"neighbour envelope {loader.node_budget} nodes x "
           f"{loader.edge_budget} edges; {steps} steps x {epochs} epochs on "
           f"{device}", flush=True)
-
-    for epoch in range(epochs):
-        loader.set_epoch(epoch)
-        t0 = time.perf_counter()
-        losses = []
-        for batch in itertools.islice(loader, steps):
-            state, logs = module.train_step(
-                state, batch_to_device(batch, device), generator)
-            losses.append(logs["train_loss"])
-        mean = float(torch.stack(losses).mean())
-        print(f"epoch {epoch}: {len(losses)} steps, mean train_loss "
-              f"{mean:.6f}, {time.perf_counter() - t0:.2f} s", flush=True)
-
-    save_train_state(path, module, state,
-                     extras={"epoch": epochs,
-                             "model_name": model["model_name"]})
-    print(f"checkpoint: {path}", flush=True)
-    return path
+    try:
+        trainer.fit(module, train_dataloaders=FirstBatches(loader, steps),
+                    val_dataloaders=dm.val_dataloader(loader_type="neighbor"))
+        trainer.test(module, dataloaders=dm.test_dataloader(),
+                     ckpt_path=None if args["debug"] else "best")
+    finally:
+        logger.close()
+    print(f"checkpoint: {trainer.tested_ckpt_path}", flush=True)
+    return trainer.tested_ckpt_path
 
 
-def main(argv: Optional[List[str]] = None) -> str:
+def main(argv: Optional[List[str]] = None) -> Optional[str]:
     return train(parse_args(sys.argv[1:] if argv is None else argv))
 
 

@@ -1,5 +1,6 @@
-"""Native checkpoint files (counterpart of
-biomedkg_tpu/training/checkpoint.py::save_checkpoint / load_checkpoint).
+"""Checkpoints (counterpart of biomedkg_tpu/training/checkpoint.py): the
+native file format, the background writer, and the top-k and early-stop
+callbacks the Trainer drives.
 
 A checkpoint is one pickle of ``{"kind", "hparams", "params", "opt_state",
 "step", "extras"}`` whose array leaves are numpy, written to a temporary
@@ -14,8 +15,16 @@ load optax and, through it, JAX. ``load_train_state`` reads Adam's count
 and moments from either package's ``opt_state``: the port writes
 ``{"count", "mu", "nu"}`` with the moments in the params tree's layout, so
 its files need no optax classes, and the JAX package still loads their
-params. The reference's Lightning-checkpoint import (interop/torch_ckpt.py)
-is not ported yet.
+params.
+
+A train state is copied to host memory by ``train_state_payload`` before
+anything is written: the port's steps update the module's parameters and
+Adam's moments in place, so a write that read them later (on
+``AsyncSaver``'s thread) would hold a later step's weights.
+
+Not ported: the orbax directory checkpoints (orbax imports JAX; ROADMAP.md
+queue 1, item 6) and the reference's Lightning-checkpoint import
+(interop/torch_ckpt.py); both raise.
 """
 
 from __future__ import annotations
@@ -23,8 +32,9 @@ from __future__ import annotations
 import os
 import pickle
 import tempfile
+import threading
 import zipfile
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -113,17 +123,24 @@ def load_checkpoint(path: str) -> Dict:
         return _CheckpointUnpickler(f).load()
 
 
+def train_state_payload(module, state: TrainState) -> Dict:
+    """``save_checkpoint``'s arguments for ``module``'s weights and
+    ``state``'s optimizer state and step, copied to host memory now."""
+    opt, names = state.opt_state, list(state.params)
+    return dict(kind=module.kind, hparams=module.hparams,
+                params=to_jax_params(module.model),
+                opt_state={"count": np.int32(opt.count),
+                           "mu": to_jax_tree(dict(zip(names, opt.mu))),
+                           "nu": to_jax_tree(dict(zip(names, opt.nu)))},
+                step=state.step)
+
+
 def save_train_state(path: str, module, state: TrainState,
                      extras: Optional[Dict] = None) -> None:
     """A checkpoint of ``module``'s weights and ``state``'s optimizer
     state and step."""
-    opt, names = state.opt_state, list(state.params)
-    save_checkpoint(path, module.kind, module.hparams,
-                    to_jax_params(module.model),
-                    opt_state={"count": np.int32(opt.count),
-                               "mu": to_jax_tree(dict(zip(names, opt.mu))),
-                               "nu": to_jax_tree(dict(zip(names, opt.nu)))},
-                    step=state.step, extras=extras)
+    save_checkpoint(path, **train_state_payload(module, state),
+                    extras=extras)
 
 
 def _adam_state(opt_state):
@@ -148,14 +165,15 @@ def _adam_state(opt_state):
                      "JAX package's Adam chain state")
 
 
-def load_train_state(path: str, module) -> TrainState:
-    """Resume: ``module``'s weights, its Adam state and the step from a
-    checkpoint written by either package, on the module's device."""
-    ckpt = load_checkpoint(path)
+def train_state_from(ckpt: Dict, module) -> TrainState:
+    """Resume from a loaded checkpoint (written by either package):
+    ``module``'s weights, its Adam state and the step, on the module's
+    device."""
     if ckpt["kind"] != module.kind:
-        raise ValueError(f"{path} is a {ckpt['kind']!r} checkpoint")
+        raise ValueError(f"a {ckpt['kind']!r} checkpoint, not "
+                         f"{module.kind!r}")
     if ckpt["opt_state"] is None:
-        raise ValueError(f"{path} holds no optimizer state")
+        raise ValueError("the checkpoint holds no optimizer state")
     load_jax_params(module.model, ckpt["params"])
     count, mu, nu = _adam_state(ckpt["opt_state"])
     params = dict(module.named_parameters())
@@ -163,3 +181,143 @@ def load_train_state(path: str, module) -> TrainState:
     return TrainState(params, AdamState(
         count, [mu[n].to(p.device) for n, p in params.items()],
         [nu[n].to(p.device) for n, p in params.items()]), int(ckpt["step"]))
+
+
+def load_train_state(path: str, module) -> TrainState:
+    """``train_state_from`` the checkpoint file at ``path``."""
+    return train_state_from(load_checkpoint(path), module)
+
+
+def load_any(path: str) -> Dict:
+    """A checkpoint file. A directory (the JAX package's orbax checkpoint,
+    or one whose atomic swap was cut short) raises: orbax imports JAX."""
+    if any(os.path.isdir(p) for p in (path, path + ".new", path + ".old")):
+        raise NotImplementedError(
+            f"{path} is an orbax checkpoint directory; the orbax backend is "
+            "not ported (ROADMAP.md queue 1, item 6)")
+    return load_checkpoint(path)
+
+
+class AsyncSaver:
+    """One background checkpoint writer. ``submit`` takes a write whose
+    data is already in host memory and waits for the previous write first
+    (one write in flight, the latest wins). ``wait`` flushes and re-raises
+    a failed write, so no caller takes a checkpoint that was never written
+    for a durable one. Every write ends in an atomic rename, so a kill
+    mid-write leaves the previous file."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def submit(self, fn):
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # surfaced on the next wait()
+                self._exc = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+        self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+
+class ModelCheckpoint:
+    """The best ``save_top_k`` checkpoints by ``monitor``, and
+    ``last.ckpt`` after every validation when ``save_last``.
+    ``save_top_k`` 0 keeps none (``last.ckpt`` still applies), -1 every
+    one (Lightning's rules)."""
+
+    def __init__(self, dirpath: str, monitor: str = "val_loss",
+                 save_top_k: int = 3, mode: str = "min",
+                 save_last: bool = False):
+        self.dirpath = dirpath
+        self.monitor = monitor
+        self.save_top_k = save_top_k
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.save_last = save_last
+        self._kept: List[tuple] = []  # (signed value, path), best first
+        os.makedirs(dirpath, exist_ok=True)
+
+    @property
+    def best_model_path(self) -> Optional[str]:
+        if not self._kept:
+            return None
+        return min(self._kept)[1]
+
+    def on_validation_end(self, trainer, metrics: Dict[str, float]):
+        if self.monitor not in metrics:
+            return
+        value = float(metrics[self.monitor])
+        epoch = trainer.current_epoch
+        path = os.path.join(
+            self.dirpath,
+            f"epoch={epoch}-{self.monitor}={value:.4f}.ckpt")
+        signed = self.sign * value
+        should = self.save_top_k != 0 and (
+            self.save_top_k == -1
+            or len(self._kept) < self.save_top_k
+            or signed < max(self._kept)[0])
+        if should:
+            trainer.save(path)
+            self._kept.append((signed, path))
+            self._kept.sort()
+            while self.save_top_k >= 0 and \
+                    len(self._kept) > self.save_top_k:
+                _, drop = self._kept.pop()
+                if os.path.exists(drop):
+                    os.remove(drop)
+        if self.save_last:
+            trainer.save(os.path.join(self.dirpath, "last.ckpt"))
+
+    # the Trainer writes these into a checkpoint's extras, so a resumed
+    # run evicts where the interrupted one left off
+    def state_dict(self) -> Dict:
+        return {"kept": [[v, p] for v, p in self._kept]}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self._kept = [(float(v), str(p)) for v, p in state.get("kept", [])]
+
+
+class EarlyStopping:
+    """Stop once ``monitor`` has not improved for ``patience``
+    validations."""
+
+    def __init__(self, monitor: str = "val_loss", mode: str = "min",
+                 patience: int = 5):
+        self.monitor = monitor
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.patience = patience
+        self.best = float("inf")
+        self.bad_epochs = 0
+        self.should_stop = False
+
+    def on_validation_end(self, trainer, metrics: Dict[str, float]):
+        if self.monitor not in metrics:
+            return
+        value = self.sign * float(metrics[self.monitor])
+        if value < self.best:
+            self.best = value
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs >= self.patience:
+                self.should_stop = True
+
+    def state_dict(self) -> Dict:
+        return {"best": self.best, "bad_epochs": self.bad_epochs,
+                "should_stop": self.should_stop}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.best = float(state.get("best", float("inf")))
+        self.bad_epochs = int(state.get("bad_epochs", 0))
+        self.should_stop = bool(state.get("should_stop", False))

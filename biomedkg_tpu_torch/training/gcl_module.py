@@ -15,6 +15,8 @@ contrastive losses, masked over pad nodes, on the GCN encoder.
 * ``GGDModule``: BCE-with-logits over the summed projections,
   ``ggd_bce_loss``.
 
+``eval_epoch`` reports the mean held-out loss, as the reference's does.
+
 ``compute_dtype`` "bfloat16" is the reference's policy: the features and
 every model parameter rounded to bf16 at use (float32 masters keep the
 gradients), the logsumexps and the means in float32. Random numbers come
@@ -41,7 +43,7 @@ from ..ops.flashnce import NEG, PLAIN_BLOCK, flash_denom
 from ..sampling.batch import GraphBatch
 from .checkpoint import load_checkpoint
 from .optim import make_optimizer
-from .stepping import StepsMixin
+from .stepping import StepsMixin, mean_loss
 
 LOG2 = math.log(2.0)
 TAU = 0.2
@@ -197,6 +199,10 @@ class BaseGCL(StepsMixin, nn.Module):
                                     batch.node_mask, training)
         loss = self.calculate_loss(x, batch, draws, training)
         return loss, {"loss": loss}
+
+    def eval_epoch(self, outputs, split: str) -> Dict[str, float]:
+        """``{split}_loss``: the mean of the epoch's batch losses."""
+        return {f"{split}_loss": mean_loss(outputs)}
 
     @torch.inference_mode()
     def encode(self, batch: GraphBatch) -> torch.Tensor:

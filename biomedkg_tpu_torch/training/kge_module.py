@@ -17,6 +17,14 @@ ComplEx, TransE or RotatE) → K = neg_ratio negatives per edge → masked BCE
   the dual-sorted kernels (``score_neg_sorted(..., dst_sorted=True)``);
 * "iid" negatives (and every eval batch): (K, E) iid endpoint sets.
 
+Held-out evaluation (``eval_step``, stepping.py) scores iid negatives, as
+the reference's does, and ``eval_impl`` picks how an epoch's metrics are
+formed: "histogram" (the default) reduces each batch on the device to a
+(2, 32,768) score histogram, the exact (tp, fp, fn) at logit 0 and the
+per-relation counts (``_reduce_eval_aux``), summed over the epoch in
+float64; "exact" keeps the predictions (``BootstrappedBinaryMetrics``).
+``edge_mapping`` names the relations of the per-relation precision.
+
 ``compute_dtype`` "bfloat16" runs the encoder in bf16 with float32 master
 weights; the positive path and the L2 term read float32 z, the negative
 path z rounded to bf16, as in the reference. Random numbers come from a
@@ -34,7 +42,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -46,8 +54,10 @@ from ..nn import sigmoid_binary_cross_entropy
 from ..ops.negscore import BLOCK
 from ..sampling.batch import GraphBatch
 from .checkpoint import load_checkpoint
+from .metrics import (BootstrappedBinaryMetrics, EdgeWisePrecision,
+                      HistogramBinaryMetrics)
 from .optim import make_optimizer
-from .stepping import StepsMixin
+from .stepping import StepsMixin, mean_loss
 
 _LATER = "is not ported yet (ROADMAP.md 2b)"
 
@@ -179,11 +189,40 @@ class KGEModule(StepsMixin, nn.Module):
         self.neg_ratio = _parse_neg_ratio(neg_ratio)
         self.neg_sampler = neg_sampler
         self.cold_start_dropout = float(cold_start_dropout or 0.0)
+        self.seed = seed
         self.model = KGEModelFactory.get_model(
             encoder_name=encoder_name, decoder_name=decoder_name,
             in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
             num_hidden_layers=num_hidden_layers, num_relation=num_relation,
             num_heads=num_heads)
+        self.valid_metrics = BootstrappedBinaryMetrics(prefix="val_")
+        self.test_metrics = BootstrappedBinaryMetrics(prefix="test_")
+        self.edge_mapping = {}
+        self.eval_impl = "histogram"
+
+    @property
+    def eval_impl(self) -> str:
+        return self._eval_impl
+
+    @eval_impl.setter
+    def eval_impl(self, value: str):
+        """"histogram" (each eval batch reduced on the device) or "exact"
+        (the predictions kept for the exact bootstrap)."""
+        if value not in ("histogram", "exact"):
+            raise ValueError(f"unknown eval_impl {value!r}")
+        self._eval_impl = value
+
+    @property
+    def edge_mapping(self) -> Dict[int, str]:
+        return self._edge_index_map
+
+    @edge_mapping.setter
+    def edge_mapping(self, mapping: Dict[int, str]):
+        """Relation id → name (the data module's ``edge_map_index``): one
+        ``<name>_pre`` metric each."""
+        self._edge_index_map = mapping
+        self.edge_wise_pre_valid = EdgeWisePrecision(class_mapping=mapping)
+        self.edge_wise_pre_test = EdgeWisePrecision(class_mapping=mapping)
 
     def init(self, generator: torch.Generator):
         """Fresh weights from ``generator`` (reference init rules)."""
@@ -320,6 +359,81 @@ class KGEModule(StepsMixin, nn.Module):
         reg_rel = sum(torch.mean(p ** 2)
                       for p in self.model.decoder.parameters())
         return bce + 1e-2 * (reg_z + reg_rel)
+
+    def _reduce_eval_aux(self, aux) -> Dict[str, torch.Tensor]:
+        """An eval batch's metric state, on the device: the (2, NUM_BINS)
+        histogram of positives' and negatives' weights by sigmoid bin, the
+        exact (tp, fp, fn) with the logit > 0 threshold, the per-relation
+        count of real edges and of those whose raw score is above 0.5 (the
+        reference's threshold, hazard H5), and the loss. Every count is a
+        float32 sum of 0/1 weights over at most 2^24 slots, so exact."""
+        nbins = HistogramBinaryMetrics.NUM_BINS
+        pred, gt, w = aux["pred"], aux["gt"], aux["weights"]
+        t = gt > 0.5
+        zero = torch.zeros_like(w)
+        bins = (torch.sigmoid(pred) * nbins).long().clamp_(max=nbins - 1)
+        hist = torch.zeros(2, nbins, dtype=torch.float32, device=pred.device)
+        hist[0].index_add_(0, bins, torch.where(t, w, zero))
+        hist[1].index_add_(0, bins, torch.where(t, zero, w))
+        pred_pos = pred > 0.0
+        f1_counts = torch.stack([
+            torch.where(pred_pos & t, w, zero).sum(),
+            torch.where(pred_pos & ~t, w, zero).sum(),
+            torch.where(~pred_pos & t, w, zero).sum()])
+        num_rel = self.hparams["num_relation"]
+        em = aux["edge_mask"].float()
+        et = aux["edge_type"]
+        above = em * (aux["pos_pred"] > 0.5)
+        counts = torch.zeros(2, num_rel, dtype=torch.float32,
+                             device=pred.device)
+        counts[0].index_add_(0, et, em)
+        counts[1].index_add_(0, et, above)
+        return {"hist": hist, "f1_counts": f1_counts,
+                "edge_counts": counts[0], "edge_above": counts[1],
+                "loss": aux["loss"]}
+
+    def _eval_epoch_from_states(self, outputs: List[Dict], split: str):
+        """The metrics of an epoch of reduced states. The states stay on
+        the device until here; each is summed over the epoch in float64
+        (one copy to the host), where the float32 sum would round once a
+        bin passes 2^24."""
+        def total(key):
+            return torch.stack([o[key] for o in outputs]).double().sum(
+                0).cpu().numpy()
+
+        hm = HistogramBinaryMetrics(prefix=f"{split}_")
+        hm.merge_state(total("hist"), total("f1_counts"))
+        cnt, above = total("edge_counts"), total("edge_above")
+        out = hm.compute()
+        for idx, name in self._edge_index_map.items():
+            key = str(name) + "_pre"
+            out[key] = float(above[idx] / cnt[idx]) if cnt[idx] > 0 else 0.0
+        out[f"{split}_loss"] = mean_loss(outputs)
+        return out
+
+    def eval_epoch(self, outputs: List[Dict], split: str) -> Dict[str, float]:
+        """The epoch's metrics from ``eval_step`` outputs (reduced states
+        or raw aux dicts): ``{split}_AUROC`` / ``_AveragePrecision`` /
+        ``_F1`` with their bootstrap ``_mean`` and ``_std``, one
+        ``<relation>_pre`` per relation of ``edge_mapping``, and
+        ``{split}_loss``."""
+        if outputs and "hist" in outputs[0]:
+            return self._eval_epoch_from_states(outputs, split)
+        metrics = self.valid_metrics if split == "val" else self.test_metrics
+        metrics.reset()
+        edgewise = (self.edge_wise_pre_valid if split == "val"
+                    else self.edge_wise_pre_test)
+        edgewise.reset()
+        for aux in outputs:
+            a = {k: v.cpu().numpy() for k, v in aux.items() if k != "loss"}
+            w = a["weights"] > 0
+            metrics.update(a["pred"][w], a["gt"][w])
+            edgewise.update(a["pos_pred"], a["edge_type"],
+                            mask=a["edge_mask"])
+        out = metrics.compute()
+        out.update(edgewise.compute())
+        out[f"{split}_loss"] = mean_loss(outputs)
+        return out
 
     @torch.inference_mode()
     def encode(self, batch: GraphBatch) -> torch.Tensor:

@@ -3,9 +3,13 @@ biomedkg_tpu/training/stepping.py).
 
 A module defines ``_forward_loss(batch, training, ...) -> (loss, aux)``;
 this mixin supplies the train state, single steps, ``train_steps`` over a
-list of batches (a Python loop: the counterpart of the reference's
-``lax.scan``; a CUDA-graph capture is later work, ROADMAP.md) and the
-device-resident feature table.
+list of batches and ``train_fullbatch`` over one batch (Python loops: the
+counterparts of the reference's ``lax.scan``s; a CUDA-graph capture is
+later work, ROADMAP.md queue 1, item 3), the eval steps (``_forward_loss``
+with ``training=False`` under ``torch.inference_mode``, the aux reduced
+on the device by the module's ``_reduce_eval_aux`` where it has one and
+its ``eval_impl`` is "histogram") and the device-resident feature
+table.
 
 Random numbers come from an explicit ``torch.Generator`` on the module's
 device; keyword draws (the KGE module's ``negatives`` and
@@ -21,6 +25,15 @@ import numpy as np
 import torch
 
 from .optim import AdamState, Optimizer
+
+
+def mean_loss(outputs: List[Dict]) -> float:
+    """The mean of eval outputs' float32 ``loss``es, taken in float64 on
+    the host after one copy (0.0 for none), as the reference takes it."""
+    if not outputs:
+        return 0.0
+    losses = torch.stack([o["loss"] for o in outputs]).double()
+    return float(np.mean(losses.cpu().numpy()))
 
 
 class TrainState(NamedTuple):
@@ -89,3 +102,33 @@ class StepsMixin:
         for batch in batches:
             state, logs = self.train_step(state, batch, generator)
         return state, logs
+
+    def train_fullbatch(self, state: TrainState, batch, generator,
+                        num_steps: int):
+        """``num_steps`` updates on one device batch; returns (state, the
+        last step's loss)."""
+        logs = {}
+        for _ in range(num_steps):
+            state, logs = self.train_step(state, batch, generator)
+        return state, logs["train_loss"]
+
+    def _maybe_reduce_eval(self, aux):
+        reducer = getattr(self, "_reduce_eval_aux", None)
+        if reducer is not None and \
+                getattr(self, "eval_impl", "exact") == "histogram":
+            return reducer(aux)
+        return aux
+
+    @torch.inference_mode()
+    def eval_step(self, batch, generator: Optional[torch.Generator] = None,
+                  **draws):
+        """One held-out batch (no update); returns the aux dict, or its
+        reduced metric state. ``draws`` go to ``_forward_loss``."""
+        _, aux = self._forward_loss(batch, training=False,
+                                    generator=generator, **draws)
+        return self._maybe_reduce_eval(aux)
+
+    def eval_steps(self, batches: List, generator: torch.Generator):
+        """``eval_step`` over ``batches``, drawing from ``generator`` in
+        turn; a list of their outputs."""
+        return [self.eval_step(batch, generator) for batch in batches]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch port (biomedkg_tpu_torch): the KGE serving
-path, the KGE training step (RGCN and RGAT) and Stage B's GCL pretraining
-(GRACE, DGI, GGD) at full width on one CUDA card (Hopper, sm_90a).
+path, the KGE training step (RGCN and RGAT), Stage B's GCL pretraining
+(GRACE, DGI, GGD), held-out evaluation and the Trainer, at full width on
+one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -55,10 +56,16 @@ Phases; any failure ends the run with a non-zero exit:
     negscore backward call per design (torch.profiler; the owner's fill,
     bucket build and kernel, at most the first design's four); the loss
     falling on a fixed batch;
-    ``python -m biomedkg_tpu_torch.train_kge`` for a few steps on the card
-    on the same PrimeKG++-scale graph and its checkpoint served by
-    ``KGEScorer`` (with it, concurrently, the RotatE + "sorted2" run of
-    phase 6);
+    ``python -m biomedkg_tpu_torch.train_kge`` on the card on the same
+    PrimeKG++-scale graph (2 epochs of 3 steps, each validated on one
+    SAINT val batch, then tested on the best checkpoint; with it,
+    concurrently, the RotatE + "sorted2" run of phase 6, phase 7's RGAT run
+    and phase 8's ``train_gcl`` run, 1 epoch each): every run's reference
+    flow checked (at most 3 ``epoch=*-val_loss=*.ckpt`` files and a
+    ``last.ckpt``, the test on the least ``val_loss`` of them, a
+    metrics.jsonl with the epoch's train loss and ``val_*`` and ``test_*``
+    keys, all finite, AUROC in [0, 1], one ``<relation>_pre`` per
+    relation), and the checkpoint the test loaded served by ``KGEScorer``;
  6. the other decoders and the dual-sorted sampler on the same SAINT
     batches at full width: ComplEx, TransE and RotatE (γ = 12) with
     "sorted" negatives and all four decoders with "sorted2". For each:
@@ -140,8 +147,36 @@ Phases; any failure ends the run with a non-zero exit:
     and one GGD step at the same width, kernels against plain versions
     (segsum 8, flash 0); (e) ``python -m biomedkg_tpu_torch.train_gcl
     model.model_name=grace data.node_type=gene`` (started beside phase 5's
-    ``train_kge`` runs), its checkpoint loaded by ``load_gcl_module`` and
-    the full gene/protein graph encoded on the card and on the CPU.
+    ``train_kge`` runs; validated and tested on whole neighbour epochs, the
+    top-1 checkpoint kept and tested, ``val_loss`` and ``test_loss``
+    logged), its checkpoint loaded by ``load_gcl_module`` and the full
+    gene/protein graph encoded on the card and on the CPU;
+ 9. held-out evaluation and the Trainer, on the same graph at full width
+    (RGCN 768→256×4 + DistMult, K = 10): (a) the KGE eval step on
+    EVAL_BATCHES SAINT val batches in float32 and bf16, with the kernels
+    (launch counts set to 0 just before and read just after: segsum 5 a
+    batch, the count table and 4 convs, all on ``packed``; no negscore,
+    no relmm: eval scores iid negatives by gathers) and with the plain
+    versions on the same batches and iid negatives: preds and loss within
+    STEP_TOL, ``_reduce_eval_aux``'s histogram and counts equal to a host
+    reduction of the card's own float32 sigmoid values, that sigmoid's
+    bins against float64's (EVAL_MOVE_SHARE of the distinct scores, in
+    float32), ``eval_epoch``'s point metrics within EVAL_METRIC_TOL; ms
+    per eval batch (host clock, device busy) and ``_reduce_eval_aux``'s
+    device time; (b), last, in a fresh process of its own
+    (``chip_smoke.py trainer-vs-serial``: a torch.profiler window slows
+    every later host step of its process): ``Trainer.fit`` over FIT_STEPS
+    SAINT steps on the prefetch thread against the serial loop of
+    sampling, copying and stepping, ms per step in turns, each one's
+    profiled idle share, and one more turn of each after the profiled
+    ones (reported only); (c) is phase 5's check of the entry points' reference
+    flow; (d) a resume on the card: 2 epochs of 3 float32 steps straight
+    through, against 1 epoch, a save and a fresh Trainer resumed from it:
+    the second epoch's losses within RESUME_RTOL, the final weights within
+    RESUME_WEIGHT_SHARE of the second epoch's movement (L2; float32
+    atomics: no two runs on the card are bit-equal), a repeat of the
+    uninterrupted run printed beside.
+    The segsum record's ``launches`` adds (a)'s.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -182,7 +217,9 @@ from biomedkg_tpu_torch.serve import PRIMEKG_DATA, serve_loop
 from biomedkg_tpu_torch.serving import KGEScorer
 from biomedkg_tpu_torch.training.checkpoint import save_checkpoint
 from biomedkg_tpu_torch.training import gcl_module
-from biomedkg_tpu_torch.training.kge_module import (KGEModule, _mix_factor,
+from biomedkg_tpu_torch.training.trainer import Trainer
+from biomedkg_tpu_torch.training.kge_module import (HistogramBinaryMetrics,
+                                                    KGEModule, _mix_factor,
                                                     rolled_index,
                                                     sample_negatives_sorted)
 
@@ -1196,19 +1233,69 @@ def path_negatives(batch, gen, dual: bool):
 
 def start_train_kge(tmp: str, *extra) -> subprocess.Popen:
     """``python -m biomedkg_tpu_torch.train_kge`` on the card for 3 steps
-    on the PrimeKG++-scale graph, in its own directory under ``tmp``."""
+    an epoch on the PrimeKG++-scale graph, validating every epoch (one
+    SAINT batch: steps // 10, at least 1) and testing the best checkpoint,
+    in its own directory under ``tmp``."""
     root = os.path.dirname(os.path.abspath(__file__))
     cwd = tempfile.mkdtemp(dir=tmp)
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "biomedkg_tpu_torch.train_kge", "steps=3",
-         "epochs=1", "saint_fill=0.92", "model.compute_dtype=bfloat16",
-         f"seed={SEED}", f"ckpt_dir={cwd}/ckpt", *extra],
+         "epochs=1", "val_every_epoch=1", "saint_fill=0.92",
+         "model.compute_dtype=bfloat16", f"seed={SEED}",
+         f"ckpt_dir={cwd}/ckpt", f"log_dir={cwd}/log", *extra],
         cwd=cwd, env=dict(os.environ, PYTHONPATH=root),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.log_dir = f"{cwd}/log"
+    return proc
 
 
-def finish_train_kge(proc, what: str, graph, t0: float) -> str:
-    """Wait for a ``start_train_kge`` run; returns its checkpoint's path."""
+def val_loss_of(path: str) -> float:
+    return float(path.rsplit("val_loss=", 1)[1][:-len(".ckpt")])
+
+
+def check_reference_flow(proc, ckpt: str, what: str, top_k: int,
+                         last: bool, kind: str) -> dict:
+    """An entry point's run followed the reference's flow: at most
+    ``top_k`` ``epoch=*-val_loss=*.ckpt`` files (and ``last.ckpt`` where
+    ``last``), the one the test loaded (``ckpt``) the least ``val_loss``
+    of them, and a metrics.jsonl whose every value is finite, with the
+    epoch's train loss and ``val_*`` and ``test_*`` keys. Returns the
+    union of the logged records."""
+    run_dir = os.path.dirname(ckpt)
+    files = sorted(os.listdir(run_dir))
+    kept = [os.path.join(run_dir, f) for f in files
+            if f.startswith("epoch=") and "-val_loss=" in f]
+    check(0 < len(kept) <= top_k and ("last.ckpt" in files) == last,
+          f"{what}: checkpoints {files}")
+    check(ckpt == min(kept, key=val_loss_of),
+          f"{what}: the test loaded {ckpt}, not the best of {kept}")
+    (log,) = [os.path.join(d, "metrics.jsonl") for d, _, f in
+              os.walk(os.path.join(proc.log_dir, kind))
+              if "metrics.jsonl" in f]
+    with open(log) as f:
+        records = [json.loads(line) for line in f]
+    logged = {k: v for r in records for k, v in r.items()}
+    check(all(np.isfinite(v) for r in records for v in r.values()),
+          f"{what}: a logged metric is not finite")
+    check("train_loss_epoch" in logged
+          and any(k.startswith("val_") for k in logged)
+          and any(k.startswith("test_") for k in logged),
+          f"{what}: metrics.jsonl keys {sorted(logged)}")
+    print(f"{what}: kept {[os.path.basename(k) for k in kept]}"
+          f"{' + last.ckpt' if last else ''}; tested "
+          f"{os.path.basename(ckpt)}; logged "
+          + ", ".join(f"{k} {logged[k]:.6g}" for k in sorted(logged)
+                      if k.endswith("loss") or "AUROC" in k
+                      or k.endswith("_F1")))
+    return logged
+
+
+def finish_train_kge(proc, what: str, graph, t0: float,
+                     epochs: int = 1) -> str:
+    """Wait for a ``start_train_kge`` run and check its reference flow
+    (top-3 and last, the test on the best, the metrics of ``epochs``
+    validations and a test: AUROC in [0, 1], one precision per relation);
+    returns the checkpoint the test loaded."""
     out, errs = proc.communicate(timeout=600)
     print(f"train_kge {what} ({time.perf_counter() - t0:.1f} s, rc "
           f"{proc.returncode}):", out.strip().replace("\n", " | "))
@@ -1216,7 +1303,19 @@ def finish_train_kge(proc, what: str, graph, t0: float) -> str:
     check(out.startswith(f"train_kge: {graph.num_nodes} nodes, "
                          f"{graph.num_edges} edges"),
           f"train_kge {what} did not train on the PrimeKG++-scale graph")
-    return out.split("checkpoint: ")[-1].strip()
+    ckpt = out.split("checkpoint: ")[-1].strip()
+    check(ckpt != "None" and os.path.exists(ckpt),
+          f"train_kge {what}: the test loaded no checkpoint ({ckpt})")
+    logged = check_reference_flow(proc, ckpt, f"train_kge {what}", 3, True,
+                                  "kge")
+    check(out.count("] val_loss=") == epochs,
+          f"train_kge {what}: {out.count('] val_loss=')} validations")
+    check(all(0.0 <= logged[f"{s}_AUROC"] <= 1.0 for s in ("val", "test")),
+          f"train_kge {what}: AUROC outside [0, 1]")
+    pre = [k for k in logged if k.endswith("_pre")]
+    check(len(pre) == graph.num_relations,
+          f"train_kge {what}: per-relation precisions {pre}")
+    return ckpt
 
 
 def serve_checkpoint(ckpt: str, tmp: str, what: str) -> KGEScorer:
@@ -1443,11 +1542,11 @@ def train_phase(dm, dev, tmp):
     # -- the train_kge entry point on the card, on the same graph, served;
     # phase 6's RotatE + sorted2 run and phase 7's RGAT run alongside ------
     t0 = time.perf_counter()
-    runs = (start_train_kge(tmp), start_train_kge(
+    runs = (start_train_kge(tmp, "epochs=2"), start_train_kge(
         tmp, "model.decoder_name=rotate", "model.neg_sampler=sorted2"),
         start_train_kge(tmp, "model.encoder_name=rgat"),
         start_train_gcl(tmp))
-    ckpt = finish_train_kge(runs[0], "DistMult", dm.graph, t0)
+    ckpt = finish_train_kge(runs[0], "DistMult", dm.graph, t0, epochs=2)
     served = serve_checkpoint(ckpt, tmp, "train_kge DistMult")
     p = served.score("gene_000000", "protein_protein", "gene_000001")
     print(f"train_kge DistMult checkpoint: score {p:.6f}")
@@ -2490,16 +2589,19 @@ def dgi_ggd_phase(dev, table, batch):
 def start_train_gcl(tmp: str) -> subprocess.Popen:
     """``python -m biomedkg_tpu_torch.train_gcl`` (GRACE on gene/protein,
     the config's float32) on the card for a few steps of the
-    PrimeKG++-scale graph, in its own directory under ``tmp``."""
+    PrimeKG++-scale graph, validating and testing on whole neighbour
+    epochs, in its own directory under ``tmp``."""
     root = os.path.dirname(os.path.abspath(__file__))
     cwd = tempfile.mkdtemp(dir=tmp)
-    return subprocess.Popen(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "biomedkg_tpu_torch.train_gcl",
          "model.model_name=grace", "data.node_type=gene",
-         f"steps={TRAIN_GCL_STEPS}", "epochs=1", f"seed={SEED}",
-         f"ckpt_dir={cwd}/ckpt"],
+         f"steps={TRAIN_GCL_STEPS}", "epochs=1", "val_every_epoch=1",
+         f"seed={SEED}", f"ckpt_dir={cwd}/ckpt", f"log_dir={cwd}/log"],
         cwd=cwd, env=dict(os.environ, PYTHONPATH=root),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.log_dir = f"{cwd}/log"
+    return proc
 
 
 def encode_train_gcl(gcl_run, dm, dev):
@@ -2517,6 +2619,10 @@ def encode_train_gcl(gcl_run, dm, dev):
     ckpt = out.split("checkpoint: ")[-1].strip()
     check("/gcl/gene/grace_none_random_" in ckpt,
           f"train_gcl checkpoint path {ckpt}")
+    logged = check_reference_flow(proc, ckpt, "train_gcl GRACE", 1, False,
+                                  "gcl")
+    check({"val_loss", "test_loss"} <= set(logged),
+          f"train_gcl: metrics {sorted(logged)}")
     loader = FullGraphLoader(dm.graph, edge_layout="dst")
     reset_launch_counts()
     module = gcl_module.load_gcl_module(ckpt, device=dev)
@@ -2561,12 +2667,407 @@ def gcl_phase(dev, tmp, gcl_run):
     return records, launches["sorted_segment_sum"] + encode_segsum
 
 
+# -- phase 9: held-out evaluation and the Trainer -----------------------------
+
+EVAL_BATCHES = 4
+# share of the distinct scores whose bin the card's float32 sigmoid moves
+# against the exact (float64) one: a correctly rounded float32 p >= 0.5
+# crosses a bin edge k·2^-15 for 2^-10 of the values (half an ulp, 2^-25,
+# over a bin); a sigmoid within 1 ulp, for twice that. Counted by distinct
+# score, and held in float32 only: bf16 scores lie on a lattice whose
+# values near 0 sit on the bin edges (0.5 + x/4 for x a multiple of
+# 2^-13), where the exact sigmoid is just below the edge and float32's
+# rounds onto it; their share is printed
+EVAL_MOVE_SHARE = 2.0 ** -9
+# eval_epoch's point metrics, kernels against plain versions (absolute)
+EVAL_METRIC_TOL = 1e-4
+POINT_METRICS = ("AUROC", "AveragePrecision", "F1", "loss")
+FIT_STEPS = 64                   # 4 prefetch items of the config's K = 16
+RESUME_STEPS = 3
+# a resumed run's losses against the uninterrupted run's (relative): each
+# step's train loss and the final validation loss, which reads the final
+# weights
+RESUME_RTOL = 1e-5
+# its final weights: their L2 distance from the uninterrupted run's, as a
+# share of how far that run's weights moved in the second epoch. No two
+# runs on the card are bit-equal: float32 atomics (the segsum's
+# chunk-crossing adds, index_add_) reorder sums, and Adam turns a gradient
+# that the order moves across zero into a full step of the other sign, so
+# single weights differ by up to a step's size. A repeat of the
+# uninterrupted run lies a few thousandths of the movement from it
+# (PERF.md, PR 13); a resume from the epoch's start, about 1
+RESUME_WEIGHT_SHARE = 0.05
+
+
+def host_eval_state(aux, num_rel: int, probs: np.ndarray) -> dict:
+    """``_reduce_eval_aux`` of ``aux`` on the host from the sigmoid values
+    ``probs``: the bins, thresholds and sums in numpy (float64 sums)."""
+    pred = aux["pred"].float().cpu().numpy()
+    gt = aux["gt"].cpu().numpy() > 0.5
+    w = aux["weights"].float().cpu().numpy().astype(np.float64)
+    nbins = HistogramBinaryMetrics.NUM_BINS
+    bins = np.minimum((probs * nbins).astype(np.int64), nbins - 1)
+    pos = pred > 0
+    em = aux["edge_mask"].cpu().numpy().astype(np.float64)
+    et = aux["edge_type"].cpu().numpy()
+    above = em * (aux["pos_pred"].float().cpu().numpy() > 0.5)
+    return {"hist": np.stack([
+                np.bincount(bins, np.where(gt, w, 0.0), nbins),
+                np.bincount(bins, np.where(gt, 0.0, w), nbins)]),
+            "f1_counts": np.array([w[pos & gt].sum(), w[pos & ~gt].sum(),
+                                   w[~pos & gt].sum()]),
+            "edge_counts": np.bincount(et, em, num_rel),
+            "edge_above": np.bincount(et, above, num_rel)}
+
+
+def bin_moves(a, b) -> float:
+    """Slots that sit in another bin in two histograms of the same
+    slots."""
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).sum() / 2)
+
+
+def busy_window(fn, what: str):
+    """One profiled call of ``fn`` (torch.profiler): (device busy ms, host
+    wall ms), the top kernels printed."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"{what} (torch.profiler): {busy:.3f} ms device busy of "
+          f"{wall:.3f} ms host wall (idle share "
+          f"{1 - busy / wall:.3f}); "
+          + "; ".join(f"{e.key[:50]} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms"
+                      for e in kernels[:8]))
+    return busy, wall
+
+
+def eval_step_check(dm, dev, sd, table) -> int:
+    """Phase 9a: the KGE eval step on SAINT val batches, float32 and bf16,
+    with the kernels and with the plain versions on the same batches and
+    the same iid negatives; the device reduction against the host's; the
+    epoch's metrics; times. Returns the segsum launches of the kernel
+    eval steps (the counts set to 0 just before, read just after)."""
+    loader = dm.val_dataloader(loader_type="saint")
+    t0 = time.perf_counter()
+    host = [loader.sample()[0] for _ in range(EVAL_BATCHES)]
+    sample_ms = (time.perf_counter() - t0) * 1e3 / EVAL_BATCHES
+    batches = [batch_to_device(b, dev) for b in host]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    k, num_rel = TRAIN["neg_ratio"], TRAIN["num_relation"]
+
+    def iid(batch):
+        nreal = batch.node_mask.sum().clamp(min=1)
+        e = batch.edge_type.shape[0]
+        return tuple((torch.rand(k, e, generator=gen, device=dev)
+                      * nreal).long() for _ in range(2))
+
+    negatives = [iid(b) for b in batches]
+    segsum_n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        what = f"eval step {str(dtype)[6:]}"
+        module = train_module(sd, table, dev, compute_dtype=str(dtype)[6:])
+        module.edge_mapping = dm.edge_map_index
+        module.eval_impl = "exact"
+
+        def run():
+            return [module.eval_step(b, negatives=n)
+                    for b, n in zip(batches, negatives)]
+
+        run()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux_k = run()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / EVAL_BATCHES
+        launches = launch_counts()
+        check(launches == expected_launches(
+            SEGSUM_PER_ENCODE * EVAL_BATCHES, None, 0),
+            f"{what}: launches over {EVAL_BATCHES} batches {launches}")
+        segsum_n += launches["sorted_segment_sum"]
+        reset_launch_counts()
+        with plain_versions():
+            aux_p = run()
+        check(not any(launch_counts().values()),
+              "the plain versions launched a kernel")
+        loss_tol, pred_tol = STEP_TOL[dtype]
+        pred_err = max(rel_err(a["pred"], b["pred"])
+                       for a, b in zip(aux_k, aux_p))
+        loss_err = max(abs(float(a["loss"]) - float(b["loss"]))
+                       / abs(float(b["loss"])) for a, b in zip(aux_k, aux_p))
+        check(pred_err <= pred_tol and loss_err <= loss_tol,
+              f"{what}: kernels vs plain pred {pred_err:.3g} (tol "
+              f"{pred_tol:g} of max), loss {loss_err:.3g} (tol {loss_tol:g})")
+
+        states_k = [module._reduce_eval_aux(a) for a in aux_k]
+        states_p = [module._reduce_eval_aux(a) for a in aux_p]
+        worst = 0.0
+        for aux, state in zip(aux_k, states_k):
+            # the reduction exactly, on the card's own float32 sigmoid
+            probs = torch.sigmoid(aux["pred"]).cpu().numpy()
+            want = host_eval_state(aux, num_rel, probs)
+            slots = float(aux["weights"].sum())
+            for key in ("hist", "f1_counts", "edge_counts", "edge_above"):
+                check(np.array_equal(state[key].double().cpu().numpy(),
+                                     want[key]),
+                      f"{what}: {key} differs from the host's reduction")
+            # the card's float32 sigmoid against the exact one
+            pred = aux["pred"].float().cpu().numpy()
+            _, first = np.unique(pred, return_index=True)
+            nbins = HistogramBinaryMetrics.NUM_BINS
+            exact = 1.0 / (1.0 + np.exp(-pred[first].astype(np.float64)))
+            moved = int(np.sum(np.floor(probs[first] * nbins)
+                               != np.floor(exact * nbins)))
+            worst = max(worst, moved / len(first))
+            check(dtype != torch.float32
+                  or moved <= EVAL_MOVE_SHARE * len(first),
+                  f"{what}: float32 sigmoid moves the bin of {moved} of "
+                  f"{len(first)} distinct scores against float64's")
+        plain_moves = max(bin_moves(a["hist"].cpu(), b["hist"].cpu())
+                          / float(a["hist"].sum())
+                          for a, b in zip(states_k, states_p))
+        got = module.eval_epoch(states_k, "val")
+        ref = module.eval_epoch(states_p, "val")
+        keys = [f"val_{m}" for m in POINT_METRICS] + [
+            key for key in got if key.endswith("_pre")]
+        metric_err = max(abs(got[key] - ref[key]) for key in keys)
+        check(all(np.isfinite(v) for v in got.values())
+              and 0.0 <= got["val_AUROC"] <= 1.0
+              and len(keys) == len(POINT_METRICS) + num_rel,
+              f"{what}: eval_epoch {got}")
+        check(metric_err <= EVAL_METRIC_TOL,
+              f"{what}: eval_epoch kernels vs plain {metric_err:.3g}")
+
+        reduce_ms = device_ms(lambda: module._reduce_eval_aux(aux_k[0]))
+        busy, wall = busy_window(run, f"{what} x{EVAL_BATCHES}")
+        print(f"{what}: {step_ms:.3f} ms per SAINT val batch (host clock, "
+              f"synchronised; {loader.node_budget} node x "
+              f"{loader.edge_budget} edge slots, K = {k} iid negatives, "
+              f"host sampling {sample_ms:.1f} ms a batch), device busy "
+              f"{busy / EVAL_BATCHES:.3f} ms a batch; _reduce_eval_aux "
+              f"{reduce_ms:.4f} ms on the device; kernels vs plain: pred "
+              f"max rel-to-max {pred_err:.3g} (tol {pred_tol:g}), loss "
+              f"{loss_err:.3g} (tol {loss_tol:g}), bin moves "
+              f"{plain_moves:.3g} of the slots; the reduction equal to the "
+              f"host's on the same sigmoid values; float32 sigmoid "
+              f"against float64's: {worst:.3g} of the distinct scores in "
+              f"another bin (tol {EVAL_MOVE_SHARE:g} in float32); "
+              f"eval_epoch point "
+              f"metrics max diff {metric_err:.3g} (tol "
+              f"{EVAL_METRIC_TOL:g}): "
+              + ", ".join(f"{m} {got[f'val_{m}']:.6f}"
+                          for m in POINT_METRICS))
+    return segsum_n
+
+
+class StepLosses:
+    """A logger for the Trainer that keeps what it is given."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log(self, metrics, step):
+        self.rows.append((step, dict(metrics)))
+
+    def losses(self, after: int) -> dict:
+        """Each step's train loss and each validation's loss after step
+        ``after``."""
+        return {(step, key): v for step, row in self.rows if step > after
+                for key, v in row.items() if key.endswith("loss")}
+
+
+class SaveAndStop:
+    """Saves at the first validation and stops the run there."""
+
+    def __init__(self, path: str):
+        self.path, self.should_stop = path, False
+
+    def on_validation_end(self, trainer, metrics):
+        trainer.save(self.path)
+        self.should_stop = True
+
+
+def trainer_vs_serial(dm, dev):
+    """Phase 9b (``trainer_vs_serial_main``'s process): FIT_STEPS SAINT
+    steps through ``Trainer.fit`` (the prefetch thread, K = 16 batches an
+    item) against the serial loop of sampling, copying and stepping, on
+    fresh copies of the same weights: a warm-up, ms per step in turns
+    (serial, Trainer, Trainer, serial), one profiled epoch of each with
+    its idle share, then one more turn of each (a torch.profiler window
+    slows the later host steps of its process). Reported only."""
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    dm.saint_fill_target = SAINT_FILL
+    init = KGEModule(**TRAIN)
+    init.init(torch.Generator().manual_seed(SEED + 3))
+    sd = {n: t.detach().clone() for n, t in init.state_dict().items()}
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+
+    def serial(steps=FIT_STEPS):
+        dm.SAINT_TRAIN_STEPS = steps
+        module = train_module(sd, table, dev)
+        module.configure_optimizers(steps)
+        state = module.init_state()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        loader = dm.train_dataloader(loader_type="saint")
+        loader.set_epoch(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in loader:
+            state, logs = module.train_step(
+                state, batch_to_device(batch, dev), gen)
+        check(np.isfinite(float(logs["train_loss"])), "serial loss")
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    def trainer(steps=FIT_STEPS):
+        dm.SAINT_TRAIN_STEPS = steps
+        module = train_module(sd, table, dev)
+        fit = Trainer(max_epochs=1, steps_per_execution=16,
+                      enable_progress_bar=False, enable_checkpointing=False)
+        torch.cuda.synchronize()
+        fit.fit(module, dm.train_dataloader(loader_type="saint"),
+                init_params=to_jax_params(module.model))
+        check(fit.global_step == steps
+              and np.isfinite(fit.history[0]["train_loss_epoch"]),
+              f"Trainer.fit: {fit.history}")
+        return 1e3 / fit.history[0]["batches_per_sec"]
+
+    serial(8)
+    trainer(8)
+    turns = {"serial": [], "Trainer": []}
+    for name in ("serial", "Trainer", "Trainer", "serial"):
+        turns[name].append(serial() if name == "serial" else trainer())
+    idle = {}
+    for name, fn in (("serial", serial), ("Trainer", trainer)):
+        busy, wall = busy_window(fn, f"{FIT_STEPS} SAINT steps, {name}")
+        idle[name] = 1 - busy / wall
+    after = {"serial": serial(), "Trainer": trainer()}
+    del dm.SAINT_TRAIN_STEPS  # back to the class's 1,000
+    print(f"Trainer.fit on the prefetch thread vs the serial loop, "
+          f"{FIT_STEPS} bf16 DistMult SAINT steps (sampling included, host "
+          f"clock): serial {turns['serial'][0]:.3f} / "
+          f"{turns['serial'][1]:.3f} ms per step, Trainer "
+          f"{turns['Trainer'][0]:.3f} / {turns['Trainer'][1]:.3f}; idle "
+          f"share (profiled epoch) serial {idle['serial']:.3f}, Trainer "
+          f"{idle['Trainer']:.3f}; after the profiled epochs serial "
+          f"{after['serial']:.3f}, Trainer {after['Trainer']:.3f}")
+    del table
+
+
+def flat_weights(module) -> torch.Tensor:
+    return torch.cat([p.detach().flatten() for p in module.parameters()])
+
+
+def resume_check(dm, dev, sd, table, tmp):
+    """Phase 9d: 2 epochs of RESUME_STEPS float32 steps straight through
+    (and once more, as a repeat), against 1 epoch, a save and a fresh
+    Trainer resumed from it: the second epoch's losses within RESUME_RTOL
+    of the uninterrupted run's, and the final weights within
+    RESUME_WEIGHT_SHARE of the second epoch's movement (the card's float32
+    atomics make no two runs bit-equal)."""
+    dm.SAINT_TRAIN_STEPS, dm.SAINT_EVAL_STEPS = RESUME_STEPS, 1
+
+    def run(callbacks=(), resume_from=None):
+        module = train_module(sd, table, dev, compute_dtype="float32")
+        module.edge_mapping = dm.edge_map_index
+        logger = StepLosses()
+        fit = Trainer(max_epochs=2, callbacks=list(callbacks), logger=logger,
+                      log_every_n_steps=1, enable_progress_bar=False)
+        fit.fit(module, dm.train_dataloader(loader_type="saint"),
+                dm.val_dataloader(loader_type="saint"),
+                resume_from=resume_from)
+        return fit, module, logger
+
+    t0 = time.perf_counter()
+    full, module, logs = run()
+    _, repeat, repeat_logs = run()
+    path = os.path.join(tmp, "resume", "epoch0.ckpt")
+    first, snapshot, _ = run([SaveAndStop(path)])
+    check(first.global_step == RESUME_STEPS and len(first.history) == 1,
+          "the interrupted run did not stop after its first epoch")
+    resumed, again, logs2 = run(resume_from=path)
+    want = logs.losses(RESUME_STEPS)
+    errs = {}
+    for name, lg in (("resumed", logs2), ("repeat", repeat_logs)):
+        got = lg.losses(RESUME_STEPS)
+        check(sorted(want) == sorted(got)
+              and len(want) == RESUME_STEPS + 1,
+              f"{name}: logged {sorted(got)} against {sorted(want)}")
+        errs[name] = max(abs(got[key] - want[key]) / abs(want[key])
+                         for key in want)
+    w_full = flat_weights(module)
+    movement = float(torch.linalg.vector_norm(w_full
+                                              - flat_weights(snapshot)))
+    share = {name: float(torch.linalg.vector_norm(flat_weights(m) - w_full))
+             / movement for name, m in (("resumed", again),
+                                        ("repeat", repeat))}
+    print(f"resume on the card ({time.perf_counter() - t0:.1f} s): epoch 1's "
+          f"{len(want)} losses max rel diff {errs['resumed']:.3g} (a repeat "
+          f"of the uninterrupted run: {errs['repeat']:.3g}; tol "
+          f"{RESUME_RTOL:g}); final weights {share['resumed']:.3g} of the "
+          f"second epoch's movement ({movement:.4g}, L2) from the "
+          f"uninterrupted run's, the repeat's {share['repeat']:.3g} (tol "
+          f"{RESUME_WEIGHT_SHARE:g}); uninterrupted "
+          f"{[round(full.history[1][k], 6) for k in ('train_loss_epoch', 'val_loss')]}, "
+          f"resumed "
+          f"{[round(resumed.history[0][k], 6) for k in ('train_loss_epoch', 'val_loss')]}")
+    check(errs["resumed"] <= RESUME_RTOL,
+          "the resumed run's losses disagree with the uninterrupted run's")
+    check(share["resumed"] <= RESUME_WEIGHT_SHARE,
+          "the resumed run's weights disagree with the uninterrupted run's")
+
+
+def eval_phase(dm, dev, tmp) -> int:
+    """Phase 9; returns the segsum launches of the eval main path."""
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    dm.saint_fill_target = SAINT_FILL
+    module = KGEModule(**TRAIN)
+    module.init(torch.Generator().manual_seed(SEED + 3))
+    sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+    segsum_n = eval_step_check(dm, dev, sd, table)
+    resume_check(dm, dev, sd, table, tmp)
+    return segsum_n
+
+
+TRAINER_VS_SERIAL = "trainer-vs-serial"
+
+
+def trainer_vs_serial_main(dev) -> int:
+    """Phase 9b alone, in a process of its own: no torch.profiler window
+    before its turns (one slows every later host step of the
+    process), and its prefetch threads' CUDA work stays out of the main
+    process's profiler windows. Uses the kernels phase 1 built."""
+    for lib in (segsum.LIBRARY, negscore.LIBRARY):
+        lib.lib()
+    check(native.get_lib() is not None, "the host sampler did not build")
+    os.environ["BIOMEDKG_SYNTHETIC_SCALE"] = "primekg"
+    with tempfile.TemporaryDirectory() as tmp:
+        dm = PrimeKGModule(**dict(PRIMEKG_DATA, data_dir=tmp), seed=SEED)
+        dm.setup(stage="split")
+        trainer_vs_serial(dm, dev)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     check_full_fp32()
     dev = torch.device("cuda")
+    if sys.argv[1:] == [TRAINER_VS_SERIAL]:
+        return trainer_vs_serial_main(dev)
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -2770,6 +3271,17 @@ def main() -> int:
         del table
         torch.cuda.empty_cache()
         flash_records, gcl_segsum = gcl_phase(dev, tmp, gcl_run)
+        # -- 9. held-out evaluation and the Trainer -------------------------
+        torch.cuda.empty_cache()
+        eval_segsum = eval_phase(scorer.dm, dev, tmp)
+    # -- 9b. the Trainer against the serial loop, in a fresh process -----
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), TRAINER_VS_SERIAL],
+        capture_output=True, text=True, timeout=600)
+    print(f"phase 9b in its own process ({time.perf_counter() - t0:.1f} s, "
+          f"rc {run.returncode}):\n{run.stdout.strip()}")
+    check(run.returncode == 0, f"phase 9b failed: {run.stderr[-3000:]}")
 
     for record in neg_records:
         if record["name"] == negscore.BUCKETS_NAME:
@@ -2781,7 +3293,7 @@ def main() -> int:
         "replaces": "biomedkg_tpu/ops/pallas/segsum.py:74",
         "design": "owner", "instance": "packed",
         "launches": launches["sorted_segment_sum"] + train_segsum
-        + gcl_segsum,
+        + gcl_segsum + eval_segsum,
         "max_abs_err": max(results.values()),
         "ms": serving["ms"], "first_design_ms": serving["first_ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],

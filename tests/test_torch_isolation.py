@@ -71,8 +71,9 @@ _CHILD = textwrap.dedent("""
     import contextlib, io
     from biomedkg_tpu_torch.train_kge import main as train_kge
     with contextlib.redirect_stdout(io.StringIO()):
-        trained = train_kge(["steps=1", "epochs=1", "device=cpu",
-                             "ckpt_dir=" + sys.argv[3]])
+        trained = train_kge(["steps=1", "epochs=1", "val_every_epoch=1",
+                             "device=cpu", "ckpt_dir=" + sys.argv[3],
+                             "log_dir=" + sys.argv[3] + "/log"])
     dm768 = PrimeKGModule(data_dir=data_dir, embed_dim=768,
                           node_type=["gene/protein", "drug", "disease"],
                           batch_size=8, val_ratio=0.2, test_ratio=0.2)
@@ -81,8 +82,9 @@ _CHILD = textwrap.dedent("""
     from biomedkg_tpu_torch.training.gcl_module import load_gcl_module
     with contextlib.redirect_stdout(io.StringIO()):
         gcl = train_gcl(["model.model_name=dgi", "data.node_type=drug",
-                         "steps=1", "epochs=1", "device=cpu",
-                         "ckpt_dir=" + sys.argv[3]])
+                         "steps=1", "epochs=1", "val_every_epoch=1",
+                         "device=cpu", "ckpt_dir=" + sys.argv[3],
+                         "log_dir=" + sys.argv[3] + "/log"])
     load_gcl_module(gcl, device="cpu")
     print(sorted(m for m, mod in sys.modules.items()
                  if mod is not None and m.split(".")[0] in {forbidden!r}))

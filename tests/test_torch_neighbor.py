@@ -4,6 +4,8 @@ neighbour loaders) against the JAX package on the default synthetic graph:
 for the same seed, byte-identical batch streams, native and
 ``BIOMEDKG_NO_NATIVE=1``, with the budgets shared across splits."""
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -125,5 +127,14 @@ def test_data_module_neighbor_loaders_match_jax(mode, tmp_path,
     _assert_same(next(iter(a)), next(iter(b)))
     _assert_same(ref.subgraph_dataloader().batch(),
                  next(iter(ours.subgraph_dataloader())))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ours.train_dataloader(loader_type="full")
+    # loader_type="full": the split's whole graph, one host batch yielded
+    # SAINT_TRAIN_STEPS times (val and test: once), as JAX's values
+    for split, steps in (("train", ref.SAINT_TRAIN_STEPS), ("val", 1),
+                         ("test", 1)):
+        a = getattr(ref, f"{split}_dataloader")(loader_type="full")
+        b = getattr(ours, f"{split}_dataloader")(loader_type="full")
+        assert len(a) == len(b) == steps
+        got = list(itertools.islice(b, 2))
+        for x, y in zip(next(iter(a)), got[0]):
+            assert np.array_equal(np.asarray(x), y)
+        assert all(g is got[0] for g in got)

@@ -5,6 +5,8 @@ byte-identical arrays for the same seed."""
 
 import functools
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -114,5 +116,14 @@ def test_data_module_shares_budgets_like_jax(mode, tmp_path, monkeypatch):
             (a.node_budget, a.edge_budget, len(a))
         assert b.fill_target == a.fill_target
         _assert_same(a.sample()[0], b.sample()[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ours.train_dataloader(loader_type="full")
+    # loader_type="full": the split's whole graph, one host batch yielded
+    # SAINT_TRAIN_STEPS times (val and test: once), as JAX's values
+    for split, steps in (("train", ref.SAINT_TRAIN_STEPS), ("val", 1),
+                         ("test", 1)):
+        a = getattr(ref, f"{split}_dataloader")(loader_type="full")
+        b = getattr(ours, f"{split}_dataloader")(loader_type="full")
+        assert len(a) == len(b) == steps
+        got = list(itertools.islice(b, 2))
+        for x, y in zip(next(iter(a)), got[0]):
+            assert np.array_equal(np.asarray(x), y)
+        assert all(g is got[0] for g in got)

@@ -75,8 +75,9 @@ def test_port_rgat_checkpoint_loads_in_jax_and_resumes(tmp_path):
 def test_train_kge_cli_rgat_checkpoint_is_served(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("BIOMEDKG_SYNTHETIC_SCALE", raising=False)
-    path = train_kge_main(["steps=1", "epochs=1", "device=cpu",
-                           f"ckpt_dir={tmp_path / 'ck'}", "seed=3",
+    path = train_kge_main(["steps=1", "epochs=1", "val_every_epoch=1",
+                           "device=cpu", f"ckpt_dir={tmp_path / 'ck'}",
+                           f"log_dir={tmp_path / 'log'}", "seed=3",
                            "model.encoder_name=rgat"])
     assert "rgat_dismult_" in path
     dm = PrimeKGModule(**dict(PRIMEKG_DATA, data_dir=str(tmp_path / "d")),

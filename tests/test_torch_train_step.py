@@ -360,8 +360,9 @@ def test_train_kge_cli_writes_a_checkpoint_the_scorer_serves(
         tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("BIOMEDKG_SYNTHETIC_SCALE", raising=False)
-    path = train_kge_main(["steps=2", "epochs=1", "device=cpu",
-                           f"ckpt_dir={tmp_path / 'ck'}", "seed=3",
+    path = train_kge_main(["steps=2", "epochs=1", "val_every_epoch=1",
+                           "device=cpu", f"ckpt_dir={tmp_path / 'ck'}",
+                           f"log_dir={tmp_path / 'log'}", "seed=3",
                            "model.compute_dtype=bfloat16"])
     assert os.path.exists(path)
     dm = PrimeKGModule(**dict(PRIMEKG_DATA, data_dir=str(tmp_path / "d")),
@@ -468,8 +469,9 @@ def test_train_kge_cli_rotate_sorted2_checkpoint_is_served(
         tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("BIOMEDKG_SYNTHETIC_SCALE", raising=False)
-    path = train_kge_main(["steps=2", "epochs=1", "device=cpu",
-                           f"ckpt_dir={tmp_path / 'ck'}", "seed=3",
+    path = train_kge_main(["steps=2", "epochs=1", "val_every_epoch=1",
+                           "device=cpu", f"ckpt_dir={tmp_path / 'ck'}",
+                           f"log_dir={tmp_path / 'log'}", "seed=3",
                            "model.decoder_name=rotate",
                            "model.neg_sampler=sorted2"])
     assert "rgcn_rotate_" in path
