@@ -27,6 +27,8 @@ better one; then tests that checkpoint on the test split. Checkpoints go
 to ``<ckpt_dir>/gcl/<node_type>/<model>_<fuse>_<init>_<time>/``, the
 layout the reference's GCL node encoder globs (``load_gcl_module`` loads
 them in either package), metrics to the same path under ``<log_dir>``.
+Like ``train_kge``, it trains on the one card ``device`` names (the
+config's two-card ``devices`` is ROADMAP.md queue 1, item 12).
 ``train`` returns the path of the checkpoint the test loaded.
 """
 
@@ -41,7 +43,7 @@ from typing import List, Optional
 from .data.modules import PrimeKGModule
 from .device import resolve_device
 from .serve import PRIMEKG_DATA
-from .train_kge import DEVICES, parse_bool
+from .train_kge import parse_bool
 from .training.checkpoint import EarlyStopping, ModelCheckpoint
 from .training.gcl_module import create_gcl_model
 from .training.logger import MetricsLogger
@@ -142,7 +144,6 @@ def train(args: dict) -> Optional[str]:
                       gradient_clip_val=GRAD_CLIP,
                       callbacks=[checkpoint, early_stopping], logger=logger,
                       fast_dev_run=args["debug"], log_every_n_steps=10,
-                      devices=DEVICES,
                       steps_per_execution=args["steps_per_execution"])
     print(f"train_gcl: {model['model_name']} on {node_type[0]}: "
           f"{dm.graph.num_nodes} nodes, {dm.graph.num_edges} edges; "

@@ -29,7 +29,10 @@ of least ``val_loss`` and ``last.ckpt`` under
 ``<ckpt_dir>/kge/<experiment>/``; then tests the best of them on the test
 split. Metrics go to ``<log_dir>/kge/<experiment>/metrics.{jsonl,csv}``.
 Every checkpoint holds the optimizer state, which ``KGEScorer`` serves and
-``Trainer.fit(resume_from=...)`` resumes. ``train`` returns the path of
+``Trainer.fit(resume_from=...)`` resumes. It trains on the one card
+``device`` names, whatever the host holds: configs/kge.yaml's
+``devices: 0,1`` asks for data parallelism over two, which is not ported
+(ROADMAP.md queue 1, item 12). ``train`` returns the path of
 the checkpoint the test loaded (None when it tested the weights in
 memory: ``debug``, or no validation ran).
 """
@@ -65,8 +68,6 @@ DEFAULTS = {"epochs": 100, "val_every_epoch": 2, "neg_ratio": 10,
             "model.neg_sampler": MODEL["neg_sampler"]}
 _INTS = ("epochs", "val_every_epoch", "neg_ratio", "steps",
          "steps_per_execution", "seed", "model.num_heads")
-# configs/kge.yaml's devices: ids, clamped to the cards present
-DEVICES = "0,1"
 
 
 def parse_bool(value: str) -> bool:
@@ -136,7 +137,7 @@ def train(args: dict) -> Optional[str]:
                       check_val_every_n_epoch=args["val_every_epoch"],
                       gradient_clip_val=1.0, callbacks=[checkpoint],
                       logger=logger, fast_dev_run=args["debug"],
-                      log_every_n_steps=10, devices=DEVICES,
+                      log_every_n_steps=10,
                       steps_per_execution=args["steps_per_execution"])
     print(f"train_kge: {dm.graph.num_nodes} nodes, {dm.graph.num_edges} "
           f"edges; SAINT envelope {loader.node_budget} nodes x "

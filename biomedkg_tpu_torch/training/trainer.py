@@ -71,8 +71,7 @@ class Trainer:
                  enable_progress_bar: bool = True,
                  steps_per_execution: int = 1,
                  checkpoint_every_n_steps: Optional[int] = None,
-                 checkpoint_backend: str = "pickle",
-                 async_checkpointing: bool = True):
+                 checkpoint_backend: str = "pickle"):
         if checkpoint_backend == "orbax":
             raise NotImplementedError(
                 "checkpoint_backend='orbax' is not ported: orbax imports JAX "
@@ -95,7 +94,6 @@ class Trainer:
             warnings.warn(
                 "checkpoint_every_n_steps is set but default_root_dir is "
                 "not: no periodic checkpoint will be written", stacklevel=2)
-        self.async_checkpointing = async_checkpointing
         self.default_root_dir = default_root_dir
         self.devices = devices
         self._saver = AsyncSaver()
@@ -113,9 +111,8 @@ class Trainer:
         """Write a resumable checkpoint: the weights, Adam's state, the
         step and the callbacks' states. The copy to host memory happens
         here, before the next step changes the parameters in place; during
-        ``fit`` the file is written on the saver's thread unless
-        ``async_checkpointing`` is off, and a direct call is durable when
-        it returns."""
+        ``fit`` the file is written on the saver's thread, and a direct
+        call is durable when it returns."""
         if os.path.isdir(path):
             raise NotImplementedError(
                 f"{path} is a directory: orbax checkpoints are not ported "
@@ -129,7 +126,7 @@ class Trainer:
         def write():
             save_checkpoint(path, **payload, extras=extras)
 
-        if self.async_checkpointing and self._in_fit:
+        if self._in_fit:
             self._saver.submit(write)
         else:
             self._saver.wait()  # the latest write wins

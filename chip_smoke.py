@@ -99,7 +99,9 @@ Phases; any failure ends the run with a non-zero exit:
     on ``wgmma``; negscore 1 + 1, segsum 0), a torch.profiler window with
     its float32 index_add_s split by call site, the same window with the
     first-design relmm (the general instances), a few float32 steps (relmm
-    on ``simt_f32``), loss and gradients with the kernels against the plain
+    on ``simt_f32``), one eval step on a SAINT val batch in each type
+    with its launch counts (relmm 8 forwards, no d_msg, negscore and segsum
+    0), loss and gradients with the kernels against the plain
     versions, the loss falling on a fixed batch; both directions at the
     path's shapes (RGAT's 768 → 512 and 256 → 512 in bf16, the edge conv's
     full-graph 768 → 256 in float32), where the wrapper must pick the
@@ -131,7 +133,9 @@ Phases; any failure ends the run with a non-zero exit:
     batches of 128 seeds in the dst layout with device-resident
     features, in bf16 and in float32 (the config's type): warm-up steps,
     timed steps with every launch count set to 0 just before and read
-    just after (segsum 8, flash 2 + 2 per step), ms per step, nodes per
+    just after (segsum 8, flash 2 + 2 per step), one eval step on a
+    neighbour val batch with its counts (segsum 8, flash 2 forwards, no
+    backward), ms per step, nodes per
     second, the envelope, peak memory and a torch.profiler window, one
     with the first-design segsum, and one more on the first-design flash
     kernels (bf16 also on ``skip_bf16``);
@@ -158,7 +162,10 @@ Phases; any failure ends the run with a non-zero exit:
     batch, the count table and 4 convs, all on ``packed``; no negscore,
     no relmm: eval scores iid negatives by gathers) and with the plain
     versions on the same batches and iid negatives: preds and loss within
-    STEP_TOL, ``_reduce_eval_aux``'s histogram and counts equal to a host
+    STEP_TOL, the kernels' histogram within EVAL_PLAIN_MOVES of the
+    slots' bins of the plain versions' (and the float32 kernels' beyond it
+    from the bf16 kernels', so the gate sees an error of bf16's rounding),
+    ``_reduce_eval_aux``'s histogram and counts equal to a host
     reduction of the card's own float32 sigmoid values, that sigmoid's
     bins against float64's (EVAL_MOVE_SHARE of the distinct scores, in
     float32), ``eval_epoch``'s point metrics within EVAL_METRIC_TOL; ms
@@ -167,7 +174,8 @@ Phases; any failure ends the run with a non-zero exit:
     (``chip_smoke.py trainer-vs-serial``: a torch.profiler window slows
     every later host step of its process): ``Trainer.fit`` over FIT_STEPS
     SAINT steps on the prefetch thread against the serial loop of
-    sampling, copying and stepping, ms per step in turns, each one's
+    sampling, copying and stepping, and with one batch an item (K = 1),
+    ms per step in turns, each one's
     profiled idle share, and one more turn of each after the profiled
     ones (reported only); (c) is phase 5's check of the entry points' reference
     flow; (d) a resume on the card: 2 epochs of 3 float32 steps straight
@@ -882,6 +890,25 @@ def timed_steps(module, state, batches, gen, what: str, work=triplets):
           f"{steps} steps {({k: v for k, v in launches.items() if v})}")
     check(np.isfinite(loss), f"{what}: training loss not finite")
     return state, launches, step_ms
+
+
+def eval_launches(module, batch, what: str, want: dict) -> dict:
+    """One held-out step of ``module`` on ``batch`` with every launch
+    count set to 0 just before and read just after (and added into
+    PATH_LAUNCHES), held to ``want``; returns the counts."""
+    gen = torch.Generator(device=batch.edge_mask.device).manual_seed(SEED)
+    reset_launch_counts()
+    out = module.eval_step(batch, gen)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for name, count in launches.items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    print(f"{what} eval step: launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    check(launches == want, f"{what} eval step: launches {launches}")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+          f"{what} eval step: not finite")
+    return launches
 
 
 def profile_steps(module, state, batches, gen, what: str,
@@ -1913,8 +1940,9 @@ def rgat_module(table, dev, **over):
 def rgat_train_phase(dm, dev, table):
     """Phase 7b: the RGAT step in bf16 (timed, profiled with its
     index_add_s split by call site, compared, the loss falling) and a few
-    float32 steps (train_kge's default type, timed); returns the device
-    batches and the relmm launches of the timed steps by type."""
+    float32 steps (train_kge's default type, timed), and one eval step on
+    a SAINT val batch in each type; returns the device batches and the
+    relmm launches of the timed steps and the eval steps."""
     dm.edge_layout = "relation"
     loader = dm.train_dataloader(loader_type="saint")
     t0 = time.perf_counter()
@@ -1947,6 +1975,10 @@ def rgat_train_phase(dm, dev, table):
         profile_steps(module, state, batches[-PROFILED:], gen,
                       "RGAT train step with the first-design relmm "
                       "(wmma_general)")
+    val = batch_to_device(dm.val_dataloader(loader_type="saint").sample()[0],
+                          dev)
+    eval_n = [eval_launches(module, val, "RGAT bf16", expected_launches(
+        0, None, 0, (RELMM_PER_STEP[0], 0), relmm_instance="wgmma"))]
     del module, state
 
     f32 = rgat_module(table, dev, compute_dtype="float32")
@@ -1961,12 +1993,14 @@ def rgat_train_phase(dm, dev, table):
                              relmm_instance="simt_f32")
     check(f32_launches == want,
           f"RGAT float32 launches per step: {f32_launches}")
-    del f32, state
+    eval_n.append(eval_launches(f32, val, "RGAT float32", expected_launches(
+        0, None, 0, (RELMM_PER_STEP[0], 0), relmm_instance="simt_f32")))
+    del f32, state, val
 
     compare_step(sd, table, dev, batches[0], "distmult_neg_scores", "RGAT",
                  segsum_n=0, relmm_n=RELMM_PER_STEP, encoder_name="rgat")
     loss_falls(sd, table, dev, batches[0], "RGAT", encoder_name="rgat")
-    return batches, [launches, f32_launches]
+    return batches, [launches, f32_launches] + eval_n
 
 
 def timed_encodes(module, batch, n=3):
@@ -2526,9 +2560,10 @@ def gcl_batches(dev, tmp):
     return dm, [batch_to_device(b, dev) for b in host]
 
 
-def grace_phase(dev, table, batches):
-    """Phase 8b: the GRACE step at full width in bf16 and float32; returns
-    the launches of its timed runs."""
+def grace_phase(dev, table, batches, val):
+    """Phase 8b: the GRACE step at full width in bf16 and float32, and one
+    eval step on the neighbour val batch ``val`` (the flash forward only);
+    returns the launches of its timed runs and its eval steps."""
     total = {}
     for dtype in (torch.bfloat16, torch.float32):
         warm, steps, profiled = P8_STEPS[dtype]
@@ -2551,8 +2586,15 @@ def grace_phase(dev, table, batches):
             flash_n=FLASH_PER_STEP * steps,
             flash_design=flashnce.PATH[dtype]),
             f"{what}: launches {launches}")
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        want = expected_launches(SEGSUM_PER_GCL_STEP, None, 0,
+                                 flash_n=FLASH_PER_STEP,
+                                 flash_design=flashnce.PATH[dtype])
+        bwd = flashnce.KERNELS[flashnce.NAME + "_bwd"]
+        want[bwd.name] = want[relmm_key(bwd, flashnce.PATH[dtype])] = 0
+        held_out = eval_launches(module, val, f"GRACE {str(dtype)[6:]}",
+                                 want)
+        for k in launches:
+            total[k] = total.get(k, 0) + launches[k] + held_out[k]
         profile_steps(module, state, batches[-profiled:], gen, what)
         with first_design_segsum():
             profile_steps(module, state, batches[-profiled:], gen,
@@ -2654,7 +2696,10 @@ def gcl_phase(dev, tmp, gcl_run):
     flash_odd_checks(dev)
     dm, batches = gcl_batches(dev, tmp)
     table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
-    launches = grace_phase(dev, table, batches)
+    val = dm.val_dataloader(loader_type="neighbor")
+    val.set_epoch(0)
+    launches = grace_phase(dev, table, batches,
+                           batch_to_device(next(iter(val)), dev))
     records = flash_path_records(dev, batches[0].node_mask, launches)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2679,6 +2724,13 @@ EVAL_BATCHES = 4
 # 2^-13), where the exact sigmoid is just below the edge and float32's
 # rounds onto it; their share is printed
 EVAL_MOVE_SHARE = 2.0 ** -9
+# the kernels' eval histogram against the plain versions': slots in
+# another bin, as a share of the slots. Both sides take the same float32
+# sigmoid of preds that differ only by summation order, so a slot moves
+# only where that order crosses a bin edge: 1.11e-5 and 1.66e-5 in float32,
+# 0 in bf16 (PERF.md, PR 13). The float32 kernels' histogram against the
+# bf16 kernels' (an error of bf16's rounding) must read above it
+EVAL_PLAIN_MOVES = 1e-4
 # eval_epoch's point metrics, kernels against plain versions (absolute)
 EVAL_METRIC_TOL = 1e-4
 POINT_METRICS = ("AUROC", "AveragePrecision", "F1", "loss")
@@ -2773,6 +2825,7 @@ def eval_step_check(dm, dev, sd, table) -> int:
 
     negatives = [iid(b) for b in batches]
     segsum_n = 0
+    states_f32 = None
     for dtype in (torch.float32, torch.bfloat16):
         what = f"eval step {str(dtype)[6:]}"
         module = train_module(sd, table, dev, compute_dtype=str(dtype)[6:])
@@ -2836,6 +2889,20 @@ def eval_step_check(dm, dev, sd, table) -> int:
         plain_moves = max(bin_moves(a["hist"].cpu(), b["hist"].cpu())
                           / float(a["hist"].sum())
                           for a, b in zip(states_k, states_p))
+        check(plain_moves <= EVAL_PLAIN_MOVES,
+              f"{what}: kernels vs plain move {plain_moves:.3g} of the "
+              f"slots' bins (tol {EVAL_PLAIN_MOVES:g})")
+        if states_f32 is None:
+            states_f32, cross = states_k, ""
+        else:
+            moves = max(bin_moves(a["hist"].cpu(), b["hist"].cpu())
+                        / float(a["hist"].sum())
+                        for a, b in zip(states_f32, states_k))
+            check(moves > EVAL_PLAIN_MOVES,
+                  f"the float32 and bf16 histograms differ by {moves:.3g} "
+                  f"of the slots: the bin-move gate cannot see a bf16 "
+                  f"error")
+            cross = f" (float32 kernels vs bf16 kernels: {moves:.3g})"
         got = module.eval_epoch(states_k, "val")
         ref = module.eval_epoch(states_p, "val")
         keys = [f"val_{m}" for m in POINT_METRICS] + [
@@ -2858,7 +2925,8 @@ def eval_step_check(dm, dev, sd, table) -> int:
               f"{reduce_ms:.4f} ms on the device; kernels vs plain: pred "
               f"max rel-to-max {pred_err:.3g} (tol {pred_tol:g}), loss "
               f"{loss_err:.3g} (tol {loss_tol:g}), bin moves "
-              f"{plain_moves:.3g} of the slots; the reduction equal to the "
+              f"{plain_moves:.3g} of the slots (tol {EVAL_PLAIN_MOVES:g})"
+              f"{cross}; the reduction equal to the "
               f"host's on the same sigmoid values; float32 sigmoid "
               f"against float64's: {worst:.3g} of the distinct scores in "
               f"another bin (tol {EVAL_MOVE_SHARE:g} in float32); "
@@ -2902,9 +2970,11 @@ def trainer_vs_serial(dm, dev):
     steps through ``Trainer.fit`` (the prefetch thread, K = 16 batches an
     item) against the serial loop of sampling, copying and stepping, on
     fresh copies of the same weights: a warm-up, ms per step in turns
-    (serial, Trainer, Trainer, serial), one profiled epoch of each with
-    its idle share, then one more turn of each (a torch.profiler window
-    slows the later host steps of its process). Reported only."""
+    (serial, Trainer, Trainer with K = 1 twice, Trainer, serial: whether
+    grouping K batches an item moves anything while the K steps still run
+    one by one), one profiled epoch of serial and Trainer with its idle
+    share, then one more turn of each (a torch.profiler window slows the
+    later host steps of its process). Reported only."""
     dm.edge_layout = "dst"
     dm.device_features = True
     dm.saint_fill_target = SAINT_FILL
@@ -2929,10 +2999,10 @@ def trainer_vs_serial(dm, dev):
         check(np.isfinite(float(logs["train_loss"])), "serial loss")
         return (time.perf_counter() - t0) * 1e3 / steps
 
-    def trainer(steps=FIT_STEPS):
+    def trainer(steps=FIT_STEPS, k=16):
         dm.SAINT_TRAIN_STEPS = steps
         module = train_module(sd, table, dev)
-        fit = Trainer(max_epochs=1, steps_per_execution=16,
+        fit = Trainer(max_epochs=1, steps_per_execution=k,
                       enable_progress_bar=False, enable_checkpointing=False)
         torch.cuda.synchronize()
         fit.fit(module, dm.train_dataloader(loader_type="saint"),
@@ -2944,9 +3014,12 @@ def trainer_vs_serial(dm, dev):
 
     serial(8)
     trainer(8)
-    turns = {"serial": [], "Trainer": []}
-    for name in ("serial", "Trainer", "Trainer", "serial"):
-        turns[name].append(serial() if name == "serial" else trainer())
+    turns = {"serial": [], "Trainer": [], "K = 1": []}
+    run = {"serial": serial, "Trainer": trainer,
+           "K = 1": lambda: trainer(k=1)}
+    for name in ("serial", "Trainer", "K = 1", "K = 1", "Trainer",
+                 "serial"):
+        turns[name].append(run[name]())
     idle = {}
     for name, fn in (("serial", serial), ("Trainer", trainer)):
         busy, wall = busy_window(fn, f"{FIT_STEPS} SAINT steps, {name}")
@@ -2957,7 +3030,9 @@ def trainer_vs_serial(dm, dev):
           f"{FIT_STEPS} bf16 DistMult SAINT steps (sampling included, host "
           f"clock): serial {turns['serial'][0]:.3f} / "
           f"{turns['serial'][1]:.3f} ms per step, Trainer "
-          f"{turns['Trainer'][0]:.3f} / {turns['Trainer'][1]:.3f}; idle "
+          f"{turns['Trainer'][0]:.3f} / {turns['Trainer'][1]:.3f}, "
+          f"Trainer with K = 1 {turns['K = 1'][0]:.3f} / "
+          f"{turns['K = 1'][1]:.3f}; idle "
           f"share (profiled epoch) serial {idle['serial']:.3f}, Trainer "
           f"{idle['Trainer']:.3f}; after the profiled epochs serial "
           f"{after['serial']:.3f}, Trainer {after['Trainer']:.3f}")

@@ -5,7 +5,8 @@
 (resume, ``fast_dev_run``, ``check_val_every_n_epoch``,
 ``test(ckpt_path="best")``, an async save during ``fit``, the refusals,
 ``history`` keys against the JAX Trainer's, full-batch training) and
-``train_kge`` / ``train_gcl`` end to end on the CPU.
+``train_kge`` / ``train_gcl`` end to end on the CPU, and their Trainer on a
+host with two cards.
 
 Tolerances: the callbacks' kept files, best path, stop epoch and
 ``state_dict`` equal; the loggers' CSV and JSONL equal but for the
@@ -35,6 +36,7 @@ from biomedkg_tpu_torch.sampling.batch import batch_to_device, \
     pad_graph_batch
 from biomedkg_tpu_torch.sampling.loaders import prefetch, \
     prefetch_to_device
+from biomedkg_tpu_torch import train_gcl, train_kge
 from biomedkg_tpu_torch.train_gcl import main as train_gcl_main
 from biomedkg_tpu_torch.train_kge import main as train_kge_main
 from biomedkg_tpu_torch.training import checkpoint
@@ -408,3 +410,29 @@ def test_train_kge_and_train_gcl_end_to_end(tmp_path, monkeypatch):
         rows = list(csv.DictReader(f))
     assert {"val_loss", "test_loss", "train_loss_epoch"} <= set(rows[0])
     assert rows[-1]["test_loss"] != ""
+
+
+class _Reached(Exception):
+    pass
+
+
+@pytest.mark.parametrize("entry,argv", [
+    (train_kge, []), (train_gcl, ["model.model_name=dgi",
+                                  "data.node_type=drug"])],
+    ids=["train_kge", "train_gcl"])
+def test_entry_points_train_on_one_card_of_two(entry, argv, tmp_path,
+                                               monkeypatch):
+    """On a host with two cards the entry points' Trainer passes its
+    device check (data parallelism is not ported, so they ask for one)."""
+    class CheckOnly(Trainer):
+        def fit(self, *args, **kwargs):
+            self._check_devices(torch.device("cuda"))
+            raise _Reached
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("BIOMEDKG_SYNTHETIC_SCALE", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(entry, "Trainer", CheckOnly)
+    with pytest.raises(_Reached):
+        entry.main(["device=cpu", "steps=2", f"ckpt_dir={tmp_path}/ck",
+                    f"log_dir={tmp_path}/log"] + argv)
