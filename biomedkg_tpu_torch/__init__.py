@@ -18,5 +18,9 @@ step (``train_kge.py``, ``training/``) on GraphSAINT batches
 kernels (``ops/negscore.py``, ``csrc/negscore.cu``); and Stage B's GCL
 pretraining (``train_gcl.py``, ``training/gcl_module.py``,
 ``models/gcl.py``) on neighbour batches, GRACE's InfoNCE denominator
-through the CUDA flash kernels (``ops/flashnce.py``, ``csrc/flashnce.cu``).
+through the CUDA flash kernels (``ops/flashnce.py``, ``csrc/flashnce.cu``);
+the Trainer with held-out evaluation (``training/trainer.py``); filtered
+ranking (``eval/ranking.py``, ``rank_eval.py``), ``test_kge.py`` and the
+unseen-node protocol (``data/inductive.py``, ``eval/inductive.py``,
+cold-start dropout).
 """

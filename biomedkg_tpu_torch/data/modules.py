@@ -10,9 +10,12 @@ envelope probed once on the largest split graph, and full batches
 yielded ``SAINT_TRAIN_STEPS`` times for training and once for val and
 test; the Trainer copies it to the device once an epoch);
 ``all_dataloader`` (the fan-outs over the whole graph) and
-``subgraph_dataloader`` (the whole graph as one batch, for export). The
-inductive split and the DPI module come in later slices (ROADMAP.md
-queue 1).
+``subgraph_dataloader`` (the whole graph as one batch, for export).
+``unseen_node_ratio > 0`` holds that share of the nodes out
+(data/inductive.py; of the ``unseen_node_types`` only, cleaned names such
+as ``["drug"]``, when given): the splits are then the seen-only edges'
+and ``inductive`` carries the cold-start eval graph and the held-out
+edges. The DPI module comes in a later slice (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import List, Optional
 from ..sampling.loaders import (FullGraphLoader, NeighborBatchLoader,
                                 SaintRandomWalkLoader)
 from . import node_encoders as node
+from .inductive import node_pool_for_types, unseen_node_split
 from .primekg import PrimeKG
 from .split import random_link_split
 
@@ -45,7 +49,9 @@ class PrimeKGModule:
     def __init__(self, data_dir: str, embed_dim: int, node_type: List[str],
                  batch_size: int, val_ratio: float, test_ratio: float,
                  node_init_method: Optional[str] = None,
-                 seed: int = 42, block_size: int = 256):
+                 seed: int = 42, block_size: int = 256,
+                 unseen_node_ratio: float = 0.0,
+                 unseen_node_types: Optional[List[str]] = None):
         self.data_dir = data_dir
         self.node_type = node_type
         self.batch_size = batch_size
@@ -54,6 +60,9 @@ class PrimeKGModule:
         self.seed = seed
         self.block_size = block_size
         self.node_init_method = node_init_method
+        self.unseen_node_ratio = float(unseen_node_ratio or 0.0)
+        self.unseen_node_types = unseen_node_types
+        self.inductive = None
         # "relation" or "dst" — must match the model's ``edge_layout``
         self.edge_layout = "relation"
         # True → batches carry node ids only; the training module gathers
@@ -75,7 +84,19 @@ class PrimeKGModule:
         self.graph = self.primekg.graph
         self._saint_budgets = None
         self._neighbor_budgets = None
-        if self._do_split:
+        if self._do_split and self.unseen_node_ratio > 0.0:
+            pool = None
+            if self.unseen_node_types:
+                pool = node_pool_for_types(
+                    self.primekg.node_type_of, self.primekg.node_type_names,
+                    self.unseen_node_types)
+            self.inductive = unseen_node_split(
+                self.graph, self.unseen_node_ratio, self.val_ratio,
+                self.test_ratio, seed=self.seed, node_pool=pool)
+            self.train_data = self.inductive.train
+            self.val_data = self.inductive.val
+            self.test_data = self.inductive.test
+        elif self._do_split:
             self.train_data, self.val_data, self.test_data = \
                 random_link_split(self.graph, self.val_ratio,
                                   self.test_ratio, seed=self.seed)

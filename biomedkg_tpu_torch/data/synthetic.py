@@ -1,12 +1,16 @@
-"""Synthetic PrimeKG++-schema triplets as numpy columns.
+"""Synthetic triplets as numpy columns.
 
 Counterpart of biomedkg_tpu/data/synthetic.py without pandas. A triplet
 table is a dict of equal-length numpy string columns (``COLUMNS``). The
-generator makes the same ``numpy.random.Generator`` calls in the same order
-as the reference, and rebuilds pandas'
+generators make the same ``numpy.random.Generator`` calls in the same order
+as the reference, and rebuild pandas'
 ``drop_duplicates(subset=["x_name", "relation", "y_name"])`` (keep the first
 row of each key, in row order) with ``np.unique(..., return_index=True)``,
-so one seed gives exactly the reference's rows.
+so one seed gives exactly the reference's rows: the PrimeKG++-schema graph
+(``synthetic_triplets``), the cluster-structured fixture of the
+unseen-node protocol (``clustered_triplets``, ``cluster_token``) and the
+planted latent-factor graph of the ranking learning check
+(``planted_triplets``).
 """
 
 from __future__ import annotations
@@ -91,3 +95,94 @@ def synthetic_triplets(
     return synthetic_triplets_from_schema(
         sizes, relations, num_edges=num_edges, seed=seed,
         name_fn=lambda t, i: f"{t.split('/')[0]}_{i:06d}")
+
+
+def _entity_columns(names, heads, tails, relation) -> Triplets:
+    """One relation's rows over the single node type "entity"."""
+    m = len(heads)
+    return {"x_type": np.full(m, "entity"), "x_name": names[heads],
+            "relation": np.full(m, relation), "y_type": np.full(m, "entity"),
+            "y_name": names[tails]}
+
+
+def _concat(parts) -> Triplets:
+    return {c: np.concatenate([p[c] for p in parts]) for c in COLUMNS}
+
+
+def clustered_triplets(num_nodes: int = 300, num_clusters: int = 6,
+                       num_relations: int = 4, num_edges: int = 6000,
+                       seed: int = 0):
+    """Cluster-structured graph whose edges follow from node attributes,
+    the fixture of the unseen-node protocol (data/inductive.py).
+
+    Nodes get uniform cluster labels; relation ``r`` joins cluster ``c``
+    heads to cluster ``(c + shift_r) % C`` tails, shift_r = r % (C - 1) + 1,
+    with uniform draws over the allowed pairs; duplicate (head, relation,
+    tail) rows keep their first occurrence.
+
+    Returns ``(columns, cluster, features)``: the triplet columns over the
+    one node type "entity", the (N,) cluster labels and (N, num_clusters)
+    one-hot float32 features in the sorted-name node order.
+    """
+    rng = np.random.default_rng(seed)
+    cluster = rng.integers(0, num_clusters, size=num_nodes)
+    names = np.array([f"ent_{i:06d}" for i in range(num_nodes)])
+    members = [np.nonzero(cluster == c)[0] for c in range(num_clusters)]
+
+    parts, keys = [], []
+    per_rel = max(1, num_edges // num_relations)
+    for r in range(num_relations):
+        shift = (r % (num_clusters - 1)) + 1
+        heads = rng.integers(0, num_nodes, size=per_rel)
+        tails = np.empty(per_rel, np.int64)
+        for c in range(num_clusters):
+            sel = cluster[heads] == c
+            tgt = members[(c + shift) % num_clusters]
+            if len(tgt) == 0:
+                tgt = np.arange(num_nodes)
+            tails[sel] = rng.choice(tgt, size=int(sel.sum()))
+        parts.append(_entity_columns(names, heads, tails, f"rel_{r}"))
+        keys.append((heads.astype(np.int64) * num_relations + r)
+                    * num_nodes + tails)
+    _, first = np.unique(np.concatenate(keys), return_index=True)
+    first.sort()
+    columns = {c: v[first] for c, v in _concat(parts).items()}
+    feats = np.eye(num_clusters, dtype=np.float32)[cluster]
+    return columns, cluster, feats
+
+
+def cluster_token(cluster_id: int) -> str:
+    """The attribute text of a node in ``cluster_id``: letters only, so a
+    character-level WordPiece vocabulary keeps clusters apart."""
+    word = chr(ord("a") + cluster_id % 26) * (3 + cluster_id // 26)
+    return f"cluster {word} marker"
+
+
+def planted_triplets(num_nodes: int = 400, num_relations: int = 4,
+                     latent_dim: int = 8, edges_per_head: int = 4,
+                     seed: int = 0):
+    """Latent-factor graph with a known filtered-ranking ceiling: node
+    factors u_i ~ N(0, I_k)/sqrt(k), relation factors d_r ~ N(0, I_k), and
+    the edges of relation r each head's top-``edges_per_head`` tails by the
+    DistMult score (u_i * d_r)·u_j (no self-loops). A model that recovers
+    (u, d) reaches tail-side filtered MRR 1; chance is about 1/N.
+
+    Returns ``(columns, u)``: the triplet columns over one node type and
+    the (N, latent_dim) float32 factors in the sorted-name node order.
+    """
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((num_nodes, latent_dim)).astype(np.float32)
+    u /= np.sqrt(latent_dim)
+    d = rng.standard_normal((num_relations, latent_dim)).astype(np.float32)
+
+    names = np.array([f"ent_{i:06d}" for i in range(num_nodes)])
+    parts = []
+    for r in range(num_relations):
+        scores = (u * d[r]) @ u.T
+        np.fill_diagonal(scores, -np.inf)
+        tails = np.argpartition(-scores, edges_per_head,
+                                axis=1)[:, :edges_per_head]
+        heads = np.repeat(np.arange(num_nodes), edges_per_head)
+        parts.append(_entity_columns(names, heads, tails.reshape(-1),
+                                     f"rel_{r}"))
+    return _concat(parts), u

@@ -1,0 +1,1 @@
+"""eval layer of the PyTorch port (see the package docstring)."""

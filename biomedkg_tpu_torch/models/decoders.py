@@ -38,6 +38,10 @@ def _halves(v):
 
 
 class _Decoder(nn.Module):
+    # float32 (rows, N, d) intermediates ``score_all_*`` holds at once;
+    # eval/ranking.py caps its chunk by them (a product holds none)
+    candidate_intermediates = 0
+
     def __init__(self, num_relations: int, hidden_channels: int,
                  rel_width: int = None):
         super().__init__()
@@ -65,6 +69,8 @@ class _Decoder(nn.Module):
 
 class TransE(_Decoder):
     """score = -|| L1norm(h) + r - L1norm(t) ||_1."""
+
+    candidate_intermediates = 2     # the difference and its absolute value
 
     @torch.no_grad()
     def init(self, generator: torch.Generator):
@@ -176,6 +182,8 @@ class ComplEx(_Decoder):
 class RotatE(_Decoder):
     """gamma - || h ∘ e^{iθ_r} - t ||_2 over half-width complex pairs; the
     relation parameter is the (R, d/2) phase table θ."""
+
+    candidate_intermediates = 1.5   # three (rows, N, d/2) at the peak
 
     def __init__(self, num_relations: int, hidden_channels: int,
                  gamma: float = 12.0):

@@ -43,7 +43,7 @@ from typing import List, Optional
 from .data.modules import PrimeKGModule
 from .device import resolve_device
 from .serve import PRIMEKG_DATA
-from .train_kge import parse_bool
+from .train_kge import parse_keys
 from .training.checkpoint import EarlyStopping, ModelCheckpoint
 from .training.gcl_module import create_gcl_model
 from .training.logger import MetricsLogger
@@ -59,27 +59,14 @@ DEFAULTS = {"model.model_name": MODEL["model_name"],
             "steps_per_execution": 8, "debug": False, "seed": 42,
             "device": None, "ckpt_dir": "./ckpt", "log_dir": "./log",
             "model.compute_dtype": MODEL["compute_dtype"]}
-_INTS = ("epochs", "val_every_epoch", "steps", "steps_per_execution",
-         "seed")
+KINDS = {"epochs": int, "val_every_epoch": int, "steps": int,
+         "steps_per_execution": int, "seed": int, "debug": bool}
 PATIENCE = 5
 GRAD_CLIP = 1.0
 
 
 def parse_args(argv: List[str]) -> dict:
-    args = dict(DEFAULTS)
-    for arg in argv:
-        key, sep, value = arg.partition("=")
-        if not sep or key not in args:
-            raise SystemExit(f"usage: train_gcl [key=value ...] with keys "
-                             f"{sorted(DEFAULTS)}; got {arg!r}")
-        if key in _INTS:
-            args[key] = (None if key == "steps" and value.lower() in
-                         ("none", "null", "") else int(value))
-        elif key == "debug":
-            args[key] = parse_bool(value)
-        else:
-            args[key] = value
-    return args
+    return parse_keys(argv, DEFAULTS, KINDS, "train_gcl")
 
 
 def node_types(value: str) -> List[str]:

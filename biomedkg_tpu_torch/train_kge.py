@@ -13,7 +13,13 @@ the trained weights), ``seed`` (42), ``device`` (cuda), ``ckpt_dir``
 (./ckpt), ``log_dir`` (./log), ``model.compute_dtype`` (float32 or
 bfloat16), ``model.encoder_name`` (rgcn or rgat), ``model.num_heads``
 (RGAT's heads, 2), ``model.decoder_name`` (dismult, distmult, transe,
-complex or rotate) and ``model.neg_sampler`` (sorted, sorted2 or iid).
+complex or rotate), ``model.neg_sampler`` (sorted, sorted2 or iid),
+``model.cold_start_dropout`` (0.0; p > 0 isolates each node in the
+encoder with probability p every step), ``data.unseen_node_ratio`` (0.0;
+> 0 holds that share of the nodes out, data/inductive.py),
+``data.unseen_node_types`` (none; e.g. [drug] holds out only those),
+``unseen_ranking`` (true: the cold-start eval also ranks) and
+``unseen_rank_max_triples`` (2048: the most triples it ranks).
 The other settings are the defaults of configs/kge.yaml,
 configs/model/kge.yaml and configs/data/primekg.yaml, written out below
 until the config layer is ported; the model's input width is
@@ -27,7 +33,9 @@ grouped GEMM needs single-relation blocks; validates on the val split's
 SAINT batches every ``val_every_epoch`` epochs, keeping the 3 checkpoints
 of least ``val_loss`` and ``last.ckpt`` under
 ``<ckpt_dir>/kge/<experiment>/``; then tests the best of them on the test
-split. Metrics go to ``<log_dir>/kge/<experiment>/metrics.{jsonl,csv}``.
+split and, with ``data.unseen_node_ratio > 0``, runs the cold-start eval
+of the tested weights (eval/inductive.py: ``unseen_*`` metrics). Metrics
+go to ``<log_dir>/kge/<experiment>/metrics.{jsonl,csv}``.
 Every checkpoint holds the optimizer state, which ``KGEScorer`` serves and
 ``Trainer.fit(resume_from=...)`` resumes. It trains on the one card
 ``device`` names, whatever the host holds: configs/kge.yaml's
@@ -46,6 +54,7 @@ from typing import List, Optional
 
 from .data.modules import PrimeKGModule
 from .device import resolve_device
+from .eval.inductive import run_entrypoint_inductive_eval
 from .serve import PRIMEKG_DATA
 from .training.checkpoint import ModelCheckpoint
 from .training.kge_module import KGEModule
@@ -65,9 +74,18 @@ DEFAULTS = {"epochs": 100, "val_every_epoch": 2, "neg_ratio": 10,
             "model.encoder_name": MODEL["encoder_name"],
             "model.num_heads": MODEL["num_heads"],
             "model.decoder_name": MODEL["decoder_name"],
-            "model.neg_sampler": MODEL["neg_sampler"]}
-_INTS = ("epochs", "val_every_epoch", "neg_ratio", "steps",
-         "steps_per_execution", "seed", "model.num_heads")
+            "model.neg_sampler": MODEL["neg_sampler"],
+            "model.cold_start_dropout": 0.0,
+            "data.unseen_node_ratio": 0.0, "data.unseen_node_types": None,
+            "unseen_ranking": True, "unseen_rank_max_triples": 2048}
+# the type of each key that is not a string (none / null give a key whose
+# default is None its default)
+KINDS = {"epochs": int, "val_every_epoch": int, "neg_ratio": int,
+         "steps": int, "steps_per_execution": int, "seed": int,
+         "model.num_heads": int, "unseen_rank_max_triples": int,
+         "saint_fill": float, "model.cold_start_dropout": float,
+         "data.unseen_node_ratio": float, "debug": bool,
+         "unseen_ranking": bool, "data.unseen_node_types": list}
 
 
 def parse_bool(value: str) -> bool:
@@ -78,23 +96,43 @@ def parse_bool(value: str) -> bool:
     raise SystemExit(f"not a boolean: {value!r}")
 
 
-def parse_args(argv: List[str]) -> dict:
-    args = dict(DEFAULTS)
+def parse_list(value: str) -> List[str]:
+    """``[drug, disease]``, ``["drug"]`` or ``drug,disease``."""
+    items = (v.strip().strip("'\"") for v in value.strip("[]").split(","))
+    return [v for v in items if v]
+
+
+def parse_keys(argv: List[str], defaults: dict, kinds: dict,
+               prog: str) -> dict:
+    """``key=value`` arguments over ``defaults``, each converted to its
+    type in ``kinds`` (a string otherwise; none or null leave a key whose
+    default is None at None); an unknown key exits with the usage."""
+    args = dict(defaults)
+    convert = {int: int, float: float, bool: parse_bool, list: parse_list}
     for arg in argv:
         key, sep, value = arg.partition("=")
         if not sep or key not in args:
-            raise SystemExit(f"usage: train_kge [key=value ...] with keys "
-                             f"{sorted(DEFAULTS)}; got {arg!r}")
-        none = value.lower() in ("none", "null", "")
-        if key in _INTS:
-            args[key] = None if none and key == "steps" else int(value)
-        elif key == "saint_fill":
-            args[key] = None if none else float(value)
-        elif key == "debug":
-            args[key] = parse_bool(value)
+            raise SystemExit(f"usage: {prog} [key=value ...] with keys "
+                             f"{sorted(defaults)}; got {arg!r}")
+        if defaults[key] is None and value.lower() in ("none", "null", ""):
+            args[key] = None
         else:
-            args[key] = value
+            args[key] = convert.get(kinds.get(key), str)(value)
     return args
+
+
+def parse_args(argv: List[str]) -> dict:
+    return parse_keys(argv, DEFAULTS, KINDS, "train_kge")
+
+
+def data_module(args: dict) -> PrimeKGModule:
+    """The PrimeKG module of ``args`` (``seed`` and the unseen-node keys),
+    set up with its splits."""
+    dm = PrimeKGModule(**PRIMEKG_DATA, seed=args["seed"],
+                       unseen_node_ratio=args["data.unseen_node_ratio"],
+                       unseen_node_types=args["data.unseen_node_types"])
+    dm.setup(stage="split")
+    return dm
 
 
 def train(args: dict) -> Optional[str]:
@@ -102,8 +140,7 @@ def train(args: dict) -> Optional[str]:
     checkpoint the test loaded."""
     device = resolve_device(args["device"])
     seed = args["seed"]
-    dm = PrimeKGModule(**PRIMEKG_DATA, seed=seed)
-    dm.setup(stage="split")
+    dm = data_module(args)
     dm.device_features = True
     dm.saint_fill_target = args["saint_fill"]
     if args["steps"] is not None:
@@ -113,7 +150,8 @@ def train(args: dict) -> Optional[str]:
     model = dict(MODEL, encoder_name=args["model.encoder_name"],
                  num_heads=args["model.num_heads"],
                  decoder_name=args["model.decoder_name"],
-                 neg_sampler=args["model.neg_sampler"])
+                 neg_sampler=args["model.neg_sampler"],
+                 cold_start_dropout=args["model.cold_start_dropout"])
     module = KGEModule(**model, num_relation=dm.data.num_edge_types,
                        neg_ratio=args["neg_ratio"],
                        node_init_method=PRIMEKG_DATA["node_init_method"],
@@ -149,6 +187,7 @@ def train(args: dict) -> Optional[str]:
         trainer.test(module,
                      dataloaders=dm.test_dataloader(loader_type="saint"),
                      ckpt_path=None if args["debug"] else "best")
+        run_entrypoint_inductive_eval(module, trainer, dm, args)
     finally:
         logger.close()
     print(f"checkpoint: {trainer.tested_ckpt_path}", flush=True)

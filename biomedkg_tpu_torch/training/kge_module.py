@@ -28,12 +28,20 @@ float64; "exact" keeps the predictions (``BootstrappedBinaryMetrics``).
 ``compute_dtype`` "bfloat16" runs the encoder in bf16 with float32 master
 weights; the positive path and the L2 term read float32 z, the negative
 path z rounded to bf16, as in the reference. Random numbers come from a
-``torch.Generator`` on the module's device; ``negatives`` and
-``dropout_masks`` let the tests pass in the reference's draws.
+``torch.Generator`` on the module's device; ``negatives``,
+``dropout_masks``, ``cold_keep`` and ``filter_draws`` let the tests pass in
+the reference's draws.
 
-Not ported yet, and raising when training asks for them (ROADMAP.md 2b):
-``filter_negatives``, ``cold_start_dropout > 0`` and ``fix_edge_id``.
-Fusion and LM/GCL features raise at construction. Encoding runs in
+``cold_start_dropout`` p > 0 (the unseen-node protocol,
+data/inductive.py): each training step draws a per-node keep mask
+(uniform ≥ p) and the encoder sees only the edges whose endpoints are both
+kept, through the edge mask it already takes (the CUDA segsum and relmm
+paths included), while every edge is still scored. ``filter_negatives``
+(PyG ``negative_sampling``'s exclusion): iid negatives that hit a real
+batch edge are redrawn, 3 rounds, found by a search over the batch's
+sorted (src·N_pad + dst) keys; it makes training take the iid path, as in
+the reference. ``fix_edge_id`` is not ported yet and raises (ROADMAP.md
+2b); fusion and LM/GCL features raise at construction. Encoding runs in
 float32 whatever ``compute_dtype`` training used, as the reference's
 ``encode`` does.
 """
@@ -199,6 +207,7 @@ class KGEModule(StepsMixin, nn.Module):
         self.test_metrics = BootstrappedBinaryMetrics(prefix="test_")
         self.edge_mapping = {}
         self.eval_impl = "histogram"
+        self._filter_negatives = False
 
     @property
     def eval_impl(self) -> str:
@@ -268,12 +277,13 @@ class KGEModule(StepsMixin, nn.Module):
 
     @property
     def filter_negatives(self) -> bool:
-        return False
+        return self._filter_negatives
 
     @filter_negatives.setter
     def filter_negatives(self, value: bool):
-        if value:
-            raise NotImplementedError(f"filter_negatives {_LATER}")
+        """Redraw sampled negatives that hit a real batch edge (3 rounds;
+        the reference's kge_module.py:306-320). Off by default."""
+        self._filter_negatives = bool(value)
 
     @property
     def fix_edge_id(self) -> Optional[int]:
@@ -284,30 +294,43 @@ class KGEModule(StepsMixin, nn.Module):
         if edge_id is not None:
             raise NotImplementedError(f"fix_edge_id (DPI transfer) {_LATER}")
 
-    def _check_trainable(self):
-        if self.cold_start_dropout > 0.0:
-            raise NotImplementedError(f"cold_start_dropout > 0 {_LATER}")
-
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
-                      negatives=None, dropout_masks=None):
+                      negatives=None, dropout_masks=None, cold_keep=None,
+                      filter_draws=None):
         """(loss, aux) of a device batch (sampling/batch.py
         ``batch_to_device``). Draws come from ``generator`` unless passed
         in: ``negatives`` is (neg_src, neg_dst, off) for the sorted samplers
         and (neg_src, neg_dst) (K, E) for the iid one; ``dropout_masks``
-        one bool keep mask per hidden layer."""
-        if training:
-            self._check_trainable()
-        if generator is None and (negatives is None or (
-                training and dropout_masks is None)):
+        one bool keep mask per hidden layer; ``cold_keep`` the (N_pad,)
+        bool cold-start keep mask; ``filter_draws`` the 3 rounds' (K, E)
+        uniform pairs (src, dst) of ``filter_negatives``."""
+        cold = training and self.cold_start_dropout > 0.0
+        use_sorted = (training and self.neg_sampler in ("sorted", "sorted2")
+                      and not self._filter_negatives)
+        wanted = [negatives, dropout_masks if training else 0,
+                  cold_keep if cold else 0,
+                  filter_draws if self._filter_negatives
+                  and not use_sorted else 0]
+        if generator is None and any(d is None for d in wanted):
             raise ValueError("pass a torch.Generator or the draws "
-                             "(negatives, dropout_masks)")
+                             "(negatives, dropout_masks, cold_keep, "
+                             "filter_draws)")
         etype, emask = batch.edge_type, batch.edge_mask
+        src, dst = batch.edge_index[0], batch.edge_index[1]
+        conv_mask = emask
+        if cold:
+            # the encoder alone loses the edges of dropped nodes; every
+            # edge is still scored below
+            if cold_keep is None:
+                cold_keep = torch.rand(
+                    batch.node_mask.shape[0], generator=generator,
+                    device=generator.device) >= self.cold_start_dropout
+            conv_mask = emask & cold_keep[src] & cold_keep[dst]
         z = self.model.encoder(
-            self._batch_features(batch), batch.edge_index, etype, emask,
+            self._batch_features(batch), batch.edge_index, etype, conv_mask,
             batch.block_rel, training=training, compute_dtype=self.compute_dtype,
             generator=generator, dropout_masks=dropout_masks).float()
-        src, dst = batch.edge_index[0], batch.edge_index[1]
         decoder = self.model.decoder
         pos_pred = decoder.score(z, src, dst, etype,
                                  tail_sorted=self.edge_layout == "dst")
@@ -316,7 +339,7 @@ class KGEModule(StepsMixin, nn.Module):
         num_edges = etype.shape[0]
         num_real_nodes = batch.node_mask.sum().clamp(min=1)
         z_neg = z.to(self.compute_dtype)
-        if training and self.neg_sampler in ("sorted", "sorted2"):
+        if use_sorted:
             dual = self.neg_sampler == "sorted2"
             neg_src, neg_dst, off = (
                 negatives if negatives is not None else
@@ -328,13 +351,19 @@ class KGEModule(StepsMixin, nn.Module):
                 dst_sorted=dual)
             neg_mask = emask[idx]
         else:
+            def uniform():
+                return torch.rand(ratio, num_edges, generator=generator,
+                                  device=generator.device)
+
             if negatives is None:
-                def draw():
-                    return (torch.rand(ratio, num_edges, generator=generator,
-                                       device=generator.device)
-                            * num_real_nodes).long()
-                negatives = (draw(), draw())
+                negatives = ((uniform() * num_real_nodes).long(),
+                             (uniform() * num_real_nodes).long())
             neg_src, neg_dst = negatives
+            if self._filter_negatives:
+                neg_src, neg_dst = self._redraw_observed(
+                    batch, neg_src, neg_dst, num_real_nodes,
+                    filter_draws or [(uniform(), uniform())
+                                     for _ in range(3)])
             neg_pred = decoder.score_neg(z_neg, neg_src, neg_dst,
                                          etype).reshape(-1)
             neg_mask = emask.expand(ratio, num_edges).reshape(-1)
@@ -348,6 +377,33 @@ class KGEModule(StepsMixin, nn.Module):
                "pos_pred": pos_pred, "edge_type": etype, "edge_mask": emask,
                "loss": loss}
         return loss, aux
+
+    @staticmethod
+    def _redraw_observed(batch, neg_src, neg_dst, num_real_nodes, rounds):
+        """``filter_negatives``: each round, the (K, E) candidates equal to
+        a real batch edge take the round's fresh uniforms (the reference's
+        bounded retry, 3 rounds); membership by a search over the sorted
+        src·N_pad + dst keys of the real edges. The reference packs the
+        keys in int32, so it refuses N_pad > 46340; that bound is kept."""
+        n_pad = batch.node_mask.shape[0]
+        if n_pad > 46340:
+            raise ValueError(
+                f"filter_negatives packs (src, dst) into int32 keys; node "
+                f"budget {n_pad} overflows — shrink the batch envelope")
+        src, dst = batch.edge_index[0], batch.edge_index[1]
+        big = torch.iinfo(torch.int32).max
+        keys = torch.sort(torch.where(batch.edge_mask, src * n_pad + dst,
+                                      big)).values
+        for u_src, u_dst in rounds:
+            cand = neg_src * n_pad + neg_dst
+            pos = torch.searchsorted(keys, cand)
+            found = keys[pos.clamp(max=keys.shape[0] - 1)]
+            hit = (pos < keys.shape[0]) & (found == cand)
+            neg_src = torch.where(hit, (u_src * num_real_nodes).long(),
+                                  neg_src)
+            neg_dst = torch.where(hit, (u_dst * num_real_nodes).long(),
+                                  neg_dst)
+        return neg_src, neg_dst
 
     def _finish_loss(self, z, node_mask, pred, gt, weights):
         """Masked BCE + 1e-2·L2 over the real nodes' z and the decoder's

@@ -40,6 +40,18 @@ def test_sources_import_nothing_forbidden():
     assert not hits
 
 
+# the modules of the ranking and unseen-node slice, which the source scan
+# and the import walk below must reach
+SLICE_MODULES = ("eval/__init__.py", "eval/ranking.py", "eval/inductive.py",
+                 "data/inductive.py", "rank_eval.py", "test_kge.py")
+
+
+def test_slice_modules_are_scanned():
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "biomedkg_tpu_torch"))
+               for p in _port_sources()}
+    assert set(SLICE_MODULES) <= scanned
+
+
 _CHILD = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
     for name in {forbidden!r}:
@@ -78,6 +90,13 @@ _CHILD = textwrap.dedent("""
                           node_type=["gene/protein", "drug", "disease"],
                           batch_size=8, val_ratio=0.2, test_ratio=0.2)
     KGEScorer(trained, dm768, device="cpu")
+    from biomedkg_tpu_torch import rank_eval, test_kge
+    with contextlib.redirect_stdout(io.StringIO()):
+        rank_eval.main(["pretrained_path=" + trained, "device=cpu"])
+        unseen = test_kge.main(["pretrained_path=" + trained, "steps=10",
+                                "data.unseen_node_ratio=0.1",
+                                "unseen_rank_max_triples=64", "device=cpu"])
+    assert "unseen_mrr" in unseen
     from biomedkg_tpu_torch.train_gcl import main as train_gcl
     from biomedkg_tpu_torch.training.gcl_module import load_gcl_module
     with contextlib.redirect_stdout(io.StringIO()):
@@ -96,8 +115,9 @@ def test_serves_without_jax_pandas_yaml(tmp_path):
     on the CPU in a process where JAX, biomedkg_tpu, pandas, PyYAML and
     optax cannot be imported; every port module and chip_smoke.py import
     there too, train_kge trains a step and writes a checkpoint that
-    serves, and train_gcl trains a DGI step and writes a checkpoint that
-    loads."""
+    serves, rank_eval ranks with it and test_kge tests it with the
+    unseen-node eval, and train_gcl trains a DGI step and writes a
+    checkpoint that loads."""
     hp = dict(encoder_name="rgcn", decoder_name="dismult", in_dim=8,
               hidden_dim=8, out_dim=8, num_hidden_layers=1, num_relation=8,
               num_heads=1, scheduler_type="cosine", learning_rate=1e-3,

@@ -345,13 +345,18 @@ def test_port_checkpoint_loads_in_jax_and_resumes(tmp_path):
 
 
 def test_training_raises_on_paths_not_ported():
+    """``fix_edge_id`` (DPI transfer) still raises; ``cold_start_dropout``
+    and ``filter_negatives`` are ported (tests/test_torch_inductive.py
+    holds them against JAX) and train."""
     _, batch = _raw()
     module = kge_module.KGEModule(**dict(_hparams(),
                                          cold_start_dropout=0.1))
-    with pytest.raises(NotImplementedError, match="cold_start"):
-        module._forward_loss(batch, True, torch.Generator())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.filter_negatives = True
+    module.edge_layout = "dst"
+    module.init(torch.Generator().manual_seed(0))
+    module.filter_negatives = True
+    loss, _ = module._forward_loss(batch, True,
+                                   torch.Generator().manual_seed(1))
+    assert np.isfinite(float(loss))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         module.fix_edge_id = 0
 
