@@ -22,5 +22,8 @@ through the CUDA flash kernels (``ops/flashnce.py``, ``csrc/flashnce.cu``);
 the Trainer with held-out evaluation (``training/trainer.py``); filtered
 ranking (``eval/ranking.py``, ``rank_eval.py``), ``test_kge.py`` and the
 unseen-node protocol (``data/inductive.py``, ``eval/inductive.py``,
-cold-start dropout).
+cold-start dropout); the config layer (``config.py``: ``configs/`` and
+the scripts' override vocabulary, without PyYAML), modality fusion
+(``models/fusion.py``) and the LM, GCL and KGE embedding caches
+(``data/node_encoders.py``).
 """

@@ -155,8 +155,6 @@ constexpr int kThreads = 256;               // threads per block (streamed)
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;                  // slots in flight per warp
 constexpr int kBlocksPerSm = 4;             // grid size target
-constexpr int kDefaultSmem = 48 * 1024;     // dynamic shared memory without
-                                            // the opt-in attribute
 constexpr int kDsThreads = 512;             // threads per block (dual-sorted)
 constexpr int kDsWarps = kDsThreads / 32;
 constexpr int kSpanCap = 32;                // rows per side staged per chunk
@@ -1736,9 +1734,18 @@ int device_attr(cudaDeviceAttr attr, int* value) {
   return (int)cudaDeviceGetAttribute(value, attr, device);
 }
 
+// A kernel's dynamic shared memory may reach its current limit, which is
+// 48 KB less its static arrays until raised: the bucket kernel's 9 KB of
+// static arrays with 48 KB of counters (n = 768 ids) needs the raise, which
+// a test against 48 KB alone skipped (its occupancy then read 0 and the
+// cooperative launch was refused, until a larger launch had raised it)
 template <typename K>
 int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= (size_t)kDefaultSmem) return (int)cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  if (bytes <= (size_t)attr.maxDynamicSharedSizeBytes)
+    return (int)cudaSuccess;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

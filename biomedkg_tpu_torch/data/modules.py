@@ -15,7 +15,12 @@ test; the Trainer copies it to the device once an epoch);
 (data/inductive.py; of the ``unseen_node_types`` only, cleaned names such
 as ``["drug"]``, when given): the splits are then the seen-only edges'
 and ``inductive`` carries the cold-start eval graph and the held-out
-edges. The DPI module comes in a later slice (ROADMAP.md queue 1).
+edges. ``node_init_method`` picks the features (data/node_encoders.py):
+"random" (N, embed_dim), "lm" the LM cache's (N, 2, embed_dim) (read
+through ``modality_config_path``), "gcl" the GCL cache's (N, 1,
+embed_dim) of ``gcl_model`` / ``gcl_fuse_method``, built on ``device``
+when missing. The DPI module comes in a later slice (ROADMAP.md queue 1,
+item 9) and raises.
 """
 
 from __future__ import annotations
@@ -30,13 +35,19 @@ from .primekg import PrimeKG
 from .split import random_link_split
 
 
-def get_node_encode_method(node_init_method: Optional[str], embed_dim: int):
+def get_node_encode_method(node_init_method: Optional[str], embed_dim: int,
+                           model_name: Optional[str] = None,
+                           fuse_method: Optional[str] = None,
+                           modality_config_path: str = node.MODALITY_CONFIG,
+                           device: Optional[str] = None):
     if node_init_method is None or node_init_method == "random":
         return node.RandomEncode(embed_dim=embed_dim)
-    if node_init_method in ("lm", "gcl"):
-        raise NotImplementedError(
-            f"node_init_method={node_init_method!r} is not ported yet "
-            "(ROADMAP.md queue 1: Stage A / Stage B encoders)")
+    if node_init_method == "lm":
+        return node.LMMultiModalsEncode(config_file=modality_config_path,
+                                        embed_dim=embed_dim)
+    if node_init_method == "gcl":
+        return node.GCLEncode(model_name=model_name, fuse_method=fuse_method,
+                              embed_dim=embed_dim, device=device)
     raise ValueError(f"Unknown node_init_method: {node_init_method!r}")
 
 
@@ -49,9 +60,13 @@ class PrimeKGModule:
     def __init__(self, data_dir: str, embed_dim: int, node_type: List[str],
                  batch_size: int, val_ratio: float, test_ratio: float,
                  node_init_method: Optional[str] = None,
+                 gcl_model: Optional[str] = None,
+                 gcl_fuse_method: Optional[str] = None,
                  seed: int = 42, block_size: int = 256,
                  unseen_node_ratio: float = 0.0,
-                 unseen_node_types: Optional[List[str]] = None):
+                 unseen_node_types: Optional[List[str]] = None,
+                 modality_config_path: str = node.MODALITY_CONFIG,
+                 device: Optional[str] = None):
         self.data_dir = data_dir
         self.node_type = node_type
         self.batch_size = batch_size
@@ -72,7 +87,10 @@ class PrimeKGModule:
         # up to (sampling/saint.py ``fill_target``); eval batches keep the
         # reference's root count
         self.saint_fill_target = None
-        self.encoder = get_node_encode_method(node_init_method, embed_dim)
+        self.encoder = get_node_encode_method(
+            node_init_method, embed_dim, model_name=gcl_model,
+            fuse_method=gcl_fuse_method,
+            modality_config_path=modality_config_path, device=device)
 
     def setup(self, stage: str = "split"):
         self._do_split = stage == "split"
@@ -208,3 +226,12 @@ class RepeatedBatch:
 
     def __len__(self):
         return self.steps
+
+
+class DPIModule:
+    """The DPI data module is not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "DPIModule (DPI fine-tuning data) is not ported yet "
+            "(ROADMAP.md queue 1, item 9)")

@@ -13,11 +13,17 @@ tree. The port keeps the same tensors, under the same names and layouts, so
 the tree's dotted paths (``model.encoder.layers.0.w_rel``,
 ``model.mlp.0.w``) are exactly the port modules' parameter names and the
 mapping is a checked copy.
+
+A module with a modality fuser (``fuse_method`` attention or redaf) has a
+second subtree, ``params["fusion"]``: ``q``, ``k``, ``v`` (attention) or
+``modal_weights`` (M, 1, d), ``sub_type_emb.table``, ``transform`` and
+``rel_context`` (ReDAF), each dense layer {``w`` (in, out), ``b``}; it maps
+onto the training module's ``fusion`` submodule by the same rule.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -78,13 +84,16 @@ def tensors_from_tree(module: nn.Module, tree: Any,
     return out
 
 
-def load_jax_params(model: nn.Module, params: Dict) -> None:
+def load_jax_params(model: nn.Module, params: Dict,
+                    fusion: Optional[nn.Module] = None) -> None:
     """Copy a JAX params tree (``params["model"]``'s parent) into the
-    port's ``model`` (a KGE ``GAE``, or a GCL model)."""
-    if set(params) != {"model"}:
-        raise NotImplementedError(
-            f"params subtrees {sorted(set(params) - {'model'})} (modality "
-            "fusion) are not ported yet (ROADMAP.md queue 1: Stage B)")
+    port's ``model`` (a KGE ``GAE``, or a GCL model) and its ``fusion``
+    subtree into ``fusion`` (the module's fuser, None without one)."""
+    want_keys = {"model"} | ({"fusion"} if fusion is not None else set())
+    if set(params) != want_keys:
+        raise ValueError(f"params subtrees {sorted(params)} do not match "
+                         f"the module's {sorted(want_keys)} (a fusion "
+                         "subtree needs the checkpoint's fuse_method)")
     layers = params["model"]["encoder"]["layers"]
     if len(layers) != len(model.encoder.layers):
         raise ValueError(f"checkpoint has {len(layers)} encoder layers, "
@@ -95,10 +104,14 @@ def load_jax_params(model: nn.Module, params: Dict) -> None:
             raise ValueError(f"encoder layer {i}: not an "
                              f"{type(model.encoder).__name__} layer "
                              f"({sorted(src)})")
-    tensors = tensors_from_tree(model, params, prefix="model.")
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.copy_(tensors[name])
+    parts = [(model, params["model"])]
+    if fusion is not None:
+        parts.append((fusion, params["fusion"]))
+    for module, tree in parts:
+        tensors = tensors_from_tree(module, tree)
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                p.copy_(tensors[name])
 
 
 def to_jax_tree(named: Dict[str, torch.Tensor]) -> Any:
@@ -107,7 +120,12 @@ def to_jax_tree(named: Dict[str, torch.Tensor]) -> Any:
                            for name, t in named.items()})
 
 
-def to_jax_params(model: nn.Module) -> Dict:
-    """The port's ``model`` as the JAX params tree (numpy leaves)."""
-    return to_jax_tree({"model." + name: p
-                        for name, p in model.named_parameters()})
+def to_jax_params(model: nn.Module,
+                  fusion: Optional[nn.Module] = None) -> Dict:
+    """The port's ``model`` (and ``fusion``, the module's fuser, when it
+    has one) as the JAX params tree (numpy leaves)."""
+    named = {"model." + name: p for name, p in model.named_parameters()}
+    if fusion is not None:
+        named.update({"fusion." + name: p
+                      for name, p in fusion.named_parameters()})
+    return to_jax_tree(named)

@@ -1,7 +1,7 @@
-"""Model factory (counterpart of biomedkg_tpu/models/factory.py): RGCN or
-RGAT (``num_heads`` heads, 1 when None) with any of the four decoders,
+"""Model factories (counterpart of biomedkg_tpu/models/factory.py): RGCN
+or RGAT (``num_heads`` heads, 1 when None) with any of the four decoders,
 keeping the reference's ``"dismult"`` decoder key with ``"distmult"`` as an
-alias."""
+alias; and the modality fuser of a ``fuse_method``."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from torch import nn
 
 from .decoders import ComplEx, DistMult, RotatE, TransE
 from .encoders import RGAT, RGCN
+from .fusion import AttentionFusion, ReDAF
 
 DECODERS = {"dismult": DistMult, "distmult": DistMult, "transe": TransE,
             "complex": ComplEx, "rotate": RotatE}
@@ -33,6 +34,19 @@ class GAE(nn.Module):
                *, training: bool = False):
         return self.encoder(x, edge_index, edge_type, edge_mask, block_rel,
                             training=training)
+
+
+class FusionFactory:
+    @staticmethod
+    def create_fuser(method: Optional[str],
+                     embed_dim: int) -> Optional[nn.Module]:
+        """AttentionFusion for "attention", ReDAF for "redaf", else None
+        (the modules then take the mean over the modality axis)."""
+        if method == "attention":
+            return AttentionFusion(embed_dim=embed_dim)
+        if method == "redaf":
+            return ReDAF(embed_dim=embed_dim)
+        return None
 
 
 class KGEModelFactory:

@@ -3,9 +3,12 @@ rank_eval.py at the repo root):
 
     python -m biomedkg_tpu_torch.rank_eval pretrained_path=ckpt/kge/exp/best.ckpt
 
-Keys: ``pretrained_path`` (required), ``seed`` (42), ``device`` (cuda),
-``data.unseen_node_ratio`` and ``data.unseen_node_types`` (as
-``train_kge``'s). It splits the PrimeKG graph as ``train_kge`` does,
+The arguments are overrides of configs/kge.yaml, read by the config layer
+(config.py) as the root rank_eval.py reads them: ``pretrained_path``
+(required), ``seed``, the ``data.*`` keys the checkpoint was trained with
+(``data.node_init_method``, ``data.embed_dim``, ``gcl_model``,
+``gcl_fuse_method``, ``data.unseen_node_ratio``, ...), and the port's
+``device`` (cuda). It splits the PrimeKG graph as ``train_kge`` does,
 loads the checkpoint, encodes the test split's message-passing graph (the
 train and val edges) as one batch in the module's layout (RGCN "dst"
 through the CUDA segsum, RGAT "relation" through relmm), ranks every test
@@ -25,11 +28,9 @@ from .device import resolve_device
 from .eval.ranking import Clock, filtered_ranking_metrics
 from .sampling.batch import batch_to_device
 from .sampling.loaders import FullGraphLoader
-from .train_kge import KINDS, data_module, parse_keys
+from .config import CONFIG_DIR, cli_overrides, load_config
+from .train_kge import data_module
 from .training.kge_module import load_kge_module
-
-DEFAULTS = {"pretrained_path": None, "seed": 42, "device": None,
-            "data.unseen_node_ratio": 0.0, "data.unseen_node_types": None}
 
 
 def triples(split) -> np.ndarray:
@@ -59,14 +60,14 @@ def rank_eval(module, dm, timings: Optional[dict] = None
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    args = parse_keys(sys.argv[1:] if argv is None else argv, DEFAULTS,
-                      KINDS, "rank_eval")
-    if not args["pretrained_path"]:
+    cfg = load_config(CONFIG_DIR, "kge", cli_overrides(
+        sys.argv[1:] if argv is None else argv))
+    if not cfg.get("pretrained_path"):
         raise SystemExit("rank_eval: pretrained_path=<ckpt> is required")
-    device = resolve_device(args["device"])
-    dm = data_module(args)
-    print(f"Load from checkpoint: {args['pretrained_path']}")
-    module = load_kge_module(args["pretrained_path"], device)
+    device = resolve_device(cfg.get("device"))
+    dm = data_module(cfg)
+    print(f"Load from checkpoint: {cfg.pretrained_path}")
+    module = load_kge_module(cfg.pretrained_path, device)
     module.edge_layout = module.default_layout
     metrics = rank_eval(module, dm)
     print("filtered-ranking metrics:")

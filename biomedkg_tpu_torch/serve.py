@@ -7,10 +7,14 @@ then on stdin (or piped):
     topk <head_name> <relation_name> [k]
     quit
 
-Arguments are ``key=value``: ``pretrained_path`` (required), ``seed``
-(default 42) and ``device`` (default cuda). The data module takes the
-defaults of configs/data/primekg.yaml, written out below until the config
-layer is ported.
+The arguments are overrides of configs/kge.yaml, read by the config layer
+(config.py) as the root serve.py reads them: ``pretrained_path``
+(required), ``seed``, the data module's ``data.*`` keys (a checkpoint
+trained on GCL or LM features is served with the ``data.node_init_method``
+and ``data.embed_dim`` it was trained with, and ``gcl_model`` /
+``gcl_fuse_method``), and the port's ``device`` (default cuda).
+``PRIMEKG_DATA`` holds configs/data/primekg.yaml's graph, feature and
+split settings.
 """
 
 from __future__ import annotations
@@ -18,13 +22,29 @@ from __future__ import annotations
 import sys
 from typing import Iterable, List, Optional, TextIO
 
-from .data.modules import PrimeKGModule
+from .config import CONFIG_DIR, Config, cli_overrides, instantiate, \
+    load_config
 from .serving import KGEScorer
 
-PRIMEKG_DATA = dict(
-    data_dir="./data/primekg", embed_dim=768,
-    node_type=["gene/protein", "drug", "disease"], batch_size=128,
-    val_ratio=0.2, test_ratio=0.2, node_init_method="random")
+
+def primekg_data() -> dict:
+    """configs/data/primekg.yaml's graph, feature and split arguments of
+    ``PrimeKGModule`` (its unseen-node keys left to the caller)."""
+    data = load_config(CONFIG_DIR, "kge").data
+    return {k: data[k] for k in ("data_dir", "embed_dim", "node_type",
+                                 "batch_size", "val_ratio", "test_ratio",
+                                 "node_init_method")}
+
+
+PRIMEKG_DATA = primekg_data()
+
+
+def make_data_module(cfg: Config):
+    """The data module ``cfg.data`` names, with the run's GCL cache keys,
+    seed and device (not yet set up)."""
+    return instantiate(cfg.data, gcl_model=cfg.gcl_model,
+                       gcl_fuse_method=cfg.gcl_fuse_method, seed=cfg.seed,
+                       device=cfg.get("device"))
 
 
 def serve_loop(scorer: KGEScorer, lines: Iterable[str],
@@ -52,24 +72,19 @@ def serve_loop(scorer: KGEScorer, lines: Iterable[str],
             print(f"error: {e}", file=out, flush=True)
 
 
-def parse_args(argv: List[str]) -> dict:
-    args = {"pretrained_path": None, "seed": 42, "device": None}
-    for arg in argv:
-        key, sep, value = arg.partition("=")
-        if not sep or key not in args:
-            raise SystemExit(f"usage: serve pretrained_path=<ckpt> "
-                             f"[seed=<int>] [device=<cuda|cpu>]; got {arg!r}")
-        args[key] = int(value) if key == "seed" else value
-    if not args["pretrained_path"]:
-        raise SystemExit("serve: pretrained_path=<ckpt> is required")
-    return args
+def parse_args(argv: List[str]) -> Config:
+    cfg = load_config(CONFIG_DIR, "kge", cli_overrides(argv))
+    if not cfg.get("pretrained_path"):
+        raise SystemExit("usage: serve pretrained_path=<ckpt> [key=value "
+                         "...] (overrides of configs/kge.yaml, and "
+                         f"device=<cuda|cpu>); got {argv!r}")
+    return cfg
 
 
 def main(argv: Optional[List[str]] = None) -> None:
-    args = parse_args(sys.argv[1:] if argv is None else argv)
-    data_module = PrimeKGModule(**PRIMEKG_DATA, seed=args["seed"])
-    scorer = KGEScorer(args["pretrained_path"], data_module,
-                       device=args["device"])
+    cfg = parse_args(sys.argv[1:] if argv is None else argv)
+    scorer = KGEScorer(cfg.pretrained_path, make_data_module(cfg),
+                       device=cfg.get("device"))
     serve_loop(scorer, sys.stdin, sys.stdout)
 
 

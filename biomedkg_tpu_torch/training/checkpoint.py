@@ -128,7 +128,7 @@ def train_state_payload(module, state: TrainState) -> Dict:
     ``state``'s optimizer state and step, copied to host memory now."""
     opt, names = state.opt_state, list(state.params)
     return dict(kind=module.kind, hparams=module.hparams,
-                params=to_jax_params(module.model),
+                params=to_jax_params(module.model, module.fusion),
                 opt_state={"count": np.int32(opt.count),
                            "mu": to_jax_tree(dict(zip(names, opt.mu))),
                            "nu": to_jax_tree(dict(zip(names, opt.nu)))},
@@ -174,7 +174,7 @@ def train_state_from(ckpt: Dict, module) -> TrainState:
                          f"{module.kind!r}")
     if ckpt["opt_state"] is None:
         raise ValueError("the checkpoint holds no optimizer state")
-    load_jax_params(module.model, ckpt["params"])
+    load_jax_params(module.model, ckpt["params"], module.fusion)
     count, mu, nu = _adam_state(ckpt["opt_state"])
     params = dict(module.named_parameters())
     mu, nu = tensors_from_tree(module, mu), tensors_from_tree(module, nu)

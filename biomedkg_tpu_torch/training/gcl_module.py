@@ -22,8 +22,16 @@ every model parameter rounded to bf16 at use (float32 masters keep the
 gradients), the logsumexps and the means in float32. Random numbers come
 from a ``torch.Generator`` on the module's device, or the caller passes the
 model's ``draws`` (models/gcl.py). ``encode`` (embedding export) runs the
-clean encoder in float32. Modality fusion (``fuse_method`` other than none)
-raises (ROADMAP.md 2b).
+fused features through the clean encoder in float32.
+
+Modality fusion (``fusion_fn``): with ``fuse_method`` attention or redaf
+the module's ``fusion`` (models/fusion.py, ``embed_dim = in_dim``) turns
+(N, M, d) features into (N, d), computed in float32 before the
+``compute_dtype`` cast, as the JAX package does; without a fuser (N, M, d)
+features take the mean over the modality axis and (N, d) features pass
+through. The fuser's parameters train with the model's (they are in the
+Adam state and the checkpoint's ``fusion`` subtree). ReDAF's dropout keep
+mask is the ``draws`` entry ``fusion_keep``.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from torch import nn
 from ..device import resolve_device
 from ..interop.jax_params import load_jax_params
 from ..models.encoders import GCNEncoder
+from ..models.factory import FusionFactory
 from ..models.gcl import DGI, GGD, GRACE
 from ..ops.flashnce import NEG, PLAIN_BLOCK, flash_denom
 from ..sampling.batch import GraphBatch
@@ -138,10 +147,6 @@ class BaseGCL(StepsMixin, nn.Module):
                  fuse_method: Optional[str] = None, seed: int = 42,
                  compute_dtype: str = "float32"):
         super().__init__()
-        if fuse_method not in (None, "none"):
-            raise NotImplementedError(
-                f"fuse_method={fuse_method!r} is not ported yet "
-                "(ROADMAP.md 2b: modality fusion)")
         if compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
         self.hparams = dict(
@@ -155,6 +160,8 @@ class BaseGCL(StepsMixin, nn.Module):
         self.model = self._build_model(GCNEncoder(
             in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
             num_hidden_layers=num_hidden_layers))
+        self.fusion = FusionFactory.create_fuser(method=fuse_method,
+                                                 embed_dim=in_dim)
 
     def _build_model(self, encoder: GCNEncoder) -> nn.Module:
         raise NotImplementedError
@@ -166,6 +173,8 @@ class BaseGCL(StepsMixin, nn.Module):
     def init(self, generator: torch.Generator):
         """Fresh weights from ``generator`` (the reference's init rules)."""
         self.model.init(generator)
+        if self.fusion is not None:
+            self.fusion.init(generator)
 
     def configure_optimizers(self, num_training_steps: int,
                              grad_clip: float = 1.0):
@@ -189,14 +198,21 @@ class BaseGCL(StepsMixin, nn.Module):
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
                       draws: Optional[Dict] = None):
-        """(loss, aux) of a device batch; the model's draws come from
-        ``generator`` unless passed in."""
-        x = self._batch_features(batch).to(self.compute_dtype)
+        """(loss, aux) of a device batch; the draws (the fuser's keep mask
+        and the model's) come from ``generator`` unless passed in."""
+        x = self._batch_features(batch)
         if draws is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or the draws")
-            draws = self.model.draw(generator, x, batch.edge_mask,
-                                    batch.node_mask, training)
+            draws = {}
+            if self.fusion is not None:
+                draws["fusion_keep"] = self.fusion.draw_keep(x, generator,
+                                                             training)
+        x = self.fusion_fn(x, draws.get("fusion_keep"), training)
+        x = x.to(self.compute_dtype)
+        if "dropout" not in draws:
+            draws = dict(draws, **self.model.draw(
+                generator, x, batch.edge_mask, batch.node_mask, training))
         loss = self.calculate_loss(x, batch, draws, training)
         return loss, {"loss": loss}
 
@@ -206,9 +222,9 @@ class BaseGCL(StepsMixin, nn.Module):
 
     @torch.inference_mode()
     def encode(self, batch: GraphBatch) -> torch.Tensor:
-        """The clean encoder over a device batch in float32 →
-        (N_pad, out_dim): embedding export."""
-        return self.model.encoder(self._batch_features(batch),
+        """The fused features through the clean encoder over a device
+        batch in float32 → (N_pad, out_dim): embedding export."""
+        return self.model.encoder(self.fusion_fn(self._batch_features(batch)),
                                   batch.edge_index, batch.edge_mask,
                                   training=False)
 
@@ -282,5 +298,5 @@ def load_gcl_module(ckpt_path: str,
     if ckpt["kind"] != "gcl":
         raise ValueError(f"not a GCL checkpoint: {ckpt_path}")
     module = GCL_CLASSES[ckpt["extras"]["model_name"]](**ckpt["hparams"])
-    load_jax_params(module.model, ckpt["params"])
+    load_jax_params(module.model, ckpt["params"], module.fusion)
     return module.to(resolve_device(device))

@@ -41,9 +41,18 @@ paths included), while every edge is still scored. ``filter_negatives``
 batch edge are redrawn, 3 rounds, found by a search over the batch's
 sorted (src·N_pad + dst) keys; it makes training take the iid path, as in
 the reference. ``fix_edge_id`` is not ported yet and raises (ROADMAP.md
-2b); fusion and LM/GCL features raise at construction. Encoding runs in
-float32 whatever ``compute_dtype`` training used, as the reference's
-``encode`` does.
+2b). Encoding runs in float32 whatever ``compute_dtype`` training used,
+as the reference's ``encode`` does.
+
+Node features may be (N, d) (random), (N, 2, d) (``node_init_method``
+"lm": the LM cache's two modalities) or (N, 1, d) ("gcl": the GCL cache's
+rows). ``fusion_fn`` makes them (N, d) in float32 before the encoder's
+cast, in the train step, the eval step and ``encode`` alike (serving,
+ranking and the unseen-node eval read features only through ``encode``):
+with ``node_init_method="lm"`` and ``fuse_method`` attention or redaf the
+module's ``fusion`` (models/fusion.py, trained with the model, in the
+checkpoint's ``fusion`` subtree), otherwise the mean over the modality
+axis. ReDAF's dropout keep mask is the ``fusion_keep`` draw.
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..interop.jax_params import load_jax_params
-from ..models.factory import KGEModelFactory
+from ..models.factory import FusionFactory, KGEModelFactory
 from ..nn import sigmoid_binary_cross_entropy
 from ..ops.negscore import BLOCK
 from ..sampling.batch import GraphBatch
@@ -170,14 +179,6 @@ class KGEModule(StepsMixin, nn.Module):
                  remat: bool = False, neg_sampler: str = "sorted",
                  cold_start_dropout: float = 0.0):
         super().__init__()
-        if fuse_method not in (None, "none"):
-            raise NotImplementedError(
-                f"fuse_method={fuse_method!r} is not ported yet "
-                "(ROADMAP.md queue 1: Stage B fusion)")
-        if node_init_method not in (None, "random"):
-            raise NotImplementedError(
-                f"node_init_method={node_init_method!r} is not ported yet "
-                "(ROADMAP.md queue 1: Stage A / Stage B encoders)")
         if neg_sampler not in ("sorted", "sorted2", "iid"):
             raise ValueError(f"unknown neg_sampler {neg_sampler!r}")
         if compute_dtype not in ("float32", "bfloat16"):
@@ -203,6 +204,10 @@ class KGEModule(StepsMixin, nn.Module):
             in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
             num_hidden_layers=num_hidden_layers, num_relation=num_relation,
             num_heads=num_heads)
+        # the reference fuses LM features only
+        self.fusion = (FusionFactory.create_fuser(method=fuse_method,
+                                                  embed_dim=in_dim)
+                       if node_init_method == "lm" else None)
         self.valid_metrics = BootstrappedBinaryMetrics(prefix="val_")
         self.test_metrics = BootstrappedBinaryMetrics(prefix="test_")
         self.edge_mapping = {}
@@ -236,6 +241,8 @@ class KGEModule(StepsMixin, nn.Module):
     def init(self, generator: torch.Generator):
         """Fresh weights from ``generator`` (reference init rules)."""
         self.model.init(generator)
+        if self.fusion is not None:
+            self.fusion.init(generator)
 
     def configure_optimizers(self, num_training_steps: int,
                              grad_clip: float = 1.0):
@@ -297,14 +304,15 @@ class KGEModule(StepsMixin, nn.Module):
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
                       negatives=None, dropout_masks=None, cold_keep=None,
-                      filter_draws=None):
+                      filter_draws=None, fusion_keep=None):
         """(loss, aux) of a device batch (sampling/batch.py
         ``batch_to_device``). Draws come from ``generator`` unless passed
         in: ``negatives`` is (neg_src, neg_dst, off) for the sorted samplers
         and (neg_src, neg_dst) (K, E) for the iid one; ``dropout_masks``
         one bool keep mask per hidden layer; ``cold_keep`` the (N_pad,)
         bool cold-start keep mask; ``filter_draws`` the 3 rounds' (K, E)
-        uniform pairs (src, dst) of ``filter_negatives``."""
+        uniform pairs (src, dst) of ``filter_negatives``; ``fusion_keep``
+        ReDAF's dropout keep mask."""
         cold = training and self.cold_start_dropout > 0.0
         use_sorted = (training and self.neg_sampler in ("sorted", "sorted2")
                       and not self._filter_negatives)
@@ -316,6 +324,11 @@ class KGEModule(StepsMixin, nn.Module):
             raise ValueError("pass a torch.Generator or the draws "
                              "(negatives, dropout_masks, cold_keep, "
                              "filter_draws)")
+        x = self._batch_features(batch)
+        if (self.fusion is not None and fusion_keep is None and training
+                and generator is not None):
+            fusion_keep = self.fusion.draw_keep(x, generator, training)
+        x = self.fusion_fn(x, fusion_keep, training)
         etype, emask = batch.edge_type, batch.edge_mask
         src, dst = batch.edge_index[0], batch.edge_index[1]
         conv_mask = emask
@@ -328,8 +341,8 @@ class KGEModule(StepsMixin, nn.Module):
                     device=generator.device) >= self.cold_start_dropout
             conv_mask = emask & cold_keep[src] & cold_keep[dst]
         z = self.model.encoder(
-            self._batch_features(batch), batch.edge_index, etype, conv_mask,
-            batch.block_rel, training=training, compute_dtype=self.compute_dtype,
+            x, batch.edge_index, etype, conv_mask, batch.block_rel,
+            training=training, compute_dtype=self.compute_dtype,
             generator=generator, dropout_masks=dropout_masks).float()
         decoder = self.model.decoder
         pos_pred = decoder.score(z, src, dst, etype,
@@ -493,9 +506,9 @@ class KGEModule(StepsMixin, nn.Module):
 
     @torch.inference_mode()
     def encode(self, batch: GraphBatch) -> torch.Tensor:
-        """Deterministic full forward over a device batch
-        (sampling/batch.py::batch_to_device) → (N_pad, out_dim)."""
-        return self.model.encode(self._batch_features(batch),
+        """Deterministic full forward of the fused features over a device
+        batch (sampling/batch.py::batch_to_device) → (N_pad, out_dim)."""
+        return self.model.encode(self.fusion_fn(self._batch_features(batch)),
                                  batch.edge_index, batch.edge_type,
                                  batch.edge_mask, batch.block_rel,
                                  training=False)
@@ -509,5 +522,5 @@ def load_kge_module(ckpt_path: str,
     if ckpt["kind"] != "kge":
         raise ValueError(f"not a KGE checkpoint: {ckpt_path}")
     module = KGEModule(**ckpt["hparams"])
-    load_jax_params(module.model, ckpt["params"])
+    load_jax_params(module.model, ckpt["params"], module.fusion)
     return module.to(resolve_device(device))

@@ -8,8 +8,8 @@ counterparts of the reference's ``lax.scan``s; a CUDA-graph capture is
 later work, ROADMAP.md queue 1, item 3), the eval steps (``_forward_loss``
 with ``training=False`` under ``torch.inference_mode``, the aux reduced
 on the device by the module's ``_reduce_eval_aux`` where it has one and
-its ``eval_impl`` is "histogram") and the device-resident feature
-table.
+its ``eval_impl`` is "histogram"), the device-resident feature table
+and ``fusion_fn``, the modules' fusion of multi-modal features.
 
 Random numbers come from an explicit ``torch.Generator`` on the module's
 device; keyword draws (the KGE module's ``negatives`` and
@@ -24,6 +24,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..models.fusion import modality_mean
 from .optim import AdamState, Optimizer
 
 
@@ -34,6 +35,27 @@ def mean_loss(outputs: List[Dict]) -> float:
         return 0.0
     losses = torch.stack([o["loss"] for o in outputs]).double()
     return float(np.mean(losses.cpu().numpy()))
+
+
+# leaves the reference's loss may leave ungraded, with a zero gradient
+# there: ReDAF's sub-type table when no sub-type ids are given
+UNGRADED = ("fusion.sub_type_emb.table",)
+
+
+def param_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """d loss / d params, in ``params``' order; zeros for an UNGRADED leaf
+    the loss does not reach, and an error for any other."""
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    out = []
+    for (name, p), g in zip(params.items(), grads):
+        if g is None:
+            if name not in UNGRADED:
+                raise RuntimeError(f"the loss does not reach {name}")
+            g = torch.zeros_like(p)
+        out.append(g)
+    return out
 
 
 class TrainState(NamedTuple):
@@ -70,6 +92,15 @@ class StepsMixin:
             return self.feature_table.index_select(0, batch.node_ids)
         return batch.x
 
+    def fusion_fn(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                  training: bool = False) -> torch.Tensor:
+        """(N, d) node features: the module's fuser (``self.fusion``) over
+        (N, M, d) features, else their mean over the modality axis, else
+        ``x`` as it is (N, d)."""
+        if self.fusion is not None:
+            return self.fusion(x, keep, training=training)
+        return modality_mean(x)
+
     def init_state(self, generator: Optional[torch.Generator] = None
                    ) -> TrainState:
         """A zero optimizer state over fresh weights from ``generator``,
@@ -89,8 +120,8 @@ class StepsMixin:
         params = list(state.params.values())
         loss, _ = self._forward_loss(batch, training=True,
                                      generator=generator, **draws)
-        grads = torch.autograd.grad(loss, params)
-        opt_state = self.tx.update(list(grads), state.opt_state, params)
+        grads = param_grads(loss, state.params)
+        opt_state = self.tx.update(grads, state.opt_state, params)
         return (TrainState(state.params, opt_state, state.step + 1),
                 {"train_loss": loss.detach()})
 

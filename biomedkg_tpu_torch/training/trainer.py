@@ -204,7 +204,7 @@ class Trainer:
                 if st is not None and hasattr(cb, "load_state_dict"):
                     cb.load_state_dict(st)
         elif init_params is not None:
-            load_jax_params(model.model, init_params)
+            load_jax_params(model.model, init_params, model.fusion)
             self.state = model.init_state()
         else:
             self.state = model.init_state(seeded(torch.Generator(), seed,
@@ -317,7 +317,7 @@ class Trainer:
         """A validation epoch with the module's weights, or ``params`` (a
         params tree) loaded into it first."""
         if params is not None:
-            load_jax_params(model.model, params)
+            load_jax_params(model.model, params, model.fusion)
         return self._eval_loop(model, dataloaders, "val",
                                (getattr(model, "seed", 42) + 1,))
 
@@ -332,9 +332,10 @@ class Trainer:
             self.flush_checkpoints()
             ckpt_path = self.best_model_path
         if ckpt_path:
-            load_jax_params(model.model, load_any(ckpt_path)["params"])
+            load_jax_params(model.model, load_any(ckpt_path)["params"],
+                            model.fusion)
         elif params is not None:
-            load_jax_params(model.model, params)
+            load_jax_params(model.model, params, model.fusion)
         self.tested_ckpt_path = ckpt_path
         metrics = self._eval_loop(model, dataloaders, "test",
                                   (getattr(model, "seed", 42) + 2,))

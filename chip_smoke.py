@@ -2,8 +2,9 @@
 """On-card check of the PyTorch port (biomedkg_tpu_torch): the KGE serving
 path, the KGE training step (RGCN and RGAT), Stage B's GCL pretraining
 (GRACE, DGI, GGD), held-out evaluation and the Trainer, filtered ranking
-and the unseen-node protocol, at full width on one CUDA card (Hopper,
-sm_90a).
+and the unseen-node protocol, and the repo's own scripts on the config
+layer with modality fusion and the LM and GCL embedding caches, at full
+width on one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -214,7 +215,46 @@ Phases; any failure ends the run with a non-zero exit:
     step with the kernels against the plain versions under one injected
     keep mask, at phase 5's tolerances. The segsum record's ``launches``
     adds (a)'s, (d)'s and the cold-start steps', the DistMult negscore
-    records' (d)'s and the cold-start steps'.
+    records' (d)'s and the cold-start steps';
+11. the config layer and Stage B's multimodal remainder, after phase 9,
+    in a working directory with configs/ linked and an LM cache seeded
+    for all the graph's names ((2, 768) rows from a seed, L2-normalised
+    over the modality axis, as Stage A writes them): first, alone on the
+    card, the GGD + attention step of scripts/gcl.sh at full width (GCN
+    768→256×4 over fused LM features, the configs' float32, [30, 30, 30]
+    neighbour batches of 64 gene/protein seeds): P11_GGD steps timed
+    (host clock, CUDA events) with their launches (segsum 8 a step) and a
+    torch.profiler window whose matrix products are split between the
+    fuser (models/fusion.py) and the GCN by a profiler range around the
+    fuser's forward and the autograd nodes it made; (a)
+    ``python -m biomedkg_tpu_torch.train_gcl`` with scripts/gcl.sh's
+    arguments for gene, drug and disease (read from the script; 100
+    epochs cut to 1 of P11_GCL_STEPS steps, validated and tested on whole
+    neighbour epochs) and (d) ``train_kge`` with scripts/kge.sh's LM
+    arguments and ``model.fuse_method=attention``, started together; (e)
+    beside them, one batch's loss and every gradient with the kernels
+    against the plain versions in bf16 and float32: GGD + attention,
+    GRACE + ReDAF (the keep mask one of the shared draws; before it
+    P11_GRACE bf16 steps with their launches, flash 2 + 2 a step); each
+    run's reference flow checked as phase 5 checks it; (b) ``GCLEncode`` from the three checkpoints, one
+    full-graph encode per type on the card (segsum 4 each), its rows
+    against the plain versions' encode; (c) ``train_kge`` with
+    scripts/kge.sh's NODE_INIT_METHOD=gcl arguments (2 epochs of
+    P11_KGE_STEPS steps, validated, tested on the best checkpoint), and
+    beside it, in a process of its own (``python3 chip_smoke.py
+    kge-sh-shapes <dir>``, whose 768 x 18,432-slot SAINT batches are the
+    first the negscore kernels and the bucket build see), the data module
+    and the model train_kge builds from the script's arguments (batch 64,
+    K = 1; RGCN 256→256×4 + DistMult): one batch's loss and every
+    gradient with the kernels against the plain versions, GCL-initialised
+    and LM-initialised with attention fusion, in bf16 and float32; the
+    segsum at that batch's shape against its plain version; P11_STAGE_C
+    float32 steps with their launches (segsum 6, negscore 1 + 1); the
+    negscore pair and the bucket build against their plain versions at
+    that shape (the ``k1_*`` keys of the DistMult and bucket records);
+    then ``rank_eval`` and the ``serve`` loop on its checkpoint
+    with the script's arguments. The segsum, DistMult negscore, bucket
+    and bf16 flash records' ``launches`` add phase 11's counted paths.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -228,6 +268,8 @@ import io
 import itertools
 import json
 import os
+import pickle
+import re
 import statistics
 import subprocess
 import sys
@@ -238,8 +280,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from biomedkg_tpu_torch import rank_eval
+from biomedkg_tpu_torch import rank_eval, train_kge
+from biomedkg_tpu_torch.config import CONFIG_DIR, cli_overrides, load_config
 from biomedkg_tpu_torch.data.modules import PrimeKGModule
+from biomedkg_tpu_torch.data import node_encoders
 from biomedkg_tpu_torch.data.node_encoders import RandomEncode
 from biomedkg_tpu_torch.data.synthetic import (PRIMEKG_RELATIONS,
                                                planted_triplets,
@@ -260,6 +304,7 @@ from biomedkg_tpu_torch.serve import PRIMEKG_DATA, serve_loop
 from biomedkg_tpu_torch.serving import KGEScorer
 from biomedkg_tpu_torch.training.checkpoint import save_checkpoint
 from biomedkg_tpu_torch.training import gcl_module
+from biomedkg_tpu_torch.training.stepping import param_grads
 from biomedkg_tpu_torch.training.trainer import Trainer
 from biomedkg_tpu_torch.training.kge_module import (HistogramBinaryMetrics,
                                                     KGEModule, _mix_factor,
@@ -864,9 +909,25 @@ def step_grads(module, batch, negatives, masks, cold=None):
     cold-start draws)."""
     loss, _ = module._forward_loss(batch, True, negatives=negatives,
                                    dropout_masks=masks, **(cold or {}))
-    grads = torch.autograd.grad(loss, list(module.parameters()))
+    grads = param_grads(loss, dict(module.named_parameters()))
     torch.cuda.synchronize()
     return float(loss.detach()), grads
+
+
+# gradients that are zero in exact arithmetic: attention fusion's key bias
+# (a softmax row is invariant to a shift of all its logits), so both runs
+# hold rounding noise there, held to the tolerance of the step's largest
+# gradient (tests/test_torch_fusion.py holds it to the fuser's largest)
+SHIFT_INVARIANT = ("fusion.k.b",)
+
+
+def shift_invariant_errors(names, grads_k, grads_p) -> dict:
+    """The SHIFT_INVARIANT leaves' errors relative to the step's largest
+    gradient."""
+    top = max(float(g.float().abs().max()) for g in grads_p)
+    return {n: float((a.float() - b.float()).abs().max()) / top
+            for n, a, b in zip(names, grads_k, grads_p)
+            if n in SHIFT_INVARIANT}
 
 
 def rel_err(got, want) -> float:
@@ -953,26 +1014,31 @@ def eval_launches(module, batch, what: str, want: dict) -> dict:
 
 
 def profile_steps(module, state, batches, gen, what: str,
-                  split_op: str = None):
+                  split_op: str = None, fusion_ops=()):
     """Device busy time by kernel and host time by op over one profiled
     window of ``batches`` (torch.profiler), and the idle share against the
     same window's CUDA-event wall time; with ``split_op``, that op's calls
-    by call site (the window then records Python stacks)."""
+    by call site (the window then records Python stacks); with
+    ``fusion_ops``, those ops' calls split between the module's fuser and
+    the rest (split_by_fusion)."""
     steps = len(batches)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA],
-            with_stack=split_op is not None) as prof:
+            with_stack=split_op is not None) as prof, \
+            fusion_range(module) if fusion_ops else contextlib.nullcontext():
         start.record()
         module.train_steps(state, batches, gen)
         end.record()
         torch.cuda.synchronize()
     wall = start.elapsed_time(end) / steps
     events = prof.key_averages()
+    # the fuser's range also shows on the device's timeline: not a kernel
     kernels = sorted((e for e in events
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.key != FUSION_RANGE),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if busy == 0:
@@ -996,6 +1062,72 @@ def profile_steps(module, state, batches, gen, what: str,
                       for e in host_ops[:12]))
     if split_op is not None:
         split_by_call_site(prof, split_op, steps, what)
+    if fusion_ops:
+        split_by_fusion(prof, fusion_ops, steps, what)
+
+
+# the torch.profiler range the GGD + attention window puts around the
+# fuser's forward; its backward is found by the autograd nodes the range
+# created (an evaluate_function event carries its node's sequence number)
+FUSION_RANGE = "fusion"
+BACKWARD_EVENT = "autograd::engine::evaluate_function: "
+
+
+@contextlib.contextmanager
+def fusion_range(module):
+    """``module.fusion``'s forward inside a torch.profiler range named
+    FUSION_RANGE."""
+    forward = module.fusion.forward
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function(FUSION_RANGE):
+            return forward(*args, **kwargs)
+
+    module.fusion.forward = ranged
+    try:
+        yield
+    finally:
+        del module.fusion.forward
+
+
+def ancestor(event, pred):
+    parent = event.cpu_parent
+    while parent is not None and not pred(parent):
+        parent = parent.cpu_parent
+    return parent
+
+
+def split_by_fusion(prof, ops, steps: int, what: str):
+    """``ops``' calls in a window run under ``fusion_range``, split into
+    the fuser's and the rest's, forward and backward, each with the device
+    time of the kernels they launched, per step."""
+    events = prof.events()
+    in_fusion = [e for e in events
+                 if ancestor(e, lambda p: p.name == FUSION_RANGE)]
+    nodes = {e.sequence_nr for e in in_fusion if e.sequence_nr >= 0}
+    fused = {id(e) for e in in_fusion}
+    parts = {}
+    for e in events:
+        if e.name not in ops:
+            continue
+        node = ancestor(e, lambda p: p.name.startswith(BACKWARD_EVENT))
+        if node is None:
+            key = ("fuser" if id(e) in fused else "rest", "forward")
+        else:
+            key = ("fuser" if node.sequence_nr in nodes else "rest",
+                   "backward")
+        ms, count = parts.get(key, (0.0, 0))
+        parts[key] = (ms + e.device_time_total / 1e3, count + 1)
+    total = sum(ms for ms, _ in parts.values())
+    fuser = sum(ms for (who, _), (ms, _) in parts.items() if who == "fuser")
+    check(total > 0 and any(who == "fuser" for who, _ in parts),
+          f"{what}: no {'/'.join(ops)} call recorded in the fuser's range")
+    print(f"{what} {' + '.join(ops)} by owner (torch.profiler range "
+          f"{FUSION_RANGE!r} around the fuser's forward, its backward by "
+          f"autograd node; device ms per step): {total / steps:.3f} ms, of "
+          f"which the fuser {fuser / steps:.3f} ms ({fuser / total:.1%}); "
+          + "; ".join(f"{who} {side} x{count / steps:g} {ms / steps:.3f} ms"
+                      for (who, side), (ms, count) in sorted(parts.items())))
 
 
 def call_site(event) -> str:
@@ -1063,8 +1195,9 @@ def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
         if dtype == torch.bfloat16 and kernel.startswith("transe"):
             grad_tol = TRANSE_GRAD_TOL_BF16
         loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        errs = {n: rel_err(a, b) for (n, _), a, b in
-                zip(step.named_parameters(), grads_k, grads_p)}
+        names = [n for n, _ in step.named_parameters()]
+        errs = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
+        errs.update(shift_invariant_errors(names, grads_k, grads_p))
         worst = max(errs, key=errs.get)
         print(f"{what} step {str(dtype)[6:]}, kernels vs plain: loss "
               f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_err:.3g}, tol "
@@ -1280,19 +1413,21 @@ def loss_falls(sd, feature_table, dev, batch, what: str, **over):
 
 
 def encoded(module, batch) -> torch.Tensor:
-    """The batch's z as the bf16 training step computes it (no dropout)."""
+    """The batch's z as the bf16 training step computes it (no dropout;
+    multi-modal features fused as the module fuses them)."""
     with torch.no_grad():
         return module.model.encoder(
-            module._batch_features(batch), batch.edge_index,
+            module.fusion_fn(module._batch_features(batch)),
+            batch.edge_index,
             batch.edge_type, batch.edge_mask, batch.block_rel,
             compute_dtype=torch.bfloat16).float()
 
 
-def path_negatives(batch, gen, dual: bool):
-    """The path's (ns, nd, per-slot relation) for ``batch``."""
+def path_negatives(batch, gen, dual: bool, k: int = TRAIN["neg_ratio"]):
+    """The path's (ns, nd, per-slot relation) for ``batch``, K = ``k``."""
     num_edges = batch.edge_type.shape[0]
     ns, nd, off = sample_negatives_sorted(
-        gen, TRAIN["neg_ratio"], num_edges,
+        gen, k, num_edges,
         batch.node_mask.sum().clamp(min=1), dual=dual)
     rel = batch.edge_type[rolled_index(off, num_edges,
                                        _mix_factor(num_edges))].int()
@@ -2474,8 +2609,8 @@ def flash_path_records(dev, node_mask, launches):
     return records
 
 
-def gcl_module_for(cls, sd, table, dev, dtype):
-    module = cls(**GCL, compute_dtype=str(dtype)[6:])
+def gcl_module_for(cls, sd, table, dev, dtype, hp=GCL):
+    module = cls(**hp, compute_dtype=str(dtype)[6:])
     module.load_state_dict(sd)
     module.to(dev)
     module.edge_layout = "dst"
@@ -2485,13 +2620,28 @@ def gcl_module_for(cls, sd, table, dev, dtype):
 
 def gcl_grads(module, batch, draws):
     loss, _ = module._forward_loss(batch, True, draws=draws)
-    grads = torch.autograd.grad(loss, list(module.parameters()))
+    grads = param_grads(loss, dict(module.named_parameters()))
     torch.cuda.synchronize()
     return float(loss.detach()), grads
 
 
+def gcl_draws(module, batch, gen):
+    """One set of the module's draws for ``batch``: the fuser's keep mask
+    (where it has one) and the model's, over the fused features."""
+    x = module._batch_features(batch)
+    draws = {}
+    if module.fusion is not None:
+        draws["fusion_keep"] = module.fusion.draw_keep(x, gen, True)
+    with torch.no_grad():
+        fused = module.fusion_fn(x, draws.get("fusion_keep"), True)
+    draws.update(module.model.draw(gen, fused, batch.edge_mask,
+                                   batch.node_mask, True))
+    return draws
+
+
 def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
-                     dtypes=(torch.bfloat16, torch.float32)):
+                     dtypes=(torch.bfloat16, torch.float32), hp=GCL,
+                     what=None):
     """One batch's loss and every gradient with the kernels against the
     same step with the plain versions, the features scaled by
     COMPARE_FEATURE_SCALE; one step makes SEGSUM_PER_GCL_STEP segsum and
@@ -2501,17 +2651,18 @@ def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
     whose plain bf16 gradient is itself further than STEP_TOL from the
     float32 gradient (plain versions, same draws) is rounding noise (it
     moves even with the plain version's row tiling); such a leaf is held
-    within STEP_TOL of the step's largest gradient instead."""
-    what = cls.model_name.upper()
+    within STEP_TOL of the step's largest gradient instead. ``hp``: the
+    module's hyper-parameters (a fuser's keep mask is one of the draws both
+    runs share)."""
+    what = what or cls.model_name.upper()
     draws = None
     table = table * COMPARE_FEATURE_SCALE
     for dtype in dtypes:
-        module = gcl_module_for(cls, sd, table, dev, dtype)
+        module = gcl_module_for(cls, sd, table, dev, dtype, hp)
         if draws is None:
-            draws = module.model.draw(
-                torch.Generator(device=dev).manual_seed(SEED + 1),
-                module._batch_features(batch), batch.edge_mask,
-                batch.node_mask, True)
+            draws = gcl_draws(
+                module, batch,
+                torch.Generator(device=dev).manual_seed(SEED + 1))
         reset_launch_counts()
         loss_k, grads_k = gcl_grads(module, batch, draws)
         used = launch_counts()
@@ -2520,7 +2671,7 @@ def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
             loss_p, grads_p = gcl_grads(module, batch, draws)
             if dtype == torch.bfloat16:
                 _, grads_32 = gcl_grads(
-                    gcl_module_for(cls, sd, table, dev, torch.float32),
+                    gcl_module_for(cls, sd, table, dev, torch.float32, hp),
                     batch, draws)
         check(not any(launch_counts().values()),
               "the plain versions launched a kernel")
@@ -2532,18 +2683,20 @@ def gcl_compare_step(cls, sd, table, dev, batch, flash_n: int,
         loss_err = abs(loss_k - loss_p) / max(abs(loss_p), 1.0)
         names = [n for n, _ in module.named_parameters()]
         errs = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
-        noise = {}
+        noise = shift_invariant_errors(names, grads_k, grads_p)
         if dtype == torch.bfloat16:
             top = max(float(g.float().abs().max()) for g in grads_p)
-            noise = {n: float((a.float() - b.float()).abs().max()) / top
-                     for n, a, b, c in zip(names, grads_k, grads_p, grads_32)
-                     if rel_err(b, c) > grad_tol}
+            noise.update({
+                n: float((a.float() - b.float()).abs().max()) / top
+                for n, a, b, c in zip(names, grads_k, grads_p, grads_32)
+                if rel_err(b, c) > grad_tol})
         bad = [n for n in names
                if (noise[n] if n in noise else errs[n]) > grad_tol]
         held = [n for n in names if n not in noise]
         worst = max(held, key=errs.get) if held else None
-        note = (f"; bf16 noise leaves (plain bf16 over {grad_tol:g} of its "
-                f"max from float32), error of the step's largest gradient: "
+        note = (f"; noise leaves (zero in exact arithmetic, or in bf16 the "
+                f"plain bf16 over {grad_tol:g} of its max from float32), "
+                f"error of the step's largest gradient: "
                 + ", ".join(f"{n} {v:.3g}" for n, v in noise.items())
                 if noise else "")
         print(f"{what} step {str(dtype)[6:]}, kernels vs plain: loss "
@@ -3559,6 +3712,531 @@ def ranking_phase(dm, dev, tmp, ckpt):
             for name in cold}
 
 
+# -- phase 11: the config layer and Stage B's multimodal remainder ---------
+# (scripts/gcl.sh; scripts/kge.sh with NODE_INIT_METHOD gcl and lm) ------
+LM_DIM = 768                      # Stage A's rows (configs/data embed_dim)
+GCL_TYPES = ("gene", "drug", "disease")
+GCL_FUSED = dict(GCL, fuse_method="attention")   # scripts/gcl.sh
+GCL_REDAF = dict(GCL, fuse_method="redaf")
+GCL_EMBED = GCL["out_dim"]        # GCLEncode's rows, scripts/kge.sh's 256
+P11_GCL_STEPS = 3                 # train_gcl steps (the script: 100 epochs)
+P11_KGE_STEPS = 3                 # train_kge steps (the script: 100 epochs)
+P11_GGD = (2, 5, 2)               # GGD + attention: warm-up, timed, profiled
+P11_GRACE = (1, 2)                # GRACE + ReDAF bf16: warm-up, counted
+P11_STAGE_C = (2, 5)              # GCL-initialised Stage C steps at K = 1
+# scripts/kge.sh's shapes in a process of their own (python3 chip_smoke.py
+# KGE_SH_SHAPES <working directory>): its result line's prefix
+KGE_SH_SHAPES = "kge-sh-shapes"
+KGE_SH_RESULT = "kge.sh shapes result: "
+P11_SERVE = ("score gene_000000 protein_protein gene_000001\n"
+             "topk drug_000001 drug_drug 3\nquit\n")
+
+
+def script_args(script: str, **variables) -> list:
+    """The arguments ``scripts/<script>`` passes to its entry point, as
+    bash expands them, with ``variables`` set first."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "scripts", script)) as f:
+        text = f.read()
+    for name, value in variables.items():
+        text, n = re.subn(rf"^{name}=.*$", f'{name}="{value}"', text,
+                          flags=re.M)
+        check(n == 1, f"{script}: no {name}= line")
+    text, n = re.subn(r"^python3 \S+\.py", "printf '%s\\n'", text,
+                      flags=re.M)
+    check(n == 1, f"{script}: no python3 line")
+    return subprocess.run(["bash", "-c", text], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.split()
+
+
+@contextlib.contextmanager
+def working_dir(path: str):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+def lm_workspace(tmp: str, names) -> str:
+    """A working directory with configs/ linked and the LM cache Stage A
+    would write (``data/embed/primekg_modality_lm.pickle``): a (2, 768)
+    row for every name, from a seed, L2-normalised over the modality
+    axis."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    ws = tempfile.mkdtemp(dir=tmp)
+    os.symlink(os.path.join(root, "configs"), os.path.join(ws, "configs"))
+    t0 = time.perf_counter()
+    rows = np.random.default_rng(SEED).standard_normal(
+        (len(names), 2, LM_DIM), dtype=np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    os.makedirs(os.path.join(ws, "data", "embed"))
+    with open(os.path.join(ws, "data", "embed",
+                           "primekg_modality_lm.pickle"), "wb") as f:
+        pickle.dump(dict(zip(names, rows)), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    print(f"LM cache: {len(names)} names x (2, {LM_DIM}) float32, "
+          f"L2-normalised over the modality axis, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return ws
+
+
+def start_entry(ws: str, entry: str, args, log_dir: str):
+    """``python -m biomedkg_tpu_torch.<entry> <args> log_dir=<log_dir>`` on
+    the card in ``ws``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"biomedkg_tpu_torch.{entry}", *args,
+         f"log_dir={log_dir}"],
+        cwd=ws, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.log_dir, proc.cwd = log_dir, ws
+    return proc
+
+
+def finish_train_gcl(proc, node_type: str, t0: float) -> str:
+    """Wait for a scripts/gcl.sh run and check it: GGD with attention
+    fusion over the LM features of the node type's graph, the reference's
+    flow (top-1, the test on it, val and test losses logged), the
+    checkpoint where GCLEncode globs."""
+    out, errs = proc.communicate(timeout=900)
+    full = "gene/protein" if node_type == "gene" else node_type
+    print(f"train_gcl scripts/gcl.sh {node_type} "
+          f"({time.perf_counter() - t0:.1f} s, rc {proc.returncode}):",
+          out.strip().replace("\n", " | "))
+    check(proc.returncode == 0, f"train_gcl {node_type}: {errs[-2000:]}")
+    check(out.startswith(f"train_gcl: ggd on {full}: ")
+          and f"features (2, {LM_DIM}) (lm), fusion attention" in out,
+          f"train_gcl {node_type}: not GGD + attention over LM features")
+    ckpt = os.path.normpath(os.path.join(
+        proc.cwd, out.split("checkpoint: ")[-1].strip()))
+    check(f"/ckpt/gcl/{node_type}/ggd_attention_lm_" in ckpt,
+          f"train_gcl {node_type}: checkpoint {ckpt}")
+    logged = check_reference_flow(proc, ckpt, f"train_gcl {node_type}", 1,
+                                  False, "gcl")
+    check({"val_loss", "test_loss"} <= set(logged),
+          f"train_gcl {node_type}: metrics {sorted(logged)}")
+    return ckpt
+
+
+def lm_gene_module(ws: str):
+    """The gene/protein graph's data module over the LM cache
+    (scripts/gcl.sh's batch of 64 seeds), set up in ``ws``."""
+    with working_dir(ws):
+        dm = PrimeKGModule(**dict(PRIMEKG_DATA, node_type=GCL_NODE_TYPE,
+                                  batch_size=64, node_init_method="lm"),
+                           seed=SEED)
+        dm.setup(stage="split")
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    return dm
+
+
+def ggd_attention_steps(dm, dev):
+    """Phase 11's GGD + attention step at full width (the configs'
+    float32): timed (host clock, CUDA events), launches counted, and a
+    torch.profiler window whose matrix products are split between the
+    fuser (models/fusion.py) and the GCN by a profiler range around the
+    fuser's forward (split_by_fusion); returns (the device batches, the
+    feature table, the launches)."""
+    warm, steps, profiled = P11_GGD
+    loader = dm.train_dataloader(loader_type="neighbor")
+    loader.set_epoch(0)
+    t0 = time.perf_counter()
+    host = list(itertools.islice(loader, warm + steps))
+    sample_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    batches = [batch_to_device(b, dev) for b in host]
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+    print(f"GGD + attention: {GCL_NODE_TYPE[0]} graph {dm.graph.num_nodes} "
+          f"nodes, features {tuple(dm.graph.x.shape[1:])}; neighbour "
+          f"envelope {loader.node_budget} node x {loader.edge_budget} edge "
+          f"slots (64 seeds); host sampling {sample_ms:.1f} ms per batch")
+    module = gcl_module.GGDModule(**GCL_FUSED).to(dev)
+    module.edge_layout = "dst"
+    module.feature_table = table
+    module.configure_optimizers(num_training_steps=100)
+    state = module.init_state(torch.Generator().manual_seed(SEED))
+    sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state, _ = module.train_steps(state, batches[:warm], gen)
+    torch.cuda.synchronize()
+    what = "GGD + attention float32 train step"
+    state, launches, _ = timed_steps(module, state, batches[warm:], gen,
+                                     what, work=real_nodes)
+    check(launches == expected_launches(SEGSUM_PER_GCL_STEP * steps, None,
+                                        0), f"{what}: launches {launches}")
+    profile_steps(module, state, batches[-profiled:], gen, what,
+                  fusion_ops=("aten::mm", "aten::bmm", "aten::addmm"))
+    fusion_times(module, batches[-1], what)
+    del module, state
+    return batches, table, sd, launches
+
+
+def fusion_times(module, batch, what: str):
+    """The fuser alone on one batch's features, forward and forward +
+    backward (CUDA events, median of ITERS), beside the step."""
+    x = module._batch_features(batch)
+    params = list(module.fusion.parameters())
+    g = torch.randn(x.shape[0], x.shape[2], device=x.device,
+                    generator=torch.Generator(x.device).manual_seed(SEED))
+
+    def both():
+        torch.autograd.grad(module.fusion(x), params, g)
+
+    with torch.no_grad():
+        fwd = time_ms(lambda: module.fusion(x))
+    ms = time_ms(both)
+    rows, d = x.shape[0] * x.shape[1], x.shape[2]
+    # q, k, v: the forward and the weight gradient (the features need
+    # none)
+    flop = 3 * 2 * rows * d * d * 2
+    print(f"{what}: the fuser ({type(module.fusion).__name__}, "
+          f"{tuple(x.shape)} float32) alone {fwd:.3f} ms forward, "
+          f"{ms:.3f} ms forward + backward (CUDA events); its q, k, v "
+          f"products {flop / 1e9:.1f} GFLOP, bound "
+          f"{flop / FP32_FLOP_PER_S * 1e3:.3f} ms at "
+          f"{FP32_FLOP_PER_S / 1e12:g} TFLOP/s float32")
+
+
+def grace_redaf_steps(dev, table, batches):
+    """GRACE + ReDAF in bf16: a few steps with launches counted (segsum 8,
+    flash 2 + 2 a step), then one batch's loss and every gradient with the
+    kernels against the plain versions in both types, ReDAF's keep mask
+    one of the draws both runs share."""
+    warm, steps = P11_GRACE
+    module = gcl_module.GRACEModule(**GCL_REDAF,
+                                    compute_dtype="bfloat16").to(dev)
+    module.edge_layout = "dst"
+    module.feature_table = table
+    module.configure_optimizers(num_training_steps=100)
+    state = module.init_state(torch.Generator().manual_seed(SEED + 3))
+    sd = {n: t.detach().clone() for n, t in module.state_dict().items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    state, _ = module.train_steps(state, batches[:warm], gen)
+    what = "GRACE + ReDAF bf16 train step"
+    _, launches, _ = timed_steps(module, state,
+                                 batches[warm:warm + steps], gen, what,
+                                 work=real_nodes)
+    check(launches == expected_launches(
+        SEGSUM_PER_GCL_STEP * steps, None, 0, flash_n=FLASH_PER_STEP * steps,
+        flash_design=flashnce.PATH[torch.bfloat16]),
+        f"{what}: launches {launches}")
+    del module, state
+    gcl_compare_step(gcl_module.GRACEModule, sd, table, dev, batches[0],
+                     FLASH_PER_STEP, hp=GCL_REDAF, what="GRACE + ReDAF")
+    return launches
+
+
+def gcl_encode_phase(ws: str, dev):
+    """Phase 11b: ``GCLEncode`` from the three scripts/gcl.sh checkpoints:
+    one full-graph encode per node type on the card (launch counts set to
+    0 just before and read just after), each encode's z (the cache's rows)
+    held against the plain versions' encode of the same batch on the
+    card; returns the launches."""
+    encodes = []
+    load = gcl_module.load_gcl_module
+
+    def recording_load(path, device=None):
+        module = load(path, device)
+        encode = module.encode
+
+        def recorded(batch):
+            z = encode(batch)
+            encodes.append((module, encode, batch, z))
+            return z
+
+        module.encode = recorded
+        return module
+
+    gcl_module.load_gcl_module = recording_load
+    try:
+        with working_dir(ws):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            enc = node_encoders.GCLEncode("ggd", "attention",
+                                          embed_dim=GCL_EMBED, device="cuda")
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            launches = launch_counts()
+    finally:
+        gcl_module.load_gcl_module = load
+    check(len(encodes) == len(GCL_TYPES)
+          and launches == expected_launches(len(GCL_TYPES) * CONVS, None, 0),
+          f"GCLEncode: {len(encodes)} encodes, launches {launches}")
+    for node_type, (module, encode, batch, z) in zip(GCL_TYPES, encodes):
+        with plain_versions():
+            z_plain = encode(batch)
+        n = int(batch.node_mask.sum())
+        err = float((z[:n] - z_plain[:n]).abs().max())
+        scale = float(z_plain[:n].abs().max())
+        print(f"GCLEncode {node_type}: {n} rows of {z.shape[1]} (fusion "
+              f"{module.hparams['fuse_method']}); kernels vs plain "
+              f"max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z| = "
+              f"{Z_RTOL * scale:.3g})")
+        check(bool(torch.isfinite(z[:n]).all()),
+              f"GCLEncode {node_type}: rows not finite")
+        check(err <= Z_RTOL * scale, f"GCLEncode {node_type}: rows disagree "
+                                     "with the plain versions' encode")
+    rows = sum(int(b.node_mask.sum()) for _, _, b, _ in encodes)
+    check(len(enc.node_mapping) <= rows,
+          f"GCLEncode: {len(enc.node_mapping)} cached rows of {rows}")
+    print(f"GCLEncode: cache of {len(enc.node_mapping)} rows built in "
+          f"{build_s:.1f} s (three graph builds over the LM cache, three "
+          f"encodes); launches {({k: v for k, v in launches.items() if v})}")
+    del encodes
+    return launches
+
+
+def kge_sh_config(ws: str, init: str, *extra):
+    """configs/kge.yaml composed with scripts/kge.sh's arguments for
+    NODE_INIT_METHOD ``init`` and ``extra``, on the card, in ``ws``."""
+    args = script_args("kge.sh", NODE_INIT_METHOD=init) + [*extra,
+                                                            "device=cuda"]
+    with working_dir(ws):
+        return load_config(CONFIG_DIR, "kge", cli_overrides(args))
+
+
+def kge_sh_hparams(cfg, num_relation: int) -> dict:
+    """The KGE module train_kge builds from ``cfg``, without its
+    ``compute_dtype`` (compare_step sets each type)."""
+    hp = dict(cfg.model, in_dim=cfg.data.embed_dim, num_relation=num_relation,
+              neg_ratio=cfg.neg_ratio,
+              node_init_method=cfg.data.node_init_method, seed=cfg.seed)
+    hp.pop("compute_dtype")
+    return hp
+
+
+def lm_table(ws: str, names, dev) -> torch.Tensor:
+    """The LM cache's (N, 2, 768) rows in ``names``' order, on the card."""
+    with open(os.path.join(ws, "data", "embed",
+                           "primekg_modality_lm.pickle"), "rb") as f:
+        rows = pickle.load(f)
+    return torch.from_numpy(np.stack([rows[n] for n in names])).to(dev)
+
+
+def kge_sh_shapes_main(dev, ws: str) -> int:
+    """Phase 11 (e) at scripts/kge.sh's shapes (batch 64, K = 1), in a
+    process of its own so that its 768-slot SAINT batches are the first
+    the negscore kernels and the bucket build see: the data module and the
+    model train_kge builds from the script's arguments (NODE_INIT_METHOD
+    gcl, over the GCL cache phase 11b wrote in ``ws``); one batch's loss
+    and every gradient with the kernels against the plain versions, GCL-
+    and LM-initialised (attention fusion), in bf16 and float32; the segsum
+    at that batch's shape; P11_STAGE_C float32 steps with their launches
+    counted (segsum 6, negscore 1 + 1 a step); then the negscore pair and
+    the bucket build against their plain versions at that shape. Prints
+    KGE_SH_RESULT and a JSON object: the launches, the K = 1 records."""
+    for lib in (segsum.LIBRARY, negscore.LIBRARY):
+        lib.lib()
+    check(native.get_lib() is not None, "the host sampler did not build")
+    cfg = kge_sh_config(ws, "gcl")
+    with working_dir(ws):
+        dm = train_kge.data_module(cfg)
+    dm.device_features = True
+    dm.saint_fill_target = train_kge.saint_fill(cfg)
+    dm.edge_layout = "dst"
+    loader = dm.train_dataloader(loader_type="saint")
+    warm, steps = P11_STAGE_C
+    batches = [batch_to_device(loader.sample()[0], dev)
+               for _ in range(warm + steps)]
+    batch = batches[0]
+    n = batch.node_mask.shape[0]
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+    hp = kge_sh_hparams(cfg, dm.data.num_edge_types)
+    print(f"scripts/kge.sh gcl in-process: SAINT envelope {loader.node_budget}"
+          f" node x {loader.edge_budget} edge slots (batch "
+          f"{cfg.data.batch_size}, K = {cfg.neg_ratio}); features "
+          f"{tuple(table.shape)}")
+    check(n == loader.node_budget and cfg.neg_ratio == 1
+          and cfg.data.batch_size == 64,
+          f"not scripts/kge.sh's shapes: {n} node slots, K = "
+          f"{cfg.neg_ratio}, batch {cfg.data.batch_size}")
+    check(all(k.launches == 0 for k in negscore.KERNELS.values())
+          and negscore.BUCKETS.launches == 0,
+          "a negscore kernel ran before scripts/kge.sh's shapes")
+
+    # one batch, kernels against plain versions: GCL- then LM-initialised
+    module = KGEModule(**hp)
+    module.init(torch.Generator().manual_seed(SEED))
+    compare_step({k: t.detach().clone() for k, t in
+                  module.state_dict().items()}, table, dev, batch,
+                 "distmult_neg_scores", "scripts/kge.sh gcl (K = 1)", **hp)
+    lm_cfg = kge_sh_config(ws, "lm", "model.fuse_method=attention")
+    lm_hp = kge_sh_hparams(lm_cfg, dm.data.num_edge_types)
+    lm = KGEModule(**lm_hp)
+    lm.init(torch.Generator().manual_seed(SEED))
+    compare_step({k: t.detach().clone() for k, t in lm.state_dict().items()},
+                 lm_table(ws, dm.data.node_list, dev), dev, batch,
+                 "distmult_neg_scores", "scripts/kge.sh lm + attention "
+                 "(K = 1)", **lm_hp)
+    del lm
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    segsum_batch_times(batch, hp["hidden_dim"], torch.float32, gen,
+                       "conv (scripts/kge.sh's SAINT batch)", counts=True)
+
+    # the steps, launches counted
+    module = KGEModule(**dict(hp, compute_dtype=cfg.model.compute_dtype))
+    module.to(dev)
+    module.edge_layout = "dst"
+    module.feature_table = table
+    module.configure_optimizers(num_training_steps=100)
+    state = module.init_state(torch.Generator().manual_seed(SEED))
+    state, _ = module.train_steps(state, batches[:warm], gen)
+    what = "GCL-initialised Stage C float32 train step (K = 1)"
+    _, launches, _ = timed_steps(module, state, batches[warm:], gen, what,
+                                 work=lambda b: (
+                                     sum(int(x.edge_mask.sum()) for x in b)
+                                     * (1 + cfg.neg_ratio),
+                                     "triplets/s (real edges x (1 + K))"))
+    check(launches == expected_launches(SEGSUM_PER_STEP * steps,
+                                        "distmult_neg_scores", steps),
+          f"{what}: launches {launches}")
+
+    # the negscore pair and the bucket build at this shape
+    z = encoded(module, batch)
+    negatives = path_negatives(batch, gen, False, k=cfg.neg_ratio)
+    ds = torch.randn(negatives[0].shape[0], generator=gen, device=dev)
+    records = negscore_records(
+        "distmult", False, z, negatives,
+        module.model.decoder.rel_emb.detach(), ds, launches)
+    records.append(bucket_checks(dev, negatives, n))
+    print(KGE_SH_RESULT + json.dumps({"launches": launches,
+                                      "records": records}))
+    return 0
+
+
+def kge_sh_shapes(ws: str):
+    """``python3 chip_smoke.py KGE_SH_SHAPES ws`` started (kge_sh_shapes_main);
+    ``finish_kge_sh_shapes`` reads it."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), KGE_SH_SHAPES, ws],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_kge_sh_shapes(proc, t0: float):
+    """(the launches, the K = 1 records) of a kge_sh_shapes run, its
+    launches added into PATH_LAUNCHES."""
+    out, errs = proc.communicate(timeout=900)
+    body = "\n".join(line for line in out.strip().splitlines()
+                     if not line.startswith(KGE_SH_RESULT))
+    print(f"scripts/kge.sh's shapes in their own process "
+          f"({time.perf_counter() - t0:.1f} s, rc {proc.returncode}):\n"
+          f"{body}")
+    check(proc.returncode == 0, f"scripts/kge.sh's shapes failed: "
+                                f"{errs[-3000:]}")
+    result = json.loads(next(line for line in out.splitlines()
+                             if line.startswith(KGE_SH_RESULT))
+                        [len(KGE_SH_RESULT):])
+    for name, count in result["launches"].items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    return result["launches"], result["records"]
+
+
+def finish_entry(proc, what: str, t0: float, timeout=900) -> str:
+    out, errs = proc.communicate(timeout=timeout)
+    print(f"{what} ({time.perf_counter() - t0:.1f} s, rc "
+          f"{proc.returncode})")
+    check(proc.returncode == 0, f"{what} failed: {errs[-3000:]}")
+    return out
+
+
+def multimodal_phase(dm, dev, tmp):
+    """Phase 11; returns every kernel's launches over its counted paths
+    and the negscore pair's records at K = 1."""
+    t_phase = time.perf_counter()
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    ws = lm_workspace(tmp, dm.data.node_list)
+    gcl_sh = {t: script_args("gcl.sh", NODE_TYPE=t) for t in GCL_TYPES}
+    kge_gcl = script_args("kge.sh", NODE_INIT_METHOD="gcl")
+    kge_lm = script_args("kge.sh", NODE_INIT_METHOD="lm")
+    print(f"scripts/gcl.sh (gene): {' '.join(gcl_sh['gene'])}")
+    print(f"scripts/kge.sh (gcl): {' '.join(kge_gcl)}")
+    cut = ["epochs=1", "val_every_epoch=1"]
+
+    # (a) first, alone on the card: the GGD + attention step, timed
+    gene = lm_gene_module(ws)
+    batches, table, ggd_sd, total = ggd_attention_steps(gene, dev)
+
+    # (a) scripts/gcl.sh for the three node types and (d) scripts/kge.sh's
+    # LM branch with attention fusion, started together
+    t0 = time.perf_counter()
+    gcl_runs = {t: start_entry(ws, "train_gcl", gcl_sh[t] + cut + [
+        f"steps={P11_GCL_STEPS}"], f"{ws}/log_gcl_{t}") for t in GCL_TYPES}
+    lm_run = start_entry(ws, "train_kge", kge_lm + cut + [
+        "model.fuse_method=attention", f"steps={P11_KGE_STEPS}",
+        f"ckpt_dir={ws}/ckpt_lm"], f"{ws}/log_kge_lm")
+
+    # (e) beside them: the fused steps' kernels against the plain versions
+    gcl_compare_step(gcl_module.GGDModule, ggd_sd, table, dev, batches[0],
+                     0, hp=GCL_FUSED, what="GGD + attention")
+    grace = grace_redaf_steps(dev, table, batches)
+    total = {k: total[k] + grace[k] for k in total}
+    del batches, table, gene
+    torch.cuda.empty_cache()
+
+    ckpts = {t: finish_train_gcl(gcl_runs[t], t, t0) for t in GCL_TYPES}
+    # (b) GCLEncode from those checkpoints, on the card
+    encode_launches = gcl_encode_phase(ws, dev)
+    total = {k: total[k] + encode_launches[k] for k in total}
+
+    # (c) scripts/kge.sh with NODE_INIT_METHOD=gcl, then rank_eval and the
+    # serve loop on its checkpoint, through the config layer
+    t1 = time.perf_counter()
+    gcl_run = start_entry(ws, "train_kge", kge_gcl + [
+        "epochs=2", "val_every_epoch=1", f"steps={P11_KGE_STEPS}",
+        f"ckpt_dir={ws}/ckpt"], f"{ws}/log_kge_gcl")
+    # (e) at scripts/kge.sh's shapes, in a process of its own, beside it
+    shapes = kge_sh_shapes(ws)
+    stage_c, k1_records = finish_kge_sh_shapes(shapes, t1)
+    total = {k: total[k] + stage_c.get(k, 0) for k in total}
+
+    lm_ckpt = finish_train_kge(lm_run, "scripts/kge.sh lm + attention",
+                               dm.graph, t0)
+    check("features (2, 768) (lm)" in lm_run.out
+          and "_lm" in os.path.basename(os.path.dirname(lm_ckpt)),
+          "train_kge lm + attention: not on LM features")
+    lm = load_kge_module(lm_ckpt, device="cpu")
+    check(lm.hparams["fuse_method"] == "attention" and lm.fusion is not None,
+          "train_kge lm + attention: no fuser in the checkpoint")
+    ckpt = finish_train_kge(gcl_run, "scripts/kge.sh gcl", dm.graph, t1,
+                            epochs=2)
+    check(f"features (1, {GCL_EMBED}) (gcl)" in gcl_run.out
+          and "_gcl_ggd_attention" in ckpt,
+          "train_kge gcl: not on the GCL cache's features")
+    t2 = time.perf_counter()
+    rank = start_entry(ws, "rank_eval", kge_gcl + [
+        f"pretrained_path={ckpt}"], f"{ws}/log_rank")
+    root = os.path.dirname(os.path.abspath(__file__))
+    served = subprocess.run(
+        [sys.executable, "-m", "biomedkg_tpu_torch.serve", *kge_gcl,
+         f"pretrained_path={ckpt}"], input=P11_SERVE, cwd=ws,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=600)
+    print(f"serve on the GCL-initialised checkpoint "
+          f"({time.perf_counter() - t2:.1f} s, rc {served.returncode}): "
+          + served.stdout.strip().replace("\n", " | "))
+    check(served.returncode == 0, f"serve failed: {served.stderr[-3000:]}")
+    lines = served.stdout.strip().splitlines()
+    check(len(lines) == 5 and lines[0].startswith("ready.")
+          and 0.0 < float(lines[1]) < 1.0
+          and all(line.split()[1].startswith("drug_") for line in lines[2:]),
+          f"serve: answers {lines}")
+    out = finish_entry(rank, "rank_eval on the GCL-initialised checkpoint",
+                       t2)
+    ranked = printed_metrics(out, "filtered-ranking metrics:")
+    print(f"rank_eval: {json.dumps(ranked)}")
+    check(all(np.isfinite(v) for v in ranked.values())
+          and 0.0 < ranked["mrr"] <= 1.0, f"rank_eval: metrics {ranked}")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{({k: v for k, v in total.items() if v})}; GCL checkpoints "
+          f"{sorted(os.path.relpath(c, ws) for c in ckpts.values())}")
+    return total, k1_records
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3567,6 +4245,8 @@ def main() -> int:
     dev = torch.device("cuda")
     if sys.argv[1:] == [TRAINER_VS_SERIAL]:
         return trainer_vs_serial_main(dev)
+    if sys.argv[1:2] == [KGE_SH_SHAPES]:
+        return kge_sh_shapes_main(dev, sys.argv[2])
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -3778,6 +4458,9 @@ def main() -> int:
         # -- 9. held-out evaluation and the Trainer -------------------------
         torch.cuda.empty_cache()
         eval_segsum = eval_phase(scorer.dm, dev, tmp)
+        # -- 11. the config layer and Stage B's multimodal remainder -------
+        torch.cuda.empty_cache()
+        multimodal, k1_records = multimodal_phase(scorer.dm, dev, tmp)
     # -- 9b. the Trainer against the serial loop, in a fresh process -----
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -3787,11 +4470,21 @@ def main() -> int:
           f"rc {run.returncode}):\n{run.stdout.strip()}")
     check(run.returncode == 0, f"phase 9b failed: {run.stderr[-3000:]}")
 
+    k1 = {r["name"]: r for r in k1_records}
     for record in neg_records:
         if record["name"] == negscore.BUCKETS_NAME:
             record["launches"] = PATH_LAUNCHES[negscore.BUCKETS_NAME]
-        else:                            # phase 10's (d) and (e)
-            record["launches"] += ranked[record["name"]]
+        else:                            # phase 10's (d) and (e), phase 11
+            record["launches"] += (ranked[record["name"]]
+                                   + multimodal[record["name"]])
+        if record["name"] in k1:         # phase 11: K = 1 at its shapes
+            record.update({f"k1_{key}": k1[record["name"]][key] for key in
+                           ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+    for record in flash_records:         # phase 11's GRACE + ReDAF steps
+        name = record["name"]
+        record["launches"] += multimodal[
+            name if "[" in name else relmm_key(
+                flashnce.KERNELS[name], flashnce.PATH[torch.float32])]
     serving = timed["conv f32"]
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum", "route": "cuda",
@@ -3799,7 +4492,8 @@ def main() -> int:
         "replaces": "biomedkg_tpu/ops/pallas/segsum.py:74",
         "design": "owner", "instance": "packed",
         "launches": launches["sorted_segment_sum"] + train_segsum
-        + gcl_segsum + eval_segsum + ranked["sorted_segment_sum"],
+        + gcl_segsum + eval_segsum + ranked["sorted_segment_sum"]
+        + multimodal["sorted_segment_sum"],
         "max_abs_err": max(results.values()),
         "ms": serving["ms"], "first_design_ms": serving["first_ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],

@@ -31,7 +31,6 @@ from biomedkg_tpu_torch.interop.jax_params import flatten_tree, \
 from biomedkg_tpu_torch.models.encoders import GCNEncoder
 from biomedkg_tpu_torch.sampling.batch import batch_to_device, \
     pad_graph_batch
-from biomedkg_tpu_torch import train_gcl as train_gcl_module
 from biomedkg_tpu_torch.train_gcl import main as train_gcl_main
 from biomedkg_tpu_torch.training import gcl_module
 from biomedkg_tpu_torch.training.checkpoint import load_train_state, \
@@ -274,8 +273,8 @@ def test_train_gcl_cli(tmp_path, monkeypatch):
     node encoder looks; the config's three node types are refused."""
     monkeypatch.chdir(tmp_path)
     # 1,024 seeds a batch: the whole val and test epochs are 2 batches each
-    monkeypatch.setitem(train_gcl_module.PRIMEKG_DATA, "batch_size", 1024)
     path = train_gcl_main(["model.model_name=grace", "data.node_type=gene",
+                           "data.batch_size=1024",
                            "steps=2", "epochs=1", "val_every_epoch=1",
                            "device=cpu", f"ckpt_dir={tmp_path}/ckpt",
                            f"log_dir={tmp_path}/log"])
@@ -287,5 +286,3 @@ def test_train_gcl_cli(tmp_path, monkeypatch):
     assert jm.hparams == module.hparams
     with pytest.raises(ValueError, match="only one node type"):
         train_gcl_main(["steps=1", "epochs=1", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="fuse_method"):
-        gcl_module.GRACEModule(**dict(_hparams(), fuse_method="attention"))

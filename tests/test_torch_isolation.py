@@ -50,6 +50,54 @@ def test_slice_modules_are_scanned():
     scanned = {os.path.relpath(p, os.path.join(ROOT, "biomedkg_tpu_torch"))
                for p in _port_sources()}
     assert set(SLICE_MODULES) <= scanned
+    assert set(CONFIG_SLICE_MODULES) <= scanned
+
+
+# the config layer and the modules of Stage B's multimodal remainder
+CONFIG_SLICE_MODULES = ("config.py", "models/fusion.py",
+                        "data/node_encoders.py")
+
+_MODULE_CHILD = textwrap.dedent("""
+    import importlib, sys
+    for name in {forbidden!r}:
+        sys.modules[name] = None          # any import of it now fails
+    module = importlib.import_module(sys.argv[1])
+    if sys.argv[1].endswith("config"):
+        cfg = module.load_config("configs", "gcl", ["data.node_type=gene"])
+        assert cfg.model.fuse_method == "none", cfg
+    elif sys.argv[1].endswith("fusion"):
+        import torch
+        x = torch.randn(5, 2, 8)
+        for fuser in (module.AttentionFusion(8), module.ReDAF(8)):
+            fuser.init(torch.Generator().manual_seed(0))
+            assert fuser(x).shape == (5, 8)
+    else:
+        try:
+            module.LMMultiModalsEncode(
+                "configs/lm_modality/primekg_modality.yaml")
+        except NotImplementedError as e:
+            assert "ROADMAP.md" in str(e), e
+        else:
+            raise AssertionError("no LM cache, and nothing raised")
+    print(sorted(m for m, mod in sys.modules.items()
+                 if mod is not None and m.split(".")[0] in {forbidden!r}))
+""")
+
+
+@pytest.mark.parametrize("path", CONFIG_SLICE_MODULES)
+def test_config_slice_module_runs_without_jax_pandas_yaml(path, tmp_path):
+    """Each module of the config and fusion slice imports and runs (the
+    config composed from the repository's configs/, both fusers applied,
+    the LM cache reader's refusal to build) in a process where JAX,
+    biomedkg_tpu, pandas, PyYAML and optax cannot be imported."""
+    name = "biomedkg_tpu_torch." + path[:-3].replace("/", ".")
+    code = _MODULE_CHILD.format(forbidden=FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, name], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
 _CHILD = textwrap.dedent("""

@@ -147,12 +147,10 @@ def test_params_round_trip_and_init():
 
 
 def test_unported_paths_raise():
-    """The refusals that remain: fusion, ``dst_bwd="perm"``, and RGAT,
-    which has no destination-sorted layout, asked for "dst"."""
+    """The refusals that remain: ``dst_bwd="perm"``, and RGAT, which has
+    no destination-sorted layout, asked for "dst" (fusion is ported:
+    tests/test_torch_fusion.py)."""
     hp = _hparams(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KGEModule(**dict(hp, fuse_method="attention",
-                         node_init_method="lm"))
     module = KGEModule(**hp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         module.dst_bwd = "perm"
