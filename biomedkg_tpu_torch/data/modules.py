@@ -1,5 +1,5 @@
-"""PrimeKG data module (counterpart of
-biomedkg_tpu/data/modules.py::PrimeKGModule).
+"""The PrimeKG and DPI data modules (counterpart of
+biomedkg_tpu/data/modules.py).
 
 ``setup`` (graph build and, for ``stage="split"``, the link split),
 ``edge_layout``, ``data``, ``graph``, ``edge_map_index``, and the loaders
@@ -19,17 +19,20 @@ edges. ``node_init_method`` picks the features (data/node_encoders.py):
 "random" (N, embed_dim), "lm" the LM cache's (N, 2, embed_dim) (read
 through ``modality_config_path``), "gcl" the GCL cache's (N, 1,
 embed_dim) of ``gcl_model`` / ``gcl_fuse_method``, built on ``device``
-when missing. The DPI module comes in a later slice (ROADMAP.md queue 1,
-item 9) and raises.
+when missing. ``DPIModule`` does the same over the DPI benchmark's graph
+(data/dpi.py), made undirected first.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
+
 from ..sampling.loaders import (FullGraphLoader, NeighborBatchLoader,
                                 SaintRandomWalkLoader)
 from . import node_encoders as node
+from .dpi import DPI
 from .inductive import node_pool_for_types, unseen_node_split
 from .primekg import PrimeKG
 from .split import random_link_split
@@ -51,24 +54,20 @@ def get_node_encode_method(node_init_method: Optional[str], embed_dim: int,
     raise ValueError(f"Unknown node_init_method: {node_init_method!r}")
 
 
-class PrimeKGModule:
+class _BaseModule:
+    """The splits and loaders the PrimeKG and DPI modules share."""
+
     SAINT_WALK_LENGTH = 10
     SAINT_TRAIN_STEPS = 1000
     SAINT_EVAL_STEPS = 100
     FANOUTS = [30, 30, 30]
 
-    def __init__(self, data_dir: str, embed_dim: int, node_type: List[str],
-                 batch_size: int, val_ratio: float, test_ratio: float,
-                 node_init_method: Optional[str] = None,
-                 gcl_model: Optional[str] = None,
-                 gcl_fuse_method: Optional[str] = None,
-                 seed: int = 42, block_size: int = 256,
-                 unseen_node_ratio: float = 0.0,
-                 unseen_node_types: Optional[List[str]] = None,
-                 modality_config_path: str = node.MODALITY_CONFIG,
-                 device: Optional[str] = None):
-        self.data_dir = data_dir
-        self.node_type = node_type
+    def __init__(self, embed_dim: int, batch_size: int, val_ratio: float,
+                 test_ratio: float, node_init_method: Optional[str],
+                 gcl_model: Optional[str], gcl_fuse_method: Optional[str],
+                 seed: int, block_size: int, unseen_node_ratio: float,
+                 unseen_node_types: Optional[List[str]],
+                 modality_config_path: str, device: Optional[str]):
         self.batch_size = batch_size
         self.val_ratio = val_ratio
         self.test_ratio = test_ratio
@@ -92,21 +91,18 @@ class PrimeKGModule:
             fuse_method=gcl_fuse_method,
             modality_config_path=modality_config_path, device=device)
 
-    def setup(self, stage: str = "split"):
-        self._do_split = stage == "split"
-        self.primekg = PrimeKG(data_dir=self.data_dir,
-                               node_type=self.node_type,
-                               encoder=self.encoder)
-        self.data = self.primekg
-        self.edge_map_index = self.primekg.edge_map_index
-        self.graph = self.primekg.graph
+    def _post_setup(self, dataset):
+        """``dataset``'s graph and, for ``stage="split"``, its splits."""
+        self.data = dataset
+        self.edge_map_index = dataset.edge_map_index
+        self.graph = dataset.graph
         self._saint_budgets = None
         self._neighbor_budgets = None
         if self._do_split and self.unseen_node_ratio > 0.0:
             pool = None
             if self.unseen_node_types:
                 pool = node_pool_for_types(
-                    self.primekg.node_type_of, self.primekg.node_type_names,
+                    dataset.node_type_of, dataset.node_type_names,
                     self.unseen_node_types)
             self.inductive = unseen_node_split(
                 self.graph, self.unseen_node_ratio, self.val_ratio,
@@ -210,6 +206,73 @@ class PrimeKGModule:
                                edge_layout=self.edge_layout)
 
 
+class PrimeKGModule(_BaseModule):
+    def __init__(self, data_dir: str, embed_dim: int, node_type: List[str],
+                 batch_size: int, val_ratio: float, test_ratio: float,
+                 node_init_method: Optional[str] = None,
+                 gcl_model: Optional[str] = None,
+                 gcl_fuse_method: Optional[str] = None,
+                 seed: int = 42, block_size: int = 256,
+                 unseen_node_ratio: float = 0.0,
+                 unseen_node_types: Optional[List[str]] = None,
+                 modality_config_path: str = node.MODALITY_CONFIG,
+                 device: Optional[str] = None):
+        super().__init__(embed_dim, batch_size, val_ratio, test_ratio,
+                         node_init_method, gcl_model, gcl_fuse_method, seed,
+                         block_size, unseen_node_ratio, unseen_node_types,
+                         modality_config_path, device)
+        self.data_dir = data_dir
+        self.node_type = node_type
+
+    def setup(self, stage: str = "split"):
+        self._do_split = stage == "split"
+        self.primekg = PrimeKG(data_dir=self.data_dir,
+                               node_type=self.node_type,
+                               encoder=self.encoder)
+        self._post_setup(self.primekg)
+
+
+class DPIModule(_BaseModule):
+    """The DPI benchmark's graph (data/dpi.py), made undirected, then split
+    and batched as ``PrimeKGModule``'s (reference data_module.py:148-259)."""
+
+    def __init__(self, data_dir: str, embed_dim: int, batch_size: int,
+                 val_ratio: float, test_ratio: float,
+                 node_init_method: Optional[str] = None,
+                 gcl_model: Optional[str] = None,
+                 gcl_fuse_method: Optional[str] = None,
+                 seed: int = 42, block_size: int = 256,
+                 unseen_node_ratio: float = 0.0,
+                 unseen_node_types: Optional[List[str]] = None,
+                 modality_config_path: str =
+                 "configs/lm_modality/dpi_modality.yaml",
+                 device: Optional[str] = None):
+        super().__init__(embed_dim, batch_size, val_ratio, test_ratio,
+                         node_init_method, gcl_model, gcl_fuse_method, seed,
+                         block_size, unseen_node_ratio, unseen_node_types,
+                         modality_config_path, device)
+        self.data_dir = data_dir
+
+    def setup(self, stage: str = "split"):
+        self._do_split = stage == "split"
+        self.dpi = DPI(data_dir=self.data_dir, encoder=self.encoder)
+        # ToUndirected: every edge and its reverse with the same type, one
+        # copy of each (src, dst, type), in first-occurrence order. The
+        # reference then splits without is_undirected, so the reverse of a
+        # test edge can sit in train; that leak is kept for parity.
+        g = self.dpi.graph
+        ei = np.concatenate([g.edge_index, g.edge_index[::-1]], axis=1)
+        et = np.concatenate([g.edge_type, g.edge_type])
+        key = (ei[0].astype(np.int64) * g.num_nodes + ei[1]
+               ) * max(g.num_relations, 1) + et
+        _, keep = np.unique(key, return_index=True)
+        keep.sort()
+        g.edge_index = ei[:, keep]
+        g.edge_type = et[keep]
+        g._out = g._in = None
+        self._post_setup(self.dpi)
+
+
 class RepeatedBatch:
     """One ``FullGraphLoader`` batch, the same host object ``steps`` times
     (``sampling/loaders.py::prefetch_to_device`` copies it to the device
@@ -226,12 +289,3 @@ class RepeatedBatch:
 
     def __len__(self):
         return self.steps
-
-
-class DPIModule:
-    """The DPI data module is not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DPIModule (DPI fine-tuning data) is not ported yet "
-            "(ROADMAP.md queue 1, item 9)")

@@ -7,10 +7,10 @@ as the reference, and rebuild pandas'
 ``drop_duplicates(subset=["x_name", "relation", "y_name"])`` (keep the first
 row of each key, in row order) with ``np.unique(..., return_index=True)``,
 so one seed gives exactly the reference's rows: the PrimeKG++-schema graph
-(``synthetic_triplets``), the cluster-structured fixture of the
-unseen-node protocol (``clustered_triplets``, ``cluster_token``) and the
-planted latent-factor graph of the ranking learning check
-(``planted_triplets``).
+(``synthetic_triplets``), the DPI benchmark's stand-in
+(``synthetic_dpi``), the cluster-structured fixture of the unseen-node
+protocol (``clustered_triplets``, ``cluster_token``) and the planted
+latent-factor graph of the ranking learning check (``planted_triplets``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,9 @@ PRIMEKG_RELATIONS = [
     ("disease_protein", "disease", "gene/protein", 0.06),
     ("disease_disease", "disease", "disease", 0.01),
 ]
+
+# the one relation of the drug-protein-interaction benchmark
+DPI_RELATION = [("drug_protein_interaction", "drug", "gene/protein", 1.0)]
 
 
 def _power_law_targets(rng, n, size, alpha=0.8):
@@ -95,6 +98,15 @@ def synthetic_triplets(
     return synthetic_triplets_from_schema(
         sizes, relations, num_edges=num_edges, seed=seed,
         name_fn=lambda t, i: f"{t.split('/')[0]}_{i:06d}")
+
+
+def synthetic_dpi(num_drug: int = 300, num_gene: int = 500,
+                  num_edges: int = 4000, seed: int = 1) -> Triplets:
+    """Drug-protein interaction triplets over the PrimeKG++ schema's drug
+    and gene/protein names (the DPI benchmark's stand-in)."""
+    return synthetic_triplets(
+        num_gene=num_gene, num_drug=num_drug, num_disease=1,
+        num_edges=num_edges, relations=DPI_RELATION, seed=seed)
 
 
 def _entity_columns(names, heads, tails, relation) -> Triplets:

@@ -1,7 +1,8 @@
 """Triplet columns → homogeneous multi-relational graph.
 
 Counterpart of biomedkg_tpu/data/triplet.py::TripletGraph over the numpy
-columns of data/synthetic.py, with the same results:
+columns of data/synthetic.py or of a csv (data/csv_columns.py), with the
+same results:
 
   * node types in ``np.unique`` order; per type the names that occur in the
     rows, sorted, as one contiguous id range (``type_offset``);
@@ -22,6 +23,19 @@ import numpy as np
 from ..common import clean_name
 from ..sampling.csr import CSRGraph
 from .synthetic import Triplets
+
+
+def _sorted_names(node_type, heads: np.ndarray,
+                  tails: np.ndarray) -> np.ndarray:
+    """The distinct names of ``node_type`` in its head and tail rows,
+    sorted. Names read from a csv may be numbers (data/csv_columns.py);
+    numbers and strings of one type do not sort together, as in the
+    reference's ``sorted``."""
+    parts = [p for p in (heads, tails) if p.size]
+    if len({p.dtype.kind == "U" for p in parts}) > 1:
+        raise TypeError(f"node type {node_type!r} has both numeric and "
+                        "string names, which do not sort together")
+    return np.unique(np.concatenate(parts)) if parts else heads
 
 
 class TripletGraph:
@@ -53,8 +67,8 @@ class TripletGraph:
         for type_id, node_type in enumerate(node_types):
             x_sel = x_type == node_type
             y_sel = y_type == node_type
-            names = np.unique(np.concatenate(
-                [c["x_name"][x_sel], c["y_name"][y_sel]]))
+            names = _sorted_names(node_type, c["x_name"][x_sel],
+                                  c["y_name"][y_sel])
             x_gid[x_sel] = np.searchsorted(names, c["x_name"][x_sel]) + offset
             y_gid[y_sel] = np.searchsorted(names, c["y_name"][y_sel]) + offset
             names = names.tolist()
@@ -77,7 +91,7 @@ class TripletGraph:
             src_parts.append(x_gid[rows])
             dst_parts.append(y_gid[rows])
             type_parts.append(np.full(len(rows), edge_id, np.int32))
-            edge_map_index[edge_id] = str(rel_names[code])
+            edge_map_index[edge_id] = rel_names[code].item()
 
         empty = np.zeros(0, np.int64)
         edge_index = np.stack([

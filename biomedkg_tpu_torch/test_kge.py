@@ -38,11 +38,15 @@ from .training.kge_module import _parse_neg_ratio, load_kge_module
 from .training.trainer import Trainer
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
-    cfg = load_config(CONFIG_DIR, "kge", cli_overrides(
+def evaluate(config_name: str, entry: str,
+             argv: Optional[List[str]]) -> Dict[str, float]:
+    """``main`` of test_kge (configs/kge.yaml) and test_dpi
+    (configs/dpi.yaml): the two reference scripts differ only in their
+    config."""
+    cfg = load_config(CONFIG_DIR, config_name, cli_overrides(
         sys.argv[1:] if argv is None else argv))
     if not cfg.get("pretrained_path"):
-        raise SystemExit("test_kge: pretrained_path=<ckpt> is required")
+        raise SystemExit(f"{entry}: pretrained_path=<ckpt> is required")
     device = resolve_device(cfg.get("device"))
     dm = data_module(cfg)
 
@@ -66,6 +70,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     metrics.update(run_entrypoint_inductive_eval(module, trainer, dm, cfg)
                    or {})
     return metrics
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+    return evaluate("kge", "test_kge", argv)
 
 
 if __name__ == "__main__":

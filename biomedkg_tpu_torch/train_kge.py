@@ -85,12 +85,69 @@ def saint_fill(cfg: Config) -> Optional[float]:
     return float(fill)
 
 
-def experiment_name(cfg: Config) -> str:
+def experiment_name(cfg: Config, gcl_sep: str = "_") -> str:
+    """The run's name: encoder, decoder, node init, then for a GCL init
+    ``gcl_sep`` and the GCL model and fuser, then the time."""
     name = (f"{cfg.model.encoder_name}_{cfg.model.decoder_name}"
             f"_{cfg.data.node_init_method}")
     if cfg.data.node_init_method == "gcl":
-        name += f"_{cfg.gcl_model}_{cfg.gcl_fuse_method}"
+        name += f"{gcl_sep}{cfg.gcl_model}_{cfg.gcl_fuse_method}"
     return name + str(int(time.time()))
+
+
+def fit_and_test(cfg: Config, dm, module: KGEModule, stage: str,
+                 exp_name: str, project: str, init_params=None,
+                 note: str = "") -> Optional[str]:
+    """The reference's flow for ``module`` (on its device) over ``dm``'s
+    SAINT batches: fit (from ``init_params`` when given), validating every
+    ``val_every_epoch`` epochs with the top 3 checkpoints by ``val_loss``
+    and ``last.ckpt`` kept under ``<ckpt_dir>/<stage>/<exp_name>/``; test
+    the best; the cold-start eval. Returns the tested checkpoint's path."""
+    dm.device_features = True
+    dm.saint_fill_target = saint_fill(cfg)
+    module.edge_mapping = dm.edge_map_index
+    module.edge_layout = dm.edge_layout = module.default_layout
+    module.set_feature_table(dm.graph.x)
+    loader = dm.train_dataloader(loader_type="saint")
+    checkpoint = ModelCheckpoint(
+        dirpath=os.path.join(cfg.ckpt_dir, stage, exp_name),
+        monitor="val_loss", save_top_k=3, mode="min", save_last=True)
+    logger = MetricsLogger(save_dir=os.path.join(cfg.log_dir, stage,
+                                                 exp_name),
+                           experiment_name=exp_name, project_name=project)
+    trainer = Trainer(max_epochs=cfg.epochs,
+                      check_val_every_n_epoch=cfg.val_every_epoch,
+                      gradient_clip_val=1.0, callbacks=[checkpoint],
+                      logger=logger, fast_dev_run=cfg.debug,
+                      log_every_n_steps=10,
+                      steps_per_execution=cfg.get("steps_per_execution", 1))
+    print(f"train_{stage}: {dm.graph.num_nodes} nodes, {dm.graph.num_edges} "
+          f"edges, features {tuple(dm.graph.x.shape[1:])} "
+          f"({cfg.data.node_init_method}); SAINT envelope "
+          f"{loader.node_budget} nodes x {loader.edge_budget} edges; "
+          f"{len(loader)} steps x {cfg.epochs} epochs on {module.device}"
+          f"{note}", flush=True)
+    try:
+        trainer.fit(module, train_dataloaders=loader,
+                    val_dataloaders=dm.val_dataloader(loader_type="saint"),
+                    init_params=init_params)
+        trainer.test(module,
+                     dataloaders=dm.test_dataloader(loader_type="saint"),
+                     ckpt_path=None if cfg.debug else "best")
+        run_entrypoint_inductive_eval(module, trainer, dm, cfg)
+    finally:
+        logger.close()
+    print(f"checkpoint: {trainer.tested_ckpt_path}", flush=True)
+    return trainer.tested_ckpt_path
+
+
+def new_module(cfg: Config, num_relation: int) -> KGEModule:
+    """The KGE module ``cfg.model`` describes, its input width the
+    features' (``data.embed_dim``)."""
+    return KGEModule(**dict(cfg.model, in_dim=cfg.data.embed_dim),
+                     num_relation=num_relation, neg_ratio=cfg.neg_ratio,
+                     node_init_method=cfg.data.node_init_method,
+                     seed=cfg.seed)
 
 
 def train(cfg: Config) -> Optional[str]:
@@ -101,51 +158,9 @@ def train(cfg: Config) -> Optional[str]:
                                   "(ROADMAP.md queue 1, item 11)")
     device = resolve_device(cfg.get("device"))
     dm = data_module(cfg)
-    dm.device_features = True
-    dm.saint_fill_target = saint_fill(cfg)
-
-    module = KGEModule(**dict(cfg.model, in_dim=cfg.data.embed_dim),
-                       num_relation=dm.data.num_edge_types,
-                       neg_ratio=cfg.neg_ratio,
-                       node_init_method=cfg.data.node_init_method,
-                       seed=cfg.seed)
-    module.to(device)
-    module.edge_mapping = dm.edge_map_index
-    module.edge_layout = dm.edge_layout = module.default_layout
-    module.set_feature_table(dm.graph.x)
-    loader = dm.train_dataloader(loader_type="saint")
-
-    exp_name = experiment_name(cfg)
-    checkpoint = ModelCheckpoint(
-        dirpath=os.path.join(cfg.ckpt_dir, "kge", exp_name),
-        monitor="val_loss", save_top_k=3, mode="min", save_last=True)
-    logger = MetricsLogger(save_dir=os.path.join(cfg.log_dir, "kge",
-                                                 exp_name),
-                           experiment_name=exp_name,
-                           project_name="BioMedKG-KGE")
-    trainer = Trainer(max_epochs=cfg.epochs,
-                      check_val_every_n_epoch=cfg.val_every_epoch,
-                      gradient_clip_val=1.0, callbacks=[checkpoint],
-                      logger=logger, fast_dev_run=cfg.debug,
-                      log_every_n_steps=10,
-                      steps_per_execution=cfg.get("steps_per_execution", 1))
-    print(f"train_kge: {dm.graph.num_nodes} nodes, {dm.graph.num_edges} "
-          f"edges, features {tuple(dm.graph.x.shape[1:])} "
-          f"({cfg.data.node_init_method}); SAINT envelope "
-          f"{loader.node_budget} nodes x {loader.edge_budget} edges; "
-          f"{len(loader)} steps x {cfg.epochs} epochs on {device}",
-          flush=True)
-    try:
-        trainer.fit(module, train_dataloaders=loader,
-                    val_dataloaders=dm.val_dataloader(loader_type="saint"))
-        trainer.test(module,
-                     dataloaders=dm.test_dataloader(loader_type="saint"),
-                     ckpt_path=None if cfg.debug else "best")
-        run_entrypoint_inductive_eval(module, trainer, dm, cfg)
-    finally:
-        logger.close()
-    print(f"checkpoint: {trainer.tested_ckpt_path}", flush=True)
-    return trainer.tested_ckpt_path
+    module = new_module(cfg, dm.data.num_edge_types).to(device)
+    return fit_and_test(cfg, dm, module, "kge", experiment_name(cfg),
+                        "BioMedKG-KGE")
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[str]:

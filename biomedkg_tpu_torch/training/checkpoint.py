@@ -8,23 +8,24 @@ file and renamed into place. Files are interchangeable with the JAX
 package: ``params`` holds the reference's parameter tree
 (interop/jax_params.py maps it onto the port's modules).
 
-Loading uses an unpickler that lets numpy and plain containers through
-and turns every other class into an inert stand-in: a JAX-written
-``opt_state`` holds optax state classes, and a plain ``pickle.load`` would
-load optax and, through it, JAX. ``load_train_state`` reads Adam's count
-and moments from either package's ``opt_state``: the port writes
-``{"count", "mu", "nu"}`` with the moments in the params tree's layout, so
-its files need no optax classes, and the JAX package still loads their
-params.
+Loading uses an unpickler that lets numpy's arrays, scalars and dtypes
+and plain containers through and turns every other class into an inert
+stand-in that runs nothing: a JAX-written ``opt_state`` holds optax state
+classes, and a plain ``pickle.load`` would load optax and, through it,
+JAX. ``load_train_state`` reads Adam's count and moments from either
+package's ``opt_state``: the port writes ``{"count", "mu", "nu"}`` with
+the moments in the params tree's layout, so its files need no optax
+classes, and the JAX package still loads their params.
 
 A train state is copied to host memory by ``train_state_payload`` before
 anything is written: the port's steps update the module's parameters and
 Adam's moments in place, so a write that read them later (on
 ``AsyncSaver``'s thread) would hold a later step's weights.
 
-Not ported: the orbax directory checkpoints (orbax imports JAX; ROADMAP.md
-queue 1, item 6) and the reference's Lightning-checkpoint import
-(interop/torch_ckpt.py); both raise.
+A reference Lightning ``.ckpt`` (a torch zip archive) loads through
+interop/torch_ckpt.py as the same payload. Not ported: the orbax
+directory checkpoints (orbax imports JAX; ROADMAP.md queue 1, item 6),
+which raise.
 """
 
 from __future__ import annotations
@@ -85,9 +86,12 @@ def save_checkpoint(path: str, kind: str, hparams: Dict, params: Any,
         raise
 
 
-class Inert:
-    """Stand-in for a pickled class the port does not import; keeps the
-    constructor arguments and state it was given."""
+class Inert(dict):
+    """Stand-in for a pickled class the port does not load. A mapping, so
+    that a dict subclass (Lightning's ``AttributeDict``) comes back with
+    its items and another object's dict state lands in it too; the
+    arguments of the constructor or call the file asked for are kept in
+    ``args`` and its state in ``state``, not acted on."""
 
     def __new__(cls, *args, **kwargs):
         obj = super().__new__(cls)
@@ -96,31 +100,63 @@ class Inert:
         return obj
 
     def __init__(self, *args, **kwargs):
-        pass
+        super().__init__()
 
     def __setstate__(self, state):
         self.state = state
+        for part in state if isinstance(state, tuple) else (state,):
+            if isinstance(part, dict):
+                self.update(part)
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name) from None
 
 
-class _CheckpointUnpickler(pickle.Unpickler):
-    def find_class(self, module, name):
-        root = module.split(".")[0]
-        if (root == "numpy"
+# what a pickle of numpy arrays, scalars and dtypes names, under numpy 1's
+# numpy.core and numpy 2's numpy._core: nothing else of numpy loads (some
+# of its functions evaluate strings)
+_NUMPY_NAMES = frozenset(
+    [(f"numpy.{core}.multiarray", name) for core in ("core", "_core")
+     for name in ("_reconstruct", "scalar")]
+    + [(f"numpy.{core}.numeric", "_frombuffer") for core in ("core", "_core")]
+    + [("numpy", "ndarray"), ("numpy", "dtype")])
+
+
+def _numpy_dtype_class(module: str, name: str) -> bool:
+    """``numpy.dtypes.Float32DType`` and the other dtype classes."""
+    cls = getattr(getattr(np, "dtypes", None), name, None)
+    return (module == "numpy.dtypes" and isinstance(cls, type)
+            and issubclass(cls, np.dtype))
+
+
+class CheckpointUnpickler(pickle.Unpickler):
+    def admitted(self, module: str, name: str) -> bool:
+        """Whether to load ``module.name``: numpy arrays, scalars and
+        dtypes, plain containers and the helpers their pickles name."""
+        return ((module, name) in _NUMPY_NAMES
+                or _numpy_dtype_class(module, name)
                 or (module == "builtins" and name in _SAFE_BUILTINS)
                 or (module, name) in {("collections", "OrderedDict"),
                                       ("copyreg", "_reconstructor"),
-                                      ("_codecs", "encode")}):
+                                      ("_codecs", "encode")})
+
+    def find_class(self, module, name):
+        if self.admitted(module, name):
             return super().find_class(module, name)
         return type(name, (Inert,), {"__module__": module})
 
 
 def load_checkpoint(path: str) -> Dict:
+    """A native checkpoint, or a reference Lightning ``.ckpt`` (a torch
+    zip archive) converted to the same payload."""
     if zipfile.is_zipfile(path):
-        raise NotImplementedError(
-            f"{path} is a Lightning/torch zip checkpoint; its importer "
-            "(interop/torch_ckpt.py) is not ported yet (ROADMAP.md queue 1)")
+        from ..interop.torch_ckpt import from_torch_checkpoint
+        return from_torch_checkpoint(path)
     with open(path, "rb") as f:
-        return _CheckpointUnpickler(f).load()
+        return CheckpointUnpickler(f).load()
 
 
 def train_state_payload(module, state: TrainState) -> Dict:

@@ -40,9 +40,13 @@ paths included), while every edge is still scored. ``filter_negatives``
 (PyG ``negative_sampling``'s exclusion): iid negatives that hit a real
 batch edge are redrawn, 3 rounds, found by a search over the batch's
 sorted (src·N_pad + dst) keys; it makes training take the iid path, as in
-the reference. ``fix_edge_id`` is not ported yet and raises (ROADMAP.md
-2b). Encoding runs in float32 whatever ``compute_dtype`` training used,
-as the reference's ``encode`` does.
+the reference. ``fix_edge_id`` (the DPI transfer, train_dpi.py) pins every
+edge's relation to one id wherever the batch's relations are read: the
+encoder's count table, convs and RGAT's ``block_rel`` for the grouped GEMM,
+the positive decode, the negatives' relation column, the eval step's
+per-relation counts and ``encode`` (``_effective_types``). Encoding runs
+in float32 whatever ``compute_dtype`` training used, as the reference's
+``encode`` does.
 
 Node features may be (N, d) (random), (N, 2, d) (``node_init_method``
 "lm": the LM cache's two modalities) or (N, 1, d) ("gcl": the GCL cache's
@@ -75,8 +79,6 @@ from .metrics import (BootstrappedBinaryMetrics, EdgeWisePrecision,
                       HistogramBinaryMetrics)
 from .optim import make_optimizer
 from .stepping import StepsMixin, mean_loss
-
-_LATER = "is not ported yet (ROADMAP.md 2b)"
 
 
 def _mix_factor(e: int, bound: Optional[int] = None) -> int:
@@ -213,6 +215,7 @@ class KGEModule(StepsMixin, nn.Module):
         self.edge_mapping = {}
         self.eval_impl = "histogram"
         self._filter_negatives = False
+        self._fix_edge_id: Optional[int] = None
 
     @property
     def eval_impl(self) -> str:
@@ -294,12 +297,29 @@ class KGEModule(StepsMixin, nn.Module):
 
     @property
     def fix_edge_id(self) -> Optional[int]:
-        return None
+        return self._fix_edge_id
 
     @fix_edge_id.setter
     def fix_edge_id(self, edge_id: Optional[int]):
+        """Pin every edge's relation to ``edge_id`` (None: the batch's own
+        relations). An id past the model's relation table raises: JAX's
+        clamped gathers would read another row."""
         if edge_id is not None:
-            raise NotImplementedError(f"fix_edge_id (DPI transfer) {_LATER}")
+            edge_id = int(edge_id)
+            if not 0 <= edge_id < self.hparams["num_relation"]:
+                raise ValueError(
+                    f"fix_edge_id {edge_id} is outside the model's "
+                    f"{self.hparams['num_relation']} relations")
+        self._fix_edge_id = edge_id
+
+    def _effective_types(self, batch: GraphBatch):
+        """(edge types, block relations) the model reads: the batch's, or
+        ``fix_edge_id`` in every slot."""
+        etype, block_rel = batch.edge_type, batch.block_rel
+        if self._fix_edge_id is not None:
+            etype = torch.full_like(etype, self._fix_edge_id)
+            block_rel = torch.full_like(block_rel, self._fix_edge_id)
+        return etype, block_rel
 
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
@@ -329,7 +349,8 @@ class KGEModule(StepsMixin, nn.Module):
                 and generator is not None):
             fusion_keep = self.fusion.draw_keep(x, generator, training)
         x = self.fusion_fn(x, fusion_keep, training)
-        etype, emask = batch.edge_type, batch.edge_mask
+        etype, block_rel = self._effective_types(batch)
+        emask = batch.edge_mask
         src, dst = batch.edge_index[0], batch.edge_index[1]
         conv_mask = emask
         if cold:
@@ -341,7 +362,7 @@ class KGEModule(StepsMixin, nn.Module):
                     device=generator.device) >= self.cold_start_dropout
             conv_mask = emask & cold_keep[src] & cold_keep[dst]
         z = self.model.encoder(
-            x, batch.edge_index, etype, conv_mask, batch.block_rel,
+            x, batch.edge_index, etype, conv_mask, block_rel,
             training=training, compute_dtype=self.compute_dtype,
             generator=generator, dropout_masks=dropout_masks).float()
         decoder = self.model.decoder
@@ -508,10 +529,10 @@ class KGEModule(StepsMixin, nn.Module):
     def encode(self, batch: GraphBatch) -> torch.Tensor:
         """Deterministic full forward of the fused features over a device
         batch (sampling/batch.py::batch_to_device) → (N_pad, out_dim)."""
+        etype, block_rel = self._effective_types(batch)
         return self.model.encode(self.fusion_fn(self._batch_features(batch)),
-                                 batch.edge_index, batch.edge_type,
-                                 batch.edge_mask, batch.block_rel,
-                                 training=False)
+                                 batch.edge_index, etype, batch.edge_mask,
+                                 block_rel, training=False)
 
 
 def load_kge_module(ckpt_path: str,

@@ -3,8 +3,9 @@
 path, the KGE training step (RGCN and RGAT), Stage B's GCL pretraining
 (GRACE, DGI, GGD), held-out evaluation and the Trainer, filtered ranking
 and the unseen-node protocol, and the repo's own scripts on the config
-layer with modality fusion and the LM and GCL embedding caches, at full
-width on one CUDA card (Hopper, sm_90a).
+layer with modality fusion and the LM and GCL embedding caches, and DPI
+fine-tuning with the csv on-ramps and the reference's Lightning
+checkpoints, at full width on one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -254,7 +255,48 @@ Phases; any failure ends the run with a non-zero exit:
     that shape (the ``k1_*`` keys of the DistMult and bucket records);
     then ``rank_eval`` and the ``serve`` loop on its checkpoint
     with the script's arguments. The segsum, DistMult negscore, bucket
-    and bf16 flash records' ``launches`` add phase 11's counted paths.
+    and bf16 flash records' ``launches`` add phase 11's counted paths;
+12. DPI fine-tuning and the on-ramps, after phase 11: (a) the PrimeKG++-
+    scale synthetic columns (1.3 M rows drawn) written as a csv with its
+    SHA-256 in BIOMEDKG_KG_CSV_SHA256, read through BIOMEDKG_KG_CSV
+    (rows per second on the host): node list, edge arrays and edge map
+    equal to the in-memory build's, a wrong checksum refused; (b) phase
+    2's model written as the reference's Lightning ``.ckpt`` (this
+    script's own writer: ``torch.save`` of the ``state_dict`` in the
+    reference's key vocabulary, an ``AttributeDict`` of hyper-parameters,
+    ``global_step``) and served by ``KGEScorer`` (segsum 5 in its
+    full-graph encode), z against the encode of the native checkpoint of
+    the same weights (Z_RTOL of max|z|); (c) ``train_dpi`` with
+    scripts/dpi.sh's arguments over ``synthetic_dpi(seed=43)`` (RGCN
+    768→256×4 + DistMult, K = 1, 64 roots, float32; 100 epochs cut to
+    P12_EPOCHS of P12_STEPS steps): from scratch (R = 1), warm-started
+    from (b)'s Lightning file with the unseen-drug protocol
+    (``data.unseen_node_ratio=0.1 data.unseen_node_types=[drug]``) and
+    from the native checkpoint (both ``fix_edge_id`` 1): each run's
+    reference flow, finite ``test_*`` metrics, and the warm starts'
+    relation rows other than 1 moved only by the L2 term (each entry
+    towards 0); (d) ``test_dpi`` with scripts/test_dpi.sh's arguments
+    (K = 3, ``filter_neg=true``) on the from-scratch run's checkpoint;
+    (e) in a process of its own (``python3 chip_smoke.py dpi-shapes
+    <dir>``, whose 768 × 6,144-slot SAINT batches are the first the
+    negscore kernels and the bucket build see): the DPI step from
+    scratch (R = 1) and warm-started (R = 8, every slot on relation 1),
+    RGCN in float32 and bf16 and an RGAT warm start (relmm 8 + 6, every
+    block on relation 1), kernels against plain versions within
+    STEP_TOL (in bf16 the RGAT leaves RGAT_DPI_CANCELLING, which cancel
+    at this batch, held to the plain float32 gradients, no further than
+    the plain bf16 ones plus STEP_TOL), d(rel)'s other rows exactly 0
+    from the owner backward, the rows other than 1 of the step's relation
+    gradient equal to the L2 term alone, timed steps with their launches
+    (segsum 6, the count table on ``general`` at R = 1; negscore 1 + 1;
+    RGAT relmm 8 + 6 on ``wgmma``), the negscore pair, the bucket build,
+    the segsum and relmm at that shape against plain versions and timed
+    beside their bounds (the ``dpi_*`` keys of the records); (f) a
+    BIOMEDKG_DPI_CSV written from ``synthetic_dpi`` at PrimeKG++'s drug
+    and gene counts with 78,000 edges drawn, eight rows given NA tokens:
+    the DPI graph dropped exactly those rows, and ``train_dpi`` trains on
+    it. The segsum, DistMult negscore, bucket and wgmma relmm records'
+    ``launches`` add phase 12's counted paths.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -280,13 +322,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from biomedkg_tpu_torch import rank_eval, train_kge
+from biomedkg_tpu_torch import rank_eval, train_dpi, train_kge
 from biomedkg_tpu_torch.config import CONFIG_DIR, cli_overrides, load_config
 from biomedkg_tpu_torch.data.modules import PrimeKGModule
-from biomedkg_tpu_torch.data import node_encoders
+from biomedkg_tpu_torch.data import csv_columns, node_encoders
+from biomedkg_tpu_torch.data.csv_columns import write_csv_columns
+from biomedkg_tpu_torch.data.dpi import DPI
+from biomedkg_tpu_torch.data.primekg import PrimeKG
 from biomedkg_tpu_torch.data.node_encoders import RandomEncode
-from biomedkg_tpu_torch.data.synthetic import (PRIMEKG_RELATIONS,
+from biomedkg_tpu_torch.data.synthetic import (COLUMNS, PRIMEKG_RELATIONS,
                                                planted_triplets,
+                                               synthetic_dpi,
                                                synthetic_triplets)
 from biomedkg_tpu_torch.data.triplet import TripletGraph
 from biomedkg_tpu_torch.device import check_full_fp32
@@ -302,7 +348,8 @@ from biomedkg_tpu_torch.sampling.csr import CSRGraph
 from biomedkg_tpu_torch.sampling.loaders import FullGraphLoader
 from biomedkg_tpu_torch.serve import PRIMEKG_DATA, serve_loop
 from biomedkg_tpu_torch.serving import KGEScorer
-from biomedkg_tpu_torch.training.checkpoint import save_checkpoint
+from biomedkg_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
 from biomedkg_tpu_torch.training import gcl_module
 from biomedkg_tpu_torch.training.stepping import param_grads
 from biomedkg_tpu_torch.training.trainer import Trainer
@@ -1170,14 +1217,50 @@ def split_by_call_site(prof, op: str, steps: int, what: str):
                       for site, (ms, count) in ordered))
 
 
+def step_launches(hp, steps: int, kernel, dtype, segsum_n=SEGSUM_PER_STEP,
+                  relmm_n=(0, 0)) -> dict:
+    """expected_launches of ``steps`` steps of a KGE module with hparams
+    ``hp``. The RGCN's count table is (slots, R) float32: at R = 1 (DPI
+    from scratch) a row is no whole 16-byte pack, so that segsum takes the
+    ``general`` instance."""
+    want = expected_launches(segsum_n * steps, kernel, steps,
+                             tuple(k * steps for k in relmm_n),
+                             relmm_instance=relmm.FAST[dtype])
+    table = segsum.segsum_instance(torch.float32, hp["num_relation"], 0)
+    if segsum_n and table != "packed":
+        want[relmm_key(segsum.KERNEL, "packed")] -= steps
+        want[relmm_key(segsum.KERNEL, table)] += steps
+    return want
+
+
+def pinned_rows_l2_only(step, grads, fix: int) -> float:
+    """With every edge on relation ``fix``, the relation table's other rows
+    get the L2 term's gradient alone (2·1e-2·p / numel): its error."""
+    names = [n for n, _ in step.named_parameters()]
+    rel = step.model.decoder.rel_emb.detach()
+    others = torch.arange(rel.shape[0], device=rel.device) != fix
+    return rel_err(grads[names.index("model.decoder.rel_emb")][others],
+                   2e-2 * rel[others] / rel.numel())
+
+
 def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
-                 segsum_n=SEGSUM_PER_STEP, relmm_n=(0, 0), **over):
+                 segsum_n=SEGSUM_PER_STEP, relmm_n=(0, 0), fix=None,
+                 cancelling=(), **over):
     """One batch's loss and every gradient with the kernels against the
-    same step with the plain versions, in bf16 and float32; one step makes
-    ``segsum_n`` segsum launches and ``relmm_n`` relmm ones."""
+    same step with the plain versions, in bf16 and float32, each gradient
+    within STEP_TOL of the plain version's; one step makes ``segsum_n``
+    segsum launches and ``relmm_n`` relmm ones. ``fix``: the step's
+    ``fix_edge_id``, and then the relation rows other than ``fix`` get
+    exactly the L2 term's gradient from both runs. ``cancelling``: leaves
+    whose gradient is a cancelling sum at this batch, so that bf16
+    rounding in either version lies far above its own max; in bf16 each
+    is held no further from the plain float32 gradient than the plain
+    bf16 one is, plus STEP_TOL."""
+    runs = {}
     for dtype in (torch.bfloat16, torch.float32):
         step = train_module(sd, feature_table, dev,
                             compute_dtype=str(dtype)[6:], **over)
+        step.fix_edge_id = fix
         draws = fixed_draws(step, batch,
                             torch.Generator(device=dev).manual_seed(SEED + 1))
         reset_launch_counts()
@@ -1188,24 +1271,50 @@ def compare_step(sd, feature_table, dev, batch, kernel: str, what: str,
             loss_p, grads_p = step_grads(step, batch, *draws)
         check(not any(launch_counts().values()),
               "the plain versions launched a kernel")
-        check(used == expected_launches(segsum_n, kernel, 1, relmm_n,
-                                        relmm_instance=relmm.FAST[dtype]),
+        check(used == step_launches(dict(TRAIN, **over), 1, kernel, dtype,
+                                    segsum_n, relmm_n),
               f"{what}: launches in one step: {used}")
+        l2_err = (max(pinned_rows_l2_only(step, grads_k, fix),
+                      pinned_rows_l2_only(step, grads_p, fix))
+                  if fix is not None else None)
+        runs[dtype] = loss_k, loss_p, grads_k, grads_p, l2_err
+        names = [n for n, _ in step.named_parameters()]
+    check(not set(cancelling) - set(names),
+          f"{what}: no leaf {set(cancelling) - set(names)}")
+    for dtype, (loss_k, loss_p, grads_k, grads_p, l2_err) in runs.items():
         loss_tol, grad_tol = STEP_TOL[dtype]
         if dtype == torch.bfloat16 and kernel.startswith("transe"):
             grad_tol = TRANSE_GRAD_TOL_BF16
         loss_err = abs(loss_k - loss_p) / abs(loss_p)
-        names = [n for n, _ in step.named_parameters()]
         errs = {n: rel_err(a, b) for n, a, b in zip(names, grads_k, grads_p)}
         errs.update(shift_invariant_errors(names, grads_k, grads_p))
+        anchored = ""
+        if dtype == torch.bfloat16:
+            ref = dict(zip(names, runs[torch.float32][3]))
+            for n, a, b in zip(names, grads_k, grads_p):
+                if n in cancelling:
+                    k_far, p_far = rel_err(a, ref[n]), rel_err(b, ref[n])
+                    anchored += (f"; {n} (cancels) kernels vs plain "
+                                 f"{errs[n]:.3g}, against the plain float32 "
+                                 f"gradient the kernels' {k_far:.3g}, the "
+                                 f"plain bf16 {p_far:.3g} (tol: the plain "
+                                 f"bf16 one + {grad_tol:g})")
+                    errs[n] = k_far - p_far
         worst = max(errs, key=errs.get)
+        over_tol = sorted(n for n in errs if errs[n] > grad_tol)
+        pinned = (f"; rows other than {fix} of d(rel_emb) against the L2 "
+                  f"term alone {l2_err:.3g} (tol 1e-5)"
+                  if l2_err is not None else "")
         print(f"{what} step {str(dtype)[6:]}, kernels vs plain: loss "
               f"{loss_k:.7f} vs {loss_p:.7f} (rel {loss_err:.3g}, tol "
               f"{loss_tol:g}); gradients max rel-to-max {errs[worst]:.3g} "
-              f"({worst}; tol {grad_tol:g})")
+              f"({worst}; tol {grad_tol:g})" + anchored + pinned
+              + (f"; over the tolerance: {over_tol}" if over_tol else ""))
         check(loss_err <= loss_tol, f"{what} {dtype} step: loss disagrees")
-        check(errs[worst] <= grad_tol,
-              f"{what} {dtype} step: {worst} disagrees")
+        check(not over_tol, f"{what} {dtype} step: {over_tol} disagree")
+        check(l2_err is None or l2_err <= 1e-5,
+              f"{what} {dtype}: a relation row other than {fix} got a data "
+              "gradient")
 
 
 def neg_magnitudes(mode, zt, ns, nd, rel, rel_emb, ds):
@@ -3782,14 +3891,14 @@ def lm_workspace(tmp: str, names) -> str:
     return ws
 
 
-def start_entry(ws: str, entry: str, args, log_dir: str):
+def start_entry(ws: str, entry: str, args, log_dir: str, env=None):
     """``python -m biomedkg_tpu_torch.<entry> <args> log_dir=<log_dir>`` on
-    the card in ``ws``."""
+    the card in ``ws`` (``env``: more environment variables)."""
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.Popen(
         [sys.executable, "-m", f"biomedkg_tpu_torch.{entry}", *args,
          f"log_dir={log_dir}"],
-        cwd=ws, env=dict(os.environ, PYTHONPATH=root),
+        cwd=ws, env=dict(os.environ, PYTHONPATH=root, **(env or {})),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     proc.log_dir, proc.cwd = log_dir, ws
     return proc
@@ -4236,6 +4345,566 @@ def multimodal_phase(dm, dev, tmp):
     return total, k1_records
 
 
+# -- phase 12: DPI fine-tuning and the on-ramps ------------------------------
+P12_STEPS = 3                     # train_dpi steps an epoch (the script: 100
+#                                   epochs of the data module's 1000)
+P12_EPOCHS = 2
+P12_STEPS_TIMED = (2, 4)          # DPI steps in dpi-shapes: warm-up, timed
+DRUG_PROTEIN = train_dpi.DRUG_PROTEIN
+# the RGAT warm start's leaves whose bf16 gradient, kernels against plain
+# versions, lies 0.036-0.081 of its max apart at DPI's small dense batch:
+# there each version's bf16 gradient is 0.03-0.12 of its max from the
+# float32 one (every RGAT leaf is 0.02-0.3 from it on an H100; PERF.md,
+# DPI), so compare_step holds these to the plain float32 gradient in bf16
+RGAT_DPI_CANCELLING = tuple(f"model.encoder.layers.{leaf}" for leaf in (
+    "1.b", "2.att_dst", "3.w_rel", "3.att_dst", "3.b"))
+# the PrimeKG++-scale synthetic graph as a csv (data/primekg.py's sizes)
+KG_CSV_SIZES = dict(num_gene=27000, num_drug=8000, num_disease=17000,
+                    num_edges=1_300_000, seed=42)
+# the DrugBank DTI stand-in at PrimeKG++'s drug and gene counts, with the
+# drug-protein share of its edges (0.06 x 1.3 M, PRIMEKG_RELATIONS)
+DPI_CSV_SIZES = dict(num_drug=8000, num_gene=27000, num_edges=78_000,
+                     seed=43)
+# rows of that csv given an NA token (column, token): dropna drops them
+DPI_CSV_NA = [("x_name", ""), ("y_name", "NA"), ("relation", "null"),
+              ("source", "N/A"), ("y_type", "NaN"), ("x_type", "None"),
+              ("source", "#N/A"), ("y_name", "<NA>")]
+DPI_SHAPES = "dpi-shapes"
+DPI_SHAPES_RESULT = "dpi shapes result: "
+LIGHTNING_PARSING = "lightning.pytorch.utilities.parsing"
+
+
+def lightning_attribute_dict():
+    """A stand-in for Lightning's ``AttributeDict`` under its real import
+    path, so that a save names it as a Lightning save does."""
+    parts = LIGHTNING_PARSING.split(".")
+    for i in range(1, len(parts) + 1):
+        sys.modules.setdefault(".".join(parts[:i]),
+                               type(sys)(".".join(parts[:i])))
+    parsing = sys.modules[LIGHTNING_PARSING]
+    if not hasattr(parsing, "AttributeDict"):
+        parsing.AttributeDict = type("AttributeDict", (dict,),
+                                     {"__module__": LIGHTNING_PARSING})
+    return parsing.AttributeDict
+
+
+def write_lightning_kge(path: str, module: KGEModule, step: int = 4242):
+    """``module`` (an RGCN KGE model) as the reference's Lightning module
+    saves it: ``torch.save`` of the ``state_dict`` in its key vocabulary
+    (PyG ``RGCNConv`` ``weight`` / ``root`` / ``bias`` under
+    ``model.encoder.graph_layers.{i}``, ``model.decoder.rel_emb``), the
+    ``hyper_parameters`` as an ``AttributeDict`` and ``global_step``."""
+    sd = {}
+    for i, layer in enumerate(module.model.encoder.layers):
+        prefix = f"model.encoder.graph_layers.{i}"
+        sd[prefix + ".weight"] = layer.w_rel.detach().cpu().clone()
+        sd[prefix + ".root"] = layer.w_root.detach().cpu().clone()
+        sd[prefix + ".bias"] = layer.b.detach().cpu().clone()
+    sd["model.decoder.rel_emb"] = \
+        module.model.decoder.rel_emb.detach().cpu().clone()
+    hp = {k: module.hparams[k] for k in (
+        "encoder_name", "decoder_name", "in_dim", "hidden_dim", "out_dim",
+        "num_hidden_layers", "num_relation", "num_heads", "scheduler_type",
+        "learning_rate", "warm_up_ratio", "fuse_method", "neg_ratio",
+        "node_init_method")}
+    torch.save({"state_dict": sd,
+                "hyper_parameters": lightning_attribute_dict()(hp),
+                "global_step": step, "epoch": 3,
+                "pytorch-lightning_version": "2.2.0"}, path)
+
+
+def kg_csv_onramp(tmp: str, dm):
+    """Phase 12a: the PrimeKG++-scale synthetic columns written as a csv,
+    read back through BIOMEDKG_KG_CSV with its SHA-256 checked: the node
+    list, edge arrays and edge map equal the in-memory build's; a wrong
+    checksum raises; the read's rows per second."""
+    columns = synthetic_triplets(**KG_CSV_SIZES)
+    columns["display_relation"] = columns["relation"]
+    path = os.path.join(tmp, "kg.csv")
+    t0 = time.perf_counter()
+    write_csv_columns(path, columns)
+    write_s = time.perf_counter() - t0
+    digest = csv_columns.sha256(path)
+    rows = len(columns["x_type"])
+    env = {"BIOMEDKG_KG_CSV": path, "BIOMEDKG_KG_CSV_SHA256": digest}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        csv_columns.read_csv_columns(path, COLUMNS)
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        kg = PrimeKG(data_dir=os.path.join(tmp, "no_kg_dir"),
+                     node_type=PRIMEKG_DATA["node_type"])
+        build_s = time.perf_counter() - t0
+        os.environ["BIOMEDKG_KG_CSV_SHA256"] = "0" * 64
+        try:
+            PrimeKG(data_dir=tmp, node_type=PRIMEKG_DATA["node_type"])
+        except ValueError as e:
+            refused = "checksum mismatch" in str(e)
+        else:
+            refused = False
+    finally:
+        for key in env:
+            os.environ.pop(key, None)
+    mem = dm.data
+    same = (kg.node_list == mem.node_list
+            and kg.edge_map_index == mem.edge_map_index
+            and np.array_equal(kg.graph.edge_index, mem.graph.edge_index)
+            and np.array_equal(kg.graph.edge_type, mem.graph.edge_type)
+            and kg.node_to_global == mem.node_to_global)
+    print(f"kg.csv on-ramp: {rows} rows, {os.path.getsize(path) / 1e6:.1f} "
+          f"MB written in {write_s:.2f} s; BIOMEDKG_KG_CSV read in "
+          f"{read_s:.2f} s ({rows / read_s:,.0f} rows/s, host), the PrimeKG "
+          f"graph built from it in {build_s:.2f} s: {kg.graph.num_nodes} "
+          f"nodes, {kg.graph.num_edges} edges, equal to the in-memory "
+          f"build: {same}; a wrong BIOMEDKG_KG_CSV_SHA256 refused: "
+          f"{refused}; {card_line()}")
+    check(same, "kg.csv on-ramp: the csv graph differs from the in-memory "
+                "build")
+    check(refused, "kg.csv on-ramp: a wrong checksum did not raise")
+    os.remove(path)
+
+
+def lightning_import(dm, dev, native: str, lightning: str):
+    """Phase 12b: the Lightning file served by ``KGEScorer`` (its
+    ``load_kge_module``, the full-graph encode on the card, launches
+    counted); z against the encode of the native checkpoint's same
+    weights; requests answered. Returns the launches."""
+    ckpt = load_checkpoint(lightning)
+    check(ckpt["step"] == 4242 and ckpt["hparams"]["num_relation"]
+          == HPARAMS["num_relation"], f"Lightning import: {ckpt['hparams']}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    scorer = KGEScorer(lightning, dm, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches == expected_launches(SEGSUM_PER_ENCODE, None, 0),
+          f"Lightning import: launches {launches}")
+    native_module = load_kge_module(native, dev)
+    batch = FullGraphLoader(dm.graph, edge_layout="dst").batch()
+    z_native = native_module.encode(batch_to_device(batch, dev))
+    n = dm.graph.num_nodes
+    err = float((scorer.z - z_native[:n]).abs().max())
+    scale = float(z_native[:n].abs().max())
+    p = scorer.score("gene_000000", "protein_protein", "gene_000001")
+    top = scorer.topk_tails("drug_000001", "drug_protein", 5)
+    print(f"Lightning .ckpt (reference key vocabulary, AttributeDict "
+          f"hparams, RGCN 768→256×4 + DistMult, 8 relations): KGEScorer "
+          f"init {init_s:.2f} s (data build + load + encode), launches "
+          f"{({k: v for k, v in launches.items() if v})}; z vs the native "
+          f"checkpoint's encode max_abs_err={err:.3g} (tol {Z_RTOL:g}·max|z|"
+          f" = {Z_RTOL * scale:.3g}); score {p:.6f}; top-5 tails "
+          f"{[name for name, _ in top]}")
+    check(bool(torch.isfinite(scorer.z).all()), "Lightning import: z not "
+                                                "finite")
+    check(err <= Z_RTOL * scale, "Lightning import: z differs from the "
+                                 "native checkpoint's")
+    check(0.0 < p < 1.0 and len(top) == 5
+          and all(name.startswith("gene_") for name, _ in top),
+          f"Lightning import: answers {p}, {top}")
+    for name, count in launches.items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    del scorer, native_module
+    return launches
+
+
+def dpi_workspace(tmp: str) -> str:
+    root = os.path.dirname(os.path.abspath(__file__))
+    ws = tempfile.mkdtemp(dir=tmp)
+    os.symlink(os.path.join(root, "configs"), os.path.join(ws, "configs"))
+    return ws
+
+
+def start_train_dpi(ws: str, label: str, extra, env=None, **variables):
+    """scripts/dpi.sh's ``train_dpi`` (``variables`` set in the script),
+    its 100 epochs cut to P12_EPOCHS of P12_STEPS steps, validated every
+    epoch, in ``ws``."""
+    args = script_args("dpi.sh", **variables) + [
+        f"epochs={P12_EPOCHS}", "val_every_epoch=1", f"steps={P12_STEPS}",
+        f"ckpt_dir={ws}/ckpt_{label}", *extra]
+    return start_entry(ws, "train_dpi", args, f"{ws}/log_{label}", env=env)
+
+
+def finish_train_dpi(proc, what: str, t0: float, epochs=P12_EPOCHS):
+    """Wait for a train_dpi run and check it: the reference's flow (top 3
+    and last, the test on the best), ``epochs`` validations, finite
+    ``test_*`` metrics with the DPI relation's precision; returns (the
+    tested checkpoint, its output)."""
+    out, errs = proc.communicate(timeout=900)
+    print(f"train_dpi {what} ({time.perf_counter() - t0:.1f} s, rc "
+          f"{proc.returncode}):", out.strip().replace("\n", " | "))
+    check(proc.returncode == 0, f"train_dpi {what} failed: {errs[-3000:]}")
+    check(out.startswith("train_dpi: "), f"train_dpi {what}: {out[:200]}")
+    proc.errs = errs
+    ckpt = os.path.normpath(os.path.join(
+        proc.cwd, out.split("checkpoint: ")[-1].strip()))
+    check_reference_flow(proc, ckpt, f"train_dpi {what}", 3, True, "dpi")
+    check(out.count("] val_loss=") == epochs,
+          f"train_dpi {what}: {out.count('] val_loss=')} validations")
+    metrics = printed_metrics(out, "test metrics:")
+    check(all(np.isfinite(v) for v in metrics.values())
+          and 0.0 <= metrics["test_AUROC"] <= 1.0
+          and "drug_protein_interaction_pre" in metrics,
+          f"train_dpi {what}: test metrics {metrics}")
+    return ckpt, out
+
+
+def l2_only_rows(before: np.ndarray, ckpt: str, hp: dict, what: str):
+    """A warm start pins every slot to DRUG_PROTEIN: only the L2 term's
+    gradient (2·1e-2·p / numel, the sign of p) reaches the other relation
+    rows, so Adam moves each of their entries towards 0 (those too small
+    to cross it in the run's steps are left out); row DRUG_PROTEIN
+    learns."""
+    after = load_checkpoint(ckpt)["params"]["model"]["decoder"]["rel_emb"]
+    delta = after - before
+    others = np.arange(len(before)) != DRUG_PROTEIN
+    steps = P12_EPOCHS * P12_STEPS
+    big = np.abs(before) > 10 * hp["learning_rate"] * steps
+    sel = others[:, None] & big
+    toward = bool(np.all(delta[sel] * before[sel] <= 0))
+    moved = float(np.abs(delta[DRUG_PROTEIN]).max())
+    rest = float(np.abs(delta[others]).max())
+    print(f"train_dpi {what}: relation rows other than {DRUG_PROTEIN}: "
+          f"{int(sel.sum())} entries checked, all moved towards 0 (the L2 "
+          f"term alone): {toward}; max |change| {rest:.3g}; row "
+          f"{DRUG_PROTEIN} max |change| {moved:.3g}")
+    check(toward and sel.any(), f"train_dpi {what}: a relation row other "
+                                f"than {DRUG_PROTEIN} moved with the data")
+    check(moved > 0.0, f"train_dpi {what}: row {DRUG_PROTEIN} did not train")
+
+
+def dpi_csv(tmp: str):
+    """Phase 12f's csv: synthetic_dpi at DPI_CSV_SIZES with a ``source``
+    column, DPI_CSV_NA's rows given NA tokens; the DPI graph read through
+    BIOMEDKG_DPI_CSV dropped exactly those rows. Returns (its path, the
+    graph's node count)."""
+    columns = synthetic_dpi(**DPI_CSV_SIZES)
+    rows = len(columns["x_type"])
+    columns["source"] = np.full(rows, "DrugBank")
+    rng = np.random.default_rng(SEED)
+    na_rows = np.sort(rng.choice(rows, len(DPI_CSV_NA), replace=False))
+    clean = np.setdiff1d(np.arange(rows), na_rows)
+    kept = {c: v[clean] for c, v in columns.items() if c in COLUMNS}
+    for row, (col, token) in zip(na_rows, DPI_CSV_NA):
+        columns[col] = columns[col].astype(object)
+        columns[col][row] = token
+    path = os.path.join(tmp, "dpi_benchmark.csv")
+    write_csv_columns(path, {c: np.asarray(v) for c, v in columns.items()})
+    os.environ["BIOMEDKG_DPI_CSV"] = path
+    try:
+        t0 = time.perf_counter()
+        dpi = DPI(data_dir=os.path.join(tmp, "absent.csv"))
+        build_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("BIOMEDKG_DPI_CSV")
+    want = TripletGraph(kept)
+    same = (dpi.node_list == want.node_list
+            and np.array_equal(dpi.graph.edge_index, want.graph.edge_index)
+            and np.array_equal(dpi.graph.edge_type, want.graph.edge_type))
+    print(f"BIOMEDKG_DPI_CSV: {rows} rows ({DPI_CSV_SIZES['num_drug']} "
+          f"drugs x {DPI_CSV_SIZES['num_gene']} genes drawn), NA tokens on "
+          f"rows {na_rows.tolist()}; the DPI graph ({dpi.graph.num_nodes} "
+          f"nodes, {dpi.graph.num_edges} edges) built in {build_s:.2f} s "
+          f"dropped rows {dpi.dropped_rows.tolist()}, equal to the graph "
+          f"of the other rows: {same}")
+    check(np.array_equal(dpi.dropped_rows, na_rows) and same,
+          "BIOMEDKG_DPI_CSV: the DPI graph did not drop exactly the NA rows")
+    return path, dpi.graph.num_nodes
+
+
+def dpi_config(ws: str):
+    """configs/dpi.yaml composed with scripts/dpi.sh's arguments, on the
+    card, in ``ws``."""
+    with working_dir(ws):
+        return load_config(CONFIG_DIR, "dpi", cli_overrides(
+            script_args("dpi.sh") + ["device=cuda"]))
+
+
+def pinned_rel_grad_zero(z, negatives, rel_emb, ds, fix: int, what: str):
+    """The negscore owner backward with every slot on relation ``fix``:
+    the relation gradient's other rows exactly 0, in bf16 and float32."""
+    bwd = negscore.KERNELS["distmult_neg_scores_bwd"]
+    ns, nd, rel = negatives
+    for dtype in (torch.bfloat16, torch.float32):
+        re = negscore.relation_table("distmult", rel_emb, dtype).contiguous()
+        _, dre = bwd(z.to(dtype).contiguous(), ns, nd, rel, re, ds)
+        torch.cuda.synchronize()
+        others = torch.arange(dre.shape[0], device=dre.device) != fix
+        rest = float(dre[others].abs().max()) if others.any() else 0.0
+        print(f"{what} {str(dtype)[6:]}: d(rel_emb) rows other than {fix} "
+              f"max |value| {rest} (must be 0), row {fix} max "
+              f"{float(dre[fix].abs().max()):.4g}")
+        check(rest == 0.0, f"{what} {dtype}: d(rel) rows other than {fix} "
+                           "are not 0")
+
+
+def dpi_timed_steps(hp, dev, table, batches, gen, fix, what, relmm_n=(0, 0),
+                    segsum_n=SEGSUM_PER_STEP):
+    """P12_STEPS_TIMED steps of a DPI module (K = 1), launches counted."""
+    warm, steps = P12_STEPS_TIMED
+    module = KGEModule(**hp).to(dev)
+    module.neg_ratio = 1
+    module.fix_edge_id = fix
+    module.edge_layout = module.default_layout
+    module.feature_table = table
+    module.configure_optimizers(num_training_steps=100)
+    state = module.init_state(torch.Generator().manual_seed(SEED))
+    state, _ = module.train_steps(state, batches[:warm], gen)
+    torch.cuda.synchronize()
+    _, launches, ms = timed_steps(
+        module, state, batches[warm:warm + steps], gen, what,
+        work=lambda b: (sum(int(x.edge_mask.sum()) for x in b) * 2,
+                        "triplets/s (real edges x (1 + K))"))
+    check(launches == step_launches(hp, steps, "distmult_neg_scores",
+                                    module.compute_dtype, segsum_n, relmm_n),
+          f"{what}: launches {launches}")
+    return launches, ms
+
+
+def dpi_shapes_main(dev, ws: str) -> int:
+    """Phase 12e in a process of its own, so that its SAINT batches
+    (scripts/dpi.sh: 64 roots over the DPI graph, K = 1) are the first the
+    negscore kernels and the bucket build see: the DPI step from scratch
+    (R = 1) and warm-started (phase 2's R = 8 model, fix_edge_id 1),
+    bf16 and float32, kernels against plain versions; the negscore pair
+    (with d(rel)'s other rows exactly 0 when pinned), the bucket build and
+    the segsum (its count table at R = 1 and pinned) at that shape, timed;
+    an RGAT warm start's step (relmm 8 + 6, every block on relation 1) and
+    relmm at its shape; timed steps with their launches. Prints
+    DPI_SHAPES_RESULT and a JSON object: the launches and the records."""
+    for lib in (segsum.LIBRARY, negscore.LIBRARY, relmm.LIBRARY):
+        lib.lib()
+    check(native.get_lib() is not None, "the host sampler did not build")
+    cfg = dpi_config(ws)
+    with working_dir(ws):
+        dm = train_kge.data_module(cfg)
+    dm.device_features = True
+    dm.edge_layout = "dst"
+    loader = dm.train_dataloader(loader_type="saint")
+    warm, steps = P12_STEPS_TIMED
+    batches = [batch_to_device(loader.sample()[0], dev)
+               for _ in range(warm + steps)]
+    batch = batches[0]
+    n = batch.node_mask.shape[0]
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+    scratch = kge_sh_hparams(cfg, dm.data.num_edge_types)
+    pinned = dict(HPARAMS, neg_ratio=1)
+    print(f"scripts/dpi.sh in-process: DPI graph {dm.graph.num_nodes} nodes, "
+          f"{dm.graph.num_edges} edges, {dm.data.num_edge_types} relation; "
+          f"SAINT envelope {loader.node_budget} node x {loader.edge_budget} "
+          f"edge slots (batch {cfg.data.batch_size}, K = {cfg.neg_ratio}); "
+          f"features {tuple(table.shape)}")
+    check(cfg.neg_ratio == 1 and cfg.data.batch_size == 64
+          and dm.data.num_edge_types == 1,
+          f"not scripts/dpi.sh's shapes: K = {cfg.neg_ratio}, batch "
+          f"{cfg.data.batch_size}, {dm.data.num_edge_types} relations")
+    check(all(k.launches == 0 for k in negscore.KERNELS.values())
+          and negscore.BUCKETS.launches == 0,
+          "a negscore kernel ran before scripts/dpi.sh's shapes")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    records, total = {}, None
+    for label, hp, fix in (("r1", scratch, None),
+                           ("pinned", pinned, DRUG_PROTEIN)):
+        module = KGEModule(**hp)
+        module.init(torch.Generator().manual_seed(SEED))
+        sd = {k: t.detach().clone() for k, t in module.state_dict().items()}
+        what = (f"DPI step from scratch (R = {hp['num_relation']})"
+                if fix is None else
+                f"DPI step warm-started (R = {hp['num_relation']}, "
+                f"fix_edge_id {fix})")
+        compare_step(sd, table, dev, batch, "distmult_neg_scores", what,
+                     fix=fix, **hp)
+        # the negscore pair and d(rel) at this shape, the relation column
+        # as the step makes it
+        module.to(dev)
+        module.fix_edge_id = fix
+        module.edge_layout = "dst"
+        module.feature_table = table
+        etype, _ = module._effective_types(batch)
+        negatives = path_negatives(batch._replace(edge_type=etype), gen,
+                                   False, k=1)
+        z = encoded(module, batch._replace(edge_type=etype))
+        ds = torch.randn(negatives[0].shape[0], generator=gen, device=dev)
+        rel_emb = module.model.decoder.rel_emb.detach()
+        if fix is not None:
+            pinned_rel_grad_zero(z, negatives, rel_emb, ds, fix, what)
+        launches, step_ms = dpi_timed_steps(
+            dict(hp, compute_dtype="float32"), dev, table, batches, gen, fix,
+            f"{what} float32 train step (K = 1)")
+        total = launches if total is None else {
+            k: total[k] + launches[k] for k in total}
+        records[label] = negscore_records("distmult", False, z, negatives,
+                                          rel_emb, ds, launches)
+        records[label + "_step_ms"] = step_ms
+        segsum_times(count_table(etype, batch.edge_mask,
+                                 hp["num_relation"]),
+                     batch.edge_index[1].int(), n,
+                     f"DPI count table (R = {hp['num_relation']})",
+                     exact=True)
+        if fix is not None:
+            records["buckets"] = bucket_checks(dev, negatives, n)
+        del module
+    dst = batch.edge_index[1].int()
+    conv = torch.randn(dst.shape[0], HPARAMS["hidden_dim"], device=dev,
+                       generator=gen)
+    records["segsum"] = segsum_times(conv, dst, n, "DPI conv")
+
+    # an RGAT warm start: relation-layout batches, every block on relation 1
+    dm.edge_layout = "relation"
+    rel_loader = dm.train_dataloader(loader_type="saint")
+    rel_batches = [batch_to_device(rel_loader.sample()[0], dev)
+                   for _ in range(warm + steps)]
+    rgat = dict(HPARAMS, encoder_name="rgat", neg_ratio=1)
+    module = KGEModule(**rgat)
+    module.init(torch.Generator().manual_seed(SEED))
+    sd = {k: t.detach().clone() for k, t in module.state_dict().items()}
+    del module
+    compare_step(sd, table, dev, rel_batches[0], "distmult_neg_scores",
+                 f"DPI RGAT step warm-started (fix_edge_id {DRUG_PROTEIN})",
+                 segsum_n=0, relmm_n=RELMM_PER_STEP, fix=DRUG_PROTEIN,
+                 cancelling=RGAT_DPI_CANCELLING, **rgat)
+    launches, _ = dpi_timed_steps(
+        dict(rgat, compute_dtype="bfloat16"), dev, table, rel_batches, gen,
+        DRUG_PROTEIN, "DPI RGAT bf16 train step (K = 1, pinned)",
+        relmm_n=RELMM_PER_STEP, segsum_n=0)
+    total = {k: total[k] + launches[k] for k in total}
+    rb = rel_batches[0]
+    block_rel = torch.full_like(rb.block_rel, DRUG_PROTEIN)
+    msg = torch.randn(rb.edge_type.shape[0], HPARAMS["in_dim"], device=dev,
+                      generator=gen).bfloat16()
+    w = (0.05 * torch.randn(HPARAMS["num_relation"], HPARAMS["in_dim"],
+                            HPARAMS["num_heads"] * HPARAMS["hidden_dim"],
+                            device=dev, generator=gen)).bfloat16()
+    errs = {}
+    picked, g = relmm_check("DPI pinned (every block on relation "
+                            f"{DRUG_PROTEIN})", msg, w, block_rel, gen, errs)
+    check(picked == [relmm.FAST[torch.bfloat16]] * 2,
+          f"relmm at the DPI shape picked {picked}")
+    t = relmm_times(msg, w, block_rel, g)
+    fast = relmm.FAST[torch.bfloat16]
+    records["relmm"] = {d: {"ms": t[d], "plain_ms": t[f"plain_{d}"],
+                            "bound_ms": t[f"bound_{d}"][0],
+                            "max_abs_err": errs[(fast, d == "bwd")]}
+                        for d in ("fwd", "bwd")}
+    print(f"relmm at the DPI RGAT shape ({tuple(msg.shape)} bf16 -> "
+          f"{w.shape[2]}, {block_rel.shape[0]} blocks on relation "
+          f"{DRUG_PROTEIN}): {fast} forward {t['fwd']:.4f} ms, d_msg "
+          f"{t['bwd']:.4f} ms (general {t['general_fwd']:.4f} / "
+          f"{t['general_bwd']:.4f}), plain {t['plain_fwd']:.4f} / "
+          f"{t['plain_bwd']:.4f}, bound {t['bound_fwd'][0]:.4f} / "
+          f"{t['bound_bwd'][0]:.4f}")
+    print(DPI_SHAPES_RESULT + json.dumps({"launches": total,
+                                          "records": records}))
+    return 0
+
+
+def dpi_shapes(ws: str):
+    """``python3 chip_smoke.py DPI_SHAPES ws`` started (dpi_shapes_main)."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), DPI_SHAPES, ws],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_dpi_shapes(proc, t0: float):
+    """(the launches, the records) of a dpi_shapes run, its launches added
+    into PATH_LAUNCHES."""
+    out, errs = proc.communicate(timeout=900)
+    body = "\n".join(line for line in out.strip().splitlines()
+                     if not line.startswith(DPI_SHAPES_RESULT))
+    print(f"scripts/dpi.sh's shapes in their own process "
+          f"({time.perf_counter() - t0:.1f} s, rc {proc.returncode}):\n"
+          f"{body}")
+    check(proc.returncode == 0, f"scripts/dpi.sh's shapes failed: "
+                                f"{errs[-3000:]}")
+    result = json.loads(next(line for line in out.splitlines()
+                             if line.startswith(DPI_SHAPES_RESULT))
+                        [len(DPI_SHAPES_RESULT):])
+    for name, count in result["launches"].items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    return result["launches"], result["records"]
+
+
+def dpi_phase(dm, dev, tmp):
+    """Phase 12; returns every kernel's launches over its counted paths
+    and the DPI-shape records."""
+    t_phase = time.perf_counter()
+    ws = dpi_workspace(tmp)
+    # phase 2's model, saved natively and as the reference's Lightning file
+    module = KGEModule(**HPARAMS)
+    module.init(torch.Generator().manual_seed(SEED))
+    native_ckpt = os.path.join(ws, "kge.ckpt")
+    save_checkpoint(native_ckpt, "kge", module.hparams,
+                    to_jax_params(module.model))
+    lightning = os.path.join(ws, "reference.ckpt")
+    write_lightning_kge(lightning, module)
+    rel_before = module.model.decoder.rel_emb.detach().numpy().copy()
+    print(f"scripts/dpi.sh: {' '.join(script_args('dpi.sh'))}")
+    csv_path, csv_nodes = dpi_csv(tmp)
+
+    # (c) and (f) started together, (e) beside them
+    t0 = time.perf_counter()
+    runs = {
+        "from scratch": start_train_dpi(ws, "scratch", []),
+        "warm-started from the Lightning .ckpt": start_train_dpi(
+            ws, "lightning", ["data.unseen_node_ratio=0.1",
+                              "data.unseen_node_types=[drug]"],
+            PRETRAINED_PATH=lightning),
+        "warm-started from the native .ckpt": start_train_dpi(
+            ws, "native", [], PRETRAINED_PATH=native_ckpt),
+        "on BIOMEDKG_DPI_CSV": start_train_dpi(
+            ws, "csv", ["epochs=1"],
+            env={"BIOMEDKG_DPI_CSV": csv_path})}
+    shapes = dpi_shapes(ws)
+    # (a) and (b) in this process meanwhile
+    kg_csv_onramp(tmp, dm)
+    launches = lightning_import(dm, dev, native_ckpt, lightning)
+
+    ckpts = {}
+    for what, proc in runs.items():
+        ckpt, out = finish_train_dpi(
+            proc, what, t0, epochs=1 if what.startswith("on ") else
+            P12_EPOCHS)
+        ckpts[what] = ckpt
+        warm = what.startswith("warm")
+        check(("warm-started from" in out and "(fix_edge_id 1)" in out)
+              == warm, f"train_dpi {what}: warm start not as asked")
+        if warm:
+            l2_only_rows(rel_before, ckpt, HPARAMS, what)
+        if "Lightning" in what:
+            check_unseen(printed_metrics(
+                out, "unseen-node (inductive) metrics:"), f"train_dpi {what}")
+        if what.startswith("on "):
+            check(f"train_dpi: {csv_nodes} nodes" in out
+                  and "DPI csv from BIOMEDKG_DPI_CSV" in proc.errs,
+                  f"train_dpi {what}: not on the csv's graph")
+        elif not warm:
+            check("falling back to the synthetic DTI graph" in proc.errs,
+                  f"train_dpi {what}: not on synthetic_dpi(seed=43)")
+
+    # (d) scripts/test_dpi.sh on the from-scratch run's best checkpoint
+    t1 = time.perf_counter()
+    args = script_args("test_dpi.sh",
+                       PRETRAINED_PATH=ckpts["from scratch"]) + [
+        "filter_neg=true", f"steps={10 * P12_STEPS}"]
+    out = finish_entry(start_entry(ws, "test_dpi", args, f"{ws}/log_test"),
+                       "test_dpi scripts/test_dpi.sh", t1)
+    metrics = printed_metrics(out, "test metrics:")
+    print(f"test_dpi: {json.dumps(metrics)}")
+    check("Neg Ratio: 3" in out and all(np.isfinite(v)
+                                        for v in metrics.values())
+          and 0.0 <= metrics["test_AUROC"] <= 1.0,
+          f"test_dpi: metrics {metrics}")
+
+    shape_launches, records = finish_dpi_shapes(shapes, t0)
+    total = {k: launches.get(k, 0) + shape_launches.get(k, 0)
+             for k in set(launches) | set(shape_launches)}
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{({k: v for k, v in total.items() if v})}")
+    return total, records
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4247,6 +4916,8 @@ def main() -> int:
         return trainer_vs_serial_main(dev)
     if sys.argv[1:2] == [KGE_SH_SHAPES]:
         return kge_sh_shapes_main(dev, sys.argv[2])
+    if sys.argv[1:2] == [DPI_SHAPES]:
+        return dpi_shapes_main(dev, sys.argv[2])
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -4461,6 +5132,9 @@ def main() -> int:
         # -- 11. the config layer and Stage B's multimodal remainder -------
         torch.cuda.empty_cache()
         multimodal, k1_records = multimodal_phase(scorer.dm, dev, tmp)
+        # -- 12. DPI fine-tuning and the on-ramps -------------------------
+        torch.cuda.empty_cache()
+        dpi, dpi_records = dpi_phase(scorer.dm, dev, tmp)
     # -- 9b. the Trainer against the serial loop, in a fresh process -----
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -4471,15 +5145,39 @@ def main() -> int:
     check(run.returncode == 0, f"phase 9b failed: {run.stderr[-3000:]}")
 
     k1 = {r["name"]: r for r in k1_records}
+    # phase 12: every kernel of the DPI path launched in its counted runs;
+    # its DPI-shape numbers as dpi_* keys (dpi_pinned_*: fix_edge_id 1)
+    fast = relmm.FAST[torch.bfloat16]
+    dpi_path = ["sorted_segment_sum", "distmult_neg_scores",
+                "distmult_neg_scores_bwd", negscore.BUCKETS_NAME,
+                relmm_key(relmm.FORWARD, fast),
+                relmm_key(relmm.BACKWARD, fast)]
+    check(all(dpi.get(name, 0) > 0 for name in dpi_path),
+          f"phase 12: a DPI-path kernel was not launched: {dpi}")
+    keys = ("ms", "plain_ms", "bound_ms", "max_abs_err")
+    dpi_keys = {r["name"]: {f"dpi_{k}": r[k] for k in keys}
+                for r in dpi_records["r1"]}
+    for r in dpi_records["pinned"]:
+        dpi_keys[r["name"]].update({f"dpi_pinned_{k}": r[k] for k in keys})
+    dpi_keys[negscore.BUCKETS_NAME] = {
+        f"dpi_{k}": dpi_records["buckets"][k] for k in keys}
+    for d, kernel in (("fwd", relmm.FORWARD), ("bwd", relmm.BACKWARD)):
+        dpi_keys[relmm_key(kernel, fast)] = {
+            f"dpi_{k}": dpi_records["relmm"][d][k] for k in keys}
     for record in neg_records:
         if record["name"] == negscore.BUCKETS_NAME:
             record["launches"] = PATH_LAUNCHES[negscore.BUCKETS_NAME]
         else:                            # phase 10's (d) and (e), phase 11
             record["launches"] += (ranked[record["name"]]
-                                   + multimodal[record["name"]])
+                                   + multimodal[record["name"]]
+                                   + dpi.get(record["name"], 0))
         if record["name"] in k1:         # phase 11: K = 1 at its shapes
             record.update({f"k1_{key}": k1[record["name"]][key] for key in
                            ("ms", "plain_ms", "bound_ms", "max_abs_err")})
+        record.update(dpi_keys.get(record["name"], {}))
+    for record in relmm_records:
+        record["launches"] += dpi.get(record["name"], 0)
+        record.update(dpi_keys.get(record["name"], {}))
     for record in flash_records:         # phase 11's GRACE + ReDAF steps
         name = record["name"]
         record["launches"] += multimodal[
@@ -4493,12 +5191,14 @@ def main() -> int:
         "design": "owner", "instance": "packed",
         "launches": launches["sorted_segment_sum"] + train_segsum
         + gcl_segsum + eval_segsum + ranked["sorted_segment_sum"]
-        + multimodal["sorted_segment_sum"],
+        + multimodal["sorted_segment_sum"] + dpi["sorted_segment_sum"],
         "max_abs_err": max(results.values()),
         "ms": serving["ms"], "first_design_ms": serving["first_ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
-        "library_ms": serving["library_ms"]}] + neg_records
+        "library_ms": serving["library_ms"],
+        **{f"dpi_{k}": dpi_records["segsum"][k] for k in keys}}]
+        + neg_records
         + relmm_records + flash_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

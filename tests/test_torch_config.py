@@ -192,12 +192,11 @@ _CHILD = textwrap.dedent("""
                             gcl_fuse_method=cfg.gcl_fuse_method, seed=3)
     assert type(dm).__module__ == "biomedkg_tpu_torch.data.modules", type(dm)
     assert dm.batch_size == 16 and dm.seed == 3
-    try:
-        config.instantiate(config.load_config("configs", "dpi").data)
-    except NotImplementedError as e:
-        assert "item 9" in str(e), e
-    else:
-        raise AssertionError("DPIModule did not raise")
+    dpi = config.instantiate(config.load_config("configs", "dpi").data,
+                             seed=3)
+    assert type(dpi).__name__ == "DPIModule", type(dpi)
+    assert type(dpi).__module__ == "biomedkg_tpu_torch.data.modules"
+    assert dpi.data_dir == "./data/dpi/dpi_benchmark.csv" and dpi.seed == 3
     print(sorted(m for m, mod in sys.modules.items() if mod is not None
                  and m.split(".")[0] in ("jax", "biomedkg_tpu", "yaml")))
 """)

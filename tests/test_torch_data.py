@@ -16,6 +16,7 @@ from biomedkg_tpu.data.synthetic import synthetic_triplets as jax_synth
 from biomedkg_tpu.data.triplet import TripletGraph as JaxTripletGraph
 from biomedkg_tpu.sampling.batch import pad_graph_batch as jax_pad
 from biomedkg_tpu.sampling.loaders import FullGraphLoader as JaxLoader
+from biomedkg_tpu_torch.data.csv_columns import write_csv_columns
 from biomedkg_tpu_torch.data.modules import PrimeKGModule
 from biomedkg_tpu_torch.data.node_encoders import RandomEncode
 from biomedkg_tpu_torch.data.split import random_link_split
@@ -147,18 +148,40 @@ def test_primekg_module(tmp_path, monkeypatch, node_type):
 
 
 def test_primekg_refuses_csv_sources(tmp_path, monkeypatch):
+    """The csv sources load (BIOMEDKG_KG_CSV, then a kg.csv in data_dir,
+    the same graph as JAX's pandas path; tests/test_torch_csv_sources.py
+    holds the reader's corner cases); a cached kg.csv without the required
+    columns and a missing BIOMEDKG_KG_CSV file still raise, as in JAX; the
+    LM cache's build (Stage A) still raises."""
     monkeypatch.chdir(tmp_path)
-    dm = PrimeKGModule(data_dir="./data/primekg", embed_dim=FEAT_DIM,
-                       node_type=["drug"], batch_size=8, val_ratio=0.2,
-                       test_ratio=0.2)
-    monkeypatch.setenv("BIOMEDKG_KG_CSV", str(tmp_path / "kg.csv"))
-    with pytest.raises(NotImplementedError, match="csv"):
+    monkeypatch.setattr(jax_primekg, "_download_csv", lambda path: False)
+    kw = dict(data_dir="./data/primekg", embed_dim=FEAT_DIM,
+              node_type=["drug"], batch_size=8, val_ratio=0.2,
+              test_ratio=0.2)
+    dm = PrimeKGModule(**kw)
+    columns = synthetic_triplets(**CONFIGS["small-seed7"])
+    columns["display_relation"] = columns["relation"]
+    path = str(tmp_path / "kg.csv")
+    write_csv_columns(path, columns)
+    monkeypatch.setenv("BIOMEDKG_KG_CSV", str(tmp_path / "absent.csv"))
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         dm.setup()
+    monkeypatch.setenv("BIOMEDKG_KG_CSV", path)
+    dm.setup()
+    jdm = JaxModule(**kw)
+    jdm.setup()
+    _assert_graph_equal(jdm.graph, dm.graph)
+    assert jdm.data.node_list == dm.data.node_list
     monkeypatch.delenv("BIOMEDKG_KG_CSV")
     (tmp_path / "data" / "primekg").mkdir(parents=True)
     (tmp_path / "data" / "primekg" / "kg.csv").write_text("x_type\n")
-    with pytest.raises(NotImplementedError, match="csv"):
+    with pytest.raises(ValueError, match="lacks required columns"):
         dm.setup()
+    write_csv_columns(str(tmp_path / "data" / "primekg" / "kg.csv"), columns)
+    jdm, dm = JaxModule(**kw), PrimeKGModule(**kw)
+    jdm.setup()
+    dm.setup()
+    _assert_graph_equal(jdm.graph, dm.graph)
     with pytest.raises(NotImplementedError, match="lm"):
         PrimeKGModule(data_dir=".", embed_dim=8, node_type=["drug"],
                       batch_size=8, val_ratio=0.2, test_ratio=0.2,

@@ -51,6 +51,7 @@ def test_slice_modules_are_scanned():
                for p in _port_sources()}
     assert set(SLICE_MODULES) <= scanned
     assert set(CONFIG_SLICE_MODULES) <= scanned
+    assert set(DPI_SLICE_MODULES) <= scanned
 
 
 # the config layer and the modules of Stage B's multimodal remainder
@@ -96,6 +97,66 @@ def test_config_slice_module_runs_without_jax_pandas_yaml(path, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code, name], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
                           timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+# the csv on-ramps, the Lightning importer and DPI fine-tuning
+DPI_SLICE_MODULES = ("data/csv_columns.py", "data/dpi.py",
+                     "interop/torch_ckpt.py", "train_dpi.py", "test_dpi.py")
+
+_DPI_CHILD = textwrap.dedent("""
+    import contextlib, importlib, io, os, sys
+    for name in {forbidden!r}:
+        sys.modules[name] = None          # any import of it now fails
+    module = importlib.import_module(sys.argv[1])
+    fixture = sys.argv[2]
+    from biomedkg_tpu_torch.data.csv_columns import write_csv_columns
+    from biomedkg_tpu_torch.data.synthetic import synthetic_dpi
+    columns = synthetic_dpi(num_drug=40, num_gene=60, num_edges=300)
+    columns["x_name"][3] = "NA"
+    write_csv_columns("dpi.csv", columns)
+    name = sys.argv[1].rsplit(".", 1)[1]
+    if name == "csv_columns":
+        table = module.read_csv_columns("dpi.csv", ["x_name"], any_na=True)
+        assert table.any_na.tolist().count(True) == 1
+    elif name == "dpi":
+        graph = module.DPI("dpi.csv").graph
+        assert graph.num_relations == 1 and graph.num_edges > 0
+    elif name == "torch_ckpt":
+        ckpt = module.from_torch_checkpoint(fixture)
+        assert ckpt["kind"] == "kge" and ckpt["step"] == 123
+    else:
+        from biomedkg_tpu_torch import train_dpi
+        args = ["device=cpu", "steps=1", "epochs=1", "val_every_epoch=1",
+                "data.embed_dim=8", "data.data_dir=dpi.csv",
+                "data.batch_size=8", "ckpt_dir=ck", "log_dir=log"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            path = train_dpi.main(args + ["pretrained_path=" + fixture])
+            if name == "test_dpi":
+                module.main(["device=cpu", "steps=10", "data.embed_dim=8",
+                             "data.data_dir=dpi.csv", "data.batch_size=8",
+                             "pretrained_path=" + path])
+        assert os.path.exists(path)
+    print(sorted(m for m, mod in sys.modules.items()
+                 if mod is not None and m.split(".")[0] in {forbidden!r}))
+""")
+
+
+@pytest.mark.parametrize("path", DPI_SLICE_MODULES)
+def test_dpi_slice_module_runs_without_jax_pandas_yaml(path, tmp_path):
+    """Each module of the DPI slice imports and runs (the csv reader, the
+    DPI graph from a csv with an NA row, the Lightning fixture's import,
+    train_dpi warm-started from it and test_dpi on the result, on the
+    CPU) in a process where JAX, biomedkg_tpu, pandas, PyYAML and optax
+    cannot be imported."""
+    name = "biomedkg_tpu_torch." + path[:-3].replace("/", ".")
+    code = _DPI_CHILD.format(forbidden=FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    fixture = os.path.join(ROOT, "tests", "fixtures", "ref_kge_tiny.ckpt")
+    proc = subprocess.run([sys.executable, "-c", code, name, fixture],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 

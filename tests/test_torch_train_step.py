@@ -345,9 +345,11 @@ def test_port_checkpoint_loads_in_jax_and_resumes(tmp_path):
 
 
 def test_training_raises_on_paths_not_ported():
-    """``fix_edge_id`` (DPI transfer) still raises; ``cold_start_dropout``
-    and ``filter_negatives`` are ported (tests/test_torch_inductive.py
-    holds them against JAX) and train."""
+    """``cold_start_dropout`` and ``filter_negatives`` are ported
+    (tests/test_torch_inductive.py holds them against JAX) and train;
+    ``fix_edge_id`` (DPI transfer) is ported too (tests/test_torch_dpi.py
+    holds it against JAX): it sets, pins every relation the step reads and
+    trains, and an id outside the relation table raises."""
     _, batch = _raw()
     module = kge_module.KGEModule(**dict(_hparams(),
                                          cold_start_dropout=0.1))
@@ -357,8 +359,14 @@ def test_training_raises_on_paths_not_ported():
     loss, _ = module._forward_loss(batch, True,
                                    torch.Generator().manual_seed(1))
     assert np.isfinite(float(loss))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.fix_edge_id = 0
+    module.fix_edge_id = 0
+    assert module.fix_edge_id == 0
+    loss, aux = module._forward_loss(batch, True,
+                                     torch.Generator().manual_seed(1))
+    assert np.isfinite(float(loss))
+    assert bool((aux["edge_type"] == 0).all())
+    with pytest.raises(ValueError, match="outside the model's"):
+        module.fix_edge_id = R
 
 
 def test_train_kge_cli_writes_a_checkpoint_the_scorer_serves(
