@@ -18,8 +18,8 @@ and ``inductive`` carries the cold-start eval graph and the held-out
 edges. ``node_init_method`` picks the features (data/node_encoders.py):
 "random" (N, embed_dim), "lm" the LM cache's (N, 2, embed_dim) (read
 through ``modality_config_path``), "gcl" the GCL cache's (N, 1,
-embed_dim) of ``gcl_model`` / ``gcl_fuse_method``, built on ``device``
-when missing. ``DPIModule`` does the same over the DPI benchmark's graph
+embed_dim) of ``gcl_model`` / ``gcl_fuse_method``; either cache is
+built on ``device`` when missing (Stage A's LMs, or the GCL encode). ``DPIModule`` does the same over the DPI benchmark's graph
 (data/dpi.py), made undirected first.
 """
 
@@ -47,7 +47,7 @@ def get_node_encode_method(node_init_method: Optional[str], embed_dim: int,
         return node.RandomEncode(embed_dim=embed_dim)
     if node_init_method == "lm":
         return node.LMMultiModalsEncode(config_file=modality_config_path,
-                                        embed_dim=embed_dim)
+                                        embed_dim=embed_dim, device=device)
     if node_init_method == "gcl":
         return node.GCLEncode(model_name=model_name, fuse_method=fuse_method,
                               embed_dim=embed_dim, device=device)

@@ -5,9 +5,17 @@
   stem>_lm.pickle``, name → (2, embed_dim) rows (the two modalities' LM
   embeddings, L2-normalised over the modality axis). Its modality yaml
   (``configs/lm_modality/*.yaml``) is read by the port's config layer.
-  Building the cache runs the LMs over the modality csvs, which are not
-  in the repository: ``_build_cache`` raises (ROADMAP.md queue 1, item 8),
-  so the cache has to be present;
+  When the cache is missing it is built as the JAX package builds it:
+  for each spec in the yaml's order (``gene/protein``'s sub-specs
+  ``amino_acid`` then ``dna``; a later spec's rows overwrite an earlier
+  one's), the csv's identifier and modality columns (read by
+  ``csv_columns.read_csv_columns``, typed as pandas types them) with
+  duplicate rows dropped (the first kept, missing equal to missing), in
+  slices of ``batch_size`` rows; per modality, missing values take
+  xavier-normal rows from one ``default_rng(0)`` a spec, drawn in the JAX
+  order, and the others the CLS rows of ``lm_embed.NodeEmbedding`` (one
+  per model directory a spec) on ``device``. Every spec's csv and models
+  are checked before the first text is encoded;
 * ``GCLEncode``: Stage B's cache ``data/gcl_embed/<model>_<fuse>.pickle``,
   name → (1, d) rows. When it is missing it is built from the first GCL
   checkpoint the reference's glob lists for gene, drug and disease
@@ -37,6 +45,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..config import REPO_ROOT, load_yaml_file
+from .csv_columns import read_csv_columns
 
 MODALITY_CONFIG = "configs/lm_modality/primekg_modality.yaml"
 _SAFE_BUILTINS = frozenset({"dict", "list", "tuple", "int", "float", "str",
@@ -119,21 +128,109 @@ def _write_mapping(path: str, mapping: Dict[str, np.ndarray]) -> None:
 
 class LMMultiModalsEncode(_PickleCacheEncode):
     def __init__(self, config_file: str, embed_dim: int = 768,
-                 batch_size: int = 128):
+                 batch_size: int = 128, device: Optional[str] = None):
         self.conf = load_yaml_file(_resolve(config_file))
         self.artifact_path = os.path.join(
             "data", "embed", f"{Path(config_file).stem}_lm.pickle")
         self.embed_dim = embed_dim
         self.batch_size = batch_size
+        self.device = device
         self.miss_shape = (2, embed_dim)
         self.node_mapping = self._load_mapping()
         self.random_init_ratio = 0
 
+    def specs(self) -> List[dict]:
+        """The yaml's csv specs in order, nested ones flattened."""
+        out = []
+        for spec in self.conf.values():
+            if isinstance(spec, dict) and spec.get("file_name") is None:
+                out.extend(spec.values())
+            else:
+                out.append(spec)
+        return out
+
     def _build_cache(self):
-        raise NotImplementedError(
-            f"the LM cache {self.artifact_path} is missing, and building it "
-            "(Stage A: the LMs over the modality csvs) is not ported yet "
-            "(ROADMAP.md queue 1, item 8); put the cache in place")
+        from .lm_embed import check_model
+
+        # every spec's csv and models first, so that nothing is encoded
+        # for a yaml the port cannot finish
+        for spec in self.specs():
+            if not os.path.isfile(spec["file_name"]):
+                raise FileNotFoundError(
+                    f"the modality csv {spec['file_name']} is missing")
+            for name in dict.fromkeys(spec["model_name_for_each_modality"]):
+                check_model(name)
+        node_mapping: Dict = {}
+        for spec in self.specs():
+            node_mapping.update(self._feature_dict(**spec))
+        _write_mapping(self.artifact_path, node_mapping)
+
+    def _feature_dict(self, file_name: str, idetifier_column: str,
+                      modality_columns: List[str],
+                      model_name_for_each_modality: List[str]) -> Dict:
+        out: Dict = {}
+        for names, stacked in self.modality_rows(
+                file_name, idetifier_column, modality_columns,
+                model_name_for_each_modality):
+            norms = np.linalg.norm(stacked, axis=1, keepdims=True)
+            out.update(zip(names, list(stacked / np.maximum(norms, 1e-12))))
+        return out
+
+    def modality_rows(self, file_name: str, idetifier_column: str,
+                      modality_columns: List[str],
+                      model_name_for_each_modality: List[str]):
+        """Yield each slice's (names, (B, M, embed_dim) rows before the
+        normalisation) of one spec."""
+        from .lm_embed import NodeEmbedding
+
+        names, columns = unique_rows(file_name, idetifier_column,
+                                     modality_columns)
+        encoders: Dict[str, NodeEmbedding] = {}
+        for name in model_name_for_each_modality:
+            if name not in encoders:
+                encoders[name] = NodeEmbedding(name, device=self.device)
+        models = {m: encoders[name] for m, name in
+                  zip(modality_columns, model_name_for_each_modality)}
+        rng = np.random.default_rng(0)
+        for lo in range(0, len(names), self.batch_size):
+            hi = min(lo + self.batch_size, len(names))
+            per_modality = []
+            for modality in modality_columns:
+                values, missing = columns[modality]
+                nan_mask = missing[lo:hi]
+                combined = np.empty((hi - lo, self.embed_dim), np.float32)
+                combined[nan_mask] = xavier_normal_np(
+                    rng, (int(np.sum(nan_mask)), self.embed_dim))
+                valid = [v for v, isnan in zip(values[lo:hi], nan_mask)
+                         if not isnan]
+                if valid:
+                    combined[~nan_mask] = models[modality](valid)
+                per_modality.append(combined)
+            yield names[lo:hi], np.stack(per_modality, axis=1)
+
+
+def unique_rows(file_name: str, id_column: str, modality_columns: List[str]):
+    """The csv's identifier values (as pandas lists them: NaN where
+    missing) and each modality column's (values, missing mask), with the
+    rows that repeat an earlier row on these columns dropped."""
+    columns = [id_column] + list(modality_columns)
+    table = read_csv_columns(file_name, columns)
+    typed = []
+    for c in columns:
+        values = table.columns[c].astype(object)
+        values[table.na[c]] = np.nan
+        typed.append(values)
+    seen, keep = set(), []
+    for i, row in enumerate(zip(*typed)):
+        # NaN equals NaN here, as in pandas' drop_duplicates
+        key = tuple(None if isinstance(v, float) and v != v else v
+                    for v in row)
+        if key not in seen:
+            seen.add(key)
+            keep.append(i)
+    names = typed[0][keep].tolist()
+    return names, {c: (typed[j + 1][keep].tolist(), table.na[c][keep])
+                   for j, c in enumerate(modality_columns)}
 
 
 class GCLEncode(_PickleCacheEncode):

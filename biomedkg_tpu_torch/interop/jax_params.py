@@ -19,6 +19,9 @@ second subtree, ``params["fusion"]``: ``q``, ``k``, ``v`` (attention) or
 ``modal_weights`` (M, 1, d), ``sub_type_emb.table``, ``transform`` and
 ``rel_context`` (ReDAF), each dense layer {``w`` (in, out), ``b``}; it maps
 onto the training module's ``fusion`` submodule by the same rule.
+
+``bert_from_flax`` carries Stage A's Flax BERT params (HF's layout) into
+the port's ``models/bert.py`` state dict.
 """
 
 from __future__ import annotations
@@ -129,3 +132,23 @@ def to_jax_params(model: nn.Module,
         named.update({"fusion." + name: p
                       for name, p in fusion.named_parameters()})
     return to_jax_tree(named)
+
+
+def bert_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """HF's Flax BERT params (``FlaxBertModel.params``: the JAX package's
+    Stage A model, numpy or JAX leaves) as the port's ``models/bert.py``
+    state dict: a Dense ``kernel`` (in, out) becomes ``weight`` (out, in),
+    an Embed's ``embedding`` and a LayerNorm's ``scale`` become
+    ``weight``; the pooler is not read."""
+    out = {}
+    for path, value in flatten_tree(params).items():
+        if path.startswith("pooler."):
+            continue
+        *parents, leaf = path.split(".")
+        value = np.array(value, dtype=np.float32)
+        if leaf == "kernel":
+            leaf, value = "weight", np.ascontiguousarray(value.T)
+        elif leaf in ("embedding", "scale"):
+            leaf = "weight"
+        out[".".join(parents + [leaf])] = torch.from_numpy(value)
+    return out

@@ -5,7 +5,9 @@ path, the KGE training step (RGCN and RGAT), Stage B's GCL pretraining
 and the unseen-node protocol, and the repo's own scripts on the config
 layer with modality fusion and the LM and GCL embedding caches, and DPI
 fine-tuning with the csv on-ramps and the reference's Lightning
-checkpoints, at full width on one CUDA card (Hopper, sm_90a).
+checkpoints, and Stage A (the LM cache from the port's own BERT encoder
+and WordPiece tokenizer), at full width on one CUDA card (Hopper,
+sm_90a).
 
     python3 chip_smoke.py
 
@@ -296,7 +298,35 @@ Phases; any failure ends the run with a non-zero exit:
     and gene counts with 78,000 edges drawn, eight rows given NA tokens:
     the DPI graph dropped exactly those rows, and ``train_dpi`` trains on
     it. The segsum, DistMult negscore, bucket and wgmma relmm records'
-    ``launches`` add phase 12's counted paths.
+    ``launches`` add phase 12's counted paths;
+13. Stage A, after phase 12 (no kernel of its own: the JAX package runs
+    it in Flax/XLA): (a) a BERT-base checkpoint directory written here
+    (BioBERT v1.1's shapes: 12 layers, hidden 768, 12 heads, 3,072
+    intermediate, 512 positions, vocabulary 28,996; config.json,
+    vocab.txt, tokenizer_config.json, and model.safetensors from this
+    script's writer with HF's initialisation from a seeded generator);
+    (b) 16 texts in each of the four length buckets (128-512) and one
+    truncated at 512 through ``NodeEmbedding`` on the card, against the
+    same module in float64 on the CPU (CLS_RTOL of max|CLS|); (c) a
+    sweep of P13_SWEEP texts (the default modality yaml over PrimeKG++
+    is about 160,000 texts) of 32-512 tokens, about 10 % truncated: a
+    made-up length mix, not the modality csvs', which are not in the
+    repository; in LMMultiModalsEncode's 128-row calls: texts/s, real and
+    padded tokens/s, the host tokenizer's seconds against the device's
+    (CUDA events), peak memory, the (rows, L) shapes (at most four) and
+    the shares of two float32 bounds at 67 TFLOP/s (2 x non-embedding
+    parameters x tokens plus the attention products): over the padded
+    buckets, the static-bucket design's work, and over the real tokens
+    (each text's own L), the function's; (d)
+    ``LMMultiModalsEncode`` end to end on the card over a modality yaml
+    of the default's structure (four specs, gene/protein nested; 512
+    names a spec from phase 2's graph, missing fields, repeated rows,
+    names in both gene specs; every column on (a)'s directory): (2, 768)
+    rows of unit norm over the modality axis, the missing fields'
+    rows ``default_rng(0)``'s draws in the JAX order, then the
+    gene/protein ``PrimeKGModule(node_init_method="lm")`` over that cache
+    (its ``random_init_ratio``) and one GGD + attention float32 step on
+    it (segsum 8, added to the segsum record's ``launches``).
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -306,6 +336,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import io
 import itertools
 import json
@@ -328,6 +359,7 @@ from biomedkg_tpu_torch.data.modules import PrimeKGModule
 from biomedkg_tpu_torch.data import csv_columns, node_encoders
 from biomedkg_tpu_torch.data.csv_columns import write_csv_columns
 from biomedkg_tpu_torch.data.dpi import DPI
+from biomedkg_tpu_torch.data.lm_embed import NodeEmbedding
 from biomedkg_tpu_torch.data.primekg import PrimeKG
 from biomedkg_tpu_torch.data.node_encoders import RandomEncode
 from biomedkg_tpu_torch.data.synthetic import (COLUMNS, PRIMEKG_RELATIONS,
@@ -339,6 +371,7 @@ from biomedkg_tpu_torch.device import check_full_fp32
 from biomedkg_tpu_torch.eval import ranking
 from biomedkg_tpu_torch.interop.jax_params import to_jax_params
 from biomedkg_tpu_torch.models import decoders, encoders
+from biomedkg_tpu_torch.models.bert import BertModel
 from biomedkg_tpu_torch.nn import dropout_mask
 from biomedkg_tpu_torch.ops import (_build, flashnce, negscore, relmm,
                                     segment, segsum)
@@ -3929,13 +3962,14 @@ def finish_train_gcl(proc, node_type: str, t0: float) -> str:
     return ckpt
 
 
-def lm_gene_module(ws: str):
+def lm_gene_module(ws: str, **over):
     """The gene/protein graph's data module over the LM cache
-    (scripts/gcl.sh's batch of 64 seeds), set up in ``ws``."""
+    (scripts/gcl.sh's batch of 64 seeds), set up in ``ws`` (``over``:
+    other data module arguments)."""
     with working_dir(ws):
         dm = PrimeKGModule(**dict(PRIMEKG_DATA, node_type=GCL_NODE_TYPE,
-                                  batch_size=64, node_init_method="lm"),
-                           seed=SEED)
+                                  batch_size=64, node_init_method="lm",
+                                  **over), seed=SEED)
         dm.setup(stage="split")
     dm.edge_layout = "dst"
     dm.device_features = True
@@ -4906,6 +4940,455 @@ def dpi_phase(dm, dev, tmp):
 
 
 
+# -- phase 13: Stage A, the LM cache built by the port's BERT and WordPiece --
+
+# BioBERT v1.1's shapes (BERT-base, cased vocabulary of 28,996)
+BERT_BASE = dict(model_type="bert", architectures=["BertModel"],
+                 vocab_size=28996, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 hidden_act="gelu", max_position_embeddings=512,
+                 type_vocab_size=2, layer_norm_eps=1e-12,
+                 position_embedding_type="absolute", initializer_range=0.02)
+P13_CHECK = 16           # (b): texts per length bucket, plus one truncated
+P13_SWEEP = 4096         # (c): texts of a made-up length mix; the default
+#                          yaml over PrimeKG++ has about 160,000
+P13_SLICE = 128          # LMMultiModalsEncode's rows per NodeEmbedding call
+P13_NAMES = 512          # (d): names per spec
+P13_SHARED = 16          # (d): names in both gene/protein sub-specs
+CLS_RTOL = 1e-4          # (b): card against float64, of max|CLS|
+SYLLABLES = ("pro", "tein", "kin", "ase", "gen", "ome", "cell", "ular",
+             "rec", "ept", "or", "ami", "no", "acid", "path", "way", "mem",
+             "brane", "sig", "nal", "trans", "port", "hor", "mone", "enz",
+             "yme", "reg", "ul", "ation", "bind", "ing", "dom", "ain",
+             "muta", "tion", "ex", "pre", "ssion", "lig", "and")
+P13_PUNCT = ",.();:-/"
+
+
+def bert_words(n: int):
+    """``n`` lowercase vocabulary words of two or three syllables."""
+    out = []
+    for a, b in itertools.product(SYLLABLES, repeat=2):
+        out.append(a + b)
+    for a, b, c in itertools.product(SYLLABLES, repeat=3):
+        if len(out) >= n:
+            break
+        out.append(a + b + c)
+    return out[:n]
+
+
+def bert_vocab(size: int):
+    """BERT-cased's layout: [PAD], [unused*], the specials at 100-103, the
+    printable ASCII characters and their ``##`` pieces, words, filler."""
+    head = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+            + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    chars = [chr(c) for c in range(33, 127)]
+    pieces = ["##" + c for c in chars if c.isalnum()]
+    vocab = head + chars + pieces + bert_words(3000)
+    return vocab + [f"[filler{i}]" for i in range(size - len(vocab))]
+
+
+def write_safetensors(path: str, tensors: dict):
+    """A ``.safetensors`` file: the 8-byte little-endian header length,
+    the JSON header (padded to 8 bytes), the float32 data in order."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * 4
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().numpy().tobytes())
+
+
+def write_bert_base(path: str, cfg=None) -> str:
+    """(a): a BERT checkpoint directory written here: config.json,
+    vocab.txt, tokenizer_config.json and model.safetensors with HF's
+    initialisation (normal std 0.02 for the matrices and embeddings,
+    zero biases, LayerNorm ones and zeros) from a seeded CPU generator."""
+    cfg = dict(BERT_BASE if cfg is None else cfg)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(bert_vocab(cfg["vocab_size"])) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "BertTokenizer",
+                   "do_lower_case": False}, f)
+    gen = torch.Generator().manual_seed(SEED)
+    d, ff = cfg["hidden_size"], cfg["intermediate_size"]
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen) * cfg["initializer_range"]
+
+    tensors = {"embeddings.word_embeddings.weight":
+               normal(cfg["vocab_size"], d),
+               "embeddings.position_embeddings.weight":
+               normal(cfg["max_position_embeddings"], d),
+               "embeddings.token_type_embeddings.weight":
+               normal(cfg["type_vocab_size"], d),
+               "embeddings.LayerNorm.weight": torch.ones(d),
+               "embeddings.LayerNorm.bias": torch.zeros(d)}
+    for i in range(cfg["num_hidden_layers"]):
+        p = f"encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            tensors[f"{p}attention.self.{name}.weight"] = normal(d, d)
+            tensors[f"{p}attention.self.{name}.bias"] = torch.zeros(d)
+        for part, (rows, cols) in (("attention.output", (d, d)),
+                                   ("intermediate", (ff, d)),
+                                   ("output", (d, ff))):
+            tensors[f"{p}{part}.dense.weight"] = normal(rows, cols)
+            tensors[f"{p}{part}.dense.bias"] = torch.zeros(rows)
+        for part in ("attention.output", "output"):
+            tensors[f"{p}{part}.LayerNorm.weight"] = torch.ones(d)
+            tensors[f"{p}{part}.LayerNorm.bias"] = torch.zeros(d)
+    tensors["pooler.dense.weight"] = normal(d, d)
+    tensors["pooler.dense.bias"] = torch.zeros(d)
+    write_safetensors(os.path.join(path, "model.safetensors"), tensors)
+    return path
+
+
+def bert_text(rng, n: int, words) -> str:
+    """A text of exactly ``n`` WordPiece tokens under ``bert_vocab``:
+    vocabulary words and punctuation (one token each) and identifiers
+    that start with a digit (one token a character)."""
+    items = []
+    while n > 0:
+        u = rng.random()
+        if u < 0.85:
+            items.append(words[rng.integers(len(words))])
+            n -= 1
+        elif u < 0.9:
+            items.append(P13_PUNCT[rng.integers(len(P13_PUNCT))])
+            n -= 1
+        else:
+            k = int(min(n, rng.integers(2, 9)))
+            tail = "".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz0123"
+                                           "456789"), size=k - 1))
+            items.append(str(rng.integers(10)) + tail)
+            n -= k
+    return " ".join(items)
+
+
+def cls_check(model_dir: str, dev):
+    """(b): 16 texts in each of the four length buckets and one truncated
+    at 512 through NodeEmbedding on the card, against the same module on
+    the CPU in float64 over the same tokens."""
+    rng = np.random.default_rng(SEED + 13)
+    words = bert_words(3000)
+    groups = []
+    for k in range(1, 5):
+        lo, hi = max(1, (k - 1) * 128 - 1), k * 128 - 2
+        groups.append([bert_text(rng, int(rng.integers(lo, hi + 1)), words)
+                       for _ in range(P13_CHECK)])
+    groups[-1].append(bert_text(rng, 700, words))
+    ne = NodeEmbedding(model_dir, device=dev)
+    t0 = time.perf_counter()
+    wide = BertModel.from_pretrained(model_dir, "cpu").double()
+    worst = 0.0
+    for k, texts in enumerate(groups, 1):
+        bucket = ne.tokenize(texts)["input_ids"].shape
+        check(bucket == (32, 128 * k), f"(b) bucket {k}: shape {bucket}")
+        card = ne(texts)
+        tokens = ne.tokenizer(texts)
+        with torch.no_grad():
+            want = wide(*[torch.from_numpy(tokens[key]) for key in
+                          ("input_ids", "token_type_ids",
+                           "attention_mask")]).numpy()
+        err = float(np.abs(card - want).max())
+        scale = float(np.abs(want).max())
+        worst = max(worst, err / scale)
+        print(f"Stage A (b) bucket L={128 * k}: {len(texts)} texts, "
+              f"tokens {tokens['input_ids'].shape}, card float32 vs CPU "
+              f"float64 max_abs_err={err:.3g}, max|CLS|={scale:.4g} "
+              f"(tol {CLS_RTOL:g}·max|CLS| = {CLS_RTOL * scale:.3g})")
+        check(np.isfinite(card).all() and card.shape == (len(texts), 768),
+              f"(b) bucket {k}: CLS rows {card.shape}")
+        check(err <= CLS_RTOL * scale,
+              f"(b) bucket {k}: the card disagrees with float64")
+    print(f"Stage A (b): worst error {worst:.3g} of max|CLS| "
+          f"({time.perf_counter() - t0:.1f} s with the CPU reference)")
+    del wide
+    return ne
+
+
+def bert_flops(model, tokens: int, sum_sq: int) -> float:
+    """2 x non-embedding parameters x tokens, plus QK^T and PV
+    (2 x 2 x L x L x hidden a row and layer; ``sum_sq`` the sum of the
+    rows' L^2). Every layer is counted whole."""
+    params = sum(p.numel() for n, p in model.named_parameters()
+                 if not n.startswith("embeddings."))
+    cfg = model.config
+    return (2.0 * params * tokens
+            + 4.0 * sum_sq * cfg.hidden_size * cfg.num_hidden_layers)
+
+
+def stage_a_sweep(ne, dev):
+    """(c): P13_SWEEP texts of 32-512 tokens (about 10 % truncated; a
+    made-up mix) in P13_SLICE-row calls: texts/s, real and padded
+    tokens/s, the host tokenizer's seconds against the device's (CUDA
+    events), peak memory, the (rows, L) shapes and the shares of the
+    float32 bounds over the padded buckets and over the real tokens."""
+    rng = np.random.default_rng(SEED + 14)
+    words = bert_words(3000)
+    n = np.where(rng.random(P13_SWEEP) < 0.1,
+                 rng.integers(511, 1023, P13_SWEEP),
+                 rng.integers(30, 511, P13_SWEEP))
+    texts = [bert_text(rng, int(k), words) for k in n]
+    ne(texts[:P13_SLICE])                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host_s, device_ms, flops, real_flops, real, padded = (0.0, 0.0, 0.0,
+                                                          0.0, 0, 0)
+    shapes = set()
+    t0 = time.perf_counter()
+    for lo in range(0, len(texts), P13_SLICE):
+        batch = texts[lo:lo + P13_SLICE]
+        t1 = time.perf_counter()
+        tokens = ne.tokenize(batch)
+        host_s += time.perf_counter() - t1
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cls = ne.encode(tokens)
+        end.record()
+        out = cls[:len(batch)].cpu().numpy()
+        device_ms += start.elapsed_time(end)
+        rows, length = tokens["input_ids"].shape
+        shapes.add((rows, length))
+        lengths = tokens["attention_mask"][:len(batch)].sum(axis=1)
+        real += int(lengths.sum())
+        padded += rows * length
+        flops += bert_flops(ne.model, rows * length, rows * length ** 2)
+        real_flops += bert_flops(ne.model, int(lengths.sum()),
+                                 int((lengths ** 2).sum()))
+        check(np.isfinite(out).all(), "(c) CLS rows not finite")
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bound_s = flops / FP32_FLOP_PER_S
+    real_bound_s = real_flops / FP32_FLOP_PER_S
+    truncated = int((n > 510).sum())
+    print(f"Stage A (c) sweep: {len(texts)} texts ({truncated} truncated at "
+          f"512; token lengths a made-up mix, uniform over 32-512 with 10 % "
+          f"past 510, not the modality csvs') against the default yaml's "
+          f"about 160,000 over PrimeKG++, in "
+          f"{P13_SLICE}-row calls: {wall:.2f} s, "
+          f"{len(texts) / wall:.1f} texts/s, {real / wall:.0f} real and "
+          f"{padded / wall:.0f} padded tokens/s ({real} real, {padded} "
+          f"padded); host tokenizer {host_s:.2f} s, device "
+          f"{device_ms / 1e3:.2f} s (CUDA events), "
+          f"{padded / (device_ms / 1e3):.0f} padded tokens per device "
+          f"second; peak device memory {peak_gb:.2f} GB; shapes "
+          f"{sorted(shapes)}; float32 bound over the padded buckets (the "
+          f"static-bucket design's work) {bound_s:.2f} s "
+          f"({flops / 1e12:.1f} TFLOP at {FP32_FLOP_PER_S / 1e12:.0f} "
+          f"TFLOP/s), {bound_s / (device_ms / 1e3):.3f} of the device "
+          f"time; over the real tokens (the function's work, each text's "
+          f"own L, every layer whole) {real_bound_s:.2f} s "
+          f"({real_flops / 1e12:.1f} TFLOP), "
+          f"{real_bound_s / (device_ms / 1e3):.3f} of the device time")
+    check(len(shapes) <= 4, f"(c) {len(shapes)} shapes: {sorted(shapes)}")
+
+
+class RecordingLM(node_encoders.LMMultiModalsEncode):
+    """The port's LMMultiModalsEncode, keeping each slice's rows before
+    the normalisation."""
+
+    def __init__(self, *args, **kwargs):
+        self.before = []
+        super().__init__(*args, **kwargs)
+
+    def modality_rows(self, *args):
+        for names, stacked in super().modality_rows(*args):
+            self.before.append((names, stacked))
+            yield names, stacked
+
+
+def modality_csvs(ws: str, names, model_dir: str) -> str:
+    """(d): the default yaml's four specs (gene/protein nested) over
+    ``names`` by type, every column on ``model_dir``; missing fields
+    (empty and NA), two repeated rows, names shared by the gene specs.
+    Returns the yaml's path."""
+    rng = np.random.default_rng(SEED + 15)
+    words = bert_words(3000)
+    by_type = {t: [n for n in names if n.startswith(t + "_")]
+               for t in ("gene", "disease", "drug")}
+    genes = by_type["gene"]
+    k, s = P13_NAMES, P13_SHARED
+    specs = {"amino_acid": ("protein_aminoacid_sequence.csv", genes[:k],
+                            "protein_name", ("protein_seq", "ncbi_summary"),
+                            "ACDEFGHIKLMNPQRSTVWY"),
+             "dna": ("protein_dna_sequence.csv", genes[k - s:2 * k - s],
+                     "protein_name", ("protein_seq", "ncbi_summary"),
+                     "ACGT"),
+             "disease": ("disease_feature_base.csv", by_type["disease"][:k],
+                         "mondo_name", ("mondo_definition",
+                                        "umls_description"), None),
+             "drug": ("drug_feature_base.csv", by_type["drug"][:k],
+                      "generic_name", ("smiles", "description"), "CNO()=1c")}
+    yaml_specs = {}
+    for key, (file_name, spec_names, id_col, cols, alphabet) in specs.items():
+        rows = []
+        for i, name in enumerate(spec_names):
+            first = ("".join(rng.choice(list(alphabet),
+                                        size=int(rng.integers(20, 90))))
+                     if alphabet else bert_text(rng, int(rng.integers(8, 60)),
+                                                words))
+            second = bert_text(rng, int(rng.integers(8, 60)), words)
+            if i % 37 == 5:
+                first = ""
+            if i % 41 == 7:
+                second = "NA"
+            if i == 11:
+                first, second = "NA", ""
+            rows.append([name, first, second])
+        rows += [rows[3], rows[10]]              # repeated rows
+        path = os.path.join(ws, file_name)
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow([id_col, *cols])
+            writer.writerows(rows)
+        yaml_specs[key] = (
+            f"file_name: {path}\nidetifier_column: {id_col}\n"
+            f"modality_columns:\n" + "".join(f"  - {c}\n" for c in cols)
+            + "model_name_for_each_modality:\n"
+            + "".join(f"  - {model_dir}\n" for _ in cols))
+
+    def indent(text, n):
+        return "".join(" " * n + line + "\n" for line in text.splitlines())
+
+    yaml_path = os.path.join(ws, "stage_a_modality.yaml")
+    with open(yaml_path, "w") as f:
+        f.write("gene/protein:\n  amino_acid:\n"
+                + indent(yaml_specs["amino_acid"], 4) + "  dna:\n"
+                + indent(yaml_specs["dna"], 4)
+                + "disease:\n" + indent(yaml_specs["disease"], 2)
+                + "drug:\n" + indent(yaml_specs["drug"], 2))
+    return yaml_path
+
+
+def stage_a_cache(ws: str, names, model_dir: str, dev):
+    """(d): LMMultiModalsEncode end to end on the card; returns the yaml
+    and the cache."""
+    yaml_path = modality_csvs(ws, names, model_dir)
+    t0 = time.perf_counter()
+    with working_dir(ws):
+        enc = RecordingLM(yaml_path, embed_dim=LM_DIM, device=dev)
+    build_s = time.perf_counter() - t0
+    cache = enc.node_mapping
+    print(f"Stage A (d): LMMultiModalsEncode over {len(enc.specs())} specs "
+          f"built {os.path.relpath(enc.artifact_path)} in {build_s:.1f} s on "
+          f"the card: {len(cache)} names")
+    check(all(v.shape == (2, LM_DIM) and v.dtype == np.float32
+              for v in cache.values()), "(d) cache rows not (2, 768) f32")
+    norms = np.stack([np.linalg.norm(v, axis=0) for v in cache.values()])
+    check(float(np.abs(norms - 1.0).max()) < 1e-5,
+          "(d) cache rows not unit norm over the modality axis")
+    # the missing fields' rows: default_rng(0)'s draws, in the JAX order
+    before = iter(enc.before)
+    missing, last, by_spec = 0, {}, []
+    for spec in enc.specs():
+        rng = np.random.default_rng(0)
+        _, columns = node_encoders.unique_rows(
+            spec["file_name"], spec["idetifier_column"],
+            spec["modality_columns"])
+        rows, lo = len(columns[spec["modality_columns"][0]][1]), 0
+        by_spec.append(set())
+        while lo < rows:
+            names_b, stacked = next(before)
+            for m, col in enumerate(spec["modality_columns"]):
+                mask = columns[col][1][lo:lo + len(names_b)]
+                want = node_encoders.xavier_normal_np(
+                    rng, (int(mask.sum()), LM_DIM))
+                check(np.array_equal(stacked[mask, m], want),
+                      f"(d) {col}: missing rows are not default_rng(0)'s")
+                missing += int(mask.sum())
+            last.update(zip(names_b, stacked))
+            by_spec[-1].update(names_b)
+            lo += len(names_b)
+    # a later spec's rows overwrite an earlier one's
+    for name, stacked in last.items():
+        norm = np.maximum(np.linalg.norm(stacked, axis=0, keepdims=True),
+                          1e-12)
+        check(np.array_equal(cache[name], stacked / norm),
+              f"(d) {name}: cache row is not the last spec's")
+    shared = len(by_spec[0] & by_spec[1])
+    print(f"Stage A (d): {missing} missing fields drawn from "
+          f"default_rng(0) as the JAX package draws them; {shared} names "
+          f"in both gene/protein specs hold the dna spec's rows; rows "
+          f"unit-norm over the modality axis (max dev "
+          f"{float(np.abs(norms - 1.0).max()):.2g})")
+    check(shared == P13_SHARED and missing > 0,
+          f"(d) {shared} shared names, {missing} missing fields")
+    return yaml_path, cache
+
+
+def lm_ggd_step(ws: str, yaml_path: str, cache, dev) -> dict:
+    """(d): the gene/protein PrimeKGModule over the Stage A cache, and one
+    GGD + attention float32 step on it (after one uncounted warm-up step)
+    with its launches."""
+    dm = lm_gene_module(ws, modality_config_path=yaml_path)
+    ratio = dm.encoder.random_init_ratio
+    nodes = dm.data.node_list
+    covered = sum(name in cache for name in nodes)
+    print(f"Stage A (d): PrimeKGModule(node_init_method='lm') on "
+          f"{GCL_NODE_TYPE[0]}: {len(nodes)} nodes, {covered} in the "
+          f"cache, random_init_ratio {ratio:.6f}")
+    check(covered > 0 and abs(ratio - (1 - covered / len(nodes))) < 1e-12,
+          f"(d) random_init_ratio {ratio}")
+    i = next(i for i, name in enumerate(nodes) if name in cache)
+    check(np.array_equal(dm.graph.x[i], cache[nodes[i]]),
+          "(d) the graph's features are not the cache's rows")
+    loader = dm.train_dataloader(loader_type="neighbor")
+    loader.set_epoch(0)
+    batch = batch_to_device(next(iter(loader)), dev)
+    module = gcl_module.GGDModule(**GCL_FUSED).to(dev)
+    module.edge_layout = "dst"
+    module.feature_table = torch.as_tensor(dm.graph.x,
+                                           dtype=torch.float32).to(dev)
+    module.configure_optimizers(num_training_steps=100)
+    state = module.init_state(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state, _ = module.train_steps(state, [batch], gen)      # warm-up
+    torch.cuda.synchronize()
+    what = "Stage A (d): GGD + attention float32 step on the Stage A cache"
+    _, launches, _ = timed_steps(module, state, [batch], gen, what,
+                                 work=real_nodes)
+    check(launches == expected_launches(SEGSUM_PER_GCL_STEP, None, 0),
+          f"{what}: launches {launches}")
+    return launches
+
+
+def stage_a_phase(dm, dev, tmp) -> dict:
+    """Phase 13; returns the launches of its counted path (the GGD
+    step)."""
+    t_phase = time.perf_counter()
+    ws = tempfile.mkdtemp(dir=tmp)
+    os.symlink(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs"), os.path.join(ws, "configs"))
+    t0 = time.perf_counter()
+    model_dir = write_bert_base(os.path.join(ws, "bert-base"))
+    size = os.path.getsize(os.path.join(model_dir, "model.safetensors"))
+    print(f"Stage A (a): BERT-base directory ({BERT_BASE['num_hidden_layers']}"
+          f" layers, hidden {BERT_BASE['hidden_size']}, vocab "
+          f"{BERT_BASE['vocab_size']}, model.safetensors {size / 1e6:.1f} MB)"
+          f" written in {time.perf_counter() - t0:.1f} s")
+    ne = cls_check(model_dir, dev)
+    stage_a_sweep(ne, dev)
+    del ne
+    torch.cuda.empty_cache()
+    yaml_path, cache = stage_a_cache(ws, dm.data.node_list, model_dir, dev)
+    torch.cuda.empty_cache()
+    launches = lm_ggd_step(ws, yaml_path, cache, dev)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5135,6 +5618,9 @@ def main() -> int:
         # -- 12. DPI fine-tuning and the on-ramps -------------------------
         torch.cuda.empty_cache()
         dpi, dpi_records = dpi_phase(scorer.dm, dev, tmp)
+        # -- 13. Stage A: the LM cache from the port's BERT and WordPiece --
+        torch.cuda.empty_cache()
+        stage_a = stage_a_phase(scorer.dm, dev, tmp)
     # -- 9b. the Trainer against the serial loop, in a fresh process -----
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -5191,7 +5677,8 @@ def main() -> int:
         "design": "owner", "instance": "packed",
         "launches": launches["sorted_segment_sum"] + train_segsum
         + gcl_segsum + eval_segsum + ranked["sorted_segment_sum"]
-        + multimodal["sorted_segment_sum"] + dpi["sorted_segment_sum"],
+        + multimodal["sorted_segment_sum"] + dpi["sorted_segment_sum"]
+        + stage_a["sorted_segment_sum"],
         "max_abs_err": max(results.values()),
         "ms": serving["ms"], "first_design_ms": serving["first_ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],

@@ -2,8 +2,8 @@
 graph in a temporary working directory: checkpoints with a ``fusion``
 subtree written by each package and loaded by the other (params,
 hparams, Adam moments); the LM cache reader (hits, misses,
-``random_init_ratio``, and the refusal to build it: Stage A is not
-ported); ``GCLEncode`` over JAX-written GGD + attention checkpoints
+``random_init_ratio``, and what building it refuses without the modality
+csvs and models); ``GCLEncode`` over JAX-written GGD + attention checkpoints
 against the JAX package's own ``GCLEncode``; the port's ``train_kge`` on
 those GCL features (``data.node_init_method=gcl``, scripts/kge.sh's keys);
 and ``KGEEncode`` of its checkpoint against one JAX encode of it.
@@ -203,13 +203,28 @@ def test_lm_cache_hit_and_miss(workspace):
 
 
 def test_lm_cache_build_raises(tmp_path, monkeypatch):
-    """Stage A (the LMs over the modality csvs) is not ported: a missing
-    cache raises naming ROADMAP.md, read through the repository's modality
-    yaml from any directory."""
+    """Stage A builds a missing cache from the modality csvs and models;
+    read through the repository's modality yaml from a directory that
+    holds neither, it raises naming the first csv, and with that csv in
+    place, naming the first model, which the port never downloads
+    (tests/test_torch_stage_a.py builds the cache)."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md.*item 8"):
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
+    monkeypatch.delenv("HF_HUB_CACHE", raising=False)
+    with pytest.raises(FileNotFoundError,
+                       match="protein_aminoacid_sequence.csv"):
         node_encoders.LMMultiModalsEncode(
-            "configs/lm_modality/primekg_modality.yaml", embed_dim=DIM)
+            "configs/lm_modality/primekg_modality.yaml", embed_dim=DIM,
+            device="cpu")
+    os.makedirs("data/modalities")
+    with open("data/modalities/protein_aminoacid_sequence.csv", "w") as f:
+        f.write("protein_name,protein_seq,ncbi_summary\nTP53,MEEP,p53\n")
+    with pytest.raises(FileNotFoundError,
+                       match="unikei/bert-base-proteins.*downloads nothing"):
+        node_encoders.LMMultiModalsEncode(
+            "configs/lm_modality/primekg_modality.yaml", embed_dim=DIM,
+            device="cpu")
+    assert not os.path.exists("data/embed/primekg_modality_lm.pickle")
 
 
 def _write_jax_gcl_checkpoints(root):

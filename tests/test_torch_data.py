@@ -152,7 +152,8 @@ def test_primekg_refuses_csv_sources(tmp_path, monkeypatch):
     the same graph as JAX's pandas path; tests/test_torch_csv_sources.py
     holds the reader's corner cases); a cached kg.csv without the required
     columns and a missing BIOMEDKG_KG_CSV file still raise, as in JAX; the
-    LM cache's build (Stage A) still raises."""
+    LM cache's build (Stage A) raises without the modality csvs, naming
+    the first."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(jax_primekg, "_download_csv", lambda path: False)
     kw = dict(data_dir="./data/primekg", embed_dim=FEAT_DIM,
@@ -182,7 +183,8 @@ def test_primekg_refuses_csv_sources(tmp_path, monkeypatch):
     jdm.setup()
     dm.setup()
     _assert_graph_equal(jdm.graph, dm.graph)
-    with pytest.raises(NotImplementedError, match="lm"):
+    with pytest.raises(FileNotFoundError,
+                       match="protein_aminoacid_sequence.csv"):
         PrimeKGModule(data_dir=".", embed_dim=8, node_type=["drug"],
                       batch_size=8, val_ratio=0.2, test_ratio=0.2,
                       node_init_method="lm")

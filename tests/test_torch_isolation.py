@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, no biomedkg_tpu, no pandas, no
-PyYAML — in its sources, in chip_smoke.py, and at run time in a process
-where those imports fail — and no silent CPU fallback without CUDA."""
+PyYAML, no transformers, tokenizers or safetensors — in its sources, in
+chip_smoke.py, and at run time in a process where those imports fail —
+and no silent CPU fallback without CUDA."""
 
 import os
 import re
@@ -18,7 +19,8 @@ from biomedkg_tpu.training.kge_module import KGEModule as JaxKGEModule
 from biomedkg_tpu_torch.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "biomedkg_tpu", "pandas", "yaml", "optax")
+FORBIDDEN = ("jax", "biomedkg_tpu", "pandas", "yaml", "optax",
+             "transformers", "tokenizers", "safetensors")
 
 
 def _port_sources():
@@ -52,6 +54,7 @@ def test_slice_modules_are_scanned():
     assert set(SLICE_MODULES) <= scanned
     assert set(CONFIG_SLICE_MODULES) <= scanned
     assert set(DPI_SLICE_MODULES) <= scanned
+    assert set(STAGE_A_SLICE_MODULES) <= scanned
 
 
 # the config layer and the modules of Stage B's multimodal remainder
@@ -75,11 +78,11 @@ _MODULE_CHILD = textwrap.dedent("""
     else:
         try:
             module.LMMultiModalsEncode(
-                "configs/lm_modality/primekg_modality.yaml")
-        except NotImplementedError as e:
-            assert "ROADMAP.md" in str(e), e
+                "configs/lm_modality/primekg_modality.yaml", device="cpu")
+        except FileNotFoundError as e:
+            assert "protein_aminoacid_sequence.csv" in str(e), e
         else:
-            raise AssertionError("no LM cache, and nothing raised")
+            raise AssertionError("no LM cache, no csv, and nothing raised")
     print(sorted(m for m, mod in sys.modules.items()
                  if mod is not None and m.split(".")[0] in {forbidden!r}))
 """)
@@ -89,8 +92,9 @@ _MODULE_CHILD = textwrap.dedent("""
 def test_config_slice_module_runs_without_jax_pandas_yaml(path, tmp_path):
     """Each module of the config and fusion slice imports and runs (the
     config composed from the repository's configs/, both fusers applied,
-    the LM cache reader's refusal to build) in a process where JAX,
-    biomedkg_tpu, pandas, PyYAML and optax cannot be imported."""
+    the LM cache build's refusal without the modality csvs) in a process
+    where JAX, biomedkg_tpu, pandas, PyYAML, optax and the Hugging Face
+    packages cannot be imported."""
     name = "biomedkg_tpu_torch." + path[:-3].replace("/", ".")
     code = _MODULE_CHILD.format(forbidden=FORBIDDEN)
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -157,6 +161,71 @@ def test_dpi_slice_module_runs_without_jax_pandas_yaml(path, tmp_path):
     proc = subprocess.run([sys.executable, "-c", code, name, fixture],
                           cwd=tmp_path, env=env, capture_output=True,
                           text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+# Stage A: the checkpoint reader, the WordPiece tokenizer, the BERT
+# encoder and NodeEmbedding
+STAGE_A_SLICE_MODULES = ("interop/hf_files.py", "data/wordpiece.py",
+                         "models/bert.py", "data/lm_embed.py")
+
+_STAGE_A_CHILD = textwrap.dedent("""
+    import importlib, os, sys
+    for name in {forbidden!r}:
+        sys.modules[name] = None          # any import of it now fails
+    module = importlib.import_module(sys.argv[1])
+    model_dir, yaml_path = sys.argv[2], sys.argv[3]
+    name = sys.argv[1].rsplit(".", 1)[1]
+    if name == "hf_files":
+        assert module.resolve_model_dir(model_dir) == model_dir
+        state = module.load_state_dict(model_dir, "bert.")
+        assert state["embeddings.word_embeddings.weight"].shape[1] == 768
+    elif name == "wordpiece":
+        tokens = module.WordPieceTokenizer.from_dir(model_dir)(["a b", ""])
+        assert tokens["input_ids"].shape == (2, 4), tokens
+    elif name == "bert":
+        import torch
+        model = module.BertModel.from_pretrained(model_dir)
+        ids = torch.tensor([[2, 5, 3]])
+        assert model(ids, 0 * ids, 1 + 0 * ids).shape == (1, 768)
+    else:
+        assert module.NodeEmbedding(model_dir, device="cpu")(
+            ["protein"]).shape == (1, 768)
+        from biomedkg_tpu_torch.data.node_encoders import LMMultiModalsEncode
+        enc = LMMultiModalsEncode(yaml_path, device="cpu")
+        assert enc(["TP53"]).shape == (1, 2, 768)
+        assert enc.random_init_ratio == 0
+        assert os.path.exists("data/embed/stage_a_modality_lm.pickle")
+    print(sorted(m for m, mod in sys.modules.items()
+                 if mod is not None and m.split(".")[0] in {forbidden!r}))
+""")
+
+
+@pytest.fixture(scope="module")
+def stage_a_workspace(tmp_path_factory):
+    from test_torch_bert import write_tiny_bert
+    from test_torch_stage_a import write_workspace
+
+    root = tmp_path_factory.mktemp("stage_a")
+    model_dir = write_tiny_bert(root / "tiny-bert", layers=1)
+    return model_dir, write_workspace(str(root), model_dir)
+
+
+@pytest.mark.parametrize("path", STAGE_A_SLICE_MODULES)
+def test_stage_a_slice_module_runs_without_hf_jax_pandas_yaml(
+        path, stage_a_workspace, tmp_path):
+    """Each module of Stage A imports and runs (the checkpoint read, the
+    tokenizer, the encoder, NodeEmbedding and the LM cache built from a
+    modality yaml, on the CPU) in a process where transformers, tokenizers,
+    safetensors, JAX, biomedkg_tpu, pandas, PyYAML and optax cannot be
+    imported."""
+    name = "biomedkg_tpu_torch." + path[:-3].replace("/", ".")
+    code = _STAGE_A_CHILD.format(forbidden=FORBIDDEN)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code, name,
+                           *stage_a_workspace], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
