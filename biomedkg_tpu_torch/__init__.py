@@ -25,5 +25,12 @@ unseen-node protocol (``data/inductive.py``, ``eval/inductive.py``,
 cold-start dropout); the config layer (``config.py``: ``configs/`` and
 the scripts' override vocabulary, without PyYAML), modality fusion
 (``models/fusion.py``) and the LM, GCL and KGE embedding caches
-(``data/node_encoders.py``).
+(``data/node_encoders.py``); DPI fine-tuning (``train_dpi.py``,
+``test_dpi.py``) and Stage A (``data/lm_embed.py``, ``models/bert.py``);
+the typed tables (``models/typed.py``, ``sampling/typed_batch.py``,
+``training/typed_train.py``: ``train_kge typed_tables=true``),
+``ml_exp.py``, the RGCN's opt-in ``dst_bwd`` variants
+(``ops/aggconv.py``, ``ops/segment.py::take_rows_via_perm``) and
+``remat``, ``utils/profiling.py`` and the reference's import-layout
+aliases (``data_module``, ``factory``, ``gcl_module``, ``kge_module``).
 """

@@ -23,13 +23,22 @@ from ..ops.negscore import (complex_neg_scores, complex_neg_scores_ds,
                             distmult_neg_scores, distmult_neg_scores_ds,
                             rotate_neg_scores, rotate_neg_scores_ds,
                             transe_neg_scores, transe_neg_scores_ds)
-from ..ops.segment import take_rows, take_rows_sorted
+from ..ops.segment import take_rows, take_rows_sorted, take_rows_via_perm
 
 
 def _tail_take(z, tail, tail_sorted):
     """Tail-row gather; with ``tail_sorted`` (the tails ascend: the "dst"
     layout) its backward runs on the sorted segment-sum."""
     return take_rows_sorted(z, tail) if tail_sorted else take_rows(z, tail)
+
+
+def _head_take(z, head, head_perm):
+    """Head-row gather; with ``head_perm`` = (src_pos, s2), the dst
+    batch's src-sorted copy (``dst_bwd="perm"``), its backward permutes
+    the gradient into that order and sums it on the sorted segment-sum."""
+    if head_perm is None:
+        return take_rows(z, head)
+    return take_rows_via_perm(z, head, *head_perm)
 
 
 def _halves(v):
@@ -92,8 +101,9 @@ class TransE(_Decoder):
         fn = transe_neg_scores_ds if dst_sorted else transe_neg_scores
         return fn(z, neg_src, neg_dst, rel, self.rel_emb)
 
-    def score(self, z, head, tail, rel, tail_sorted: bool = False):
-        h = self._l1_normalize(take_rows(z, head))
+    def score(self, z, head, tail, rel, tail_sorted: bool = False,
+              head_perm=None):
+        h = self._l1_normalize(_head_take(z, head, head_perm))
         t = self._l1_normalize(_tail_take(z, tail, tail_sorted))
         r = take_rows(self.rel_emb, rel)
         return -torch.sum((h + r - t).abs(), dim=-1)
@@ -123,11 +133,13 @@ class DistMult(_Decoder):
         fn = distmult_neg_scores_ds if dst_sorted else distmult_neg_scores
         return fn(z, neg_src, neg_dst, rel, self.rel_emb)
 
-    def score(self, z, head, tail, rel, tail_sorted: bool = False):
+    def score(self, z, head, tail, rel, tail_sorted: bool = False,
+              head_perm=None):
         """Per-edge scores. ``tail_sorted``: the tails ascend (the "dst"
         layout), so the tail gather's backward runs on the sorted
-        segment-sum."""
-        h = take_rows(z, head)
+        segment-sum; ``head_perm`` routes the head gather's backward
+        likewise (``_head_take``)."""
+        h = _head_take(z, head, head_perm)
         t = _tail_take(z, tail, tail_sorted)
         r = take_rows(self.rel_emb, rel)
         return torch.sum(h * r * t, dim=-1)
@@ -158,8 +170,10 @@ class ComplEx(_Decoder):
         fn = complex_neg_scores_ds if dst_sorted else complex_neg_scores
         return fn(z, neg_src, neg_dst, rel, self.rel_emb)
 
-    def score(self, z, head, tail, rel, tail_sorted: bool = False):
-        return self._combine(take_rows(z, head), take_rows(self.rel_emb, rel),
+    def score(self, z, head, tail, rel, tail_sorted: bool = False,
+              head_perm=None):
+        return self._combine(_head_take(z, head, head_perm),
+                             take_rows(self.rel_emb, rel),
                              _tail_take(z, tail, tail_sorted))
 
     def score_all_tails(self, z, head, rel):
@@ -211,8 +225,10 @@ class RotatE(_Decoder):
         fn = rotate_neg_scores_ds if dst_sorted else rotate_neg_scores
         return self.gamma + fn(z, neg_src, neg_dst, rel, self.rel_emb)
 
-    def score(self, z, head, tail, rel, tail_sorted: bool = False):
-        return self._combine(take_rows(z, head), take_rows(self.rel_emb, rel),
+    def score(self, z, head, tail, rel, tail_sorted: bool = False,
+              head_perm=None):
+        return self._combine(_head_take(z, head, head_perm),
+                             take_rows(self.rel_emb, rel),
                              _tail_take(z, tail, tail_sorted))
 
     def _candidates(self, v_re, v_im, z):

@@ -27,7 +27,25 @@ E >= R·N, else edge; the "dst" layout forces node):
 In the "dst" layout (destination-sorted batches) the sum and the (N, R)
 count table run on the CUDA sorted segment-sum (ops/segsum.py): 1 + one
 per conv launches per forward. The "relation" layout sums with a float32
-``index_add_``. The ``dst_bwd`` variants are not ported.
+``index_add_``.
+
+Two opt-in ``dst_bwd`` variants read the dst batch's src-sorted copy
+(``src_edges``, ``src_pos``) and change only where the gradients are
+summed (the JAX package's opt-ins; it measured "agg" as a dead end at
+its benchmark's envelope):
+
+* "perm": the node conv transforms into an (N, R, dout) layout and
+  gathers at ``src·R + rel`` with ``take_rows_via_perm``, whose backward
+  permutes the gradient into the copy's order and sums it on the segsum
+  (one more launch per conv in the backward);
+* "agg": ops/aggconv.py's aggregate-then-transform conv, both SpMMs on
+  the segsum (one in the forward, one in the backward, per conv), for the
+  layers with din ≤ dout; wider-input layers (the 768 → 256 input conv)
+  keep the node path.
+
+``remat`` recomputes each conv in the backward
+(``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``):
+less activation memory, the conv's launches twice.
 
 RGAT (the reference's intended relational attention, PARITY.md) runs in
 the "relation" layout only (its ``edge_layout`` refuses "dst"): per conv
@@ -50,11 +68,14 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..nn import dropout, dropout_mask, xavier_uniform
+from ..ops.aggconv import agg_conv
 from ..ops.relmm import relation_matmul_sorted
 from ..ops.segment import (per_dst_relation_counts, scatter_add,
-                           segment_softmax, take_rows, take_rows_matbwd)
+                           segment_softmax, take_rows, take_rows_matbwd,
+                           take_rows_via_perm)
 from ..ops.segsum import sorted_segment_sum
 
 DROPOUT = 0.2
@@ -93,12 +114,17 @@ def _dropout(x, i, training, drop_out, generator, dropout_masks):
 class RGCN(nn.Module):
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
                  num_hidden_layers: int, num_relations: int,
-                 drop_out: bool = True, conv_impl: str = "auto"):
+                 drop_out: bool = True, conv_impl: str = "auto",
+                 remat: bool = False):
         super().__init__()
         self.dims = _layer_dims(in_dim, hidden_dim, out_dim,
                                 num_hidden_layers)
         self.num_relations = num_relations
         self.drop_out = drop_out
+        self.remat = remat
+        # "scatter", "perm" or "agg": where the dst layout's gradients are
+        # summed (the module docstring)
+        self.dst_bwd = "scatter"
         if conv_impl not in ("auto", "node", "edge"):
             raise ValueError(f"unknown conv_impl {conv_impl!r}")
         # "auto" picks node when E >= R·N (the reference's FLOP rule)
@@ -115,23 +141,33 @@ class RGCN(nn.Module):
             layer.w_root.copy_(xavier_uniform(layer.w_root.shape, generator))
             layer.b.zero_()
 
+    def _rel_onehot(self, edge_type):
+        return edge_type[:, None] == torch.arange(
+            self.num_relations, device=edge_type.device)[None, :]
+
+    @staticmethod
+    def _count_lookup(cnt2d, dst, ohr):
+        """Per-edge count: the (N, R) table's row, one-hot selected."""
+        return torch.where(ohr, take_rows(cnt2d, dst), 0.0).sum(1)
+
     def _edge_norm(self, dst, dst32, edge_type, edge_mask, num_nodes):
-        """Per-edge 1/|N_r(dst)| (zero on pads), shared by every layer."""
+        """Per-edge 1/|N_r(dst)| (zero on pads), shared by every layer;
+        in the "dst" layout also the (N, R) count table."""
         r = self.num_relations
         if self.edge_layout == "dst":
-            ohr = edge_type[:, None] == torch.arange(
-                r, device=edge_type.device)[None, :]
+            ohr = self._rel_onehot(edge_type)
             cnt2d = sorted_segment_sum((ohr & edge_mask[:, None]).float(),
                                        dst32, num_nodes)
-            flat_cnt = torch.where(ohr, take_rows(cnt2d, dst), 0.0).sum(1)
+            flat_cnt = self._count_lookup(cnt2d, dst, ohr)
+            return edge_mask.float() / flat_cnt.clamp(min=1.0), cnt2d
         else:
             cnt = per_dst_relation_counts(dst, edge_type, edge_mask,
                                           num_nodes, r)
             flat_cnt = take_rows(cnt.reshape(-1), dst * r + edge_type)
-        return edge_mask.float() / flat_cnt.clamp(min=1.0)
+        return edge_mask.float() / flat_cnt.clamp(min=1.0), None
 
     def _conv(self, w_rel, w_root, b, x, src, dst, dst32, edge_type,
-              edge_mask, block_rel, norm):
+              edge_mask, block_rel, norm, perm=None):
         num_nodes = x.shape[0]
         impl = self.conv_impl
         if impl == "auto":
@@ -139,7 +175,15 @@ class RGCN(nn.Module):
                     * num_nodes else "edge")
         if self.edge_layout == "dst":
             impl = "node"
-        if impl == "node":
+        if impl == "node" and perm is not None:
+            # (N, R, dout) layout, so the flat key src·R + rel is the
+            # src-sorted copy's; the gather's backward sums on the segsum
+            src_pos, key2 = perm
+            r, dout = w_rel.shape[0], w_rel.shape[-1]
+            h_all = x @ w_rel.permute(1, 0, 2).reshape(x.shape[1], r * dout)
+            msg = take_rows_via_perm(h_all.reshape(-1, dout),
+                                     src * r + edge_type, src_pos, key2)
+        elif impl == "node":
             h_all = torch.matmul(x.unsqueeze(0), w_rel)   # (R, N, dout)
             flat = edge_type * num_nodes + src
             msg = take_rows(h_all.reshape(-1, h_all.shape[-1]), flat)
@@ -157,28 +201,68 @@ class RGCN(nn.Module):
             agg = scatter_add(msg, dst, num_nodes)
         return x @ w_root + b + agg.to(x.dtype)
 
+    def _agg_layer(self, w_rel, w_root, b, x, src, key, norm, s2, key2,
+                   norm2):
+        """The "agg" variant's conv: ops/aggconv.py + the root term."""
+        agg = agg_conv(x, w_rel, src, key, norm.to(x.dtype), s2, key2,
+                       norm2.to(x.dtype))
+        return x @ w_root + b + agg
+
     def forward(self, x, edge_index, edge_type, edge_mask, block_rel=None,
                 *, training: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
                 generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[List[torch.Tensor]] = None):
+                dropout_masks: Optional[List[torch.Tensor]] = None,
+                src_edges: Optional[torch.Tensor] = None,
+                src_pos: Optional[torch.Tensor] = None):
         """(N, out_dim) node embeddings in ``compute_dtype``. ``block_rel``
         is the relation-layout batch's per-block relation (the edge conv
         needs it). In training, the dropout keep masks are
         ``dropout_masks`` (one bool (N, width) mask per hidden layer) or
-        drawn from ``generator``."""
+        drawn from ``generator``. ``src_edges`` (4, E) [src, dst, rel,
+        mask] and ``src_pos`` (E,), the dst batch's src-sorted copy, feed
+        the ``dst_bwd`` variants."""
         if self.edge_layout not in ("relation", "dst"):
             raise ValueError(f"unknown edge_layout {self.edge_layout!r}")
+        if self.dst_bwd not in ("scatter", "perm", "agg"):
+            raise ValueError(f"unknown dst_bwd {self.dst_bwd!r}")
         src, dst = edge_index[0], edge_index[1]
         dst32 = dst.to(torch.int32) if self.edge_layout == "dst" else None
-        norm = self._edge_norm(dst, dst32, edge_type, edge_mask, x.shape[0])
+        num_nodes, r = x.shape[0], self.num_relations
+        norm, cnt2d = self._edge_norm(dst, dst32, edge_type, edge_mask,
+                                      num_nodes)
         norm = norm.to(compute_dtype)
+        copy = (self.edge_layout == "dst" and src_edges is not None
+                and src_edges.numel() > 0)
+        variant = self.dst_bwd if copy else "scatter"
+        if variant == "perm" and (src_pos is None or src_pos.numel() == 0):
+            variant = "scatter"
+        perm = None
+        if variant == "perm":
+            perm = (src_pos, (src_edges[0] * r + src_edges[2]).to(
+                torch.int32))
+        elif variant == "agg":
+            s2, d2, r2, m2 = src_edges
+            norm2 = m2.float() / self._count_lookup(
+                cnt2d, d2, self._rel_onehot(r2)).clamp(min=1.0)
+            agg_args = (src, (dst * r + edge_type).to(torch.int32), norm,
+                        s2.to(torch.int32), d2 * r + r2, norm2)
+
+        def conv(w_rel, w_root, b, x):
+            if variant == "agg" and w_rel.shape[1] <= w_rel.shape[2]:
+                return self._agg_layer(w_rel, w_root, b, x, *agg_args)
+            # the wide-input layers of "agg" keep the node path
+            return self._conv(w_rel, w_root, b, x, src, dst, dst32,
+                              edge_type, edge_mask, block_rel, norm,
+                              perm if variant == "perm" else None)
+
         x = x.to(compute_dtype)
         for i, layer in enumerate(self.layers):
-            x = self._conv(layer.w_rel.to(compute_dtype),
-                           layer.w_root.to(compute_dtype),
-                           layer.b.to(compute_dtype), x, src, dst, dst32,
-                           edge_type, edge_mask, block_rel, norm)
+            args = (layer.w_rel.to(compute_dtype),
+                    layer.w_root.to(compute_dtype),
+                    layer.b.to(compute_dtype), x)
+            x = (checkpoint(conv, *args, use_reentrant=False)
+                 if self.remat else conv(*args))
             if i == len(self.layers) - 1:
                 break
             x = _dropout(torch.relu(x), i, training, self.drop_out,

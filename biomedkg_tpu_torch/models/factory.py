@@ -68,3 +68,13 @@ class KGEModelFactory:
         decoder = DECODERS[decoder_name](num_relations=num_relation,
                                          hidden_channels=out_dim)
         return GAE(encoder=encoder, decoder=decoder)
+
+
+def create_kge_model(cfg) -> GAE:
+    """The GAE a model config (``cfg.model``'s keys, with
+    ``num_relation``) names (the reference's factory.py:104-114)."""
+    return KGEModelFactory.get_model(
+        encoder_name=cfg.encoder_name, decoder_name=cfg.decoder_name,
+        in_dim=cfg.in_dim, hidden_dim=cfg.hidden_dim, out_dim=cfg.out_dim,
+        num_hidden_layers=cfg.num_hidden_layers,
+        num_relation=cfg.num_relation, num_heads=cfg.num_heads)

@@ -6,7 +6,9 @@ and returns the gradient's own type, as the reference's custom VJPs do
 (bf16 sums saturate on hub nodes, ROADMAP.md hazard H4); torch's own
 ``index_select`` backward would sum in the gradient's type.
 ``take_rows_sorted`` routes that scatter through the sorted segment-sum
-(ops/segsum.py: the CUDA kernel on a CUDA tensor). The reference's
+(ops/segsum.py: the CUDA kernel on a CUDA tensor), and
+``take_rows_via_perm`` (``dst_bwd="perm"``) permutes the gradient into a
+sorted order first. The reference's
 ``take_rows_matbwd`` (a one-hot matmul backward for small tables, a TPU
 lowering choice) is ``take_rows`` here: the float32 scatter computes the
 same exact sums.
@@ -60,6 +62,35 @@ class _TakeRowsSorted(torch.autograd.Function):
 
 
 take_rows_matbwd = take_rows
+
+
+class _TakeRowsViaPerm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index, perm_pos, sorted_keys):
+        ctx.save_for_backward(perm_pos, sorted_keys)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm_pos, sorted_keys = ctx.saved_tensors
+        g2 = g.index_select(0, perm_pos)
+        return (sorted_segment_sum(g2, sorted_keys, ctx.num_rows)
+                .to(g.dtype), None, None, None)
+
+
+def take_rows_via_perm(x: torch.Tensor, index: torch.Tensor,
+                       perm_pos: torch.Tensor,
+                       sorted_keys: torch.Tensor) -> torch.Tensor:
+    """``x[index]`` whose backward permutes the gradient rows into an order
+    where their keys ascend (``perm_pos``: the dst batch's
+    (src, rel)-lexsorted copy, ``GraphBatch.src_pos``) and sums them with
+    ``sorted_segment_sum`` at ``sorted_keys`` (int32), in place of the
+    float32 scatter at the unsorted ``index`` (the JAX package's opt-in
+    ``dst_bwd="perm"``). Contract: ``sorted_keys[i] ==
+    index[perm_pos[i]]`` wherever that row's gradient is nonzero (pads may
+    point anywhere with a zero gradient), ascending."""
+    return _TakeRowsViaPerm.apply(x, index, perm_pos, sorted_keys)
 
 
 def take_rows_sorted(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -42,9 +42,16 @@ Every checkpoint holds the optimizer state, which ``KGEScorer`` serves and
 ``Trainer.fit(resume_from=...)`` resumes. It trains on the one card
 ``device`` names, whatever ``devices`` says: the config's ``devices: 0,1``
 asks for data parallelism over two, which is not ported (ROADMAP.md queue
-1, item 12); ``typed_tables=true`` raises (item 11). ``train`` returns the
-path of the checkpoint the test loaded (None when it tested the weights in
-memory: ``debug``, or no validation ran).
+1, item 12). ``train`` returns the path of the checkpoint the test loaded
+(None when it tested the weights in memory: ``debug``, or no validation
+ran).
+
+``typed_tables=true`` trains the hetero-native typed tables instead
+(training/typed_train.py: per-type feature tables and per-signature edge
+blocks, the RGCN in float32): full-batch on the train split's edges, or
+typed GraphSAINT sub-batches with ``typed_loader=saint``, ``typed_steps``
+(300) steps an epoch; it prints and returns the test metrics of the
+full-graph typed encode and writes no checkpoint, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from .training.checkpoint import ModelCheckpoint
 from .training.kge_module import KGEModule
 from .training.logger import MetricsLogger
 from .training.trainer import Trainer
+from .training.typed_train import typed_full_train, typed_saint_train
 
 
 def data_module(cfg: Config):
@@ -150,20 +158,23 @@ def new_module(cfg: Config, num_relation: int) -> KGEModule:
                      seed=cfg.seed)
 
 
-def train(cfg: Config) -> Optional[str]:
+def train(cfg: Config):
     """Train, validate and test as ``cfg`` says; returns the path of the
-    checkpoint the test loaded."""
-    if cfg.get("typed_tables", False):
-        raise NotImplementedError("typed_tables is not ported yet "
-                                  "(ROADMAP.md queue 1, item 11)")
+    checkpoint the test loaded, or with ``typed_tables`` the test
+    metrics."""
     device = resolve_device(cfg.get("device"))
     dm = data_module(cfg)
+    if cfg.get("typed_tables", False):
+        module = new_module(cfg, dm.data.num_edge_types)
+        if cfg.get("typed_loader", "full") == "saint":
+            return typed_saint_train(module, dm, cfg, device)
+        return typed_full_train(module, dm, cfg, device)
     module = new_module(cfg, dm.data.num_edge_types).to(device)
     return fit_and_test(cfg, dm, module, "kge", experiment_name(cfg),
                         "BioMedKG-KGE")
 
 
-def main(argv: Optional[List[str]] = None) -> Optional[str]:
+def main(argv: Optional[List[str]] = None):
     return train(load_config(CONFIG_DIR, "kge", cli_overrides(
         sys.argv[1:] if argv is None else argv)))
 

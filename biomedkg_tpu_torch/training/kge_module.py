@@ -48,6 +48,13 @@ per-relation counts and ``encode`` (``_effective_types``). Encoding runs
 in float32 whatever ``compute_dtype`` training used, as the reference's
 ``encode`` does.
 
+``dst_bwd`` "perm" or "agg" (the RGCN's opt-in variants,
+models/encoders.py) hands the encoder the dst batch's src-sorted copy
+(``src_edges``, with ``fix_edge_id``'s relation and the cold-start keep
+mask applied as in the primary order, and ``src_pos``); with "perm" the
+positive head gather's backward also runs on the segsum. ``remat``
+recomputes each RGCN conv in the backward.
+
 Node features may be (N, d) (random), (N, 2, d) (``node_init_method``
 "lm": the LM cache's two modalities) or (N, 1, d) ("gcl": the GCL cache's
 rows). ``fusion_fn`` makes them (N, d) in float32 before the encoder's
@@ -78,7 +85,7 @@ from .checkpoint import load_checkpoint
 from .metrics import (BootstrappedBinaryMetrics, EdgeWisePrecision,
                       HistogramBinaryMetrics)
 from .optim import make_optimizer
-from .stepping import StepsMixin, mean_loss
+from .stepping import StepsMixin, TrainState, mean_loss  # noqa: F401
 
 
 def _mix_factor(e: int, bound: Optional[int] = None) -> int:
@@ -206,6 +213,8 @@ class KGEModule(StepsMixin, nn.Module):
             in_dim=in_dim, hidden_dim=hidden_dim, out_dim=out_dim,
             num_hidden_layers=num_hidden_layers, num_relation=num_relation,
             num_heads=num_heads)
+        if hasattr(self.model.encoder, "remat"):
+            self.model.encoder.remat = bool(remat)
         # the reference fuses LM features only
         self.fusion = (FusionFactory.create_fuser(method=fuse_method,
                                                   embed_dim=in_dim)
@@ -274,16 +283,22 @@ class KGEModule(StepsMixin, nn.Module):
 
     @property
     def dst_bwd(self) -> str:
-        return "scatter"
+        return getattr(self.model.encoder, "dst_bwd", "scatter")
 
     @dst_bwd.setter
     def dst_bwd(self, value: str):
-        if value in ("perm", "agg"):
-            raise NotImplementedError(
-                f"dst_bwd={value!r} is not ported yet (ROADMAP.md queue 1: "
-                "opt-in variants)")
-        if value != "scatter":
+        """Where the dst layout's gradients are summed (the RGCN's opt-in
+        variants, models/encoders.py): "scatter" (the default), "perm"
+        or "agg". An encoder without them (RGAT) takes only "scatter"."""
+        if value not in ("scatter", "perm", "agg"):
             raise ValueError(f"unknown dst_bwd {value!r}")
+        supported = hasattr(self.model.encoder, "dst_bwd")
+        if value != "scatter" and not supported:
+            raise ValueError(
+                f"{type(self.model.encoder).__name__} has no dst-layout "
+                f"backward variants (dst_bwd must stay 'scatter')")
+        if supported:
+            self.model.encoder.dst_bwd = value
 
     @property
     def filter_negatives(self) -> bool:
@@ -361,13 +376,35 @@ class KGEModule(StepsMixin, nn.Module):
                     batch.node_mask.shape[0], generator=generator,
                     device=generator.device) >= self.cold_start_dropout
             conv_mask = emask & cold_keep[src] & cold_keep[dst]
+        enc_kwargs = {}
+        if (self.edge_layout == "dst" and self.dst_bwd != "scatter"
+                and batch.src_edges.numel()):
+            # the variants read the src-sorted copy, which mirrors what the
+            # primary order sees: fix_edge_id's relation and the cold-start
+            # keep mask
+            se = batch.src_edges
+            if self._fix_edge_id is not None:
+                se = torch.stack([se[0], se[1],
+                                  torch.full_like(se[2], self._fix_edge_id),
+                                  se[3]])
+            if cold:
+                se = torch.stack([se[0], se[1], se[2], se[3] * (
+                    cold_keep[se[0]] & cold_keep[se[1]])])
+            enc_kwargs = dict(src_edges=se, src_pos=batch.src_pos)
         z = self.model.encoder(
             x, batch.edge_index, etype, conv_mask, block_rel,
             training=training, compute_dtype=self.compute_dtype,
-            generator=generator, dropout_masks=dropout_masks).float()
+            generator=generator, dropout_masks=dropout_masks,
+            **enc_kwargs).float()
         decoder = self.model.decoder
+        head_perm = None
+        if enc_kwargs and self.dst_bwd == "perm":
+            # the positive head gather's backward on the segsum too
+            head_perm = (batch.src_pos,
+                         enc_kwargs["src_edges"][0].to(torch.int32))
         pos_pred = decoder.score(z, src, dst, etype,
-                                 tail_sorted=self.edge_layout == "dst")
+                                 tail_sorted=self.edge_layout == "dst",
+                                 head_perm=head_perm)
 
         ratio = self.neg_ratio or 1
         num_edges = etype.shape[0]

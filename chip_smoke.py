@@ -6,8 +6,8 @@ and the unseen-node protocol, and the repo's own scripts on the config
 layer with modality fusion and the LM and GCL embedding caches, and DPI
 fine-tuning with the csv on-ramps and the reference's Lightning
 checkpoints, and Stage A (the LM cache from the port's own BERT encoder
-and WordPiece tokenizer), at full width on one CUDA card (Hopper,
-sm_90a).
+and WordPiece tokenizer), and the typed tables, ml_exp and the opt-in
+RGCN variants, at full width on one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -327,6 +327,35 @@ Phases; any failure ends the run with a non-zero exit:
     gene/protein ``PrimeKGModule(node_init_method="lm")`` over that cache
     (its ``random_init_ratio``) and one GGD + attention float32 step on
     it (segsum 8, added to the segsum record's ``launches``).
+14. Typed tables, ml_exp and the opt-in variants, after phase 13, on the
+    same graph at full width (RGCN 768 → 256 × 4 + DistMult, K = 10,
+    float32): (a) the full graph's typed encode (8 signatures, one per
+    relation: 32 segsum launches an encode) against the plain versions
+    and against the homogeneous dst encode on the same weights (Z_RTOL),
+    timed, and the largest and smallest signature's segsum timed
+    (segsum_times); (b) ``train_kge typed_tables=true`` in-process
+    (P14_TYPED_STEPS steps, its launches counted), then on the train
+    split one step's loss and every gradient with the kernels against
+    the plain versions under one injected negative set (STEP_TOL
+    float32; every step comparison of this phase counts the ReLU
+    elements the two runs gate apart, holds them to FLIP_SHARE and
+    FLIP_NEAR, and with a flip holds the second run on the first's gates
+    instead, printing both: ``hold_runs``) and timed steps (ms, peak
+    memory); (c) the same with ``typed_loader=saint`` (128 roots, walk
+    10; injected negatives and dropout masks; dropped_edges), and how
+    far one flipped ReLU moves that batch's gradients (one_flip_move);
+    (d) ``ml_exp.features`` from a KGE checkpoint of phase 2's weights
+    (the KGE cache's encode counted; the miss ratio; X against float64
+    from the cache; no classifier: the card has neither xgboost nor
+    scikit-learn); (e) one float32 Stage C step (phase 5's envelope) with
+    ``dst_bwd`` "perm", "agg" and ``remat=True`` against "scatter" and
+    each against its plain versions, each variant's timed steps (segsum
+    6, 11, 9 and 10 a step), and the variants' segment-sums timed at the
+    batch's shape (agg's N·R forward and N backward SpMMs, perm's N·R
+    backward). Its counted launches add to the segsum and DistMult
+    negscore records; the segsum record carries the ``typed_*``,
+    ``typed_small_*``, ``agg_fwd_*``, ``agg_bwd_*`` and ``perm_bwd_*``
+    numbers.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -353,7 +382,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from biomedkg_tpu_torch import rank_eval, train_dpi, train_kge
+from biomedkg_tpu_torch import ml_exp, rank_eval, train_dpi, train_kge
 from biomedkg_tpu_torch.config import CONFIG_DIR, cli_overrides, load_config
 from biomedkg_tpu_torch.data.modules import PrimeKGModule
 from biomedkg_tpu_torch.data import csv_columns, node_encoders
@@ -370,10 +399,11 @@ from biomedkg_tpu_torch.data.triplet import TripletGraph
 from biomedkg_tpu_torch.device import check_full_fp32
 from biomedkg_tpu_torch.eval import ranking
 from biomedkg_tpu_torch.interop.jax_params import to_jax_params
-from biomedkg_tpu_torch.models import decoders, encoders
+from biomedkg_tpu_torch.models import decoders, encoders, typed
 from biomedkg_tpu_torch.models.bert import BertModel
 from biomedkg_tpu_torch.nn import dropout_mask
-from biomedkg_tpu_torch.ops import (_build, flashnce, negscore, relmm,
+from biomedkg_tpu_torch.ops import (_build, aggconv, flashnce, negscore,
+                                    relmm,
                                     segment, segsum)
 from biomedkg_tpu_torch.sampling import native
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
@@ -383,7 +413,7 @@ from biomedkg_tpu_torch.serve import PRIMEKG_DATA, serve_loop
 from biomedkg_tpu_torch.serving import KGEScorer
 from biomedkg_tpu_torch.training.checkpoint import (load_checkpoint,
                                                     save_checkpoint)
-from biomedkg_tpu_torch.training import gcl_module
+from biomedkg_tpu_torch.training import gcl_module, typed_train
 from biomedkg_tpu_torch.training.stepping import param_grads
 from biomedkg_tpu_torch.training.trainer import Trainer
 from biomedkg_tpu_torch.training.kge_module import (HistogramBinaryMetrics,
@@ -781,14 +811,16 @@ NEG_DISPATCH = {negscore.kernel_name(mode, dual):
 @contextlib.contextmanager
 def plain_versions():
     """The model with every kernel swapped for its plain torch version
-    (the segment-sums of the encoder and of the tail gather's backward,
-    the grouped GEMM of the relational convs, the negative scoring of
-    every decoder and sampler, and GRACE's flash denominators)."""
-    saved = (encoders.sorted_segment_sum, segment.sorted_segment_sum,
+    (the segment-sums of the encoder, of the typed encode, of agg_conv and
+    of the gathers' backwards, the grouped GEMM of the relational convs,
+    the negative scoring of every decoder and sampler, and GRACE's flash
+    denominators)."""
+    sums = (encoders, segment, typed, aggconv)
+    saved = ([m.sorted_segment_sum for m in sums],
              encoders.relation_matmul_sorted, gcl_module.flash_denom,
              {name: getattr(decoders, name) for name in NEG_DISPATCH})
-    encoders.sorted_segment_sum = segsum.segsum_plain
-    segment.sorted_segment_sum = segsum.segsum_plain
+    for m in sums:
+        m.sorted_segment_sum = segsum.segsum_plain
     encoders.relation_matmul_sorted = relmm.relation_matmul_sorted_plain
     gcl_module.flash_denom = flashnce.flash_denom_plain
     for name, plain in NEG_DISPATCH.items():
@@ -796,9 +828,10 @@ def plain_versions():
     try:
         yield
     finally:
-        (encoders.sorted_segment_sum, segment.sorted_segment_sum,
-         encoders.relation_matmul_sorted, gcl_module.flash_denom) = saved[:4]
-        for name, fn in saved[4].items():
+        for m, fn in zip(sums, saved[0]):
+            m.sorted_segment_sum = fn
+        encoders.relation_matmul_sorted, gcl_module.flash_denom = saved[1:3]
+        for name, fn in saved[3].items():
             setattr(decoders, name, fn)
 
 
@@ -1037,33 +1070,55 @@ def real_nodes(batches):
             "nodes/s (real nodes per batch)")
 
 
-# every kernel's launches over the timed steps of every path
+# every kernel's launches over the counted runs of every path
 PATH_LAUNCHES = {}
 
 
-def timed_steps(module, state, batches, gen, what: str, work=triplets):
-    """Run ``batches`` with every launch count set to 0 just before and
-    read just after (and added into PATH_LAUNCHES); returns (state,
-    launches, ms per step)."""
+def add_launches(launches: dict):
+    for name, count in launches.items():
+        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+
+
+@contextlib.contextmanager
+def counted_launches():
+    """Every launch count set to 0 on entry and read on exit (after a
+    synchronise) into the yielded dict, which is added into
+    PATH_LAUNCHES."""
     reset_launch_counts()
+    launches = {}
+    yield launches
+    torch.cuda.synchronize()
+    launches.update(launch_counts())
+    add_launches(launches)
+
+
+def timed_loop(step, steps: int, what: str, work: tuple, warm: int = 0,
+               per_call: int = 1):
+    """``warm`` untimed calls of ``step``, then ``steps`` training steps
+    in ``steps // per_call`` calls, counted (counted_launches);
+    ``step()`` returns (its result, the loss). Prints the ms per step
+    (host clock after a synchronise, and CUDA events), the rate of
+    ``work`` (its count over the timed steps, its unit) and the peak
+    memory; returns (the last call's result, launches, ms per step)."""
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    state, logs = module.train_steps(state, batches, gen)
-    end.record()
-    torch.cuda.synchronize()
-    steps = len(batches)
-    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with counted_launches() as launches:
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(steps // per_call):
+            out, loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / steps
     event_ms = start.elapsed_time(end) / steps
-    launches = launch_counts()
-    for name, count in launches.items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    loss = float(logs["train_loss"])
-    count, unit = work(batches)
+    loss = float(loss)
+    count, unit = work
     print(f"{what}: {step_ms:.3f} ms per step (host clock), "
           f"{event_ms:.3f} ms (CUDA events), "
           f"{count / (step_ms * steps / 1e3):.4g} {unit}; peak device "
@@ -1071,7 +1126,18 @@ def timed_steps(module, state, batches, gen, what: str, work=triplets):
           f"allocated before the steps; last loss {loss:.6f}; launches over "
           f"{steps} steps {({k: v for k, v in launches.items() if v})}")
     check(np.isfinite(loss), f"{what}: training loss not finite")
-    return state, launches, step_ms
+    return out, launches, step_ms
+
+
+def timed_steps(module, state, batches, gen, what: str, work=triplets):
+    """``module.train_steps`` over ``batches`` in one timed call
+    (timed_loop); returns (state, launches, ms per step)."""
+    def run():
+        new, logs = module.train_steps(state, batches, gen)
+        return new, logs["train_loss"]
+
+    return timed_loop(run, len(batches), what, work(batches),
+                      per_call=len(batches))
 
 
 def eval_launches(module, batch, what: str, want: dict) -> dict:
@@ -1079,12 +1145,8 @@ def eval_launches(module, batch, what: str, want: dict) -> dict:
     count set to 0 just before and read just after (and added into
     PATH_LAUNCHES), held to ``want``; returns the counts."""
     gen = torch.Generator(device=batch.edge_mask.device).manual_seed(SEED)
-    reset_launch_counts()
-    out = module.eval_step(batch, gen)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    for name, count in launches.items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    with counted_launches() as launches:
+        out = module.eval_step(batch, gen)
     print(f"{what} eval step: launches "
           f"{({k: v for k, v in launches.items() if v})}")
     check(launches == want, f"{what} eval step: launches {launches}")
@@ -2376,12 +2438,9 @@ def serve_rgat(rgat_run, graph, tmp, dev):
     checked against float64; returns the serving encode's launches."""
     proc, t0 = rgat_run
     ckpt = finish_train_kge(proc, "RGAT", graph, t0)
-    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    served = serve_checkpoint(ckpt, tmp, "train_kge RGAT")
-    launches = launch_counts()
-    for name, count in launches.items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    with counted_launches() as launches:
+        served = serve_checkpoint(ckpt, tmp, "train_kge RGAT")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(type(served.module.model.encoder).__name__ == "RGAT"
           and served.module.edge_layout == "relation",
@@ -3614,15 +3673,11 @@ def full_split_ranking(dm, dev, ckpt):
     module = load_kge_module(ckpt, dev)
     module.edge_layout = module.default_layout
     timings = {}
-    reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    with raw_ranks() as raw:
+    with raw_ranks() as raw, counted_launches() as launches:
         t0 = time.perf_counter()
         metrics = rank_eval.rank_eval(module, dm, timings)
         total = time.perf_counter() - t0
-    launches = launch_counts()
-    for name, count in launches.items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
     test = rank_eval.triples(dm.test_data)
     known = np.concatenate([rank_eval.triples(dm.train_data),
                             rank_eval.triples(dm.val_data), test])
@@ -3731,16 +3786,13 @@ def planted_check(dev):
                             .batch(), dev)
     module.configure_optimizers(PLANTED_EPOCHS)
     state = module.init_state(torch.Generator().manual_seed(0))
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    state, loss = module.train_fullbatch(
-        state, batch, torch.Generator(device=dev).manual_seed(3),
-        PLANTED_EPOCHS)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = launch_counts()
-    for name, count in launches.items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    with counted_launches() as launches:
+        t0 = time.perf_counter()
+        state, loss = module.train_fullbatch(
+            state, batch, torch.Generator(device=dev).manual_seed(3),
+            PLANTED_EPOCHS)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
     z = module.encode(batch)[:n]
     metrics = ranking.filtered_ranking_metrics(
         module.model.decoder, z, test, tri, both_sides=False, chunk=128)
@@ -4272,8 +4324,7 @@ def finish_kge_sh_shapes(proc, t0: float):
     result = json.loads(next(line for line in out.splitlines()
                              if line.startswith(KGE_SH_RESULT))
                         [len(KGE_SH_RESULT):])
-    for name, count in result["launches"].items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    add_launches(result["launches"])
     return result["launches"], result["records"]
 
 
@@ -4507,12 +4558,11 @@ def lightning_import(dm, dev, native: str, lightning: str):
     ckpt = load_checkpoint(lightning)
     check(ckpt["step"] == 4242 and ckpt["hparams"]["num_relation"]
           == HPARAMS["num_relation"], f"Lightning import: {ckpt['hparams']}")
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    scorer = KGEScorer(lightning, dm, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    launches = launch_counts()
+    with counted_launches() as launches:
+        t0 = time.perf_counter()
+        scorer = KGEScorer(lightning, dm, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
     check(launches == expected_launches(SEGSUM_PER_ENCODE, None, 0),
           f"Lightning import: launches {launches}")
     native_module = load_kge_module(native, dev)
@@ -4537,8 +4587,6 @@ def lightning_import(dm, dev, native: str, lightning: str):
     check(0.0 < p < 1.0 and len(top) == 5
           and all(name.startswith("gene_") for name, _ in top),
           f"Lightning import: answers {p}, {top}")
-    for name, count in launches.items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
     del scorer, native_module
     return launches
 
@@ -4820,6 +4868,7 @@ def dpi_shapes_main(dev, ws: str) -> int:
     fast = relmm.FAST[torch.bfloat16]
     records["relmm"] = {d: {"ms": t[d], "plain_ms": t[f"plain_{d}"],
                             "bound_ms": t[f"bound_{d}"][0],
+                            "library_ms": t[f"lib_{d}"],
                             "max_abs_err": errs[(fast, d == "bwd")]}
                         for d in ("fwd", "bwd")}
     print(f"relmm at the DPI RGAT shape ({tuple(msg.shape)} bf16 -> "
@@ -4827,7 +4876,8 @@ def dpi_shapes_main(dev, ws: str) -> int:
           f"{DRUG_PROTEIN}): {fast} forward {t['fwd']:.4f} ms, d_msg "
           f"{t['bwd']:.4f} ms (general {t['general_fwd']:.4f} / "
           f"{t['general_bwd']:.4f}), plain {t['plain_fwd']:.4f} / "
-          f"{t['plain_bwd']:.4f}, bound {t['bound_fwd'][0]:.4f} / "
+          f"{t['plain_bwd']:.4f}, torch.bmm {t['lib_fwd']:.4f} / "
+          f"{t['lib_bwd']:.4f}, bound {t['bound_fwd'][0]:.4f} / "
           f"{t['bound_bwd'][0]:.4f}")
     print(DPI_SHAPES_RESULT + json.dumps({"launches": total,
                                           "records": records}))
@@ -4855,8 +4905,7 @@ def finish_dpi_shapes(proc, t0: float):
     result = json.loads(next(line for line in out.splitlines()
                              if line.startswith(DPI_SHAPES_RESULT))
                         [len(DPI_SHAPES_RESULT):])
-    for name, count in result["launches"].items():
-        PATH_LAUNCHES[name] = PATH_LAUNCHES.get(name, 0) + count
+    add_launches(result["launches"])
     return result["launches"], result["records"]
 
 
@@ -5389,6 +5438,584 @@ def stage_a_phase(dm, dev, tmp) -> dict:
     return launches
 
 
+# -- phase 14: typed tables, ml_exp and the opt-in RGCN variants ------------
+P14_TYPED_STEPS = 2      # (b), (c): typed_steps of the train_kge runs
+P14_TIMED = (1, 2)       # (b), (c), (e): warm-up and timed steps in-process
+TYPED_TOL = STEP_TOL[torch.float32]   # the typed path runs float32
+# two runs of a step may gate at most this share of the ReLU elements
+# (and at least one element) differently, each a pre-activation within
+# FLIP_NEAR of its call's max |x| of 0 (relu_gates, hold_runs)
+FLIP_SHARE = 1e-6
+FLIP_NEAR = 1e-5
+VARIANTS = ("scatter", "perm", "agg", "remat")
+# segsum launches of one Stage C step (bf16 or float32: the count is the
+# same) with each variant, at the full width's 4 convs (768 → 256, then
+# three 256 → 256): forward count table + 4 convs; "perm" adds 4 conv
+# gathers' and the head gather's backwards; "agg" runs its three
+# din ≤ dout convs' forward and backward SpMMs in place of their node
+# convs; remat runs the 4 convs again in the backward; + the tail gather
+VARIANT_SEGSUM = {"scatter": SEGSUM_PER_STEP,
+                  "perm": SEGSUM_PER_STEP + CONVS + 1,
+                  "agg": SEGSUM_PER_STEP + CONVS - 1,
+                  "remat": SEGSUM_PER_STEP + CONVS}
+SEGSUM_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")
+
+
+def typed_args(*extra) -> list:
+    """``python -m biomedkg_tpu_torch.train_kge typed_tables=true``'s
+    arguments at the configs' full width (RGCN 768 → 256 × 4, DistMult,
+    K = 10, 128 SAINT roots, walk 10) with P14_TYPED_STEPS steps."""
+    return ["typed_tables=true", f"typed_steps={P14_TYPED_STEPS}",
+            "epochs=1", f"seed={SEED}", *extra]
+
+
+def typed_module(dev) -> KGEModule:
+    """Phase 2's weights (HPARAMS, seeded) on the card, as the typed
+    paths train them (float32, dropout after each hidden conv)."""
+    module = KGEModule(**HPARAMS)
+    module.init(torch.Generator().manual_seed(SEED))
+    return module.to(dev)
+
+
+def op_profile(step, what: str, top: int = 8):
+    """One call of ``step`` (a typed training step) under torch.profiler:
+    the device-busy time and idle share against its CUDA-event wall time,
+    the ops with the most device time (each op's own kernels), and the
+    float32 ``index_add_``s (the gathers' backwards) apart."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    adds = [e for e in ops if e.key == "aten::index_add_"]
+    add_ms = sum(e.self_device_time_total for e in adds) / 1e3
+    print(f"{what} under torch.profiler: {wall:.3f} ms (CUDA events), "
+          f"device busy {busy:.3f} ms, idle {1 - busy / wall:.3f}; "
+          f"index_add_ x{sum(e.count for e in adds)} {add_ms:.3f} ms; "
+          "top ops by own device time: "
+          + "; ".join(f"{e.key} x{e.count} "
+                      f"{e.self_device_time_total / 1e3:.3f} ms"
+                      for e in ops[:top]))
+
+
+@contextlib.contextmanager
+def relu_gates(against: list = None, replay: bool = False):
+    """``torch.relu`` recording each call's gate (x > 0) into the yielded
+    ``gates``; with ``against`` (another run's gates), counting the
+    elements whose gate differs from the same call's there (``flips``, of
+    ``elements``) and the largest |x| among them, of its call's max |x|
+    (``near``); with ``replay`` too, gating each call by ``against``'s
+    gate instead of its own sign. Two runs of a step whose float32 sums
+    differ in order can put a pre-activation within a rounding of 0 on
+    either side; a flip moves the gradients below it by that element's
+    share (one_flip_move), which a small batch need not hide."""
+    relu = torch.relu
+    stats = {"gates": [], "flips": 0, "elements": 0, "near": 0.0}
+
+    def gated(x):
+        own = (x > 0).detach()
+        stats["gates"].append(own)
+        if against is None:
+            return relu(x)
+        gate = against[len(stats["gates"]) - 1]
+        flip = own != gate
+        stats["flips"] += int(flip.sum())
+        stats["elements"] += own.numel()
+        if bool(flip.any()):
+            ax = x.detach().abs()
+            stats["near"] = max(stats["near"],
+                                float(ax[flip].max() / ax.max()))
+        return x * gate if replay else relu(x)
+
+    torch.relu = gated
+    try:
+        yield stats
+    finally:
+        torch.relu = relu
+
+
+def gated_grads(loss_fn, params, against=None, replay=False):
+    """(loss, gradients of ``params``, relu_gates' stats) of one run of
+    ``loss_fn``."""
+    with relu_gates(against, replay) as stats:
+        loss = loss_fn()
+        grads = param_grads(loss, params)
+    torch.cuda.synchronize()
+    return loss.item(), grads, stats
+
+
+def grad_errs(a, b, names) -> tuple:
+    """(the loss's relative error, the worst gradient's name and its
+    error relative to its max) of run ``b`` against run ``a``."""
+    errs = {n: rel_err(x, y) for n, x, y in zip(names, b[1], a[1])}
+    worst = max(errs, key=errs.get)
+    return abs(b[0] - a[0]) / abs(a[0]), worst, errs[worst]
+
+
+def hold_runs(what: str, a, b, rerun_b, names, tol):
+    """Run ``b`` (gated_grads against ``a``'s gates) held to run ``a``:
+    with no ReLU flips, the direct errors (each run on its own gates)
+    held to ``tol`` (loss relative, gradients relative to their max);
+    with flips, their count held to FLIP_SHARE of the elements (at least
+    one) and each flipped pre-activation to FLIP_NEAR of its call's max
+    |x|, and ``rerun_b(a's gates)`` (``b`` on ``a``'s gates) held to
+    ``tol`` in place of the direct errors, which are printed beside."""
+    stats = b[2]
+    direct = grad_errs(a, b, names)
+    text = (f"{what}: loss {b[0]:.7f} vs {a[0]:.7f} (rel {direct[0]:.3g}, "
+            f"tol {tol[0]:g}); gradients max rel-to-max {direct[2]:.3g} "
+            f"({direct[1]}; tol {tol[1]:g}); ReLU flips {stats['flips']} "
+            f"of {stats['elements']}")
+    held = direct
+    if stats["flips"]:
+        held = grad_errs(a, rerun_b(a[2]["gates"]), names)
+        text += (f" (the largest |x| {stats['near']:.3g} of its call's "
+                 f"max), with the first run's gates replayed: loss rel "
+                 f"{held[0]:.3g}, gradients {held[2]:.3g} ({held[1]})")
+    print(text)
+    check(stats["flips"] <= max(1.0, FLIP_SHARE * stats["elements"])
+          and stats["near"] <= FLIP_NEAR, f"{what}: ReLU flips")
+    check(held[0] <= tol[0], f"{what}: loss disagrees")
+    check(held[2] <= tol[1], f"{what}: gradient {held[1]} disagrees")
+
+
+def kernels_vs_plain(what: str, loss_fn, params, tol=TYPED_TOL):
+    """``loss_fn()``'s loss and every gradient of ``params`` with the
+    kernels against the plain versions (the same draws inside
+    ``loss_fn``; hold_runs); returns the kernels' run (gated_grads) and
+    its segsum launches."""
+    reset_launch_counts()
+    k = gated_grads(loss_fn, params)
+    used = segsum.KERNEL.launches
+
+    def plain(against, replay=False):
+        with plain_versions():
+            return gated_grads(loss_fn, params, against, replay)
+
+    hold_runs(f"{what}, kernels vs plain (segsum launches {used})", k,
+              plain(k[2]["gates"]), lambda g: plain(g, replay=True),
+              list(params), tol)
+    check(segsum.KERNEL.launches == used,
+          f"{what}: the plain versions launched a kernel")
+    return k, used
+
+
+def one_flip_move(what: str, loss_fn, params, k):
+    """The nonzero ReLU pre-activation nearest 0 (of its call's max |x|)
+    in the kernels' run ``k`` gated the other way, the rest of ``k``'s
+    gates replayed: how far one flip moves the gradients (relative to
+    their max). Reported only: what a rounding's flip costs this batch."""
+    pre = []
+    relu = torch.relu
+
+    def keep(x):
+        ax = x.detach().abs()
+        pre.append(torch.where(ax > 0, ax / ax.max(), float("inf")))
+        return relu(x)
+
+    torch.relu = keep
+    try:
+        with torch.no_grad():
+            loss_fn()
+    finally:
+        torch.relu = relu
+    call = min(range(len(pre)), key=lambda i: float(pre[i].min()))
+    index = int(pre[call].argmin())
+    gates = [g.clone() for g in k[2]["gates"]]
+    flat = gates[call].view(-1)
+    flat[index] = ~flat[index]
+    moved = gated_grads(loss_fn, params, gates, replay=True)
+    _, worst, err = grad_errs(k, moved, list(params))
+    print(f"{what}, one ReLU flip: element {index} of call {call} (|x| "
+          f"{float(pre[call].view(-1)[index]):.3g} of its call's max) gated "
+          f"the other way moves the gradients by up to {err:.3g} of their "
+          f"max ({worst})")
+
+
+def typed_block_times(typed_dev, dev) -> dict:
+    """Each signature's segsum at the typed encode's 256-wide convs: the
+    largest and the smallest block timed (segsum_times: device time
+    against the first design, the plain version, index_add_, the
+    bound)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    sizes = {k: int(dl.shape[0]) for k, (_, dl) in typed_dev.sigs.items()}
+    out = {}
+    for label, key in (("typed", max(sizes, key=sizes.get)),
+                       ("typed_small", min(sizes, key=sizes.get))):
+        dl = typed_dev.sigs[key][1]
+        n_t = typed_dev.x[key[2]].shape[0]
+        data = torch.randn(dl.shape[0], HPARAMS["hidden_dim"], device=dev,
+                           generator=gen)
+        out[label] = segsum_times(data, dl, n_t, f"typed block {key} "
+                                  f"({dl.shape[0]} edges into {n_t} rows)")
+        out[label]["block"] = list(key)
+    return out
+
+
+def typed_encode_checks(dm, dev, module) -> dict:
+    """Phase 14a: the full graph's typed encode (float32) with the kernels
+    against the plain versions and against the homogeneous RGCN's
+    dst-layout encode on the same weights, its segsum launches, time and
+    peak memory; each signature's segsum (the largest and smallest block
+    timed)."""
+    t0 = time.perf_counter()
+    view = typed.to_typed(dm.graph, dm.data.type_offset,
+                          dm.data.node_type_of)
+    typed_dev = typed.typed_to_device(view, dev)
+    print(f"typed tables (a): the full graph's {len(view.sigs)} signatures "
+          f"in {time.perf_counter() - t0:.1f} s (to_typed and the copy): "
+          + "; ".join(f"{k} {len(sl)} edges into {view.x[k[2]].shape[0]}"
+                      for k, (sl, _) in view.sigs.items()))
+    enc = module.model.encoder
+    per_encode = len(view.sigs) * CONVS
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        with counted_launches() as launches:
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                z = typed.concat_tables(typed.typed_encode(enc, typed_dev),
+                                        view.type_names)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        with plain_versions():
+            z_plain = typed.concat_tables(
+                typed.typed_encode(enc, typed_dev), view.type_names)
+        batch = batch_to_device(FullGraphLoader(dm.graph, edge_layout="dst")
+                                .batch(), dev)
+        module.edge_layout = "dst"
+        z_homo = module.encode(batch)[:dm.graph.num_nodes]
+    scale = float(z_plain.abs().max())
+    err_plain = float((z - z_plain).abs().max())
+    err_homo = float((z - z_homo).abs().max())
+    print(f"typed encode (a): {ms} ms (host clock, synchronised), peak "
+          f"device memory {peak:.3f} GB; {launches['sorted_segment_sum']} "
+          f"segsum launches over 3 encodes ({per_encode} per encode: "
+          f"{len(view.sigs)} signatures x {CONVS} convs; by instance "
+          f"{segsum.KERNEL.by_instance}); z {tuple(z.shape)} "
+          f"finite={bool(torch.isfinite(z).all())}; kernel vs plain "
+          f"max_abs_err={err_plain:.3g}, against the homogeneous dst "
+          f"encode {err_homo:.3g} (tol {Z_RTOL:g}·max|z| = "
+          f"{Z_RTOL * scale:.3g})")
+    check(launches == expected_launches(3 * per_encode, None, 0),
+          f"typed encode launches: {launches}")
+    check(bool(torch.isfinite(z).all()), "typed z not finite")
+    check(err_plain <= Z_RTOL * scale, "typed encode: kernel vs plain")
+    check(err_homo <= Z_RTOL * scale,
+          "typed encode disagrees with the homogeneous RGCN")
+    del z, z_plain, z_homo, batch
+    times = typed_block_times(typed_dev, dev)
+    return {"launches": launches, "times": times}
+
+
+def typed_entry(ws: str, what: str, *extra):
+    """``train_kge typed_tables=true`` (``extra``: more overrides) run
+    in-process in ``ws`` with the launch counts set to 0 just before and
+    read just after (and added into PATH_LAUNCHES); returns the test
+    metrics and the launches."""
+    t0 = time.perf_counter()
+    with working_dir(ws), counted_launches() as launches:
+        metrics = train_kge.main(typed_args(*extra))
+    print(f"{what}: train_kge {' '.join(typed_args(*extra))} in "
+          f"{time.perf_counter() - t0:.1f} s; test metrics "
+          f"{json.dumps(metrics)}; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    check(metrics and all(np.isfinite(v) for v in metrics.values()),
+          f"{what}: test metrics missing or not finite")
+    check(0.0 <= metrics["test_AUROC"] <= 1.0, f"{what}: AUROC")
+    return metrics, launches
+
+
+def typed_full_checks(dm, dev, ws) -> tuple:
+    """Phase 14b: the full-batch typed entry point, then in-process on the
+    same train split: one step's loss and every gradient with the kernels
+    against the plain versions under one injected negative set, and timed
+    steps (launches, ms, peak memory)."""
+    view = typed_train.train_split_typed(dm)
+    per_encode = len(view.sigs) * CONVS
+    _, entry = typed_entry(ws, "typed tables (b) full-batch")
+    check(entry == expected_launches(per_encode * (P14_TYPED_STEPS + 1),
+                                     None, 0),
+          f"(b): launches {entry} (want {per_encode} per step and per "
+          "test encode)")
+    module = typed_module(dev)
+    enc, dec = module.model.encoder, module.model.decoder
+    typed_dev = typed.typed_to_device(view, dev)
+    g = dm.train_data.graph
+    src, dst, rel = (torch.as_tensor(a, device=dev).long() for a in
+                     (g.edge_index[0], g.edge_index[1], g.edge_type))
+    k = module.neg_ratio
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    negs = typed_train.iid_negatives(gen, k, rel.shape[0],
+                                     typed_dev.num_nodes)
+    params = typed_train.typed_params(module)
+    print(f"typed tables (b): train split {rel.shape[0]} edges, "
+          f"{typed_dev.num_nodes} nodes, K = {k}: negatives {k} x "
+          f"{rel.shape[0]}")
+
+    def loss_fn():
+        return typed_train.full_batch_loss(enc, dec, typed_dev, src, dst,
+                                           rel, *negs)
+
+    _, used = kernels_vs_plain("typed full-batch step (b)", loss_fn, params)
+    check(used == per_encode, f"(b): segsum launches of one step {used}")
+    tx = typed_train.typed_optimizer(module.hparams["learning_rate"])
+    state = [tx.init(list(params.values()))]
+
+    def step():
+        ns, nd = typed_train.iid_negatives(gen, k, rel.shape[0],
+                                           typed_dev.num_nodes)
+        loss = typed_train.full_batch_loss(enc, dec, typed_dev, src, dst,
+                                           rel, ns, nd)
+        state[0] = typed_train.typed_update(loss, params, tx, state[0])
+        return None, loss.detach()
+
+    warm, steps = P14_TIMED
+    _, launches, _ = timed_loop(step, steps, "typed full-batch steps (b)",
+                                (rel.shape[0] * (1 + k) * steps,
+                                 "triplets/s"), warm)
+    check(launches == expected_launches(per_encode * P14_TIMED[1], None, 0),
+          f"(b): launches of the timed steps {launches}")
+    return entry, per_encode, step
+
+
+def typed_saint_checks(dm, dev, ws, split_encode: int) -> dict:
+    """Phase 14c: the typed SAINT entry point, then in-process: one
+    batch's loss and every gradient with the kernels against the plain
+    versions (injected negatives and dropout masks), timed steps and the
+    sampler's dropped edges."""
+    _, entry = typed_entry(ws, "typed tables (c) SAINT",
+                           "typed_loader=saint")
+    module = typed_module(dev)
+    enc, dec = module.model.encoder, module.model.decoder
+    sampler = typed_train.typed_sampler(dm, sum(P14_TIMED) + 1, SEED)
+    sampler.set_epoch(0)
+    t0 = time.perf_counter()
+    host = list(sampler)
+    sample_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    per_step = len(sampler.sig_budget) * CONVS
+    check(entry == expected_launches(per_step * P14_TYPED_STEPS
+                                     + split_encode, None, 0),
+          f"(c): launches {entry} (want {per_step} per step, "
+          f"{split_encode} for the test encode)")
+    batches = [typed.typed_batch_to_device(b, dev) for b in host]
+    flats = [typed_train.flat_real_to_device(sampler, b, dev) for b in host]
+    real = [sum(int(v) for v in b.num_nodes.values()) for b in host]
+    print(f"typed tables (c): envelope {sampler.total_budget} node slots "
+          f"({sampler.node_budget}), {len(sampler.sig_budget)} signature "
+          f"blocks of {sum(sampler.sig_budget.values())} edge slots, "
+          f"{sampler.pos_budget} supervision slots; real nodes {real}; "
+          f"host sampling {sample_ms:.1f} ms a batch; dropped_edges "
+          f"{sampler.dropped_edges}")
+    k = module.neg_ratio
+    loss_fn = typed_train.make_typed_batch_loss(enc, dec, k)
+    params = typed_train.typed_params(module)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b0 = batches[0]
+    negs = typed_train.iid_negatives(gen, k, b0.pos.shape[1], flats[0][1])
+    masks = [{t: dropout_mask((b0.x[t].shape[0], dout), encoders.DROPOUT,
+                              gen, dev) for t in b0.x}
+             for _, dout in enc.dims[:-1]]
+    def batch_loss():
+        return loss_fn(b0, *flats[0], negatives=negs, dropout_masks=masks)
+
+    run, used = kernels_vs_plain("typed SAINT step (c)", batch_loss, params)
+    check(used == per_step, f"(c): segsum launches of one step {used}")
+    one_flip_move("typed SAINT step (c)", batch_loss, params, run)
+    tx = typed_train.typed_optimizer(module.hparams["learning_rate"])
+    state = [tx.init(list(params.values()))]
+    it = itertools.cycle(range(len(batches)))
+
+    def step():
+        i = next(it)
+        loss = loss_fn(batches[i], *flats[i], generator=gen)
+        state[0] = typed_train.typed_update(loss, params, tx, state[0])
+        return None, loss.detach()
+
+    warm, steps = P14_TIMED
+    _, launches, _ = timed_loop(step, steps, "typed SAINT steps (c)",
+                                (sampler.pos_budget * (1 + k) * steps,
+                                 "supervision slots x (1 + K)/s"), warm)
+    check(launches == expected_launches(per_step * P14_TIMED[1], None, 0),
+          f"(c): launches of the timed steps {launches}")
+    return entry, step
+
+
+def ml_exp_checks(dev, ws) -> dict:
+    """Phase 14d: ``ml_exp.features`` on the card from a KGE checkpoint
+    (phase 2's weights): the cache built by KGEEncode's full-graph encode
+    (its launches counted), the miss ratio, and X against a float64
+    recomputation from the cache. No classifier runs (the card has neither
+    xgboost nor scikit-learn)."""
+    module = typed_module(dev)
+    ckpt = os.path.join(ws, "kge_p14.ckpt")
+    save_checkpoint(ckpt, "kge", module.hparams, to_jax_params(module.model))
+    t0 = time.perf_counter()
+    with working_dir(ws), counted_launches() as launches:
+        X, y, miss = ml_exp.features(ckpt, "random", "grace", "none",
+                                     device=dev.type)
+        cache = os.path.abspath(node_encoders.KGEEncode(
+            ckpt, "random", "grace", "none").artifact_path)
+    with open(cache, "rb") as f:
+        mapping = pickle.load(f)
+    x_name, y_name = ml_exp.dpi_pairs(os.path.join(ws, ml_exp.DPI_CSV))
+    X64, y64 = ml_exp.pair_features(
+        x_name, y_name, {n: np.asarray(v, np.float64)[0]
+                         for n, v in mapping.items()})
+    err = float(np.abs(X - X64).max() / np.abs(X64).max())
+    print(f"ml_exp (d): features in {time.perf_counter() - t0:.1f} s: X "
+          f"{X.shape} {X.dtype}, {int(y.sum())} positives of {len(y)}; "
+          f"cache miss ratio {miss:.4f}; X against float64 from the cache "
+          f"{err:.3g} of max|X| (tol 1e-6); launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    check(miss <= ml_exp.MAX_MISS, "ml_exp: miss ratio")
+    check(np.array_equal(y, y64) and err <= 1e-6, "ml_exp: X or y")
+    check(launches == expected_launches(SEGSUM_PER_ENCODE, None, 0),
+          f"ml_exp: launches of the cache's encode {launches}")
+    return launches
+
+
+def variant_batches(dm, n: int):
+    """``n`` Stage C SAINT batches of phase 5's envelope (dst layout,
+    device features, fill 0.92)."""
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    dm.saint_fill_target = SAINT_FILL
+    loader = dm.train_dataloader(loader_type="saint")
+    return [loader.sample()[0] for _ in range(n)]
+
+
+def variant_module(sd, table, dev, variant: str) -> KGEModule:
+    module = train_module(sd, table, dev, compute_dtype="float32",
+                          remat=variant == "remat")
+    module.dst_bwd = variant if variant in ("perm", "agg") else "scatter"
+    return module
+
+
+def variant_checks(dm, dev) -> tuple:
+    """Phase 14e: one float32 Stage C step with ``dst_bwd`` "perm", "agg"
+    and ``remat=True`` against the default "scatter" step (loss and every
+    gradient, STEP_TOL), each with the kernels against the plain versions;
+    each variant's segsum launches, timed steps and peak memory; the
+    variants' SpMM shapes timed."""
+    host = variant_batches(dm, 1 + sum(P14_TIMED))
+    batches = [batch_to_device(b, dev) for b in host]
+    base = KGEModule(**TRAIN)
+    base.init(torch.Generator().manual_seed(SEED))
+    sd = {n: t.detach().clone() for n, t in base.state_dict().items()}
+    table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
+    tol = STEP_TOL[torch.float32]
+    warm = P14_TIMED[0]
+    launches = {}
+    for variant in VARIANTS:
+        module = variant_module(sd, table, dev, variant)
+        params = dict(module.named_parameters())
+        draws = fixed_draws(module, batches[0], torch.Generator(
+            device=dev).manual_seed(SEED + 3))
+
+        def loss_fn():
+            return module._forward_loss(batches[0], True, negatives=draws[0],
+                                        dropout_masks=draws[1])[0]
+
+        run, used = kernels_vs_plain(f"Stage C float32 step, {variant} (e)",
+                                     loss_fn, params, tol)
+        check(used == VARIANT_SEGSUM[variant],
+              f"(e) {variant}: segsum launches {used}")
+        if variant == "scatter":
+            scatter = run
+        else:
+            hold_runs(f"Stage C float32 step (e), {variant} against "
+                      f"scatter (kernels both)", scatter,
+                      gated_grads(loss_fn, params, scatter[2]["gates"]),
+                      lambda g: gated_grads(loss_fn, params, g, replay=True),
+                      list(params), tol)
+        module.configure_optimizers(num_training_steps=100)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        st, _ = module.train_steps(module.init_state(),
+                                   batches[1:1 + warm], gen)
+        _, launches[variant], _ = timed_steps(
+            module, st, batches[1 + warm:], gen,
+            f"Stage C float32 steps, {variant} (e)")
+        want = expected_launches(VARIANT_SEGSUM[variant] * P14_TIMED[1],
+                                 "distmult_neg_scores", P14_TIMED[1])
+        check(launches[variant] == want,
+              f"(e) {variant}: launches {launches[variant]}")
+        del module, run
+    return launches, variant_spmm_times(batches[0], dev)
+
+
+def variant_spmm_times(batch, dev) -> dict:
+    """The variants' segment-sums at a Stage C batch's shape (256-wide
+    float32 rows): agg_conv's forward SpMM into N·R rows by dst·R + rel,
+    its backward over the src-sorted copy into N rows, and perm's
+    backward into N·R rows by src·R + rel (segsum_times)."""
+    r = HPARAMS["num_relation"]
+    n = batch.node_mask.shape[0]
+    se = batch.src_edges
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    data = torch.randn(se.shape[1], HPARAMS["hidden_dim"], device=dev,
+                       generator=gen)
+    shapes = {
+        "agg_fwd": ((batch.edge_index[1] * r + batch.edge_type).int(),
+                    n * r, "agg_conv forward SpMM"),
+        "agg_bwd": (se[0].int(), n, "agg_conv backward SpMM"),
+        "perm_bwd": ((se[0] * r + se[2]).int(), n * r,
+                     "take_rows_via_perm backward")}
+    return {label: segsum_times(data, ids, rows,
+                                f"{what} ({data.shape[0]} slots into {rows})")
+            for label, (ids, rows, what) in shapes.items()}
+
+
+def typed_phase(dm, dev, tmp) -> tuple:
+    """Phase 14; returns every kernel's launches over its counted paths
+    and the segsum numbers at its shapes."""
+    t_phase = time.perf_counter()
+    ws = tempfile.mkdtemp(dir=tmp)
+    os.symlink(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "configs"), os.path.join(ws, "configs"))
+    module = typed_module(dev)
+    a = typed_encode_checks(dm, dev, module)
+    del module
+    torch.cuda.empty_cache()
+    full, split_encode, full_step = typed_full_checks(dm, dev, ws)
+    counted = [a["launches"], full]
+    torch.cuda.empty_cache()
+    saint, saint_step = typed_saint_checks(dm, dev, ws, split_encode)
+    counted.append(saint)
+    torch.cuda.empty_cache()
+    counted.append(ml_exp_checks(dev, ws))
+    torch.cuda.empty_cache()
+    variants, spmm = variant_checks(dm, dev)
+    counted += list(variants.values())
+    # profiled last: a profiler session slows the process's later host
+    # steps
+    op_profile(full_step, "typed full-batch step (b)")
+    op_profile(saint_step, "typed SAINT step (c)")
+    del full_step, saint_step
+    torch.cuda.empty_cache()
+    launches = {name: sum(c.get(name, 0) for c in counted)
+                for name in counted[0]}
+    times = {**a["times"], **spmm}
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    return launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5404,6 +6031,11 @@ def main() -> int:
     print(card_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
+
+    def ended(phase: str):
+        print(f"phase {phase} ended {time.perf_counter() - t_start:.1f} s "
+              "after the start")
 
     # -- 1. build every kernel from the checkout, all at once -------------
     t0 = time.perf_counter()
@@ -5462,6 +6094,7 @@ def main() -> int:
         # (run here, on phase 2's checkpoint, before any torch.profiler
         # session: one slows every later host step of its process)
         ranked = ranking_phase(scorer.dm, dev, tmp, ckpt)
+        ended("2 and 10")
 
     # -- 3. kernel vs plain version at the path's shapes ------------------
     batch = FullGraphLoader(g, edge_layout="dst").batch()
@@ -5593,34 +6226,47 @@ def main() -> int:
           f"(tol {Z_RTOL:g}·max|z| = {Z_RTOL * small_scale:.3g})")
     check(small_err <= Z_RTOL * small_scale,
           "small graph: card disagrees with the CPU path")
+    ended("3-4")
 
     with tempfile.TemporaryDirectory() as tmp:
         # -- 5. the training main path ------------------------------------
         (neg_records, train_segsum, batches, table, rotate_run, rgat_run,
          gcl_run) = train_phase(scorer.dm, dev, tmp)
+        ended("5")
         # -- 6. the other decoders and the dual-sorted sampler ------------
         neg_records += decoder_phase(scorer.dm, dev, tmp, batches, table,
                                      rotate_run)
+        ended("6")
         # -- 7. RGAT and the relation-layout edge conv --------------------
         del batches
         relmm_records = rgat_phase(scorer.dm, dev, tmp, table, rgat_run,
                                    scorer.module)
+        ended("7")
         # -- 8. Stage B: GCL pretraining and the flash kernels ------------
         del table
         torch.cuda.empty_cache()
         flash_records, gcl_segsum = gcl_phase(dev, tmp, gcl_run)
+        ended("8")
         # -- 9. held-out evaluation and the Trainer -------------------------
         torch.cuda.empty_cache()
         eval_segsum = eval_phase(scorer.dm, dev, tmp)
+        ended("9")
         # -- 11. the config layer and Stage B's multimodal remainder -------
         torch.cuda.empty_cache()
         multimodal, k1_records = multimodal_phase(scorer.dm, dev, tmp)
+        ended("11")
         # -- 12. DPI fine-tuning and the on-ramps -------------------------
         torch.cuda.empty_cache()
         dpi, dpi_records = dpi_phase(scorer.dm, dev, tmp)
+        ended("12")
         # -- 13. Stage A: the LM cache from the port's BERT and WordPiece --
         torch.cuda.empty_cache()
         stage_a = stage_a_phase(scorer.dm, dev, tmp)
+        ended("13")
+        # -- 14. typed tables, ml_exp and the opt-in RGCN variants -------
+        torch.cuda.empty_cache()
+        typed_launches, typed_times = typed_phase(scorer.dm, dev, tmp)
+        ended("14")
     # -- 9b. the Trainer against the serial loop, in a fresh process -----
     t0 = time.perf_counter()
     run = subprocess.run(
@@ -5629,6 +6275,7 @@ def main() -> int:
     print(f"phase 9b in its own process ({time.perf_counter() - t0:.1f} s, "
           f"rc {run.returncode}):\n{run.stdout.strip()}")
     check(run.returncode == 0, f"phase 9b failed: {run.stderr[-3000:]}")
+    ended("9b")
 
     k1 = {r["name"]: r for r in k1_records}
     # phase 12: every kernel of the DPI path launched in its counted runs;
@@ -5649,14 +6296,16 @@ def main() -> int:
         f"dpi_{k}": dpi_records["buckets"][k] for k in keys}
     for d, kernel in (("fwd", relmm.FORWARD), ("bwd", relmm.BACKWARD)):
         dpi_keys[relmm_key(kernel, fast)] = {
-            f"dpi_{k}": dpi_records["relmm"][d][k] for k in keys}
+            f"dpi_{k}": dpi_records["relmm"][d][k]
+            for k in keys + ("library_ms",)}
     for record in neg_records:
         if record["name"] == negscore.BUCKETS_NAME:
             record["launches"] = PATH_LAUNCHES[negscore.BUCKETS_NAME]
-        else:                            # phase 10's (d) and (e), phase 11
+        else:                   # phase 10's (d) and (e), phases 11, 12, 14
             record["launches"] += (ranked[record["name"]]
                                    + multimodal[record["name"]]
-                                   + dpi.get(record["name"], 0))
+                                   + dpi.get(record["name"], 0)
+                                   + typed_launches.get(record["name"], 0))
         if record["name"] in k1:         # phase 11: K = 1 at its shapes
             record.update({f"k1_{key}": k1[record["name"]][key] for key in
                            ("ms", "plain_ms", "bound_ms", "max_abs_err")})
@@ -5678,13 +6327,18 @@ def main() -> int:
         "launches": launches["sorted_segment_sum"] + train_segsum
         + gcl_segsum + eval_segsum + ranked["sorted_segment_sum"]
         + multimodal["sorted_segment_sum"] + dpi["sorted_segment_sum"]
-        + stage_a["sorted_segment_sum"],
+        + stage_a["sorted_segment_sum"]
+        + typed_launches["sorted_segment_sum"],
         "max_abs_err": max(results.values()),
         "ms": serving["ms"], "first_design_ms": serving["first_ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
         "bound_by": serving["bound_by"],
         "library_ms": serving["library_ms"],
-        **{f"dpi_{k}": dpi_records["segsum"][k] for k in keys}}]
+        **{f"dpi_{k}": dpi_records["segsum"][k] for k in keys},
+        **{f"{label}_{k}": t[k] for label, t in typed_times.items()
+           for k in SEGSUM_KEYS},
+        "typed_block": typed_times["typed"]["block"],
+        "typed_small_block": typed_times["typed_small"]["block"]}]
         + neg_records
         + relmm_records + flash_records}))
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,7 @@ def test_slice_modules_are_scanned():
     assert set(CONFIG_SLICE_MODULES) <= scanned
     assert set(DPI_SLICE_MODULES) <= scanned
     assert set(STAGE_A_SLICE_MODULES) <= scanned
+    assert set(TYPED_SLICE_MODULES) <= scanned
 
 
 # the config layer and the modules of Stage B's multimodal remainder
@@ -226,6 +227,72 @@ def test_stage_a_slice_module_runs_without_hf_jax_pandas_yaml(
     proc = subprocess.run([sys.executable, "-c", code, name,
                            *stage_a_workspace], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+# typed tables, ml_exp, the opt-in variants, profiling and the aliases
+TYPED_SLICE_MODULES = ("models/typed.py", "sampling/typed_batch.py",
+                       "training/typed_train.py", "ml_exp.py",
+                       "ops/aggconv.py", "utils/profiling.py",
+                       "data_module.py", "factory.py", "gcl_module.py",
+                       "kge_module.py")
+
+_TYPED_CHILD = textwrap.dedent("""
+    import contextlib, importlib, io, sys
+    for name in {forbidden!r} + ("sklearn", "xgboost"):
+        sys.modules[name] = None          # any import of it now fails
+    for path in {modules!r}:
+        importlib.import_module(
+            "biomedkg_tpu_torch." + path[:-3].replace("/", "."))
+    import numpy as np
+    import torch
+    from biomedkg_tpu_torch import ml_exp
+    from biomedkg_tpu_torch.train_kge import main as train_kge
+    from biomedkg_tpu_torch.training.kge_module import KGEModule
+    from biomedkg_tpu_torch.utils.profiling import StepTimer
+    args = ["typed_tables=true", "typed_steps=2", "epochs=1",
+            "device=cpu", "data.embed_dim=8", "model.hidden_dim=8",
+            "model.out_dim=8", "model.num_hidden_layers=0"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        for loader in ("full", "saint"):
+            out = train_kge(args + ["typed_loader=" + loader])
+            assert 0.0 <= out["test_AUROC"] <= 1.0, out
+    hp = dict(encoder_name="rgcn", decoder_name="dismult", in_dim=8,
+              hidden_dim=8, out_dim=8, num_hidden_layers=1, num_relation=4,
+              num_heads=1, scheduler_type="cosine", learning_rate=1e-3,
+              warm_up_ratio=0.1, fuse_method="none", neg_ratio=1,
+              node_init_method="random", remat=True)
+    module = KGEModule(**hp)
+    module.dst_bwd = "agg"
+    timer = StepTimer()
+    timer.start()
+    timer.stop(torch.zeros(1), items=1)
+    try:
+        ml_exp.evaluate(np.zeros((4, 2)), np.arange(4) % 2)
+    except ModuleNotFoundError as err:
+        assert "scikit-learn" in str(err)
+    else:
+        raise AssertionError("evaluate ran without scikit-learn")
+    print(sorted(m for m, mod in sys.modules.items()
+                 if mod is not None and m.split(".")[0] in
+                 {forbidden!r} + ("sklearn", "xgboost")))
+""")
+
+
+def test_typed_slice_runs_without_jax_pandas_yaml_sklearn(tmp_path):
+    """The modules of the typed-tables slice import, and train_kge trains
+    typed tables (full-batch and typed SAINT) on the CPU, in a process
+    where JAX, biomedkg_tpu, pandas, PyYAML, optax, the Hugging Face
+    packages, scikit-learn and xgboost cannot be imported; ml_exp's
+    classifier refuses there."""
+    code = _TYPED_CHILD.format(forbidden=FORBIDDEN,
+                               modules=TYPED_SLICE_MODULES)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("BIOMEDKG_SYNTHETIC_SCALE", None)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 

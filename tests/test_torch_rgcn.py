@@ -147,14 +147,20 @@ def test_params_round_trip_and_init():
 
 
 def test_unported_paths_raise():
-    """The refusals that remain: ``dst_bwd="perm"``, and RGAT, which has
-    no destination-sorted layout, asked for "dst" (fusion is ported:
+    """The refusals that remain: an unknown ``dst_bwd``, RGAT asked for
+    the RGCN's "perm" / "agg" variants (ported:
+    tests/test_torch_variants.py), and RGAT, which has no
+    destination-sorted layout, asked for "dst" (fusion is ported:
     tests/test_torch_fusion.py)."""
     hp = _hparams(8)
     module = KGEModule(**hp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.dst_bwd = "perm"
+    module.dst_bwd = "perm"
+    assert module.model.encoder.dst_bwd == "perm"
+    with pytest.raises(ValueError, match="unknown dst_bwd"):
+        module.dst_bwd = "sorted"
     rgat = KGEModule(**dict(hp, encoder_name="rgat"))
+    with pytest.raises(ValueError, match="no dst-layout backward"):
+        rgat.dst_bwd = "perm"
     with pytest.raises(ValueError, match="relation-blocked"):
         rgat.edge_layout = "dst"
     rgat.edge_layout = "relation"
