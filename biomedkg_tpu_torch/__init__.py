@@ -32,5 +32,8 @@ the typed tables (``models/typed.py``, ``sampling/typed_batch.py``,
 ``ml_exp.py``, the RGCN's opt-in ``dst_bwd`` variants
 (``ops/aggconv.py``, ``ops/segment.py::take_rows_via_perm``) and
 ``remat``, ``utils/profiling.py`` and the reference's import-layout
-aliases (``data_module``, ``factory``, ``gcl_module``, ``kge_module``).
+aliases (``data_module``, ``factory``, ``gcl_module``, ``kge_module``);
+the parallel strategies (``parallel/``: the data-parallel Trainer over
+NCCL, the graph-sharded step with its halo exchange, the row-sharded
+typed step, sharded ranking, dp × tp, one process a card).
 """

@@ -30,7 +30,15 @@ compiled per shape. ``chunk·N < 2^31`` stays, so both packages chunk
 alike. TransE and RotatE score candidates through (chunk, N, d) float32
 intermediates, which XLA fuses away and torch does not; their chunk is
 capped so those fit ``_CANDIDATE_BYTES`` (a row's scores do not depend on
-the chunk, so no rank moves). Sharded ranking (``mesh``) is not ported.
+the chunk, so no rank moves).
+
+With ``mesh`` (parallel/mesh.py) the ranks of the mesh split each
+direction: the triples pad to a multiple of chunk · ranks, each rank runs
+its contiguous run of scan 1's chunks (or of the fallback's) and of scan
+2's pair tiles (their count rounded up to a multiple of the ranks), the
+per-row counts are all-gathered and the per-row filter corrections
+all-reduced. Every chunk and tile has the shape and the offset the
+unsharded run gives it, so the ranks are the unsharded ranks bit for bit.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import numpy as np
 import torch
 
 from ..device import check_full_fp32
+from ..parallel.collectives import all_gather, psum
 
 # scan 2's pair tile (the reference's width)
 _PAIR_TILE = 1 << 16
@@ -150,13 +159,15 @@ def _scan_chunks(score_all_fn, z, anchors, rels, targets, chunk):
     return higher, ties
 
 
-def _scan_pairs(score_fn, z, anchors, rels, targets, rowg, cols, bounds):
-    """Scan 2: the filtered candidates' (higher, ties) of every row. Each
-    tile of pairs is scored beside its rows' true triples in one call of
-    the same shape (the self pair ties bitwise and cancels scan 1's self
-    tie); the flags' int32 prefix sums give each row's count over its
-    window ``[bounds[i], bounds[i+1])`` clipped to the tile, added to the
-    rows the tile touches."""
+def _scan_pairs(score_fn, z, anchors, rels, targets, rowg, cols, bounds,
+                tiles: range):
+    """Scan 2 over the pair ``tiles`` (indices of ``_PAIR_TILE``-wide
+    tiles of the flat pair table): the filtered candidates' (higher, ties)
+    of every row. Each tile of pairs is scored beside its rows' true
+    triples in one call of the same shape (the self pair ties bitwise and
+    cancels scan 1's self tie); the flags' int32 prefix sums give each
+    row's count over its window ``[bounds[i], bounds[i+1])`` clipped to
+    the tile, added to the rows the tile touches."""
     dev = anchors.device
     num_pad, total = anchors.shape[0], len(rowg)
     f_higher = torch.zeros(num_pad, dtype=torch.int64, device=dev)
@@ -165,7 +176,8 @@ def _scan_pairs(score_fn, z, anchors, rels, targets, rowg, cols, bounds):
     pcol = torch.from_numpy(cols.astype(np.int64)).to(dev)
     bnd = torch.from_numpy(bounds.astype(np.int64)).to(dev)
     zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    for off in range(0, total, _PAIR_TILE):
+    for off in range(tiles.start * _PAIR_TILE,
+                     min(tiles.stop * _PAIR_TILE, total), _PAIR_TILE):
         end = min(off + _PAIR_TILE, total)
         pr = prow[off:end]
         a, r = anchors[pr], rels[pr]
@@ -207,14 +219,17 @@ def _fallback_counts(score_all_fn, z, anchors, rels, targets, chunk,
 
 def _ranks_before_floor(score_all_fn, score_fn, z, anchors, rels, targets,
                         filt, chunk: int, num_keys: int,
-                        clock: Clock, side: str) -> np.ndarray:
+                        clock: Clock, side: str, mesh=None) -> np.ndarray:
     """One direction's float32 filtered ranks, 1 + higher + ties/2,
-    before the floor at 1 (0 nowhere: the true triple is in the filter)."""
+    before the floor at 1 (0 nowhere: the true triple is in the filter);
+    with ``mesh`` split over its ranks."""
     num = len(anchors)
+    n_dev, me = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    group = None if mesh is None else mesh.group
     # the fallback indexes the (chunk, N) score matrix flat: the
     # reference's int32 bound, kept so both packages chunk alike
     chunk = max(1, min(chunk, (2**31 - 1) // max(z.shape[0], 1)))
-    num_pad = -(-num // chunk) * chunk
+    num_pad = -(-num // (chunk * n_dev)) * chunk * n_dev
     pad = num_pad - num
     anchors_p = np.concatenate([anchors, np.zeros(pad, anchors.dtype)])
     rels_p = np.concatenate([rels, np.zeros(pad, rels.dtype)])
@@ -235,17 +250,28 @@ def _ranks_before_floor(score_all_fn, score_fn, z, anchors, rels, targets,
         return torch.from_numpy(a.astype(np.int64)).to(z.device)
 
     a_d, r_d, t_d = dev(anchors_p), dev(rels_p), dev(targets_p)
+    # this rank's run of rows (whole chunks) and of pair tiles
+    per = num_pad // n_dev
+    mine = slice(me * per, (me + 1) * per)
+    n_tiles = -(-max(1, -(-total // _PAIR_TILE)) // n_dev) * n_dev
+    tiles = range(me * n_tiles // n_dev, (me + 1) * n_tiles // n_dev)
     t0 = clock.start()
     if scanned:
-        higher, ties = _scan_chunks(score_all_fn, z, a_d, r_d, t_d, chunk)
+        higher, ties = _scan_chunks(score_all_fn, z, a_d[mine], r_d[mine],
+                                    t_d[mine], chunk)
+        higher, ties = all_gather(higher, group), all_gather(ties, group)
         clock.stop(f"{side}_scan1_s", t0)
         t0 = clock.start()
-        fh, fe = _scan_pairs(score_fn, z, a_d, r_d, t_d, rowg, cols, bounds)
-        higher, ties = higher - fh, ties - fe
+        fh, fe = _scan_pairs(score_fn, z, a_d, r_d, t_d, rowg, cols, bounds,
+                             tiles)
+        higher, ties = higher - psum(fh, group), ties - psum(fe, group)
         clock.stop(f"{side}_scan2_s", t0)
     else:
-        higher, ties = _fallback_counts(score_all_fn, z, a_d, r_d, t_d,
-                                        chunk, rows, cols, offs, cnts)
+        c0 = me * per // chunk
+        higher, ties = _fallback_counts(
+            score_all_fn, z, a_d[mine], r_d[mine], t_d[mine], chunk, rows,
+            cols, offs[c0:], cnts[c0:])
+        higher, ties = all_gather(higher, group), all_gather(ties, group)
         clock.stop(f"{side}_fallback_s", t0)
     rank = 1.0 + higher.double() + 0.5 * ties.double()
     return rank[:num].float().cpu().numpy()
@@ -278,15 +304,13 @@ def filtered_ranking_metrics(decoder, z, test_triples: np.ndarray,
         to the decoder's device).
       test_triples: (T, 3) int array of (head, rel, tail).
       all_triples: (A, 3) known-true triples (train ∪ val ∪ test).
+      mesh: a ``parallel.mesh.Mesh``: its ranks split the triples (z and
+        the decoder replicated on each); every rank returns the metrics.
       timings: if a dict, each part's seconds (the filter build, and per
         side the pair assembly, scan 1 and scan 2 or the fallback,
         synchronised on the device), the pair count, the chunk and the
         path taken go into it.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded ranking (mesh=) is not ported yet (ROADMAP.md queue "
-            "1, item 12)")
     check_full_fp32()
     test_triples = np.asarray(test_triples, dtype=np.int64)
     all_triples = np.asarray(all_triples, dtype=np.int64)
@@ -313,12 +337,12 @@ def filtered_ranking_metrics(decoder, z, test_triples: np.ndarray,
     ranks = [_direction_ranks(
         decoder.score_all_tails, tails_fn, z, test_triples[:, 0],
         test_triples[:, 1], test_triples[:, 2], tail_filter, chunk,
-        num_keys, clock, "tail")]
+        num_keys, clock, "tail", mesh)]
     if both_sides:
         ranks.append(_direction_ranks(
             decoder.score_all_heads, heads_fn, z, test_triples[:, 2],
             test_triples[:, 1], test_triples[:, 0], head_filter, chunk,
-            num_keys, clock, "head"))
+            num_keys, clock, "head", mesh))
 
     all_ranks = np.concatenate(ranks)
     out = {

@@ -9,12 +9,14 @@ The arguments are overrides of configs/kge.yaml, read by the config layer
 negative an edge), ``seed``, the ``data.*`` keys the checkpoint was
 trained with (``data.node_init_method``, ``data.embed_dim``,
 ``gcl_model``, ``gcl_fuse_method``, ``data.unseen_node_ratio``, ...); the
-``model.*`` and ``devices`` keys are read from the checkpoint and the one
-card ``device`` names. The port's keys: ``filter_neg`` (false; true
-redraws sampled negatives that hit a real batch edge, as the root
-test_kge.py's), ``steps`` (none; as ``train_kge``'s, the test epoch then
-takes max(1, steps // 10) SAINT batches, else 100), ``device`` (cuda),
-``unseen_ranking`` and ``unseen_rank_max_triples``.
+``model.*`` keys are read from the checkpoint; it evaluates on the one
+card ``device`` names (launched as ranks, by parallel/launch.py or
+torchrun, every rank evaluates alike and rank 0 reports). The port's
+keys: ``filter_neg`` (false; true redraws sampled negatives that hit a
+real batch edge, as the root test_kge.py's), ``steps`` (none; as
+``train_kge``'s, the test epoch then takes max(1, steps // 10) SAINT
+batches, else 100), ``device`` (cuda), ``unseen_ranking`` and
+``unseen_rank_max_triples``.
 
 It splits the PrimeKG graph as ``train_kge`` does, loads the checkpoint
 with the features in a device-resident table, in the reference's layout
@@ -30,7 +32,7 @@ from __future__ import annotations
 import sys
 from typing import Dict, List, Optional
 
-from .device import resolve_device
+from .parallel.mesh import distributed_init_if_needed
 from .eval.inductive import run_entrypoint_inductive_eval
 from .config import CONFIG_DIR, cli_overrides, load_config
 from .train_kge import data_module
@@ -47,7 +49,7 @@ def evaluate(config_name: str, entry: str,
         sys.argv[1:] if argv is None else argv))
     if not cfg.get("pretrained_path"):
         raise SystemExit(f"{entry}: pretrained_path=<ckpt> is required")
-    device = resolve_device(cfg.get("device"))
+    device = distributed_init_if_needed(cfg.get("device"))
     dm = data_module(cfg)
 
     print("=" * 20)

@@ -35,7 +35,8 @@ import sys
 from typing import List, Optional
 
 from .config import CONFIG_DIR, Config, cli_overrides, load_config
-from .device import resolve_device
+from .parallel.launch import per_card
+from .parallel.mesh import distributed_init_if_needed
 from .train_kge import (data_module, experiment_name, fit_and_test,
                         new_module)
 from .training.checkpoint import load_any
@@ -62,7 +63,7 @@ def warm_start_path(cfg: Config) -> Optional[str]:
 def train(cfg: Config) -> Optional[str]:
     """Fine-tune, validate and test as ``cfg`` says; returns the path of
     the checkpoint the test loaded."""
-    device = resolve_device(cfg.get("device"))
+    device = distributed_init_if_needed(cfg.get("device"))
     dm = data_module(cfg)
     path = warm_start_path(cfg)
     init_params, note = None, " from scratch"
@@ -90,8 +91,11 @@ def train(cfg: Config) -> Optional[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[str]:
-    return train(load_config(CONFIG_DIR, "dpi", cli_overrides(
-        sys.argv[1:] if argv is None else argv)))
+    argv = sys.argv[1:] if argv is None else argv
+    cfg = load_config(CONFIG_DIR, "dpi", cli_overrides(argv))
+    if per_card(__spec__.name, argv, cfg.get("devices"), cfg.get("device")):
+        return None
+    return train(cfg)
 
 
 if __name__ == "__main__":

@@ -32,9 +32,9 @@ tests that checkpoint on the test split. Checkpoints go to
 ``<ckpt_dir>/gcl/<data.node_type>/<model>_<fuse>_<init>_<time>/``, the
 layout the GCL node encoder globs (data/node_encoders.py::GCLEncode;
 ``load_gcl_module`` loads them in either package), metrics to the same
-path under ``<log_dir>``. Like ``train_kge``, it trains on the one card
-``device`` names (the config's two-card ``devices`` is ROADMAP.md queue
-1, item 12). ``train`` returns the path of the checkpoint the test
+path under ``<log_dir>``. Like ``train_kge``, it trains data-parallel
+over the cards ``devices`` asks for (one process each, parallel/launch.py).
+``train`` returns the path of the checkpoint the test
 loaded.
 """
 
@@ -48,7 +48,8 @@ from typing import List, Optional
 
 from .config import CONFIG_DIR, Config, cli_overrides, instantiate, \
     load_config
-from .device import resolve_device
+from .parallel.launch import per_card
+from .parallel.mesh import distributed_init_if_needed
 from .training.checkpoint import EarlyStopping, ModelCheckpoint
 from .training.gcl_module import create_gcl_model
 from .training.logger import MetricsLogger
@@ -92,7 +93,7 @@ def train(cfg: Config) -> Optional[str]:
                 f"_{cfg.data.node_init_method}_{int(time.time())}")
     type_dir = str(cfg.data.node_type)
     cfg.data.node_type = node_types(cfg.data.node_type)
-    device = resolve_device(cfg.get("device"))
+    device = distributed_init_if_needed(cfg.get("device"))
 
     dm = instantiate(cfg.data, seed=cfg.seed, device=cfg.get("device"))
     dm.setup(stage="split")
@@ -118,6 +119,7 @@ def train(cfg: Config) -> Optional[str]:
                       gradient_clip_val=GRAD_CLIP,
                       callbacks=[checkpoint, early_stopping], logger=logger,
                       fast_dev_run=cfg.debug, log_every_n_steps=10,
+                      devices=cfg.get("devices"),
                       steps_per_execution=cfg.get("steps_per_execution", 1))
     print(f"train_gcl: {cfg.model.model_name} on {cfg.data.node_type[0]}: "
           f"{dm.graph.num_nodes} nodes, {dm.graph.num_edges} edges; "
@@ -138,8 +140,11 @@ def train(cfg: Config) -> Optional[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[str]:
-    return train(load_config(CONFIG_DIR, "gcl", cli_overrides(
-        sys.argv[1:] if argv is None else argv)))
+    argv = sys.argv[1:] if argv is None else argv
+    cfg = load_config(CONFIG_DIR, "gcl", cli_overrides(argv))
+    if per_card(__spec__.name, argv, cfg.get("devices"), cfg.get("device")):
+        return None
+    return train(cfg)
 
 
 if __name__ == "__main__":

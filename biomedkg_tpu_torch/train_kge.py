@@ -39,10 +39,11 @@ split and, with ``data.unseen_node_ratio > 0``, runs the cold-start eval
 of the tested weights (eval/inductive.py: ``unseen_*`` metrics). Metrics
 go to ``<log_dir>/kge/<experiment>/metrics.{jsonl,csv}``.
 Every checkpoint holds the optimizer state, which ``KGEScorer`` serves and
-``Trainer.fit(resume_from=...)`` resumes. It trains on the one card
-``device`` names, whatever ``devices`` says: the config's ``devices: 0,1``
-asks for data parallelism over two, which is not ported (ROADMAP.md queue
-1, item 12). ``train`` returns the path of the checkpoint the test loaded
+``Trainer.fit(resume_from=...)`` resumes. ``devices`` (the config's
+``0,1``) is the Trainer's: clamped to the cards present; with more than
+one the run re-launches itself once per card (parallel/launch.py) and
+trains data-parallel over NCCL, rank 0 writing the checkpoints and logs.
+``train`` returns the path of the checkpoint the test loaded
 (None when it tested the weights in memory: ``debug``, or no validation
 ran).
 
@@ -52,6 +53,9 @@ blocks, the RGCN in float32): full-batch on the train split's edges, or
 typed GraphSAINT sub-batches with ``typed_loader=saint``, ``typed_steps``
 (300) steps an epoch; it prints and returns the test metrics of the
 full-graph typed encode and writes no checkpoint, as the JAX package does.
+It runs as one process on one device whatever ``devices`` asks for (a
+warning says so): launched as more than one rank it raises, since
+data-parallel typed training is not ported (ROADMAP.md item 12c).
 """
 
 from __future__ import annotations
@@ -59,11 +63,13 @@ from __future__ import annotations
 import os
 import sys
 import time
+import warnings
 from typing import List, Optional
 
 from .config import CONFIG_DIR, Config, cli_overrides, load_config
-from .device import resolve_device
 from .eval.inductive import run_entrypoint_inductive_eval
+from .parallel.launch import cards_asked, per_card
+from .parallel.mesh import distributed_init_if_needed
 from .serve import make_data_module
 from .training.checkpoint import ModelCheckpoint
 from .training.kge_module import KGEModule
@@ -127,7 +133,7 @@ def fit_and_test(cfg: Config, dm, module: KGEModule, stage: str,
                       check_val_every_n_epoch=cfg.val_every_epoch,
                       gradient_clip_val=1.0, callbacks=[checkpoint],
                       logger=logger, fast_dev_run=cfg.debug,
-                      log_every_n_steps=10,
+                      log_every_n_steps=10, devices=cfg.get("devices"),
                       steps_per_execution=cfg.get("steps_per_execution", 1))
     print(f"train_{stage}: {dm.graph.num_nodes} nodes, {dm.graph.num_edges} "
           f"edges, features {tuple(dm.graph.x.shape[1:])} "
@@ -162,9 +168,15 @@ def train(cfg: Config):
     """Train, validate and test as ``cfg`` says; returns the path of the
     checkpoint the test loaded, or with ``typed_tables`` the test
     metrics."""
-    device = resolve_device(cfg.get("device"))
+    typed = cfg.get("typed_tables", False)
+    if typed and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError(
+            "typed_tables trains on one device: data-parallel typed "
+            "training is not ported (ROADMAP.md queue 1, item 12c); run it "
+            "as one process, without a launcher")
+    device = distributed_init_if_needed(cfg.get("device"))
     dm = data_module(cfg)
-    if cfg.get("typed_tables", False):
+    if typed:
         module = new_module(cfg, dm.data.num_edge_types)
         if cfg.get("typed_loader", "full") == "saint":
             return typed_saint_train(module, dm, cfg, device)
@@ -175,8 +187,18 @@ def train(cfg: Config):
 
 
 def main(argv: Optional[List[str]] = None):
-    return train(load_config(CONFIG_DIR, "kge", cli_overrides(
-        sys.argv[1:] if argv is None else argv)))
+    argv = sys.argv[1:] if argv is None else argv
+    cfg = load_config(CONFIG_DIR, "kge", cli_overrides(argv))
+    if cfg.get("typed_tables", False):
+        # the typed loops run on one device, as the JAX package's do
+        if cards_asked(cfg.get("devices"), cfg.get("device")) > 1:
+            warnings.warn(f"typed_tables trains on one card, not the "
+                          f"devices={cfg.get('devices')!r} asked for "
+                          "(ROADMAP.md queue 1, item 12c)", stacklevel=2)
+    elif per_card(__spec__.name, argv, cfg.get("devices"),
+                  cfg.get("device")):
+        return None
+    return train(cfg)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ import torch
 
 from ..interop.jax_params import (load_jax_params, tensors_from_tree,
                                   to_jax_params, to_jax_tree)
+from ..parallel.mesh import is_global_zero
 from .optim import AdamState
 from .stepping import TrainState
 
@@ -310,7 +311,8 @@ class ModelCheckpoint:
             while self.save_top_k >= 0 and \
                     len(self._kept) > self.save_top_k:
                 _, drop = self._kept.pop()
-                if os.path.exists(drop):
+                # rank 0 writes the files (Trainer.save), so it evicts them
+                if is_global_zero() and os.path.exists(drop):
                     os.remove(drop)
         if self.save_last:
             trainer.save(os.path.join(self.dirpath, "last.ckpt"))

@@ -19,7 +19,7 @@ checkpoint needs no optax classes (training/checkpoint.py).
 from __future__ import annotations
 
 import math
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -85,13 +85,17 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: AdamState,
-               params: List[torch.Tensor]) -> AdamState:
+               params: List[torch.Tensor],
+               g_norm: Optional[torch.Tensor] = None) -> AdamState:
         """One step: ``params`` and the state's moments change in place;
         returns the state with the incremented count. No host sync; each
         stage is one multi-tensor (``_foreach``) launch over all the
-        parameters, not one launch per parameter."""
-        g_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        parameters, not one launch per parameter. ``g_norm`` is the clip's
+        global norm where ``grads`` are shards of a larger gradient (the
+        dp × tp step, parallel/dp.py); by default their own norm."""
+        if g_norm is None:
+            g_norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads)))
         keep = g_norm < self.grad_clip
         # optax: g where g_norm < clip, else g / g_norm * clip
         grads = torch._foreach_div(grads, torch.where(keep, 1.0, g_norm))

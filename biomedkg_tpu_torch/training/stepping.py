@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..models.fusion import modality_mean
+from ..parallel.collectives import all_reduce_grads, group_size, psum
 from .optim import AdamState, Optimizer
 
 
@@ -113,17 +114,27 @@ class StepsMixin:
         return TrainState(params, self.tx.init(list(params.values())), 0)
 
     def train_step(self, state: TrainState, batch,
-                   generator: Optional[torch.Generator] = None, **draws):
+                   generator: Optional[torch.Generator] = None,
+                   group=None, **draws):
         """One update; returns (state, {"train_loss": loss}), the loss a
         device scalar (reading it syncs). ``draws`` go to
-        ``_forward_loss``."""
+        ``_forward_loss``. With a process ``group`` (a data-parallel axis,
+        parallel/dp.py) each rank takes its own batch, and the gradients
+        and the loss are the group's means (JAX's ``pmean``), reduced by
+        one explicit all-reduce of flat buckets before the update."""
+        if self.tx is None:
+            raise RuntimeError("call configure_optimizers first")
         params = list(state.params.values())
         loss, _ = self._forward_loss(batch, training=True,
                                      generator=generator, **draws)
-        grads = param_grads(loss, state.params)
+        n = group_size(group)
+        grads = all_reduce_grads(param_grads(loss, state.params), group, n)
         opt_state = self.tx.update(grads, state.opt_state, params)
+        loss = loss.detach()
+        if group is not None:
+            loss = psum(loss, group) / n
         return (TrainState(state.params, opt_state, state.step + 1),
-                {"train_loss": loss.detach()})
+                {"train_loss": loss})
 
     def train_steps(self, state: TrainState, batches: List,
                     generator: torch.Generator):

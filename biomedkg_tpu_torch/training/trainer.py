@@ -26,8 +26,24 @@ The JAX Trainer keys a group of K steps by its first step; here each step
 is keyed by its own, so the draws do not depend on K or on where a resume
 starts.
 
-Refused (``NotImplementedError``): more than one device
-(``devices``; ROADMAP.md queue 1, item 12) and orbax checkpoints (item 6).
+``devices`` is Lightning's argument with the JAX Trainer's rules: ids (a
+list or "0,1") are clamped to the devices present, a count above them
+warns and clamps, -1 or "auto" takes them all. The devices present are the
+ranks of an initialised ``torch.distributed`` group (one process a card:
+parallel/launch.py, or torchrun), else the cards (1 on the CPU). More than
+one runs data parallelism in that group (the module's ``train_step`` over
+the dp group, as parallel/dp.py's ``make_dp_train_step``): one optimizer
+step takes dp batches, rank r the batch at position j·dp + r of each
+group of dp·K (the tail dropped), the gradients averaged by one
+all-reduce; each rank draws from its own key (seed, 1, step, rank). A
+resume skips dp batches a recorded step. Only rank 0 writes checkpoints,
+logs and the progress lines; every rank keeps ``history`` (the losses are
+the dp means) and evaluates alike. The Trainer starts no process: asked
+for more devices than the group has ranks, it raises and says how to
+start them.
+
+Refused (``NotImplementedError``): orbax checkpoints (ROADMAP.md queue 1,
+item 6).
 """
 
 from __future__ import annotations
@@ -40,8 +56,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..interop.jax_params import load_jax_params
+from ..parallel.mesh import (LAUNCH_HINT, is_global_zero, make_mesh,
+                             resolve_devices, world_size)
 from ..sampling.loaders import prefetch_to_device
 from .checkpoint import (AsyncSaver, ModelCheckpoint, load_any,
                          save_checkpoint, train_state_from,
@@ -126,6 +145,8 @@ class Trainer:
         def write():
             save_checkpoint(path, **payload, extras=extras)
 
+        if not is_global_zero():
+            return              # rank 0 writes the run's files
         if self._in_fit:
             self._saver.submit(write)
         else:
@@ -133,8 +154,11 @@ class Trainer:
             write()
 
     def flush_checkpoints(self):
-        """Wait for the write in flight; re-raises its failure."""
+        """Wait for the write in flight; re-raises its failure. In a group,
+        every rank waits until rank 0's file is down."""
         self._saver.wait()
+        if world_size() > 1:
+            dist.barrier()
 
     @property
     def best_model_path(self) -> Optional[str]:
@@ -145,30 +169,14 @@ class Trainer:
 
     # -- devices -----------------------------------------------------------
 
-    def _check_devices(self, device: torch.device):
-        """The Lightning ``devices`` argument: ids (a list or "0,1") are
-        clamped to the devices present, as the JAX Trainer does, so the
-        configs' ``0,1`` runs on one card; a count, -1 or "auto" asks for
-        that many (all). More than one is data parallelism, not ported."""
-        present = torch.cuda.device_count() if device.type == "cuda" else 1
-        d = self.devices
-        if d is None:
-            return
-        if isinstance(d, str) and "," in d:
-            d = [int(x) for x in d.split(",") if x.strip()]
-        if isinstance(d, (list, tuple)):
-            ids = [int(i) for i in d if 0 <= int(i) < present]
-            if len(ids) < len(d):
-                warnings.warn(f"devices={self.devices!r}: only {present} "
-                              f"present, using {ids or [0]}", stacklevel=3)
-            want = max(len(ids), 1)
-        else:
-            want = present if d in ("auto", -1, "-1") else int(d)
-        if want > 1:
-            raise NotImplementedError(
-                f"devices={self.devices!r} asks for {want} devices; data "
-                "parallel training is not ported (ROADMAP.md queue 1, "
-                "item 12)")
+    def _resolve_dp(self, device: torch.device) -> int:
+        """The data-parallel width ``devices`` asks for, clamped to the
+        devices present: the initialised group's ranks, else the cards
+        (1 on the CPU)."""
+        present = (world_size() if dist.is_initialized()
+                   else torch.cuda.device_count() if device.type == "cuda"
+                   else 1)
+        return resolve_devices(self.devices, present)
 
     # -- loops -------------------------------------------------------------
 
@@ -185,12 +193,30 @@ class Trainer:
              resume_from):
         self.module = model
         device = model.device
-        if not self.fast_dev_run:
-            self._check_devices(device)
+        dp = self._resolve_dp(device)
+        if world_size() != dp and (dp > 1 or world_size() > 1):
+            raise RuntimeError(
+                f"devices={self.devices!r} trains on {dp} devices in a "
+                f"group of {world_size()} ranks: {LAUNCH_HINT}")
         epochs = 1 if self.fast_dev_run else self.max_epochs
-        steps_per_epoch = 1 if self.fast_dev_run else len(train_dataloaders)
+        k = 1 if self.fast_dev_run else self.steps_per_execution
+        if self.fast_dev_run:
+            steps_per_epoch = 1
+        elif dp > 1:
+            n = len(train_dataloaders)
+            if n < dp * k:
+                raise ValueError(
+                    f"devices={dp} x steps_per_execution={k} needs at least "
+                    f"{dp * k} batches an epoch, the loader has {n}: every "
+                    "epoch would train no step")
+            steps_per_epoch = (n // (dp * k)) * k
+        else:
+            steps_per_epoch = len(train_dataloaders)
         model.configure_optimizers(steps_per_epoch * epochs,
                                    grad_clip=self.gradient_clip_val)
+        group = make_mesh(dp=dp, tp=1).dp_group if dp > 1 else None
+        rank = dist.get_rank() if dp > 1 else None
+        zero = is_global_zero()
         seed = getattr(model, "seed", 42)
         start_epoch, skip_steps = 0, 0
         if resume_from is not None:
@@ -218,18 +244,20 @@ class Trainer:
             t0 = time.perf_counter()
             n_batches = n_edges = 0
             last_loss = torch.zeros(())
-            k = 1 if self.fast_dev_run else self.steps_per_execution
             skip = skip_steps if epoch == start_epoch else 0
             for batches, edges in prefetch_to_device(
-                    self._stream(train_dataloaders, k, skip), device):
+                    self._stream(train_dataloaders, k, skip * dp, dp),
+                    device):
                 for batch in batches:
+                    key = (seed, TRAIN, self.global_step) + (
+                        () if rank is None else (rank,))
                     self.state, logs = model.train_step(
-                        self.state, batch,
-                        seeded(generator, seed, TRAIN, self.global_step))
+                        self.state, batch, seeded(generator, *key),
+                        group=group)
+                    last_loss = logs["train_loss"]
                     self.global_step += 1
-                last_loss = logs["train_loss"]
                 steps = len(batches)
-                n_batches += steps
+                n_batches += steps * dp
                 n_edges += edges
                 if self.enable_checkpointing and \
                         self.checkpoint_every_n_steps and \
@@ -238,7 +266,7 @@ class Trainer:
                         < steps:
                     self.save(os.path.join(self.default_root_dir,
                                            "step_last.ckpt"))
-                if self.logger and \
+                if self.logger and zero and \
                         self.global_step % self.log_every_n_steps < steps:
                     self.logger.log({"train_loss": float(last_loss)},
                                     self.global_step)
@@ -252,7 +280,7 @@ class Trainer:
                 "batches_per_sec": n_batches / dt,
                 "edges_per_sec": n_edges / dt,
             }
-            if self.enable_progress_bar:
+            if self.enable_progress_bar and zero:
                 print(f"[epoch {epoch}] train_loss={last_loss:.4f} "
                       f"({n_batches / dt:.2f} batch/s, "
                       f"{n_edges / dt:,.0f} edges/s)", flush=True)
@@ -265,7 +293,7 @@ class Trainer:
                 val_metrics = self._eval_loop(model, val_dataloaders, "val",
                                               (seed, VAL, epoch))
                 epoch_logs.update(val_metrics)
-                if self.enable_progress_bar:
+                if self.enable_progress_bar and zero:
                     print(f"[epoch {epoch}] val_loss="
                           f"{val_metrics.get('val_loss', float('nan')):.4f}",
                           flush=True)
@@ -276,31 +304,36 @@ class Trainer:
                         continue
                     if hasattr(cb, "on_validation_end"):
                         cb.on_validation_end(self, val_metrics)
-            if self.logger:
+            if self.logger and zero:
                 self.logger.log(epoch_logs, self.global_step)
             self.history.append(epoch_logs)
 
             if any(getattr(cb, "should_stop", False)
                    for cb in self.callbacks):
-                if self.enable_progress_bar:
+                if self.enable_progress_bar and zero:
                     print(f"[early stop] epoch {epoch}", flush=True)
                 break
         self.flush_checkpoints()
         return self.state
 
     @staticmethod
-    def _stream(loader, k: int, skip: int = 0):
-        """(K host batches, their real edges) items of ``loader``, the
-        last one shorter, after skipping ``skip`` batches (a resume's
-        offset: sampled, never copied). Runs on the prefetch thread."""
+    def _stream(loader, k: int, skip: int = 0, dp: int = 1):
+        """(K host batches, the real edges of their group) items of
+        ``loader``, after skipping ``skip`` batches (a resume's offset:
+        sampled, never copied). With ``dp`` > 1 each group is dp·K
+        batches, of which this rank takes positions j·dp + rank, and a
+        shorter tail is dropped; otherwise the last item is shorter. Runs
+        on the prefetch thread."""
         it = iter(loader)
         if skip:
             next(itertools.islice(it, skip - 1, skip), None)
+        rank = dist.get_rank() if dp > 1 else 0
         while True:
-            batches = list(itertools.islice(it, k))
-            if not batches:
+            group = list(itertools.islice(it, k * dp))
+            if not group or (dp > 1 and len(group) < k * dp):
                 return
-            yield batches, sum(int(np.sum(b.edge_mask)) for b in batches)
+            yield (group[rank::dp],
+                   sum(int(np.sum(b.edge_mask)) for b in group))
 
     def _eval_loop(self, model, dataloader, split: str, key) -> Dict:
         k = 1 if self.fast_dev_run else self.steps_per_execution
@@ -339,10 +372,11 @@ class Trainer:
         self.tested_ckpt_path = ckpt_path
         metrics = self._eval_loop(model, dataloaders, "test",
                                   (getattr(model, "seed", 42) + 2,))
-        if self.enable_progress_bar:
+        zero = is_global_zero()
+        if self.enable_progress_bar and zero:
             print("test metrics:")
             for k, v in sorted(metrics.items()):
                 print(f"  {k}: {v:.6f}")
-        if self.logger:
+        if self.logger and zero:
             self.logger.log(metrics, self.global_step)
         return metrics

@@ -7,7 +7,8 @@ layer with modality fusion and the LM and GCL embedding caches, and DPI
 fine-tuning with the csv on-ramps and the reference's Lightning
 checkpoints, and Stage A (the LM cache from the port's own BERT encoder
 and WordPiece tokenizer), and the typed tables, ml_exp and the opt-in
-RGCN variants, at full width on one CUDA card (Hopper, sm_90a).
+RGCN variants, and the parallel strategies over NCCL and over gloo ranks
+sharing the card, at full width on one CUDA card (Hopper, sm_90a).
 
     python3 chip_smoke.py
 
@@ -356,6 +357,28 @@ Phases; any failure ends the run with a non-zero exit:
     negscore records; the segsum record carries the ``typed_*``,
     ``typed_small_*``, ``agg_fwd_*``, ``agg_bwd_*`` and ``perm_bwd_*``
     numbers.
+15. The parallel strategies (biomedkg_tpu_torch/parallel/), after phase
+    9b: (a) in an NCCL group of the cards present (one process on one
+    card; min(count, 4) spawned ranks on a larger host): the dp Stage C
+    step at phase 5's envelope, ``make_dp_train_step`` against the
+    module's single-device ``train_step``, one step each from the same
+    weights, batch and draws (Adam lr and eps P15_LR, P15_EPS): the loss
+    and gradients within STEP_TOL, the updated parameters within the
+    gradients' difference; then the dp and the single-device step timed
+    in turns with the gradient bytes; the graph-sharded full-graph train step on
+    phase 2's graph (RGCN 768→256×4 + DistMult in bf16, balance=True,
+    P15_GRAPH_K fixed negatives an edge) against the full-batch
+    single-device step's loss and gradients (STEP_TOL), timed, its peak
+    memory and relmm launches a step; sharded filtered ranking over phase
+    2's weights against the unsharded ranks, bit for bit; (b)
+    P15_SHARED_RANKS gloo ranks sharing the card with CUDA tensors, each
+    running ``dryrun_multichip`` (parallel/dryrun.py: dp × tp, dp,
+    dp × scan, the balanced graph-sharded encode, its training step with
+    the all_gather and the halo exchange, the row-sharded typed step and
+    sharded ranking, each against one device on the card: every training
+    leg's loss and its parameters after the step), the segsum
+    and relmm counted on the shared card. Leg (a)'s counted launches add
+    to the segsum, DistMult negscore and relmm records.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -405,6 +428,14 @@ from biomedkg_tpu_torch.nn import dropout_mask
 from biomedkg_tpu_torch.ops import (_build, aggconv, flashnce, negscore,
                                     relmm,
                                     segment, segsum)
+from biomedkg_tpu_torch.parallel.dp import make_dp_train_step
+from biomedkg_tpu_torch.parallel.dryrun import dryrun_multichip
+from biomedkg_tpu_torch.parallel.graph_shard import (init_sharded_state,
+                                                     local_shard,
+                                                     make_sharded_train_step,
+                                                     partition_graph)
+from biomedkg_tpu_torch.parallel.launch import free_port, run_local_ranks
+from biomedkg_tpu_torch.parallel.mesh import make_mesh
 from biomedkg_tpu_torch.sampling import native
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
 from biomedkg_tpu_torch.sampling.csr import CSRGraph
@@ -415,7 +446,8 @@ from biomedkg_tpu_torch.training.checkpoint import (load_checkpoint,
                                                     save_checkpoint)
 from biomedkg_tpu_torch.training import gcl_module, typed_train
 from biomedkg_tpu_torch.training.stepping import param_grads
-from biomedkg_tpu_torch.training.trainer import Trainer
+from biomedkg_tpu_torch.training.optim import Optimizer
+from biomedkg_tpu_torch.training.trainer import Trainer, seeded
 from biomedkg_tpu_torch.training.kge_module import (HistogramBinaryMetrics,
                                                     KGEModule, _mix_factor,
                                                     load_kge_module,
@@ -6016,6 +6048,370 @@ def typed_phase(dm, dev, tmp) -> tuple:
     return launches, times
 
 
+# -- phase 15: the parallel strategies -------------------------------------
+P15_WARM, P15_STEPS = 2, 5      # dp Stage C steps: untimed, timed per turn
+P15_GRAPH_K = 2                 # the graph-sharded step's negatives an edge
+P15_GRAPH_STEPS = 2             # its timed steps
+P15_RANK_TRIPLES = 8192         # sharded rank_eval: test triples
+P15_SHARED_RANKS = 4            # leg (b): gloo ranks sharing the card
+# the dp step's check against train_step: Adam at P15_LR with eps P15_EPS
+# (an update that follows the gradient's size, so a gradient off by a
+# factor moves the parameters visibly)
+P15_LR, P15_EPS = 1e-3, 1e-3
+# relmm launches of one graph-sharded step: a forward per conv, a d_msg per
+# conv but the first (its messages come from the features)
+P15_RELMM_PER_STEP = (CONVS, CONVS - 1)
+
+
+class RecordedAdam(Optimizer):
+    """Adam without the clip, keeping the gradients of its last update."""
+
+    def update(self, grads, state, params, g_norm=None):
+        self.grads = [g.detach().clone() for g in grads]
+        return super().update(grads, state, params, g_norm)
+
+
+def dp_stage_c(dm, dev, mesh) -> tuple:
+    """(a) 1: the dp Stage C step at phase 5's envelope. ``make_dp_train_step``
+    and the module's single-device ``train_step``, each one step from the
+    same weights on the same batch and draws (every rank alike): their
+    losses, gradients and updated parameters held together; then the two
+    steps timed in turns; returns (the counted launches, the numbers)."""
+    dm.edge_layout = "dst"
+    dm.device_features = True
+    dm.saint_fill_target = SAINT_FILL
+    loader = dm.train_dataloader(loader_type="saint")
+    batches = [batch_to_device(loader.sample()[0], dev)
+               for _ in range(P15_WARM + P15_STEPS)]
+    module = KGEModule(**TRAIN)
+    module.init(torch.Generator().manual_seed(SEED))
+    module.to(dev)
+    module.edge_layout = "dst"
+    module.set_feature_table(dm.graph.x)
+    module.configure_optimizers(num_training_steps=100)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    negatives, masks, _ = fixed_draws(module, batches[0], gen)
+    dp_step = make_dp_train_step(module, mesh)
+    names = [n for n, _ in module.named_parameters()]
+    init = [p.detach().clone() for p in module.parameters()]
+    tx, module.tx = module.tx, RecordedAdam(lambda step: P15_LR,
+                                            grad_clip=float("inf"),
+                                            eps=P15_EPS)
+    runs = {}
+    for label in ("single", "dp"):
+        with torch.no_grad():
+            torch._foreach_copy_(list(module.parameters()), init)
+        state = module.init_state()
+        draws = {"negatives": negatives, "dropout_masks": masks}
+        if label == "dp":
+            state, loss = dp_step(state, batches[0], **draws)
+        else:
+            state, logs = module.train_step(state, batches[0], **draws)
+            loss = logs["train_loss"]
+        runs[label] = (float(loss), module.tx.grads,
+                       [p.detach().clone() for p in module.parameters()])
+    module.tx = tx
+    with torch.no_grad():
+        torch._foreach_copy_(list(module.parameters()), init)
+    (loss_1, grads_1, after_1), (loss_d, grads_d, after_d) = \
+        runs["single"], runs["dp"]
+    loss_err, worst, err = grad_errs(runs["single"][:2], runs["dp"][:2],
+                                     names)
+    loss_tol, grad_tol = STEP_TOL[torch.bfloat16]
+    # Adam with eps P15_EPS at P15_LR moves a weight by at most
+    # P15_LR / P15_EPS (= 1) times the change of its gradient
+    param_ok = all(
+        float((a - b).abs().max()) <= float((ga - gb).abs().max())
+        + 1e-6 * float(b.abs().max())
+        for a, b, ga, gb in zip(after_d, after_1, grads_d, grads_1))
+    moved = any(not torch.equal(a, p0) for a, p0 in zip(after_d, init))
+    same = ("bitwise equal" if loss_d == loss_1 and all(
+        torch.equal(a, b) for a, b in zip(grads_d + after_d,
+                                          grads_1 + after_1))
+            else "not bitwise: float32 atomics in the backward")
+    param_err = max(rel_err(a, b) for a, b in zip(after_d, after_1))
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads_d)
+    print(f"phase 15 (a) dp Stage C step on {mesh.dp} rank(s) against the "
+          f"single-device train_step (same weights, batch and draws): loss "
+          f"{loss_d!r} against {loss_1!r} ({loss_err:.3g} relative, tol "
+          f"{loss_tol:g}); gradients within {err:.3g} of their max "
+          f"({worst}; tol {grad_tol:g}); updated parameters within "
+          f"{param_err:.3g} of their max ({same}); "
+          f"{len(grads_d)} leaves, {grad_bytes} gradient bytes an "
+          "all-reduce")
+    check(loss_err <= loss_tol and err <= grad_tol,
+          "phase 15 (a): the dp step's loss or gradients differ from the "
+          "single-device step's")
+    check(moved and param_ok, "phase 15 (a): the dp step's updated "
+          "parameters differ from the single-device step's")
+    del runs, grads_1, grads_d, after_1, after_d
+
+    state = module.init_state()
+    times, launches = {}, {}
+    for turn in ("dp", "single", "single", "dp"):
+        def one(turn=turn):
+            nonlocal state
+            batch = batches[P15_WARM + one.i % P15_STEPS]
+            one.i += 1
+            g = seeded(gen, SEED, int(turn == "dp"), one.i)
+            if turn == "dp":
+                state, loss = dp_step(state, batch, g)
+            else:
+                state, logs = module.train_step(state, batch, g)
+                loss = logs["train_loss"]
+            return state, loss
+        one.i = 0
+        _, counted, ms = timed_loop(
+            one, P15_STEPS, f"phase 15 (a) {turn} step", triplets(
+                batches[P15_WARM:]), warm=P15_WARM)
+        times.setdefault(turn, []).append(ms)
+        if turn == "dp":
+            for k, v in counted.items():
+                launches[k] = launches.get(k, 0) + v
+    out = {"dp_ms": statistics.mean(times["dp"]),
+           "single_ms": statistics.mean(times["single"]),
+           "grad_bytes": grad_bytes}
+    print(f"phase 15 (a) dp step {times['dp']} ms, single-device step "
+          f"{times['single']} ms (turns dp, single, single, dp): the "
+          f"all-reduce of {grad_bytes} bytes adds "
+          f"{out['dp_ms'] - out['single_ms']:.3f} ms a step on "
+          f"{mesh.dp} rank(s)")
+    return launches, out
+
+
+def graph_reference(encoder, decoder, full, sharded, fixed, dtype):
+    """One device's loss and gradients over the shards' edges and fixed
+    negatives (ids in shard order) on the full-batch encode, its convs on
+    the grouped GEMM as the shards'."""
+    dev = full.x.device
+    encoder.conv_impl = "edge"
+    z = encoder(full.x, full.edge_index, full.edge_type, full.edge_mask,
+                full.block_rel, compute_dtype=dtype).float()
+    order = torch.as_tensor(sharded.node_order, device=dev)
+    num = den = 0.0
+    for p in range(sharded.x.shape[0]):
+        ei = torch.as_tensor(sharded.edge_index[p].astype(np.int64),
+                             device=dev)
+        et = torch.as_tensor(sharded.edge_type[p].astype(np.int64),
+                             device=dev)
+        em = torch.as_tensor(sharded.edge_mask[p], device=dev).float()
+        fneg = torch.as_tensor(fixed[p].astype(np.int64), device=dev)
+        pos = decoder.score(z, order[ei[0]], order[ei[1]], et)
+        neg = decoder.score_neg(z, order[fneg[0]], order[fneg[1]],
+                                et).reshape(-1)
+        pred = torch.cat([pos, neg])
+        gt = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
+        w = torch.cat([em, em.repeat(fneg.shape[1])])
+        num = num + torch.sum(-(gt * torch.nn.functional.logsigmoid(pred)
+                                + (1 - gt) * torch.nn.functional.logsigmoid(
+                                    -pred)) * w)
+        den = den + torch.sum(w)
+    nm = full.node_mask.float()
+    reg_z = torch.sum(z ** 2 * nm[:, None]) / (nm.sum() * z.shape[1])
+    loss = num / den + 1e-2 * (reg_z + torch.mean(decoder.rel_emb ** 2))
+    params = {f"encoder.{k}": p for k, p in encoder.named_parameters()}
+    params.update({f"decoder.{k}": p for k, p in decoder.named_parameters()})
+    return float(loss.detach()), param_grads(loss, params)
+
+
+def graph_sharded_step(dm, dev, mesh) -> tuple:
+    """(a) 2: the graph-sharded full-graph train step on phase 2's graph
+    at full width (RGCN 768→256×4, DistMult, bf16 over float32 masters,
+    balance=True, fixed negatives); its loss and gradients against the
+    full-batch single-device step's, then timed; returns (launches,
+    numbers)."""
+    g = dm.graph
+    r = g.num_relations
+    dtype = torch.bfloat16
+    full = FullGraphLoader(g).batch()
+    t0 = time.perf_counter()
+    sharded = partition_graph(full, mesh.dp, r, block_size=256,
+                              balance=True)
+    part_s = time.perf_counter() - t0
+    e_p = sharded.edge_type.shape[1]
+    fixed = np.random.default_rng(SEED).integers(
+        0, g.num_nodes, (mesh.dp, 2, P15_GRAPH_K, e_p)).astype(np.int32)
+    encoder = encoders.RGCN(HPARAMS["in_dim"], HPARAMS["hidden_dim"],
+                            HPARAMS["out_dim"], HPARAMS["num_hidden_layers"],
+                            r, drop_out=False)
+    decoder = decoders.DistMult(r, HPARAMS["out_dim"])
+    gen = torch.Generator().manual_seed(SEED)
+    encoder.init(gen)
+    decoder.init(gen)
+    encoder.to(dev)
+    decoder.to(dev)
+    full_dev = batch_to_device(full, dev)
+    ref_loss, ref_grads = graph_reference(encoder, decoder, full_dev,
+                                          sharded, fixed, dtype)
+    del full_dev
+    torch.cuda.empty_cache()
+    tx = RecordedAdam(lambda step: 1e-3, grad_clip=float("inf"))
+    state = init_sharded_state(encoder, decoder, tx)
+    run = make_sharded_train_step(encoder, decoder, tx, mesh,
+                                  neg_ratio=P15_GRAPH_K, compute_dtype=dtype)
+    local = local_shard(sharded, mesh, dev)
+    torch.cuda.reset_peak_memory_stats()
+    state, loss = run(state, local, fixed_neg=fixed)
+    loss = float(loss)
+    loss_err, worst, err = grad_errs((ref_loss, ref_grads),
+                                     (loss, tx.grads), list(state.params))
+    loss_tol, grad_tol = STEP_TOL[dtype]
+    print(f"phase 15 (a) graph-sharded step, {mesh.dp} shard(s) of "
+          f"{sharded.x.shape[1]} rows and {e_p} edge slots (partition "
+          f"{part_s:.2f} s, balanced; real edges "
+          f"{[int(m.sum()) for m in sharded.edge_mask]}): loss {loss!r} "
+          f"against the full-batch single-device step's {ref_loss!r} "
+          f"({loss_err:.3g} relative, tol {loss_tol:g}); gradients within "
+          f"{err:.3g} of their max ({worst}; tol {grad_tol:g}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(loss_err <= loss_tol,
+          "phase 15 (a): the graph-sharded loss disagrees")
+    check(err <= grad_tol,
+          f"phase 15 (a): graph-sharded gradients disagree ({worst})")
+    del ref_grads
+    holder = [state]
+
+    def one():
+        holder[0], step_loss = run(holder[0], local, fixed_neg=fixed)
+        return holder[0], step_loss
+
+    real = int(sum(int(m.sum()) for m in sharded.edge_mask))
+    _, launches, ms = timed_loop(one, P15_GRAPH_STEPS,
+                                 "phase 15 (a) graph-sharded step",
+                                 (real * P15_GRAPH_STEPS, "real edges/s"))
+    per_step = (launches[relmm.NAME] / P15_GRAPH_STEPS,
+                launches[relmm.NAME + "_bwd"] / P15_GRAPH_STEPS)
+    check(per_step == P15_RELMM_PER_STEP,
+          f"phase 15 (a): relmm launches a graph-sharded step {per_step}")
+    return launches, {"graph_ms": ms, "graph_relmm_per_step": per_step,
+                      "graph_peak_gb": torch.cuda.max_memory_allocated()
+                      / 1e9}
+
+
+def sharded_rank_eval(dm, dev, mesh) -> dict:
+    """(a) 3: rank_eval's ranking over phase 2's weights (phase 10's
+    checkpoint) on the first P15_RANK_TRIPLES test triples, with the mesh
+    and without: the ranks equal bit for bit."""
+    module = KGEModule(**HPARAMS)
+    module.init(torch.Generator().manual_seed(SEED))
+    module.to(dev)
+    module.edge_layout = module.default_layout
+    z = rank_eval_z(module, dm)
+    test = rank_eval.triples(dm.test_data)[:P15_RANK_TRIPLES]
+    known = np.concatenate([rank_eval.triples(dm.train_data),
+                            rank_eval.triples(dm.val_data),
+                            rank_eval.triples(dm.test_data)])
+    dec = module.model.decoder
+    out, raw = {}, {}
+    for label, kw in (("single", {}), ("sharded", {"mesh": mesh})):
+        with raw_ranks() as seen:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[label] = ranking.filtered_ranking_metrics(dec, z, test, known,
+                                                          **kw)
+            torch.cuda.synchronize()
+            out[f"{label}_s"] = time.perf_counter() - t0
+        raw[label] = seen
+    same = out["single"] == out["sharded"] and all(
+        np.array_equal(a, b) for a, b in zip(raw["single"], raw["sharded"]))
+    print(f"phase 15 (a) sharded rank_eval over {mesh.size} rank(s), "
+          f"{len(test)} test triples x 2 directions: {out['sharded_s']:.3f} "
+          f"s against {out['single_s']:.3f} s unsharded; ranks "
+          f"{'equal bit for bit' if same else 'DIFFER'}; metrics "
+          f"{json.dumps(out['sharded'])}")
+    check(same, "phase 15 (a): sharded ranks differ from the unsharded")
+    return {"rank_s": out["sharded_s"], "rank_single_s": out["single_s"]}
+
+
+def nccl_leg(dm, dev) -> tuple:
+    """Leg (a) on this rank of the NCCL group; returns (launches,
+    numbers)."""
+    mesh = make_mesh(dp=dist_world(), tp=1)
+    dp_launches, numbers = dp_stage_c(dm, dev, mesh)
+    torch.cuda.empty_cache()
+    graph_launches, graph = graph_sharded_step(dm, dev, mesh)
+    numbers.update(graph)
+    torch.cuda.empty_cache()
+    numbers.update(sharded_rank_eval(dm, dev, mesh))
+    launches = {k: dp_launches.get(k, 0) + graph_launches.get(k, 0)
+                for k in set(dp_launches) | set(graph_launches)}
+    return launches, numbers
+
+
+def dist_world() -> int:
+    return torch.distributed.get_world_size()
+
+
+def nccl_leg_rank(rank, data):
+    """Leg (a) on one spawned NCCL rank (hosts with more than one card):
+    the rank builds the data module itself."""
+    dm = PrimeKGModule(**data, seed=SEED)
+    dm.setup(stage="split")
+    return nccl_leg(dm, torch.device("cuda", rank))
+
+
+def shared_card_rank(rank, world):
+    """Leg (b) on one gloo rank sharing card 0: the dry run of every
+    strategy, each leg against one device on the card, its kernel
+    launches counted."""
+    reset_launch_counts()
+    out = dryrun_multichip(world, device=torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    out["launches"] = {k: v for k, v in launch_counts().items() if v}
+    return out
+
+
+def parallel_phase(dm, dev, data) -> tuple:
+    """Phase 15; returns every kernel's launches over leg (a)'s counted
+    runs (rank 0) and the phase's numbers."""
+    t_phase = time.perf_counter()
+    world = min(torch.cuda.device_count(), 4)
+    if world == 1:
+        torch.distributed.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+            world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            check(torch.distributed.get_backend() == "nccl",
+                  "phase 15 (a): not an NCCL group")
+            launches, numbers = nccl_leg(dm, dev)
+        finally:
+            torch.distributed.destroy_process_group()
+    else:
+        launches, numbers = run_local_ranks(
+            world, nccl_leg_rank, (data,), backend="nccl", timeout=600)[0]
+    numbers["nccl_world"] = world
+    t_a = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    try:
+        outs = run_local_ranks(P15_SHARED_RANKS, shared_card_rank,
+                               (P15_SHARED_RANKS,), timeout=300)
+    except RuntimeError as err:
+        fail(f"phase 15 (b): {P15_SHARED_RANKS} gloo ranks sharing the "
+             f"card failed (a collective gloo refuses on CUDA tensors is "
+             f"named in the rank's error): {err}")
+    t_b = time.perf_counter() - t0
+    b = outs[0]
+    legs = {k: b[k] for k in b if k.endswith("_err")}
+    print(f"phase 15 (b) {P15_SHARED_RANKS} gloo ranks on one card "
+          f"({t_b:.1f} s): every leg within its tolerance of one device: "
+          f"{json.dumps(legs)}; rank 0's launches {json.dumps(b['launches'])}"
+          f"; graph shard {json.dumps(b['graph_shard'])}")
+    check(all(o["spmd_dp_tp"] == b["spmd_dp_tp"] for o in outs),
+          "phase 15 (b): the ranks' dp x tp losses differ")
+    for name in ("sorted_segment_sum", relmm.NAME, relmm.NAME + "_bwd"):
+        check(b["launches"].get(name, 0) > 0,
+              f"phase 15 (b): {name} did not run on the shared card")
+    numbers.update(shared_s=t_b, shared_launches=b["launches"],
+                   halo_rows=b["graph_shard"]["halo_rows_per_pair_padded"])
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s (a {t_a:.1f} s, "
+          f"b {t_b:.1f} s); launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    return launches, numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6276,6 +6672,10 @@ def main() -> int:
           f"rc {run.returncode}):\n{run.stdout.strip()}")
     check(run.returncode == 0, f"phase 9b failed: {run.stderr[-3000:]}")
     ended("9b")
+    # -- 15. the parallel strategies: NCCL, and gloo ranks sharing the card
+    torch.cuda.empty_cache()
+    parallel, p15 = parallel_phase(scorer.dm, dev, data)
+    ended("15")
 
     k1 = {r["name"]: r for r in k1_records}
     # phase 12: every kernel of the DPI path launched in its counted runs;
@@ -6305,14 +6705,22 @@ def main() -> int:
             record["launches"] += (ranked[record["name"]]
                                    + multimodal[record["name"]]
                                    + dpi.get(record["name"], 0)
-                                   + typed_launches.get(record["name"], 0))
+                                   + typed_launches.get(record["name"], 0)
+                                   + parallel.get(record["name"], 0))
         if record["name"] in k1:         # phase 11: K = 1 at its shapes
             record.update({f"k1_{key}": k1[record["name"]][key] for key in
                            ("ms", "plain_ms", "bound_ms", "max_abs_err")})
         record.update(dpi_keys.get(record["name"], {}))
-    for record in relmm_records:
-        record["launches"] += dpi.get(record["name"], 0)
+    for record in relmm_records:         # phases 12 and 15
+        record["launches"] += (dpi.get(record["name"], 0)
+                               + parallel.get(record["name"], 0))
         record.update(dpi_keys.get(record["name"], {}))
+        if record["name"] == relmm_key(relmm.FORWARD, fast):
+            record["graph_sharded_step_launches"] = \
+                p15["graph_relmm_per_step"][0]
+        elif record["name"] == relmm_key(relmm.BACKWARD, fast):
+            record["graph_sharded_step_launches"] = \
+                p15["graph_relmm_per_step"][1]
     for record in flash_records:         # phase 11's GRACE + ReDAF steps
         name = record["name"]
         record["launches"] += multimodal[
@@ -6328,7 +6736,8 @@ def main() -> int:
         + gcl_segsum + eval_segsum + ranked["sorted_segment_sum"]
         + multimodal["sorted_segment_sum"] + dpi["sorted_segment_sum"]
         + stage_a["sorted_segment_sum"]
-        + typed_launches["sorted_segment_sum"],
+        + typed_launches["sorted_segment_sum"]
+        + parallel.get("sorted_segment_sum", 0),
         "max_abs_err": max(results.values()),
         "ms": serving["ms"], "first_design_ms": serving["first_ms"],
         "plain_ms": serving["plain_ms"], "bound_ms": serving["bound_ms"],
@@ -6338,7 +6747,9 @@ def main() -> int:
         **{f"{label}_{k}": t[k] for label, t in typed_times.items()
            for k in SEGSUM_KEYS},
         "typed_block": typed_times["typed"]["block"],
-        "typed_small_block": typed_times["typed_small"]["block"]}]
+        "typed_small_block": typed_times["typed_small"]["block"],
+        "shared_card_launches": p15["shared_launches"].get(
+            "sorted_segment_sum", 0)}]
         + neg_records
         + relmm_records + flash_records}))
     print(json.dumps({"ok": True, "device": {

@@ -297,6 +297,54 @@ def test_typed_slice_runs_without_jax_pandas_yaml_sklearn(tmp_path):
     assert proc.stdout.strip().splitlines()[-1] == "[]"
 
 
+# the parallel strategies
+PARALLEL_SLICE_MODULES = tuple(
+    f"parallel/{name}.py" for name in (
+        "__init__", "mesh", "collectives", "dp", "launch", "graph_shard",
+        "typed_shard", "sharding", "dryrun"))
+
+_PARALLEL_CHILD = textwrap.dedent("""
+    import contextlib, importlib, io, sys
+    for name in {forbidden!r}:
+        sys.modules[name] = None          # any import of it now fails
+    for path in {modules!r}:
+        importlib.import_module("biomedkg_tpu_torch."
+                                + path[:-3].replace("/", ".")
+                                .replace(".__init__", ""))
+    import torch
+    import torch.distributed as dist
+    from biomedkg_tpu_torch.parallel.dryrun import dryrun_multichip
+    torch.set_num_threads(1)              # as a launched rank runs
+    from biomedkg_tpu_torch.parallel.launch import free_port
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d"
+                            % free_port(), rank=0, world_size=1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = dryrun_multichip(1)
+    dist.destroy_process_group()
+    assert out["n_devices"] == 1, out
+    print(sorted(m for m, mod in sys.modules.items()
+                 if mod is not None and m.split(".")[0] in {forbidden!r}))
+""")
+
+
+def test_parallel_slice_runs_without_jax_pandas_yaml(tmp_path):
+    """The parallel modules import, and the dry run of every strategy
+    runs in a one-rank gloo group, in a process where JAX, biomedkg_tpu,
+    pandas, PyYAML, optax and the Hugging Face packages cannot be
+    imported."""
+    scanned = {os.path.relpath(p, os.path.join(ROOT, "biomedkg_tpu_torch"))
+               for p in _port_sources()}
+    assert set(PARALLEL_SLICE_MODULES) <= scanned
+    code = _PARALLEL_CHILD.format(forbidden=FORBIDDEN,
+                                  modules=PARALLEL_SLICE_MODULES)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 _CHILD = textwrap.dedent("""
     import importlib, importlib.util, pkgutil, sys
     for name in {forbidden!r}:

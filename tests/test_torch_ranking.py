@@ -24,6 +24,7 @@ from biomedkg_tpu.models import decoders as jax_decoders
 from biomedkg_tpu_torch.eval import ranking
 from biomedkg_tpu_torch.interop.jax_params import tensors_from_tree
 from biomedkg_tpu_torch.models import decoders
+from biomedkg_tpu_torch.parallel.mesh import make_mesh
 
 DECODERS = ["DistMult", "ComplEx", "TransE", "RotatE"]
 N, R, D = 64, 4, 16
@@ -292,8 +293,11 @@ def test_host_arrays_byte_identical():
 def test_sharded_ranking_and_tf32_refused():
     _, _, dec = _decoders("DistMult")
     z, test, known = _graph()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ranking.filtered_ranking_metrics(dec, z, test, known, mesh=object())
+    # a one-rank mesh ranks as no mesh (tests/test_torch_parallel_typed_rank
+    # holds four gloo ranks against the unsharded ranks)
+    assert ranking.filtered_ranking_metrics(
+        dec, z, test, known, mesh=make_mesh()) == \
+        ranking.filtered_ranking_metrics(dec, z, test, known)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         with pytest.raises(RuntimeError, match="TF32"):

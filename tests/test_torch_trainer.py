@@ -338,8 +338,14 @@ def test_test_loads_the_best_checkpoint(tmp_path):
 def test_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="item 6"):
         Trainer(checkpoint_backend="orbax")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Trainer(devices=2).fit(_module(), TinyLoader(steps=1))
+    # two devices present and no group of two ranks: it says how to start
+    # one (parallel/launch.py) instead of training each card alone
+    class TwoPresent(Trainer):
+        def _resolve_dp(self, device):
+            return 2
+
+    with pytest.raises(RuntimeError, match="parallel.launch"):
+        TwoPresent(devices=2).fit(_module(), TinyLoader(steps=1))
     # ids are clamped to the devices present (one on the CPU)
     with pytest.warns(UserWarning, match="present"):
         Trainer(devices="0,1", enable_progress_bar=False).fit(
@@ -422,11 +428,13 @@ class _Reached(Exception):
     ids=["train_kge", "train_gcl"])
 def test_entry_points_train_on_one_card_of_two(entry, argv, tmp_path,
                                                monkeypatch):
-    """On a host with two cards the entry points' Trainer passes its
-    device check (data parallelism is not ported, so they ask for one)."""
+    """On a host with two cards the entry points hand the config's
+    ``devices: 0,1`` to the Trainer, which resolves it to both cards (data
+    parallelism, one rank a card); ``device=cpu`` runs in this one
+    process, not re-launched per card."""
     class CheckOnly(Trainer):
         def fit(self, *args, **kwargs):
-            self._check_devices(torch.device("cuda"))
+            assert self._resolve_dp(torch.device("cuda")) == 2
             raise _Reached
 
     monkeypatch.chdir(tmp_path)
