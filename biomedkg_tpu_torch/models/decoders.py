@@ -9,6 +9,13 @@ through ops/negscore.py: the CUDA kernels on the card, the dual-sorted ones
 with ``dst_sorted``) and ``score_all_tails`` / ``score_all_heads`` ((E, N)
 candidate scores for serving and ranking). ComplEx and RotatE split z into
 real and imaginary halves.
+
+Under a dp × tp step (``tp``, a parallel/collectives.py
+``TensorParallel``) z and ``rel_emb`` are the rank's columns
+(parallel/sharding.py: ComplEx's and RotatE's hold pairs whole), each
+rank scores its columns, and the partial scores are summed over tp
+(``_total``): RotatE's γ is added once, after the sum; TransE's L1 row
+norms are sums over tp of the ranks' parts.
 """
 
 from __future__ import annotations
@@ -50,6 +57,8 @@ class _Decoder(nn.Module):
     # float32 (rows, N, d) intermediates ``score_all_*`` holds at once;
     # eval/ranking.py caps its chunk by them (a product holds none)
     candidate_intermediates = 0
+    # the constant added to the sum over features (RotatE's γ)
+    offset = 0.0
 
     def __init__(self, num_relations: int, hidden_channels: int,
                  rel_width: int = None):
@@ -63,17 +72,32 @@ class _Decoder(nn.Module):
     def init(self, generator: torch.Generator):
         self.rel_emb.copy_(xavier_uniform(self.rel_emb.shape, generator))
 
-    def score_neg(self, z, neg_src, neg_dst, rel):
+    def _total(self, partial, tp=None):
+        """The scores from the sums over this rank's features: summed over
+        tp, then ``offset`` added."""
+        if tp is not None:
+            partial = tp.sum(partial.float())
+        return partial + self.offset if self.offset else partial
+
+    def score_neg(self, z, neg_src, neg_dst, rel, tp=None):
         """(K, E) negative sets sharing the batch's (E,) relation column;
         the relation rows follow z's type. Returns float32."""
         k, e = neg_src.shape
         h = take_rows(z, neg_src.reshape(-1)).reshape(k, e, -1)
         t = take_rows(z, neg_dst.reshape(-1)).reshape(k, e, -1)
         r = take_rows(self.rel_emb, rel).to(z.dtype)
-        return self._combine(h, r[None], t).float()
+        return self._total(self._combine(h, r[None], t, tp), tp).float()
 
-    def _combine(self, h, r, t):  # pragma: no cover - overridden
+    def _combine(self, h, r, t, tp=None):  # pragma: no cover - overridden
+        """The sum of the slots' terms over the features (z's columns)."""
         raise NotImplementedError
+
+    def _neg_sorted(self, fn, z, neg_src, neg_dst, rel, tp):
+        """``fn``'s scores (ops/negscore.py) of the sorted sampler's slots;
+        under ``tp`` on the rank's columns, summed over tp."""
+        group = {} if tp is None else {"group": tp.group}
+        return self._total(fn(z, neg_src, neg_dst, rel, self.rel_emb,
+                              **group), tp)
 
 
 class TransE(_Decoder):
@@ -89,24 +113,28 @@ class TransE(_Decoder):
         self.rel_emb.copy_(emb / emb.norm(dim=-1, keepdim=True))
 
     @staticmethod
-    def _l1_normalize(v):
-        return v / v.abs().sum(-1, keepdim=True).clamp(min=1e-12)
+    def _l1_normalize(v, tp=None):
+        norm = v.abs().sum(-1, keepdim=True)
+        if tp is not None:
+            norm = tp.sum_shared(norm)
+        return v / norm.clamp(min=1e-12)
 
-    def _combine(self, h, r, t):
-        h = self._l1_normalize(h)
-        t = self._l1_normalize(t)
+    def _combine(self, h, r, t, tp=None):
+        h = self._l1_normalize(h, tp)
+        t = self._l1_normalize(t, tp)
         return -torch.sum((h + r - t).abs(), dim=-1)
 
-    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False):
+    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False,
+                         tp=None):
         fn = transe_neg_scores_ds if dst_sorted else transe_neg_scores
-        return fn(z, neg_src, neg_dst, rel, self.rel_emb)
+        return self._neg_sorted(fn, z, neg_src, neg_dst, rel, tp)
 
     def score(self, z, head, tail, rel, tail_sorted: bool = False,
-              head_perm=None):
-        h = self._l1_normalize(_head_take(z, head, head_perm))
-        t = self._l1_normalize(_tail_take(z, tail, tail_sorted))
-        r = take_rows(self.rel_emb, rel)
-        return -torch.sum((h + r - t).abs(), dim=-1)
+              head_perm=None, tp=None):
+        h = _head_take(z, head, head_perm)
+        t = _tail_take(z, tail, tail_sorted)
+        return self._total(self._combine(h, take_rows(self.rel_emb, rel), t,
+                                         tp), tp)
 
     def score_all_tails(self, z, head, rel):
         zn = self._l1_normalize(z)
@@ -122,19 +150,20 @@ class TransE(_Decoder):
 class DistMult(_Decoder):
     """score = Σ h·r·t."""
 
-    def _combine(self, h, r, t):
+    def _combine(self, h, r, t, tp=None):
         return torch.sum(h * r * t, dim=-1)
 
-    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False):
+    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False,
+                         tp=None):
         """(K·E,) float32 scores of slots with ascending int32 ``neg_src``
         and per-slot int32 relation ids (ops/negscore.py); ``dst_sorted``:
         ``neg_dst`` is band-narrow per chunk (the "sorted2" sampler), which
         the dual-sorted kernels take."""
         fn = distmult_neg_scores_ds if dst_sorted else distmult_neg_scores
-        return fn(z, neg_src, neg_dst, rel, self.rel_emb)
+        return self._neg_sorted(fn, z, neg_src, neg_dst, rel, tp)
 
     def score(self, z, head, tail, rel, tail_sorted: bool = False,
-              head_perm=None):
+              head_perm=None, tp=None):
         """Per-edge scores. ``tail_sorted``: the tails ascend (the "dst"
         layout), so the tail gather's backward runs on the sorted
         segment-sum; ``head_perm`` routes the head gather's backward
@@ -142,7 +171,7 @@ class DistMult(_Decoder):
         h = _head_take(z, head, head_perm)
         t = _tail_take(z, tail, tail_sorted)
         r = take_rows(self.rel_emb, rel)
-        return torch.sum(h * r * t, dim=-1)
+        return self._total(torch.sum(h * r * t, dim=-1), tp)
 
     def score_all_tails(self, z, head, rel):
         """(E, N) scores of every node as the tail of (head, rel)."""
@@ -158,7 +187,7 @@ class ComplEx(_Decoder):
     ``rel_emb[:, :d/2]`` is the real part, ``rel_emb[:, d/2:]`` the
     imaginary part, matching z's halves."""
 
-    def _combine(self, h, r, t):
+    def _combine(self, h, r, t, tp=None):
         h_re, h_im = _halves(h)
         t_re, t_im = _halves(t)
         r_re, r_im = _halves(r)
@@ -166,15 +195,17 @@ class ComplEx(_Decoder):
         s = s + (h_re * r_im + h_im * r_re) * t_im
         return torch.sum(s, dim=-1)
 
-    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False):
+    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False,
+                         tp=None):
         fn = complex_neg_scores_ds if dst_sorted else complex_neg_scores
-        return fn(z, neg_src, neg_dst, rel, self.rel_emb)
+        return self._neg_sorted(fn, z, neg_src, neg_dst, rel, tp)
 
     def score(self, z, head, tail, rel, tail_sorted: bool = False,
-              head_perm=None):
-        return self._combine(_head_take(z, head, head_perm),
-                             take_rows(self.rel_emb, rel),
-                             _tail_take(z, tail, tail_sorted))
+              head_perm=None, tp=None):
+        return self._total(self._combine(_head_take(z, head, head_perm),
+                                         take_rows(self.rel_emb, rel),
+                                         _tail_take(z, tail, tail_sorted)),
+                           tp)
 
     def score_all_tails(self, z, head, rel):
         h_re, h_im = _halves(take_rows(z, head))
@@ -205,31 +236,36 @@ class RotatE(_Decoder):
                          rel_width=hidden_channels // 2)
         self.gamma = gamma
 
+    @property
+    def offset(self) -> float:
+        return self.gamma
+
     @torch.no_grad()
     def init(self, generator: torch.Generator):
         self.rel_emb.copy_(torch.empty(self.rel_emb.shape).uniform_(
             -math.pi, math.pi, generator=generator))
 
-    def _distance(self, rot_re, rot_im, t):
-        t_re, t_im = _halves(t)
-        return self.gamma - torch.sum(torch.sqrt(torch.clamp(
-            (rot_re - t_re) ** 2 + (rot_im - t_im) ** 2, min=1e-12)), dim=-1)
-
-    def _combine(self, h, r, t):
+    def _combine(self, h, r, t, tp=None):
+        """Minus the sum of the pairs' distances (γ is ``offset``)."""
         h_re, h_im = _halves(h)
+        t_re, t_im = _halves(t)
         c, s = torch.cos(r), torch.sin(r)
-        return self._distance(h_re * c - h_im * s, h_re * s + h_im * c, t)
+        return -torch.sum(torch.sqrt(torch.clamp(
+            (h_re * c - h_im * s - t_re) ** 2
+            + (h_re * s + h_im * c - t_im) ** 2, min=1e-12)), dim=-1)
 
-    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False):
+    def score_neg_sorted(self, z, neg_src, neg_dst, rel, dst_sorted=False,
+                         tp=None):
         """γ plus the kernels' raw score: γ is a constant outside them."""
         fn = rotate_neg_scores_ds if dst_sorted else rotate_neg_scores
-        return self.gamma + fn(z, neg_src, neg_dst, rel, self.rel_emb)
+        return self._neg_sorted(fn, z, neg_src, neg_dst, rel, tp)
 
     def score(self, z, head, tail, rel, tail_sorted: bool = False,
-              head_perm=None):
-        return self._combine(_head_take(z, head, head_perm),
-                             take_rows(self.rel_emb, rel),
-                             _tail_take(z, tail, tail_sorted))
+              head_perm=None, tp=None):
+        return self._total(self._combine(_head_take(z, head, head_perm),
+                                         take_rows(self.rel_emb, rel),
+                                         _tail_take(z, tail, tail_sorted)),
+                           tp)
 
     def _candidates(self, v_re, v_im, z):
         z_re, z_im = _halves(z)

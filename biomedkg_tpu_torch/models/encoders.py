@@ -54,6 +54,14 @@ side by side, head-major), additive attention logits, a masked softmax over
 each destination's incoming edges, the float32 weighted sum and the head
 mean.
 
+Under a dp × tp step (``tp``, a parallel/collectives.py
+``TensorParallel``) each layer's weights are the rank's columns
+(parallel/sharding.py): a conv computes those columns, the dropout takes
+the rank's block of the whole-width mask, and the rows are all-gathered
+before the next conv; the last conv's columns stay on the rank. RGAT's
+(E, H) attention logits are each rank's part over its columns of every
+head, summed over tp before the softmax.
+
 The GCN (the GCL models' encoder, PyG GCNConv) adds self-loops and
 normalises symmetrically, D^-1/2 (A + I) D^-1/2 with the in-degree counted
 on the real edges once per forward; per conv one dense product, the
@@ -96,19 +104,32 @@ class RGCNLayer(nn.Module):
         self.b = nn.Parameter(torch.zeros(dout))
 
 
-def _dropout(x, i, training, drop_out, generator, dropout_masks):
+def _dropout(x, i, training, drop_out, generator, dropout_masks, tp=None):
     """Inverted dropout after hidden conv ``i``: the injected mask, or one
-    drawn from ``generator``."""
+    drawn from ``generator``, at the layer's whole width (under ``tp``
+    the rank's block of it)."""
     if not (drop_out and training):
         return x
+    width = x.shape[1] * (1 if tp is None else tp.size)
     if dropout_masks is not None:
         keep = dropout_masks[i]
     elif generator is not None:
-        keep = dropout_mask(x.shape, DROPOUT, generator, x.device)
+        keep = dropout_mask((x.shape[0], width), DROPOUT, generator,
+                            x.device)
     else:
         raise ValueError("training dropout needs a torch.Generator or "
                          "injected masks")
+    if tp is not None:
+        keep = keep[:, tp.cols(width)]
     return dropout(x, keep, DROPOUT)
+
+
+def _next_input(x, i, training, drop_out, generator, dropout_masks, tp):
+    """Hidden conv ``i``'s output as the next conv's input: ReLU, dropout,
+    and under ``tp`` the ranks' columns gathered."""
+    x = _dropout(torch.relu(x), i, training, drop_out, generator,
+                 dropout_masks, tp)
+    return x if tp is None else tp.gather_cols(x)
 
 
 class RGCN(nn.Module):
@@ -214,14 +235,14 @@ class RGCN(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout_masks: Optional[List[torch.Tensor]] = None,
                 src_edges: Optional[torch.Tensor] = None,
-                src_pos: Optional[torch.Tensor] = None):
-        """(N, out_dim) node embeddings in ``compute_dtype``. ``block_rel``
-        is the relation-layout batch's per-block relation (the edge conv
-        needs it). In training, the dropout keep masks are
-        ``dropout_masks`` (one bool (N, width) mask per hidden layer) or
-        drawn from ``generator``. ``src_edges`` (4, E) [src, dst, rel,
-        mask] and ``src_pos`` (E,), the dst batch's src-sorted copy, feed
-        the ``dst_bwd`` variants."""
+                src_pos: Optional[torch.Tensor] = None, tp=None):
+        """(N, out_dim) node embeddings in ``compute_dtype`` (under ``tp``
+        the rank's columns). ``block_rel`` is the relation-layout batch's
+        per-block relation (the edge conv needs it). In training, the
+        dropout keep masks are ``dropout_masks`` (one bool (N, width) mask
+        per hidden layer) or drawn from ``generator``. ``src_edges`` (4,
+        E) [src, dst, rel, mask] and ``src_pos`` (E,), the dst batch's
+        src-sorted copy, feed the ``dst_bwd`` variants."""
         if self.edge_layout not in ("relation", "dst"):
             raise ValueError(f"unknown edge_layout {self.edge_layout!r}")
         if self.dst_bwd not in ("scatter", "perm", "agg"):
@@ -248,25 +269,28 @@ class RGCN(nn.Module):
             agg_args = (src, (dst * r + edge_type).to(torch.int32), norm,
                         s2.to(torch.int32), d2 * r + r2, norm2)
 
-        def conv(w_rel, w_root, b, x):
-            if variant == "agg" and w_rel.shape[1] <= w_rel.shape[2]:
+        def conv(w_rel, w_root, b, x, agg):
+            if agg:
                 return self._agg_layer(w_rel, w_root, b, x, *agg_args)
-            # the wide-input layers of "agg" keep the node path
             return self._conv(w_rel, w_root, b, x, src, dst, dst32,
                               edge_type, edge_mask, block_rel, norm,
                               perm if variant == "perm" else None)
 
         x = x.to(compute_dtype)
         for i, layer in enumerate(self.layers):
+            din, dout = self.dims[i]
+            # the wide-input layers of "agg" keep the node path (the
+            # layer's whole widths decide, under tp too)
             args = (layer.w_rel.to(compute_dtype),
                     layer.w_root.to(compute_dtype),
-                    layer.b.to(compute_dtype), x)
+                    layer.b.to(compute_dtype), x,
+                    variant == "agg" and din <= dout)
             x = (checkpoint(conv, *args, use_reentrant=False)
                  if self.remat else conv(*args))
             if i == len(self.layers) - 1:
                 break
-            x = _dropout(torch.relu(x), i, training, self.drop_out,
-                         generator, dropout_masks)
+            x = _next_input(x, i, training, self.drop_out, generator,
+                            dropout_masks, tp)
         return x
 
 
@@ -322,7 +346,7 @@ class RGAT(nn.Module):
             layer.b.zero_()
 
     def _conv(self, layer, x, src, dst, edge_type, edge_mask, block_rel,
-              dtype):
+              dtype, tp=None):
         num_nodes, heads = x.shape[0], self.num_heads
         dout = layer.b.shape[0]
         w_rel = layer.w_rel.to(dtype)
@@ -335,8 +359,16 @@ class RGAT(nn.Module):
                                     block_rel).reshape(-1, heads, dout)
         a_src = take_rows_matbwd(layer.att_src.to(dtype), edge_type)
         a_dst = take_rows_matbwd(layer.att_dst.to(dtype), edge_type)
-        logits = torch.nn.functional.leaky_relu(
-            (hs * a_src).sum(-1) + (hd * a_dst).sum(-1), 0.2)   # (E, H)
+        if tp is None:
+            logits = (hs * a_src).sum(-1) + (hd * a_dst).sum(-1)   # (E, H)
+        else:
+            # each rank's parts over its columns of every head, summed in
+            # float32 and rounded once, as the whole rows' sums are
+            parts = tp.sum_shared(torch.stack([
+                (hs * a_src).sum(-1, dtype=torch.float32),
+                (hd * a_dst).sum(-1, dtype=torch.float32)])).to(dtype)
+            logits = parts[0] + parts[1]
+        logits = torch.nn.functional.leaky_relu(logits, 0.2)
         alpha = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
         weighted = (hs * alpha[..., None]).reshape(-1, heads * dout)
         agg = scatter_add(weighted, dst, num_nodes)
@@ -346,18 +378,19 @@ class RGAT(nn.Module):
                 *, training: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
                 generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[List[torch.Tensor]] = None):
+                dropout_masks: Optional[List[torch.Tensor]] = None,
+                tp=None):
         """(N, out_dim) node embeddings in ``compute_dtype`` of a
-        relation-layout batch; dropout as ``RGCN.forward``."""
+        relation-layout batch; dropout and ``tp`` as ``RGCN.forward``."""
         src, dst = edge_index[0], edge_index[1]
         x = x.to(compute_dtype)
         for i, layer in enumerate(self.layers):
             x = self._conv(layer, x, src, dst, edge_type, edge_mask,
-                           block_rel, compute_dtype)
+                           block_rel, compute_dtype, tp)
             if i == len(self.layers) - 1:
                 break
-            x = _dropout(torch.relu(x), i, training, self.drop_out,
-                         generator, dropout_masks)
+            x = _next_input(x, i, training, self.drop_out, generator,
+                            dropout_masks, tp)
         return x
 
 
@@ -420,10 +453,12 @@ class GCNEncoder(nn.Module):
     def forward(self, x, edge_index, edge_mask, *, training: bool = False,
                 compute_dtype: torch.dtype = torch.float32,
                 generator: Optional[torch.Generator] = None,
-                dropout_masks: Optional[List[torch.Tensor]] = None):
-        """(N, out_dim) node embeddings in ``compute_dtype``; in training
-        the dropout keep masks are ``dropout_masks`` (one bool (N, width)
-        mask per hidden conv) or drawn from ``generator``."""
+                dropout_masks: Optional[List[torch.Tensor]] = None,
+                tp=None):
+        """(N, out_dim) node embeddings in ``compute_dtype`` (under ``tp``
+        the rank's columns); in training the dropout keep masks are
+        ``dropout_masks`` (one bool (N, width) mask per hidden conv) or
+        drawn from ``generator``."""
         if self.edge_layout not in ("relation", "dst"):
             raise ValueError(f"unknown edge_layout {self.edge_layout!r}")
         src, dst = edge_index[0], edge_index[1]
@@ -437,6 +472,6 @@ class GCNEncoder(nn.Module):
                            norm_e, self_w)
             if i == len(self.layers) - 1:
                 break
-            x = _dropout(torch.relu(x), i, training, self.drop_out,
-                         generator, dropout_masks)
+            x = _next_input(x, i, training, self.drop_out, generator,
+                            dropout_masks, tp)
         return x

@@ -17,6 +17,14 @@ port does not either.
 ``dtype`` is the compute policy: the parameters are rounded to it at use
 (the float32 masters keep the gradients), as the reference casts its
 parameter tree.
+
+Under a dp × tp step (``tp``, a parallel/collectives.py
+``TensorParallel``) every ``Linear``'s ``w`` / ``b`` and the encoder's
+are the rank's columns: the encoder returns its columns of z, and each
+head gathers its input's rows over tp before its product onto the rank's
+columns (``_linear``). DGI's and GGD's scores are sums over the ranks'
+columns; GRACE's projections come out column-split, and the module's
+InfoNCE gathers them whole (training/gcl_module.py).
 """
 
 from __future__ import annotations
@@ -47,6 +55,12 @@ def drop_edges(edge_mask: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
     return edge_mask & keep
 
 
+def _linear(layer: Linear, h, dtype, tp=None):
+    """``layer(h)``; under ``tp`` h is column-split and the layer holds the
+    rank's output columns, so h's rows are gathered first."""
+    return layer(h if tp is None else tp.gather_cols(h), dtype)
+
+
 def _keep(shape, p: float, generator: torch.Generator, device):
     """A keep mask, True with probability 1 - p."""
     return torch.rand(shape, generator=generator, device=device) >= p
@@ -59,9 +73,10 @@ class _GCLModel(nn.Module):
         self.hidden_dim = hidden_dim
 
     def _encode(self, x, edge_index, edge_mask, dropout_masks, training,
-                dtype):
+                dtype, tp=None):
         return self.encoder(x, edge_index, edge_mask, training=training,
-                            compute_dtype=dtype, dropout_masks=dropout_masks)
+                            compute_dtype=dtype, dropout_masks=dropout_masks,
+                            tp=tp)
 
     def _dropout_masks(self, num_nodes: int, generator, device,
                        training: bool) -> Optional[List[torch.Tensor]]:
@@ -95,17 +110,19 @@ class DGI(_GCLModel):
                             for _ in range(2)]}
 
     def forward(self, x, edge_index, edge_mask, node_mask, draws: Dict, *,
-                training: bool = False, dtype=torch.float32):
-        """(z, g, zn)."""
+                training: bool = False, dtype=torch.float32, tp=None):
+        """(z, g, zn) (under ``tp`` the rank's columns of each)."""
         z = self._encode(x, edge_index, edge_mask, draws["dropout"][0],
-                         training, dtype)
+                         training, dtype, tp)
         denom = node_mask.sum().clamp(min=1).float()
         mean = (z * node_mask[:, None].to(z.dtype)).sum(
             0, keepdim=True).float() / denom
+        if tp is not None:
+            mean = tp.gather_cols(mean)
         g = self.project(torch.sigmoid(mean), dtype)
         xn = x.index_select(0, draws["perm"])
         zn = self._encode(xn, edge_index, edge_mask, draws["dropout"][1],
-                          training, dtype)
+                          training, dtype, tp)
         return z, g, zn
 
 
@@ -135,16 +152,17 @@ class GRACE(_GCLModel):
                         for _ in range(2)]}
 
     def forward(self, x, edge_index, edge_mask, node_mask, draws: Dict, *,
-                training: bool = False, dtype=torch.float32):
+                training: bool = False, dtype=torch.float32, tp=None):
         """(z1, z2), the two views' embeddings."""
         return tuple(
             self._encode(mask_feature(x, draws["feat_keep"][v]), edge_index,
                          drop_edges(edge_mask, draws["edge_keep"][v]),
-                         draws["dropout"][v], training, dtype)
+                         draws["dropout"][v], training, dtype, tp)
             for v in range(2))
 
-    def project(self, z, dtype=torch.float32):
-        return self.fc2(torch.nn.functional.elu(self.fc1(z, dtype)), dtype)
+    def project(self, z, dtype=torch.float32, tp=None):
+        return _linear(self.fc2, torch.nn.functional.elu(
+            _linear(self.fc1, z, dtype, tp)), dtype, tp)
 
 
 class GGD(_GCLModel):
@@ -176,13 +194,16 @@ class GGD(_GCLModel):
             "dropout": [self._dropout_masks(n, generator, dev, training)
                         for _ in range(2)]}
 
-    def _project(self, h, dtype):
+    def _project(self, h, dtype, tp=None):
         for layer in self.mlp[:-1]:
-            h = torch.relu(layer(h, dtype))
-        return self.mlp[-1](h, dtype).sum(1)
+            h = torch.relu(_linear(layer, h, dtype, tp))
+        out = _linear(self.mlp[-1], h, dtype, tp)
+        if tp is None:
+            return out.sum(1)
+        return tp.sum(out.sum(1, dtype=torch.float32)).to(out.dtype)
 
     def forward(self, x, edge_index, edge_mask, node_mask, draws: Dict, *,
-                training: bool = False, dtype=torch.float32):
+                training: bool = False, dtype=torch.float32, tp=None):
         """(pos_h, neg_h), the summed projections. ``do_aug`` is a device
         bool, chosen by ``where`` (no host sync)."""
         do_aug = draws["do_aug"]
@@ -191,8 +212,9 @@ class GGD(_GCLModel):
                              drop_edges(edge_mask, draws["edge_keep"]),
                              edge_mask)
         pos_z = self._encode(x_aug, edge_index, em_aug, draws["dropout"][0],
-                             training, dtype)
+                             training, dtype, tp)
         xn = x_aug.index_select(0, draws["perm"])
         neg_z = self._encode(xn, edge_index, em_aug, draws["dropout"][1],
-                             training, dtype)
-        return self._project(pos_z, dtype), self._project(neg_z, dtype)
+                             training, dtype, tp)
+        return (self._project(pos_z, dtype, tp),
+                self._project(neg_z, dtype, tp))

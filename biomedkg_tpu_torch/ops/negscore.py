@@ -30,7 +30,10 @@ the float32 phases θ (R, d/2), and its gradient comes back as dθ. TransE's
 L1 normalisation is plain torch around the kernels (z to float32, each row
 divided by max(Σ|row|, 1e-12), back to z's type), so autograd carries its
 gradient, as XLA does in the reference. The backward returns ``dz`` in z's
-type and the relation gradient in rel_emb's.
+type and the relation gradient in rel_emb's. Under a dp × tp step z holds
+the rank's columns and ``group`` is the tp group: TransE's row norms are
+then the group's sums of the ranks' parts, and each rank's scores are its
+columns' part (the decoders sum them over the group).
 
 The forward runs in the design ``negscore_fwd_design`` names: "run" for
 both families. A warp walks a contiguous run of slots, holds its share of
@@ -66,6 +69,7 @@ import ctypes
 
 import torch
 
+from ..parallel.collectives import psum_shared
 from ._build import CudaLibrary, check_launch, stream_of
 from .segment import take_rows
 
@@ -381,11 +385,13 @@ def relation_table(mode: str, rel_emb: torch.Tensor,
     return rel_emb.to(z_dtype).float()
 
 
-def l1_normalized(z: torch.Tensor) -> torch.Tensor:
+def l1_normalized(z: torch.Tensor, group=None) -> torch.Tensor:
     """TransE's table pass: each row of float32 z divided by
-    max(Σ|row|, 1e-12), back in z's type (differentiable)."""
+    max(Σ|row|, 1e-12), back in z's type (differentiable). With a tp
+    ``group`` z holds the rank's columns and Σ|row| sums over the group."""
     zf = z.float()
-    return (zf / zf.abs().sum(1, keepdim=True).clamp(min=1e-12)).to(z.dtype)
+    norm = psum_shared(zf.abs().sum(1, keepdim=True), group)
+    return (zf / norm.clamp(min=1e-12)).to(z.dtype)
 
 
 class _PairDistance(torch.autograd.Function):
@@ -572,18 +578,19 @@ class _NegScores(torch.autograd.Function):
 def _make(mode: str, dual: bool, plain: bool):
     name = kernel_name(mode, dual) + ("_plain" if plain else "")
 
-    def neg_scores(z, ns, nd, rel, rel_emb) -> torch.Tensor:
+    def neg_scores(z, ns, nd, rel, rel_emb, group=None) -> torch.Tensor:
         _check(name, mode, z, ns, nd, rel, rel_emb,
                _rel_width(mode, z.shape[-1]))
         if mode == "transe":
-            z = l1_normalized(z)
+            z = l1_normalized(z, group)
         if plain or z.device.type == "cpu":
             return plain_scores(mode, z, ns, nd, rel, rel_emb)
         return _NegScores.apply(z, ns, nd, rel, rel_emb, mode, dual)
 
     neg_scores.__name__ = neg_scores.__qualname__ = name
     neg_scores.__doc__ = (
-        f"(M,) float32 {mode} negative scores"
+        f"(M,) float32 {mode} negative scores (a tp ``group``: z's "
+        "columns are the rank's)"
         + (": the plain torch version." if plain else
            f"; the {'dual-sorted' if dual else 'streamed'} kernels on CUDA "
            f"tensors, the plain version on CPU tensors."))

@@ -3,7 +3,7 @@
 every rank of an initialised group of ``n`` ranks, it runs
 
   1. the dp × tp step (tp = 2 where n is even) against the same dp-mean
-     step on one device;
+     step on one device, for RGCN + DistMult, RGAT + ComplEx and GRACE;
   2. the data-parallel step, and 2b. k = 2 steps of it in one call,
      against the serial mean of the ranks' steps;
   3. the balanced graph-sharded encode against the single-device encode;
@@ -41,6 +41,7 @@ from ..sampling.batch import batch_to_device
 from ..sampling.loaders import FullGraphLoader
 from ..sampling.saint import SaintRandomWalkSampler
 from ..sampling.typed_batch import TypedSaintSampler
+from ..training.gcl_module import GRACEModule
 from ..training.kge_module import KGEModule
 from ..training.optim import Optimizer
 from ..training.stepping import TrainState, param_grads
@@ -53,7 +54,7 @@ from .graph_shard import (build_halo_plan, init_sharded_state,
                           make_sharded_train_step, partition_graph,
                           sharded_rgcn_encode)
 from .mesh import make_mesh
-from .sharding import param_shard_dims
+from .sharding import param_layout
 
 DIM = 64
 SEED = 0
@@ -78,13 +79,18 @@ def _gen(device, *key) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _module(tg, device, layout: str) -> KGEModule:
+def _module(tg, device, layout: str, encoder: str = "rgcn",
+            decoder: str = "dismult") -> KGEModule:
     module = KGEModule(
-        encoder_name="rgcn", decoder_name="dismult", in_dim=DIM,
+        encoder_name=encoder, decoder_name=decoder, in_dim=DIM,
         hidden_dim=DIM, out_dim=DIM, num_hidden_layers=1,
         num_relation=tg.num_edge_types, num_heads=2,
         scheduler_type="cosine", learning_rate=1e-3, warm_up_ratio=0.0,
         fuse_method="none", neg_ratio=2, node_init_method="random")
+    return _ready(module, device, layout)
+
+
+def _ready(module, device, layout: str):
     module.init(torch.Generator().manual_seed(SEED))
     module.edge_layout = layout
     module.configure_optimizers(num_training_steps=8)
@@ -134,29 +140,53 @@ def _serial_dp(module, batches, gens_of, steps: int):
     return dict(ref.named_parameters()), loss
 
 
-def _dp_legs(tg, device, n, loader) -> dict:
-    out = {}
-    # 1. dp × tp
-    tp = 2 if n % 2 == 0 and n > 1 else 1
-    dp = n // tp
-    mesh = make_mesh(dp=dp, tp=tp)
-    module = _module(tg, device, "dst")
-    batches = [batch_to_device(loader.sample()[0], device)
-               for _ in range(dp)]
+def _spmd_leg(module, batches, mesh, device, key: int, what: str) -> dict:
+    """One dp × tp step of ``module`` (dp row d on ``batches[d]``) against
+    the single-device dp-mean step: the loss and the gathered
+    parameters."""
     state = init_spmd_state(module, mesh)
     step = make_spmd_train_step(module, mesh)
     state, loss = step(state, batches[mesh.dp_rank],
-                       _gen(device, SEED, 1, mesh.dp_rank))
-    got = gather_params(state.params, mesh,
-                        param_shard_dims(dict(module.named_parameters())))
+                       _gen(device, SEED, key, mesh.dp_rank))
+    got = gather_params(state.params, mesh, param_layout(module, mesh.tp))
     want, ref_loss = _serial_dp(module, [batches],
-                                lambda j, r: _gen(device, SEED, 1, r), 1)
-    out["spmd_dp_tp"] = float(loss)
-    out["spmd_dp_tp_err"] = {
-        "loss": _loss_err(float(loss), ref_loss, "dp x tp step"),
-        "params": _params_err(got, want, "dp x tp step")}
+                                lambda j, r: _gen(device, SEED, key, r), 1)
     if dist.get_rank() == 0:
-        print(f"[dryrun dp={dp} tp={tp}] spmd step loss={float(loss):.4f}")
+        print(f"[dryrun dp={mesh.dp} tp={mesh.tp}] {what} spmd step "
+              f"loss={float(loss):.4f}")
+    return {"loss": _loss_err(float(loss), ref_loss, what),
+            "params": _params_err(got, want, what)}, float(loss)
+
+
+def _dp_legs(tg, device, n, loader) -> dict:
+    out = {}
+    # 1. dp × tp: RGCN + DistMult and GRACE on dst batches, RGAT + ComplEx
+    # on relation batches (GRACE's features scaled by 30, as the tests
+    # scale them: its gradients then stand well above Adam's eps)
+    tp = 2 if n % 2 == 0 and n > 1 else 1
+    dp = n // tp
+    mesh = make_mesh(dp=dp, tp=tp)
+    batches = [batch_to_device(loader.sample()[0], device)
+               for _ in range(dp)]
+    relation = SaintRandomWalkSampler(
+        tg.graph, batch_size=8, walk_length=5, num_steps=dp, block_size=256,
+        seed=SEED, edge_layout="relation")
+    rel_batches = [batch_to_device(relation.sample()[0], device)
+                   for _ in range(dp)]
+    grace = GRACEModule(in_dim=DIM, hidden_dim=DIM, out_dim=DIM,
+                        num_hidden_layers=1, warm_up_ratio=0.0,
+                        learning_rate=1e-3)
+    legs = (("spmd_dp_tp", 1, _module(tg, device, "dst"), batches,
+             "dp x tp step"),
+            ("spmd_dp_tp_rgat_complex", 11,
+             _module(tg, device, "relation", "rgat", "complex"),
+             rel_batches, "dp x tp RGAT + ComplEx step"),
+            ("spmd_dp_tp_grace", 12, _ready(grace, device, "dst"),
+             [b._replace(x=b.x * 30.0) for b in batches],
+             "dp x tp GRACE step"))
+    for name, key, module, leg_batches, what in legs:
+        out[f"{name}_err"], out[name] = _spmd_leg(
+            module, leg_batches, mesh, device, key, what)
 
     # 2. dp, and 2b. dp × scan
     mesh = make_mesh(dp=n, tp=1)

@@ -32,6 +32,14 @@ features take the mean over the modality axis and (N, d) features pass
 through. The fuser's parameters train with the model's (they are in the
 Adam state and the checkpoint's ``fusion`` subtree). ReDAF's dropout keep
 mask is the ``draws`` entry ``fusion_keep``.
+
+``_forward_loss(..., tp=...)`` is the same loss in a dp × tp step
+(parallel/dp.py): the parameters are the tp rank's columns
+(parallel/sharding.py) and the models compute their columns
+(models/gcl.py). DGI's discriminator scores are sums over tp of the
+ranks' parts; GRACE's projections are gathered whole over tp and the
+InfoNCE (the flash denominator on the card) runs at full width on every
+rank, entering the gradient once (each rank keeps its columns' part).
 """
 
 from __future__ import annotations
@@ -69,13 +77,15 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def jsd_g2l_loss(z, g, zn, node_mask):
+def jsd_g2l_loss(z, g, zn, node_mask, tp=None):
     """SingleBranchContrast(JSD, "G2L") for the DGI triple: each real node
-    against the graph summary."""
+    against the graph summary (under ``tp`` the columns' parts summed)."""
     wide = torch.promote_types(z.dtype, g.dtype)
     g = g.to(wide)
     d_pos = (z.to(wide) @ g.T).squeeze(-1).float()
     d_neg = (zn.to(wide) @ g.T).squeeze(-1).float()
+    if tp is not None:
+        d_pos, d_neg = tp.sum(d_pos), tp.sum(d_neg)
     e_pos = _masked_mean(LOG2 - _softplus(-d_pos), node_mask)
     e_neg = _masked_mean(_softplus(-d_neg) + d_neg - LOG2, node_mask)
     return e_neg - e_pos
@@ -167,7 +177,7 @@ class BaseGCL(StepsMixin, nn.Module):
         raise NotImplementedError
 
     def calculate_loss(self, x, batch: GraphBatch, draws: Dict,
-                       training: bool) -> torch.Tensor:
+                       training: bool, tp=None) -> torch.Tensor:
         raise NotImplementedError
 
     def init(self, generator: torch.Generator):
@@ -197,9 +207,11 @@ class BaseGCL(StepsMixin, nn.Module):
 
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
-                      draws: Optional[Dict] = None):
+                      draws: Optional[Dict] = None, tp=None):
         """(loss, aux) of a device batch; the draws (the fuser's keep mask
-        and the model's) come from ``generator`` unless passed in."""
+        and the model's) come from ``generator`` unless passed in. ``tp``
+        (a parallel/collectives.py ``TensorParallel``): the parameters are
+        the tp rank's columns, the draws the whole-width ones."""
         x = self._batch_features(batch)
         if draws is None:
             if generator is None:
@@ -213,7 +225,7 @@ class BaseGCL(StepsMixin, nn.Module):
         if "dropout" not in draws:
             draws = dict(draws, **self.model.draw(
                 generator, x, batch.edge_mask, batch.node_mask, training))
-        loss = self.calculate_loss(x, batch, draws, training)
+        loss = self.calculate_loss(x, batch, draws, training, tp)
         return loss, {"loss": loss}
 
     def eval_epoch(self, outputs, split: str) -> Dict[str, float]:
@@ -235,11 +247,11 @@ class DGIModule(BaseGCL):
     def _build_model(self, encoder):
         return DGI(encoder, self.hparams["hidden_dim"])
 
-    def calculate_loss(self, x, batch, draws, training):
+    def calculate_loss(self, x, batch, draws, training, tp=None):
         z, g, zn = self.model(x, batch.edge_index, batch.edge_mask,
                               batch.node_mask, draws, training=training,
-                              dtype=self.compute_dtype)
-        return jsd_g2l_loss(z, g, zn, batch.node_mask)
+                              dtype=self.compute_dtype, tp=tp)
+        return jsd_g2l_loss(z, g, zn, batch.node_mask, tp)
 
 
 class GRACEModule(BaseGCL):
@@ -249,12 +261,14 @@ class GRACEModule(BaseGCL):
         hidden = self.hparams["hidden_dim"]
         return GRACE(encoder, hidden, proj_dim=hidden)
 
-    def calculate_loss(self, x, batch, draws, training):
+    def calculate_loss(self, x, batch, draws, training, tp=None):
         z1, z2 = self.model(x, batch.edge_index, batch.edge_mask,
                             batch.node_mask, draws, training=training,
-                            dtype=self.compute_dtype)
-        h1 = self.model.project(z1, self.compute_dtype)
-        h2 = self.model.project(z2, self.compute_dtype)
+                            dtype=self.compute_dtype, tp=tp)
+        h1 = self.model.project(z1, self.compute_dtype, tp)
+        h2 = self.model.project(z2, self.compute_dtype, tp)
+        if tp is not None:
+            h1, h2 = tp.gather_cols_whole(h1), tp.gather_cols_whole(h2)
         return infonce_intraview_loss(h1, h2, batch.node_mask)
 
 
@@ -264,10 +278,10 @@ class GGDModule(BaseGCL):
     def _build_model(self, encoder):
         return GGD(encoder, self.hparams["hidden_dim"], n_proj=1, aug_p=0.5)
 
-    def calculate_loss(self, x, batch, draws, training):
+    def calculate_loss(self, x, batch, draws, training, tp=None):
         pos_h, neg_h = self.model(x, batch.edge_index, batch.edge_mask,
                                   batch.node_mask, draws, training=training,
-                                  dtype=self.compute_dtype)
+                                  dtype=self.compute_dtype, tp=tp)
         return ggd_bce_loss(pos_h, neg_h, batch.node_mask)
 
 

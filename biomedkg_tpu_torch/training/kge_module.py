@@ -64,6 +64,14 @@ with ``node_init_method="lm"`` and ``fuse_method`` attention or redaf the
 module's ``fusion`` (models/fusion.py, trained with the model, in the
 checkpoint's ``fusion`` subtree), otherwise the mean over the modality
 axis. ReDAF's dropout keep mask is the ``fusion_keep`` draw.
+
+``_forward_loss(..., tp=...)`` is the same loss in a dp × tp step
+(parallel/dp.py): the module's parameters are then the tp rank's columns
+(parallel/sharding.py), the encoder and the decoder compute their columns
+and sum their partial scores over tp (models/encoders.py,
+models/decoders.py), and the L2 terms are sums over tp. Every other step
+(the draws, the fuser, the cold-start mask, the filter, ``fix_edge_id``,
+the ``dst_bwd`` copy) is the single-device path's, alike on every rank.
 """
 
 from __future__ import annotations
@@ -339,7 +347,7 @@ class KGEModule(StepsMixin, nn.Module):
     def _forward_loss(self, batch: GraphBatch, training: bool,
                       generator: Optional[torch.Generator] = None,
                       negatives=None, dropout_masks=None, cold_keep=None,
-                      filter_draws=None, fusion_keep=None):
+                      filter_draws=None, fusion_keep=None, tp=None):
         """(loss, aux) of a device batch (sampling/batch.py
         ``batch_to_device``). Draws come from ``generator`` unless passed
         in: ``negatives`` is (neg_src, neg_dst, off) for the sorted samplers
@@ -347,7 +355,9 @@ class KGEModule(StepsMixin, nn.Module):
         one bool keep mask per hidden layer; ``cold_keep`` the (N_pad,)
         bool cold-start keep mask; ``filter_draws`` the 3 rounds' (K, E)
         uniform pairs (src, dst) of ``filter_negatives``; ``fusion_keep``
-        ReDAF's dropout keep mask."""
+        ReDAF's dropout keep mask. ``tp`` (a parallel/collectives.py
+        ``TensorParallel``): the parameters are the tp rank's columns and
+        the draws the whole-width ones every rank of the dp row takes."""
         cold = training and self.cold_start_dropout > 0.0
         use_sorted = (training and self.neg_sampler in ("sorted", "sorted2")
                       and not self._filter_negatives)
@@ -394,7 +404,7 @@ class KGEModule(StepsMixin, nn.Module):
         z = self.model.encoder(
             x, batch.edge_index, etype, conv_mask, block_rel,
             training=training, compute_dtype=self.compute_dtype,
-            generator=generator, dropout_masks=dropout_masks,
+            generator=generator, dropout_masks=dropout_masks, tp=tp,
             **enc_kwargs).float()
         decoder = self.model.decoder
         head_perm = None
@@ -404,7 +414,7 @@ class KGEModule(StepsMixin, nn.Module):
                          enc_kwargs["src_edges"][0].to(torch.int32))
         pos_pred = decoder.score(z, src, dst, etype,
                                  tail_sorted=self.edge_layout == "dst",
-                                 head_perm=head_perm)
+                                 head_perm=head_perm, tp=tp)
 
         ratio = self.neg_ratio or 1
         num_edges = etype.shape[0]
@@ -419,7 +429,7 @@ class KGEModule(StepsMixin, nn.Module):
             idx = rolled_index(off, num_edges, _mix_factor(num_edges))
             neg_pred = decoder.score_neg_sorted(
                 z_neg, neg_src, neg_dst, etype[idx].to(torch.int32),
-                dst_sorted=dual)
+                dst_sorted=dual, tp=tp)
             neg_mask = emask[idx]
         else:
             def uniform():
@@ -435,15 +445,15 @@ class KGEModule(StepsMixin, nn.Module):
                     batch, neg_src, neg_dst, num_real_nodes,
                     filter_draws or [(uniform(), uniform())
                                      for _ in range(3)])
-            neg_pred = decoder.score_neg(z_neg, neg_src, neg_dst,
-                                         etype).reshape(-1)
+            neg_pred = decoder.score_neg(z_neg, neg_src, neg_dst, etype,
+                                         tp).reshape(-1)
             neg_mask = emask.expand(ratio, num_edges).reshape(-1)
 
         pred = torch.cat([pos_pred, neg_pred])
         gt = torch.cat([torch.ones_like(pos_pred),
                         torch.zeros_like(neg_pred)])
         weights = torch.cat([emask, neg_mask]).to(pred.dtype)
-        loss = self._finish_loss(z, batch.node_mask, pred, gt, weights)
+        loss = self._finish_loss(z, batch.node_mask, pred, gt, weights, tp)
         aux = {"pred": pred, "gt": gt, "weights": weights,
                "pos_pred": pos_pred, "edge_type": etype, "edge_mask": emask,
                "loss": loss}
@@ -476,15 +486,22 @@ class KGEModule(StepsMixin, nn.Module):
                                   neg_dst)
         return neg_src, neg_dst
 
-    def _finish_loss(self, z, node_mask, pred, gt, weights):
+    def _finish_loss(self, z, node_mask, pred, gt, weights, tp=None):
         """Masked BCE + 1e-2·L2 over the real nodes' z and the decoder's
-        parameter (rel_emb; RotatE's (R, d/2) phases)."""
+        parameter (rel_emb; RotatE's (R, d/2) phases); under ``tp`` the
+        squares summed over the ranks' columns."""
         bce = sigmoid_binary_cross_entropy(pred, gt, weights)
         nmask = node_mask.to(z.dtype)
-        reg_z = torch.sum(z ** 2 * nmask[:, None]) / (
-            nmask.sum().clamp(min=1.0) * z.shape[-1])
-        reg_rel = sum(torch.mean(p ** 2)
-                      for p in self.model.decoder.parameters())
+        if tp is None:
+            reg_z = torch.sum(z ** 2 * nmask[:, None]) / (
+                nmask.sum().clamp(min=1.0) * z.shape[-1])
+            reg_rel = sum(torch.mean(p ** 2)
+                          for p in self.model.decoder.parameters())
+        else:
+            reg_z = tp.sum(torch.sum(z ** 2 * nmask[:, None])) / (
+                nmask.sum().clamp(min=1.0) * z.shape[-1] * tp.size)
+            reg_rel = sum(tp.sum(torch.sum(p ** 2)) / (p.numel() * tp.size)
+                          for p in self.model.decoder.parameters())
         return bce + 1e-2 * (reg_z + reg_rel)
 
     def _reduce_eval_aux(self, aux) -> Dict[str, torch.Tensor]:

@@ -377,8 +377,24 @@ Phases; any failure ends the run with a non-zero exit:
     the all_gather and the halo exchange, the row-sharded typed step and
     sharded ranking, each against one device on the card: every training
     leg's loss and its parameters after the step), the segsum
-    and relmm counted on the shared card. Leg (a)'s counted launches add
-    to the segsum, DistMult negscore and relmm records.
+    and relmm counted on the shared card; (c) the dp × tp step
+    (parallel/dp.py ``make_spmd_train_step``: the module's own loss over
+    each rank's columns) on P15_SHARED_RANKS gloo ranks sharing the card,
+    at full width on phase 5's SAINT envelope (phase 8's neighbour batches
+    for GRACE), leg by leg (P15_TP_LEGS): RGAT + ComplEx bf16 "sorted" at
+    (dp 2, tp 2), RGCN + TransE float32 "sorted2" with cold-start dropout
+    0.1 and ``dst_bwd="perm"`` at (2, 2), RGCN + RotatE bf16 at (1, 4),
+    GRACE bf16 at (2, 2). Each leg: one step from the seeded weights with
+    each dp row's draws, the gathered gradients and parameters against the
+    single-device dp-mean step with the kernels (Adam at P15_LR, eps
+    P15_EPS; STEP_TOL, the parameters within the gradients' difference),
+    every rank's launches equal to one single-device step's, each kernel
+    at the rank's widths against its plain version (relmm on W's column
+    shard, negscore on z's, the segsum at the shard's conv width, flash
+    at full width on the gathered rows), and the step timed on rank 0
+    (CUDA events) beside the single-device step. Legs (a)'s and (c)'s
+    rank-0 launches add to the segsum, negscore, relmm and flash
+    records.
 
 The second-to-last line is the ``{"kernels": [...]}`` JSON record, the last
 ``{"ok": true, "device": {...}}``.
@@ -428,7 +444,9 @@ from biomedkg_tpu_torch.nn import dropout_mask
 from biomedkg_tpu_torch.ops import (_build, aggconv, flashnce, negscore,
                                     relmm,
                                     segment, segsum)
-from biomedkg_tpu_torch.parallel.dp import make_dp_train_step
+from biomedkg_tpu_torch.parallel.dp import (gather_params, init_spmd_state,
+                                            make_dp_train_step,
+                                            make_spmd_train_step)
 from biomedkg_tpu_torch.parallel.dryrun import dryrun_multichip
 from biomedkg_tpu_torch.parallel.graph_shard import (init_sharded_state,
                                                      local_shard,
@@ -436,6 +454,7 @@ from biomedkg_tpu_torch.parallel.graph_shard import (init_sharded_state,
                                                      partition_graph)
 from biomedkg_tpu_torch.parallel.launch import free_port, run_local_ranks
 from biomedkg_tpu_torch.parallel.mesh import make_mesh
+from biomedkg_tpu_torch.parallel.sharding import param_layout
 from biomedkg_tpu_torch.sampling import native
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
 from biomedkg_tpu_torch.sampling.csr import CSRGraph
@@ -2967,7 +2986,7 @@ def gcl_loss_falls(module, batch, what: str, steps: int):
 
 def gcl_batches(dev, tmp):
     """The gene/protein graph's PrimeKG module and its first training
-    neighbour batches, on the card."""
+    neighbour batches, on the card and on the host."""
     dm = PrimeKGModule(**dict(PRIMEKG_DATA, node_type=GCL_NODE_TYPE,
                               data_dir=tempfile.mkdtemp(dir=tmp)), seed=SEED)
     dm.setup(stage="split")
@@ -2986,7 +3005,7 @@ def gcl_batches(dev, tmp):
           f"x {loader.edge_budget} edge slots, {len(loader)} batches per "
           f"epoch; real nodes {nodes}, edges {edges}; host sampling "
           f"{sample_ms:.1f} ms per batch")
-    return dm, [batch_to_device(b, dev) for b in host]
+    return dm, [batch_to_device(b, dev) for b in host], host
 
 
 def grace_phase(dev, table, batches, val):
@@ -3119,11 +3138,12 @@ def encode_train_gcl(gcl_run, dm, dev):
 
 
 def gcl_phase(dev, tmp, gcl_run):
-    """Phase 8; returns the flash kernels' records and the segsum launches
-    of its paths."""
+    """Phase 8; returns the flash kernels' records, the segsum launches of
+    its paths, and the feature table and first two neighbour batches on
+    the host (phase 15 (c)'s GRACE leg)."""
     flash_attributes()
     flash_odd_checks(dev)
-    dm, batches = gcl_batches(dev, tmp)
+    dm, batches, host = gcl_batches(dev, tmp)
     table = torch.as_tensor(dm.graph.x, dtype=torch.float32).to(dev)
     val = dm.val_dataloader(loader_type="neighbor")
     val.set_epoch(0)
@@ -3138,7 +3158,8 @@ def gcl_phase(dev, tmp, gcl_run):
     del batches
     torch.cuda.empty_cache()
     encode_segsum = encode_train_gcl(gcl_run, dm, dev)
-    return records, launches["sorted_segment_sum"] + encode_segsum
+    return (records, launches["sorted_segment_sum"] + encode_segsum,
+            (dm.graph.x, host[:2]))
 
 
 # -- phase 9: held-out evaluation and the Trainer -----------------------------
@@ -6361,9 +6382,10 @@ def shared_card_rank(rank, world):
     return out
 
 
-def parallel_phase(dm, dev, data) -> tuple:
-    """Phase 15; returns every kernel's launches over leg (a)'s counted
-    runs (rank 0) and the phase's numbers."""
+def parallel_phase(dm, dev, data, gcl_host) -> tuple:
+    """Phase 15; returns every kernel's launches over legs (a)'s and (c)'s
+    counted runs (rank 0) and the phase's numbers. ``gcl_host``: phase
+    8's feature table and neighbour batches (gcl_phase)."""
     t_phase = time.perf_counter()
     world = min(torch.cuda.device_count(), 4)
     if world == 1:
@@ -6406,10 +6428,350 @@ def parallel_phase(dm, dev, data) -> tuple:
               f"phase 15 (b): {name} did not run on the shared card")
     numbers.update(shared_s=t_b, shared_launches=b["launches"],
                    halo_rows=b["graph_shard"]["halo_rows_per_pair_padded"])
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_launches = tp_phase(dm, gcl_host, tmp)
+    for k, v in tp_launches.items():
+        launches[k] = launches.get(k, 0) + v
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s (a {t_a:.1f} s, "
           f"b {t_b:.1f} s); launches "
           f"{({k: v for k, v in launches.items() if v})}")
     return launches, numbers
+
+
+# -- phase 15 (c): the dp × tp step of every module ------------------------
+# (leg, module: KGE hparams or GCL's, (dp, tp), batch layout, attributes)
+P15_TP_LEGS = [
+    ("RGAT + ComplEx bf16 sorted", dict(RGAT, decoder_name="complex"),
+     (2, 2), "relation", {}),
+    ("RGCN + TransE float32 sorted2, cold-start 0.1, dst_bwd perm",
+     dict(TRAIN, decoder_name="transe", neg_sampler="sorted2",
+          compute_dtype="float32", cold_start_dropout=0.1), (2, 2), "dst",
+     {"dst_bwd": "perm"}),
+    ("RGCN + RotatE bf16 sorted", dict(TRAIN, decoder_name="rotate"),
+     (1, 4), "dst", {}),
+    ("GRACE bf16", dict(GCL, compute_dtype="bfloat16"), (2, 2), "dst", {}),
+]
+P15_TP_WARM, P15_TP_STEPS = 1, 3    # each leg's untimed and timed steps
+
+
+def tp_leg_batches(dm, gcl_host, tmp) -> tuple:
+    """The legs' host batches (phase 5's SAINT envelope in each layout;
+    for GRACE ``gcl_host``'s, phase 8's first two neighbour batches) and
+    the feature tables, saved under ``tmp`` for the ranks to load."""
+    gcl_table, gcl_batches_host = gcl_host
+    tables = {"kge": os.path.join(tmp, "kge_table.npy"),
+              "gcl": os.path.join(tmp, "gcl_table.npy")}
+    np.save(tables["kge"], np.asarray(dm.graph.x, np.float32))
+    np.save(tables["gcl"], np.asarray(gcl_table, np.float32))
+    dm.device_features = True
+    dm.saint_fill_target = SAINT_FILL
+    saint = {}
+    for layout in ("dst", "relation"):
+        dm.edge_layout = layout
+        loader = dm.train_dataloader(loader_type="saint")
+        saint[layout] = [loader.sample()[0] for _ in range(2)]
+    dm.edge_layout = "dst"
+    legs = [(name, hp, mesh, layout, attrs,
+             gcl_batches_host if "decoder_name" not in hp else saint[layout])
+            for name, hp, mesh, layout, attrs in P15_TP_LEGS]
+    return legs, tables
+
+
+def tp_module(hp, layout, attrs, table, dev):
+    """A leg's module from the seeded weights, on ``dev`` with the feature
+    table, under Adam at P15_LR / P15_EPS without the clip (recording its
+    gradients)."""
+    gcl = "decoder_name" not in hp
+    module = (gcl_module.GRACEModule(**hp) if gcl else KGEModule(**hp))
+    module.init(torch.Generator().manual_seed(SEED))
+    module.to(dev)
+    module.edge_layout = layout
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    module.feature_table = table
+    module.tx = RecordedAdam(lambda step: P15_LR, grad_clip=float("inf"),
+                             eps=P15_EPS)
+    return module
+
+
+def tp_draws(module, batch, row: int) -> dict:
+    """dp row ``row``'s draws, alike on its tp ranks and in the
+    single-device reference (a generator seeded by the row)."""
+    gen = torch.Generator(device=batch.edge_mask.device).manual_seed(
+        SEED + 1000 + row)
+    if isinstance(module, gcl_module.BaseGCL):
+        return {"draws": gcl_draws(module, batch, gen)}
+    negatives, masks, cold = fixed_draws(module, batch, gen)
+    return dict(negatives=negatives, dropout_masks=masks, **cold)
+
+
+def tp_reference(hp, layout, attrs, table, batches, dev) -> dict:
+    """The single-device dp-mean step of a leg with the kernels: each dp
+    row's loss and gradients from the same weights and draws, their mean
+    through the same Adam; the launches of row 0's step."""
+    module = tp_module(hp, layout, attrs, table, dev)
+    state = module.init_state()
+    losses, grads = [], None
+    for row, batch in enumerate(batches):
+        draws = tp_draws(module, batch, row)
+        with counted_launches() as launches:
+            loss, _ = module._forward_loss(batch, True, **draws)
+            g = param_grads(loss, state.params)
+        if row == 0:
+            single = {k: v for k, v in launches.items() if v}
+        losses.append(float(loss.detach()))
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+    grads = [g / len(batches) for g in grads]
+    module.tx.update(grads, state.opt_state, list(state.params.values()))
+    return dict(module=module, loss=float(np.mean(losses)), grads=grads,
+                params={k: p.detach().clone()
+                        for k, p in state.params.items()},
+                launches=single)
+
+
+def shard_negscore_check(mode, dual, z, ns, nd, rel, rel_emb, what) -> float:
+    """The (mode, family) negscore forward ("run") and backward ("owner")
+    at a rank's width against the plain version (bf16 relative to the
+    plain result's max, NEG_TOL_BF16; float32 each element within
+    SUM_RTOL of its terms' magnitudes); returns the max abs error."""
+    name = negscore.kernel_name(mode, dual)
+    fwd, bwd = negscore.KERNELS[name], negscore.KERNELS[name + "_bwd"]
+    if mode == "transe":
+        z = negscore.l1_normalized(z)
+    z, re = z.contiguous(), negscore.relation_table(mode, rel_emb,
+                                                    z.dtype).contiguous()
+    gen = torch.Generator(device=z.device).manual_seed(SEED)
+    ds = torch.randn(ns.shape[0], device=z.device, generator=gen)
+    s_k = fwd(z, ns, nd, rel, re)
+    dz_k, dre_k = bwd(z, ns, nd, rel, re, ds)
+    zp = z.clone().requires_grad_(True)
+    rp = rel_emb.clone().requires_grad_(True)
+    s_p = negscore.plain_scores(mode, zp, ns, nd, rel, rp)
+    dz_p, dre_p = torch.autograd.grad(s_p, (zp, rp), ds)
+    torch.cuda.synchronize()
+    pairs = ((s_k, s_p.detach()), (dz_k, dz_p), (dre_k, dre_p))
+    if z.dtype == torch.bfloat16:
+        errs = [rel_err(a, b) for a, b in pairs]
+        ok = errs[0] <= NEG_TOL_BF16[0] and max(errs[1:]) <= NEG_TOL_BF16[1]
+        how = f"rel-to-max (tol {NEG_TOL_BF16[0]:g} / {NEG_TOL_BF16[1]:g})"
+    else:
+        mags = neg_magnitudes(mode, z, ns, nd, rel, rel_emb, ds)
+        errs = [float(((a.float() - b.float()).abs()
+                       / c.clamp(min=1e-30)).max())
+                for (a, b), c in zip(pairs, mags)]
+        ok = max(errs) <= SUM_RTOL
+        how = f"of Σ|terms| (tol {SUM_RTOL:g})"
+    max_abs = max(float((a.float() - b.float()).abs().max())
+                  for a, b in pairs)
+    print(f"phase 15 (c) {what}: {name} at z {tuple(z.shape)} "
+          f"{str(z.dtype)[6:]}, {ns.shape[0]} slots: scores, dz, d(rel) "
+          f"{', '.join(f'{e:.3g}' for e in errs)} {how}; max abs "
+          f"{max_abs:.3g}")
+    check(ok, f"phase 15 (c) {what}: {name} disagrees with its plain "
+              "version at the rank's width")
+    return max_abs
+
+
+def tp_kernel_checks(module, state, batch, draws, what) -> dict:
+    """Each kernel of the leg at the rank's widths against its plain
+    version: relmm on W's column shard (every conv's din), the decoder's
+    negscore pair on z's column shard, the segsum at the shard's conv
+    width, and GRACE's flash kernels at full width; returns each
+    kernel's max abs error."""
+    dev = batch.edge_mask.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cd = module.compute_dtype
+    errs = {}
+    enc = module.model.encoder
+    shard = {k: p.detach() for k, p in state.params.items()}
+    if isinstance(module, gcl_module.GRACEModule):
+        n = batch.node_mask.shape[0]
+        pads = n - int(batch.node_mask.sum())
+        an, bn, col, g = flash_inputs(n, module.hparams["out_dim"], pads,
+                                      gen, cd)
+        errs[flashnce.NAME] = flash_check(an, bn, col, g, f"{what}, "
+                                          "gathered rows")
+    elif isinstance(enc, encoders.RGAT):
+        relmm_errs = {}
+        for i, (din, _) in enumerate(enc.dims):
+            w = shard[f"model.encoder.layers.{i}.w_rel"].to(cd)
+            msg = torch.randn(batch.edge_type.shape[0], din, device=dev,
+                              generator=gen).to(cd)
+            relmm_check(f"{what} conv {i} shard", msg, w, batch.block_rel,
+                        gen, relmm_errs)
+        for (instance, back), err in relmm_errs.items():
+            key = relmm_key(relmm.BACKWARD if back else relmm.FORWARD,
+                            instance)
+            errs[key] = max(errs.get(key, 0.0), err)
+    width = shard[f"model.encoder.layers.{len(enc.dims) - 1}.b"].shape[0]
+    if module.edge_layout == "dst":
+        n = batch.node_mask.shape[0]
+        dst = batch.edge_index[1].int()
+        data = torch.randn(dst.shape[0], width, device=dev,
+                           generator=gen).to(cd)
+        got = segsum.KERNEL(data, dst, n)
+        err = (got - segsum.segsum_plain(data, dst, n)).abs()
+        scale = segsum.segsum_plain(data.abs(), dst, n)
+        print(f"phase 15 (c) {what}: segsum at the shard's conv width "
+              f"{tuple(data.shape)} {str(cd)[6:]}: max |err| / Σ|x| "
+              f"{float((err / scale.clamp(min=1e-30)).max()):.3g} (tol "
+              f"{SUM_RTOL:g})")
+        check(bool(torch.all(err <= SUM_RTOL * scale)),
+              f"phase 15 (c) {what}: segsum disagrees at the shard width")
+        errs["sorted_segment_sum"] = float(err.max())
+    if isinstance(module, KGEModule):
+        mode = MODE[module.hparams["decoder_name"]]
+        dual = module.neg_sampler == "sorted2"
+        ns, nd, off = draws["negatives"]
+        num_edges = batch.edge_type.shape[0]
+        rel = batch.edge_type[rolled_index(off, num_edges, _mix_factor(
+            num_edges))].to(torch.int32)
+        z = torch.randn(batch.node_mask.shape[0], width, device=dev,
+                        generator=gen).to(cd)
+        errs[negscore.kernel_name(mode, dual)] = shard_negscore_check(
+            mode, dual, z, ns, nd, rel, shard["model.decoder.rel_emb"],
+            what)
+    return errs
+
+
+def tp_leg(leg, tables: dict, dev) -> dict:
+    """One leg on this rank: the dp × tp step from the seeded weights on
+    the rank's dp row with the row's draws, its launches counted; on rank
+    0, the single-device dp-mean step against it (the loss, the gathered
+    gradients within STEP_TOL, the updated parameters within the
+    gradients' difference) and the kernels at the rank's widths; then
+    every rank's steps timed together (CUDA events on rank 0) and rank 0's
+    single-device step alone."""
+    name, hp, (dp, tp), layout, attrs, host = leg
+    dist = torch.distributed
+    mesh = make_mesh(dp=dp, tp=tp)
+    table = tables["gcl" if "decoder_name" not in hp else "kge"]
+    batches = [batch_to_device(b, dev) for b in host[:dp]]
+    module = tp_module(hp, layout, attrs, table, dev)
+    batch = batches[mesh.dp_rank]
+    draws = tp_draws(module, batch, mesh.dp_rank)
+    state = init_spmd_state(module, mesh)
+    step = make_spmd_train_step(module, mesh)
+    layout_of = param_layout(module, tp)
+    with counted_launches() as launches:
+        state, loss = step(state, batch, **draws)
+    out = {"loss": float(loss), "launches": {
+        k: v for k, v in launches.items() if v}}
+    grads = gather_params(dict(zip(state.params, module.tx.grads)), mesh,
+                          layout_of)
+    params = gather_params(state.params, mesh, layout_of)
+    if dist.get_rank() == 0:
+        ref = tp_reference(hp, layout, attrs, table, batches, dev)
+        names = list(ref["params"])
+        cd = module.compute_dtype
+        loss_err, worst, err = grad_errs(
+            (ref["loss"], ref["grads"]),
+            (out["loss"], [grads[k] for k in names]), names)
+        loss_tol, grad_tol = STEP_TOL[cd]
+        # Adam with eps P15_EPS at P15_LR moves a weight by at most
+        # P15_LR / P15_EPS (= 1) times the change of its gradient
+        param_ok = all(
+            float((params[k] - ref["params"][k]).abs().max())
+            <= float((grads[k] - g).abs().max())
+            + 1e-6 * float(ref["params"][k].abs().max())
+            for k, g in zip(names, ref["grads"]))
+        param_err = max(rel_err(params[k], ref["params"][k]) for k in names)
+        print(f"phase 15 (c) {name} at (dp {dp}, tp {tp}) against the "
+              f"single-device dp-mean step (same weights and draws): loss "
+              f"{out['loss']!r} against {ref['loss']!r} ({loss_err:.3g} "
+              f"relative, tol {loss_tol:g}); gathered gradients within "
+              f"{err:.3g} of their max ({worst}; tol {grad_tol:g}); "
+              f"updated parameters within {param_err:.3g} of their max")
+        check(loss_err <= loss_tol and err <= grad_tol,
+              f"phase 15 (c) {name}: the loss or gradients differ from the "
+              "single-device step's")
+        check(param_ok, f"phase 15 (c) {name}: the gathered parameters "
+                        "differ from the single-device step's")
+        out["single_launches"] = ref["launches"]
+        out["errs"] = tp_kernel_checks(module, state, batch, draws, name)
+        out.update(loss_err=loss_err, grad_err=err)
+    dist.barrier()
+    module.tx = Optimizer(lambda step: P15_LR, grad_clip=float("inf"),
+                          eps=P15_EPS)
+    for _ in range(P15_TP_WARM):
+        state, loss = step(state, batch, **draws)
+    torch.cuda.synchronize()
+    dist.barrier()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(P15_TP_STEPS):
+        state, loss = step(state, batch, **draws)
+    end.record()
+    torch.cuda.synchronize()
+    out["tp_ms"] = start.elapsed_time(end) / P15_TP_STEPS
+    check(np.isfinite(float(loss)), f"phase 15 (c) {name}: loss not finite")
+    dist.barrier()
+    if dist.get_rank() == 0:
+        ref_module = ref["module"]
+        ref_module.tx = module.tx
+        ref_state = ref_module.init_state()
+        for i in range(P15_TP_WARM + P15_TP_STEPS):
+            if i == P15_TP_WARM:
+                torch.cuda.synchronize()
+                start.record()
+            ref_state, logs = ref_module.train_step(ref_state, batch,
+                                                    **draws)
+        end.record()
+        torch.cuda.synchronize()
+        out["single_ms"] = start.elapsed_time(end) / P15_TP_STEPS
+        del ref, ref_module, ref_state
+    dist.barrier()
+    del module, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_legs_rank(rank, legs, tables):
+    """Phase 15 (c) on one gloo rank sharing card 0: every leg in turn."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tables = {k: torch.from_numpy(np.load(path)).to(dev)
+              for k, path in tables.items()}
+    return [tp_leg(leg, tables, dev) for leg in legs]
+
+
+def tp_phase(dm, gcl_host, tmp) -> dict:
+    """Phase 15 (c): P15_SHARED_RANKS gloo ranks sharing the card run
+    each leg of P15_TP_LEGS; every rank's launches held to those of one
+    single-device step of the leg (the same kernels, at the rank's
+    widths); returns rank 0's launches over the legs."""
+    t0 = time.perf_counter()
+    legs, tables = tp_leg_batches(dm, gcl_host, tmp)
+    try:
+        outs = run_local_ranks(P15_SHARED_RANKS, tp_legs_rank,
+                               (legs, tables), timeout=600)
+    except RuntimeError as err:
+        fail(f"phase 15 (c): the dp x tp legs failed: {err}")
+    card = card_line()
+    total = {}
+    for i, (name, hp, (dp, tp), _, _, _) in enumerate(legs):
+        first = outs[0][i]
+        want = first["single_launches"]
+        for rank, o in enumerate(outs):
+            check(o[i]["launches"] == want,
+                  f"phase 15 (c) {name}: rank {rank}'s launches "
+                  f"{o[i]['launches']} differ from one single-device step's "
+                  f"{want}")
+        check(len({o[i]["loss"] for o in outs}) == 1,
+              f"phase 15 (c) {name}: the ranks' losses differ")
+        for k, v in first["launches"].items():
+            total[k] = total.get(k, 0) + v
+        print(f"phase 15 (c) {name} at (dp {dp}, tp {tp}) on {card}: step "
+              f"{first['tp_ms']:.3f} ms on rank 0 ({P15_SHARED_RANKS} gloo "
+              f"ranks sharing the card; CUDA events over {P15_TP_STEPS} "
+              f"steps), single-device step {first['single_ms']:.3f} ms; "
+              f"launches per tp step on every rank {json.dumps(want)}; "
+              f"kernels at the rank's widths, max abs err "
+              f"{json.dumps(first['errs'])}")
+    print(f"phase 15 (c): {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def main() -> int:
@@ -6641,7 +7003,7 @@ def main() -> int:
         # -- 8. Stage B: GCL pretraining and the flash kernels ------------
         del table
         torch.cuda.empty_cache()
-        flash_records, gcl_segsum = gcl_phase(dev, tmp, gcl_run)
+        flash_records, gcl_segsum, gcl_host = gcl_phase(dev, tmp, gcl_run)
         ended("8")
         # -- 9. held-out evaluation and the Trainer -------------------------
         torch.cuda.empty_cache()
@@ -6674,7 +7036,7 @@ def main() -> int:
     ended("9b")
     # -- 15. the parallel strategies: NCCL, and gloo ranks sharing the card
     torch.cuda.empty_cache()
-    parallel, p15 = parallel_phase(scorer.dm, dev, data)
+    parallel, p15 = parallel_phase(scorer.dm, dev, data, gcl_host)
     ended("15")
 
     k1 = {r["name"]: r for r in k1_records}
@@ -6721,11 +7083,11 @@ def main() -> int:
         elif record["name"] == relmm_key(relmm.BACKWARD, fast):
             record["graph_sharded_step_launches"] = \
                 p15["graph_relmm_per_step"][1]
-    for record in flash_records:         # phase 11's GRACE + ReDAF steps
+    for record in flash_records:         # phases 11 and 15 (c)
         name = record["name"]
-        record["launches"] += multimodal[
-            name if "[" in name else relmm_key(
-                flashnce.KERNELS[name], flashnce.PATH[torch.float32])]
+        key = name if "[" in name else relmm_key(
+            flashnce.KERNELS[name], flashnce.PATH[torch.float32])
+        record["launches"] += multimodal[key] + parallel.get(key, 0)
     serving = timed["conv f32"]
     print(json.dumps({"kernels": [{
         "name": "sorted_segment_sum", "route": "cuda",

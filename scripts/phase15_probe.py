@@ -1,12 +1,14 @@
 """Phase 15 of chip_smoke.py (the parallel strategies) alone, on the card:
 
-    python scripts/phase15_probe.py             # legs (a) and (b)
+    python scripts/phase15_probe.py             # legs (a), (b) and (c)
     python scripts/phase15_probe.py --dp-only   # (a)'s dp step: its check
                                                 # against train_step, timing
+    python scripts/phase15_probe.py --tp-only   # (c): the dp × tp legs
 
 It builds the kernels and phase 2's PrimeKG++-scale data module as
 chip_smoke.py does, then runs ``parallel_phase`` (or ``dp_stage_c`` on a
-one-rank NCCL group) and prints the numbers as one ``P15 {json}`` line.
+one-rank NCCL group, or phase 8's neighbour batches and ``tp_phase``)
+and prints the numbers as one ``P15 {json}`` line.
 The ``chip_smoke`` it imports is the first on the path: to compare two
 trees on one card, run it in turns (A, B, B, A) with ``PYTHONPATH`` set
 to each tree's root.
@@ -47,7 +49,12 @@ def main():
             finally:
                 torch.distributed.destroy_process_group()
         else:
-            _, numbers = cs.parallel_phase(dm, dev, data)
+            gcl_dm, _, host = cs.gcl_batches(dev, tmp)
+            gcl_host = (gcl_dm.graph.x, host[:2])
+            if sys.argv[1:] == ["--tp-only"]:
+                numbers = cs.tp_phase(dm, gcl_host, tmp)
+            else:
+                _, numbers = cs.parallel_phase(dm, dev, data, gcl_host)
     print("P15 " + json.dumps(numbers, default=str), flush=True)
 
 

@@ -110,7 +110,7 @@ def path_shapes(dev, tmp, scale="primekg"):
     dm.saint_fill_target = chip_smoke.SAINT_FILL
     saint = dm.train_dataloader(loader_type="saint")
     add("Stage C", saint.sample()[0], (torch.bfloat16,))
-    _, batches = chip_smoke.gcl_batches(dev, tmp)
+    _, batches, _ = chip_smoke.gcl_batches(dev, tmp)
     add("GRACE", batches[0], (torch.float32, torch.bfloat16))
     return out
 

@@ -1,5 +1,5 @@
 """The rank side of the port's multi-rank CPU tests
-(test_torch_parallel_{graph,dp,typed_rank}.py); no tests of its own.
+(test_torch_parallel_{graph,dp,tp,typed_rank}.py); no tests of its own.
 ``parallel.launch.run_local_ranks`` runs these functions on each gloo
 rank. They import torch and the port only (never JAX), take numpy inputs
 the test process made (parameters, batches, the reference's draws) and
@@ -158,7 +158,7 @@ def dp_worker(rank, p):
     from biomedkg_tpu_torch.parallel.dp import (
         gather_params, init_spmd_state, make_dp_train_step,
         make_dp_train_steps_scan, make_spmd_train_step)
-    from biomedkg_tpu_torch.parallel.sharding import param_shard_dims
+    from biomedkg_tpu_torch.parallel.sharding import param_layout
     from biomedkg_tpu_torch.training import gcl_module
 
     out = {}
@@ -204,8 +204,122 @@ def dp_worker(rank, p):
     state, loss = make_spmd_train_step(module, mesh)(
         state, batch, negatives=d["negatives"],
         dropout_masks=d["dropout_masks"])
-    dims = param_shard_dims(dict(module.named_parameters()))
-    out["tp"] = (float(loss), _np(gather_params(state.params, mesh, dims)))
+    out["tp"] = (float(loss), _np(gather_params(
+        state.params, mesh, param_layout(module, mesh.tp))))
+    return out
+
+
+def _to_torch(obj):
+    """numpy arrays (in lists and dicts) as tensors."""
+    if isinstance(obj, dict):
+        return {k: _to_torch(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_to_torch(v) for v in obj]
+    return torch.from_numpy(np.array(obj))
+
+
+def _tp_draws(d):
+    """A dp row's injected draws (numpy) as the module takes them: the
+    permutations, the sorted offsets and the iid endpoints as int64."""
+    out = _to_torch(d)
+    if "draws" in out:
+        g = out["draws"]
+        if "perm" in g:
+            g["perm"] = g["perm"].long()
+        return out
+    neg = out["negatives"]
+    out["negatives"] = (tuple(neg[:2]) + (neg[2].long(),) if len(neg) == 3
+                        else tuple(a.long() for a in neg))
+    if "filter_draws" in out:
+        out["filter_draws"] = [tuple(r) for r in out["filter_draws"]]
+    return out
+
+
+def _tp_module(c):
+    from biomedkg_tpu_torch.training import gcl_module
+    from biomedkg_tpu_torch.training.kge_module import KGEModule
+
+    if isinstance(c["model"], str):
+        module = gcl_module.GCL_CLASSES[c["model"]](**c["hparams"])
+    else:
+        module = KGEModule(**c["hparams"])
+    module.edge_layout = c["layout"]
+    for k, v in c["attrs"].items():
+        setattr(module, k, v)
+    load_jax_params(module.model, c["params"], module.fusion)
+    module.configure_optimizers(c["num_training_steps"])
+    module.tx.eps = EPS
+    return module
+
+
+def _recording(tx):
+    """[the gradients of ``tx``'s last update], filled as it updates."""
+    seen = [None]
+    update = tx.update
+
+    def recording(grads, *args, **kwargs):
+        seen[0] = [g.detach().clone() for g in grads]
+        return update(grads, *args, **kwargs)
+
+    tx.update = recording
+    return seen
+
+
+def tp_worker(rank, p):
+    from biomedkg_tpu_torch.parallel.dp import (
+        gather_params, init_spmd_state, make_spmd_train_step, shard_params)
+    from biomedkg_tpu_torch.parallel.dryrun import _serial_dp
+    from biomedkg_tpu_torch.parallel.sharding import param_layout
+
+    out = {"cases": {}, "round_trips": {}}
+    for name, c in p["cases"].items():
+        mesh = make_mesh(*c["mesh"])
+        module = _tp_module(c)
+        seen = _recording(module.tx)
+        state = init_spmd_state(module, mesh)
+        batch = batch_to_device(port_batch(c["batches"][mesh.dp_rank]),
+                                "cpu")
+        state, loss = make_spmd_train_step(module, mesh)(
+            state, batch, **_tp_draws(c["draws"][mesh.dp_rank]))
+        layout = param_layout(module, mesh.tp)
+        out["cases"][name] = (
+            float(loss), _np(gather_params(state.params, mesh, layout)),
+            _np(gather_params(dict(zip(state.params, seen[0])), mesh,
+                              layout)))
+
+    for (name, c), tp in [(item, tp) for item in p["round_trips"].items()
+                          for tp in (2, 4)]:
+        mesh = make_mesh(dp=p["world"] // tp, tp=tp)
+        rgat = c["hparams"]["encoder_name"] == "rgat"
+        module = _tp_module(dict(c, model=None, attrs={},
+                                 layout="relation" if rgat else "dst",
+                                 num_training_steps=1))
+        layout = param_layout(module, tp)
+        shards = shard_params(module, mesh)
+        whole = gather_params(shards, mesh, layout)
+        named = dict(module.named_parameters())
+        out["round_trips"][(name, tp)] = (
+            all(torch.equal(whole[k], v) for k, v in named.items()),
+            all(shards[k].shape[s[0]] * tp == v.shape[s[0]]
+                for k, v in named.items() if (s := layout[k]) is not None))
+
+    # the draws from a generator, alike on a dp row's tp ranks
+    g = p["generator"]
+    mesh = make_mesh(dp=2, tp=2)
+    c = dict(g, model=None, layout="dst", attrs={}, num_training_steps=10)
+    module = _tp_module(c)
+    batches = [batch_to_device(port_batch(b), "cpu") for b in g["batches"]]
+    state = init_spmd_state(module, mesh)
+    state, loss = make_spmd_train_step(module, mesh)(
+        state, batches[mesh.dp_rank],
+        torch.Generator().manual_seed(50 + mesh.dp_rank))
+    got = gather_params(state.params, mesh, param_layout(module, mesh.tp))
+    want, ref_loss = _serial_dp(module, [batches],
+                                lambda j, r: torch.Generator().manual_seed(
+                                    50 + r), 1)
+    out["generator"] = (abs(float(loss) - ref_loss), all(
+        torch.allclose(got[k], w, rtol=1e-5, atol=1e-6)
+        for k, w in want.items()))
     return out
 
 
