@@ -9,6 +9,7 @@ and the background prefetch the Trainer runs its loops on: ``prefetch``
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Iterable, Iterator
@@ -16,6 +17,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .batch import GraphBatch, batch_to_device, pad_graph_batch
 from .csr import CSRGraph
 from .neighbor import NeighborBatchLoader  # noqa: F401  (re-exported)
@@ -74,7 +76,8 @@ def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
     before it. Leaving the generator early (``break``) stops the worker,
     drains the queue and joins the thread, so no thread stays blocked on
     ``put`` holding batches. A generator given as ``iterable`` is closed on
-    the worker's thread."""
+    the worker's thread. The consumer's blocking get is the
+    ``trainer.wait`` span."""
     q: queue.Queue = queue.Queue(maxsize=size)
     sentinel = object()
     error: list = []
@@ -106,7 +109,8 @@ def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with profiling.span("trainer.wait"):
+                item = q.get()
             if item is sentinel:
                 if error:
                     raise error[0]
@@ -148,7 +152,8 @@ def prefetch_to_device(iterable: Iterable, device, size: int = 2
                        ) -> Iterator:
     """``prefetch`` whose worker also copies every host ``GraphBatch`` of
     each item (a batch, or tuples and lists holding batches) to
-    ``device``.
+    ``device``, each item's copy a ``prefetch.copy`` span counting the
+    host bytes copied (``bytes``).
 
     On the card the worker copies from pinned memory on a side CUDA stream
     and records an event after each item; the consumer's stream waits on
@@ -158,25 +163,31 @@ def prefetch_to_device(iterable: Iterable, device, size: int = 2
     to a later copy while a step still reads it. On the CPU it is
     ``batch_to_device`` on the worker's thread."""
     device = torch.device(device)
+    cuda = device.type == "cuda"
     memo: dict = {}
-    if device.type != "cuda":
-        yield from prefetch(
-            (_copy_tree(item, lambda b: batch_to_device(b, device), memo)
-             for item in iterable), size=size)
-        return
 
-    side = torch.cuda.Stream(device)
+    def copy(b: GraphBatch) -> GraphBatch:
+        if profiling.ON:
+            profiling.count("bytes", sum(np.asarray(a).nbytes for a in b))
+        return batch_to_device(b, device, pinned=cuda)
+
+    side = torch.cuda.Stream(device) if cuda else None
 
     def copied():
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side) if cuda else contextlib.nullcontext():
             for item in iterable:
-                moved = _copy_tree(
-                    item, lambda b: batch_to_device(b, device, pinned=True),
-                    memo)
-                event = torch.cuda.Event()
-                event.record(side)
+                with profiling.span("prefetch.copy", counters=("bytes",)):
+                    moved = _copy_tree(item, copy, memo)
+                    event = None
+                    if cuda:
+                        event = torch.cuda.Event()
+                        event.record(side)
                 yield moved, event
 
+    if not cuda:
+        for moved, _ in prefetch(copied(), size=size):
+            yield moved
+        return
     consumer = torch.cuda.current_stream(device)
     for moved, event in prefetch(copied(), size=size):
         consumer.wait_event(event)

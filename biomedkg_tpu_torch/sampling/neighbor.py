@@ -15,6 +15,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..utils import profiling
 from .batch import GraphBatch, pad_graph_batch
 from .csr import CSRGraph, ranges_concat
 from .saint import _round_up
@@ -166,7 +167,8 @@ class NeighborBatchLoader:
         self.sampler.rng = self.rng
 
     def _make_batch(self, seeds: np.ndarray) -> GraphBatch:
-        nodes, ei, et = self.sampler.sample_raw(seeds)
+        with profiling.span("sample.hops"):
+            nodes, ei, et = self.sampler.sample_raw(seeds)
         before = et.shape[0]  # counted before the node-budget truncation
         if len(nodes) > self.node_budget - 1:
             keep_n = self.node_budget - 1
@@ -183,12 +185,13 @@ class NeighborBatchLoader:
                 np.zeros((len(nodes), 1), np.float32)
         else:
             x = None
-        batch = pad_graph_batch(
-            x, ei, et, num_relations=self.graph.num_relations,
-            node_budget=self.node_budget, edge_budget=self.edge_budget,
-            block_size=self.block_size, num_seed=len(seeds), rng=self.rng,
-            node_ids=nodes, num_nodes_hint=len(nodes),
-            layout=self.edge_layout)
+        with profiling.span("sample.pad"):
+            batch = pad_graph_batch(
+                x, ei, et, num_relations=self.graph.num_relations,
+                node_budget=self.node_budget, edge_budget=self.edge_budget,
+                block_size=self.block_size, num_seed=len(seeds),
+                rng=self.rng, node_ids=nodes, num_nodes_hint=len(nodes),
+                layout=self.edge_layout)
         self.dropped_edges += before - int(batch.edge_mask.sum())
         return batch
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import profiling
 from . import native
 from .batch import GraphBatch, pad_graph_batch
 from .csr import CSRGraph
@@ -132,10 +133,12 @@ class SaintRandomWalkSampler:
         ) * self.block_size)
 
     def _sample_base(self, rng: np.random.Generator):
-        roots = rng.integers(0, self.graph.num_nodes, self.batch_size)
-        walks = random_walk(self.graph, roots, self.walk_length, rng)
-        nodes = np.unique(walks)
-        ei, et = self.graph.induced_subgraph(nodes)
+        with profiling.span("sample.walk"):
+            roots = rng.integers(0, self.graph.num_nodes, self.batch_size)
+            walks = random_walk(self.graph, roots, self.walk_length, rng)
+            nodes = np.unique(walks)
+        with profiling.span("sample.induce"):
+            ei, et = self.graph.induced_subgraph(nodes)
         return nodes, ei, et
 
     def _sample_raw(self, rng: np.random.Generator):
@@ -156,10 +159,12 @@ class SaintRandomWalkSampler:
                       self.max_roots - n_roots, headroom)
             if add <= 0:
                 break
-            extra = rng.integers(0, self.graph.num_nodes, add)
-            w2 = random_walk(self.graph, extra, self.walk_length, rng)
-            nodes = np.unique(np.concatenate([nodes, w2.ravel()]))
-            ei, et = self.graph.induced_subgraph(nodes)
+            with profiling.span("sample.walk"):
+                extra = rng.integers(0, self.graph.num_nodes, add)
+                w2 = random_walk(self.graph, extra, self.walk_length, rng)
+                nodes = np.unique(np.concatenate([nodes, w2.ravel()]))
+            with profiling.span("sample.induce"):
+                ei, et = self.graph.induced_subgraph(nodes)
             n_roots += add
         return nodes, ei, et
 
@@ -172,12 +177,13 @@ class SaintRandomWalkSampler:
         else:
             x = None
         before = et.shape[0]
-        batch = pad_graph_batch(
-            x, ei, et, num_relations=self.graph.num_relations,
-            node_budget=self.node_budget, edge_budget=self.edge_budget,
-            block_size=self.block_size, num_seed=len(nodes), rng=self.rng,
-            node_ids=nodes, num_nodes_hint=len(nodes),
-            layout=self.edge_layout)
+        with profiling.span("sample.pad"):
+            batch = pad_graph_batch(
+                x, ei, et, num_relations=self.graph.num_relations,
+                node_budget=self.node_budget, edge_budget=self.edge_budget,
+                block_size=self.block_size, num_seed=len(nodes),
+                rng=self.rng, node_ids=nodes, num_nodes_hint=len(nodes),
+                layout=self.edge_layout)
         self.dropped_edges += before - int(batch.edge_mask.sum())
         return batch, nodes
 

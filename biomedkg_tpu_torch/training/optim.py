@@ -24,6 +24,8 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 def warmup_schedule(scheduler_type: str, learning_rate: float,
                     num_training_steps: int,
@@ -92,7 +94,12 @@ class Optimizer:
         stage is one multi-tensor (``_foreach``) launch over all the
         parameters, not one launch per parameter. ``g_norm`` is the clip's
         global norm where ``grads`` are shards of a larger gradient (the
-        dp × tp step, parallel/dp.py); by default their own norm."""
+        dp × tp step, parallel/dp.py); by default their own norm. The
+        update is the ``step.update`` span."""
+        with profiling.span("step.update", counters=(profiling.LAUNCHES,)):
+            return self._update(grads, state, params, g_norm)
+
+    def _update(self, grads, state, params, g_norm):
         if g_norm is None:
             g_norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(grads)))

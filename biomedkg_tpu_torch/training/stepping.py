@@ -26,6 +26,7 @@ import torch
 
 from ..models.fusion import modality_mean
 from ..parallel.collectives import all_reduce_grads, group_size, psum
+from ..utils import profiling
 from .optim import AdamState, Optimizer
 
 
@@ -46,9 +47,11 @@ UNGRADED = ("fusion.sub_type_emb.table",)
 def param_grads(loss: torch.Tensor, params: Dict[str, torch.Tensor]
                 ) -> List[torch.Tensor]:
     """d loss / d params, in ``params``' order; zeros for an UNGRADED leaf
-    the loss does not reach, and an error for any other."""
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
+    the loss does not reach, and an error for any other. The backward is
+    the ``step.backward`` span."""
+    with profiling.span("step.backward", counters=(profiling.LAUNCHES,)):
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
     out = []
     for (name, p), g in zip(params.items(), grads):
         if g is None:
@@ -125,8 +128,9 @@ class StepsMixin:
         if self.tx is None:
             raise RuntimeError("call configure_optimizers first")
         params = list(state.params.values())
-        loss, _ = self._forward_loss(batch, training=True,
-                                     generator=generator, **draws)
+        with profiling.span("step.forward", counters=(profiling.LAUNCHES,)):
+            loss, _ = self._forward_loss(batch, training=True,
+                                         generator=generator, **draws)
         n = group_size(group)
         grads = all_reduce_grads(param_grads(loss, state.params), group, n)
         opt_state = self.tx.update(grads, state.opt_state, params)

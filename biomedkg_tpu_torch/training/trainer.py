@@ -62,6 +62,7 @@ from ..interop.jax_params import load_jax_params
 from ..parallel.mesh import (LAUNCH_HINT, is_global_zero, make_mesh,
                              resolve_devices, world_size)
 from ..sampling.loaders import prefetch_to_device
+from ..utils import profiling
 from .checkpoint import (AsyncSaver, ModelCheckpoint, load_any,
                          save_checkpoint, train_state_from,
                          train_state_payload)
@@ -246,14 +247,18 @@ class Trainer:
             last_loss = torch.zeros(())
             skip = skip_steps if epoch == start_epoch else 0
             for batches, edges in prefetch_to_device(
-                    self._stream(train_dataloaders, k, skip * dp, dp),
+                    self._stream(train_dataloaders, k, skip * dp, dp,
+                                 first_step=self.global_step),
                     device):
                 for batch in batches:
                     key = (seed, TRAIN, self.global_step) + (
                         () if rank is None else (rank,))
-                    self.state, logs = model.train_step(
-                        self.state, batch, seeded(generator, *key),
-                        group=group)
+                    with profiling.span("trainer.step",
+                                        step=self.global_step,
+                                        counters=(profiling.LAUNCHES,)):
+                        self.state, logs = model.train_step(
+                            self.state, batch, seeded(generator, *key),
+                            group=group)
                     last_loss = logs["train_loss"]
                     self.global_step += 1
                 steps = len(batches)
@@ -317,19 +322,42 @@ class Trainer:
         return self.state
 
     @staticmethod
-    def _stream(loader, k: int, skip: int = 0, dp: int = 1):
+    def _stream(loader, k: int, skip: int = 0, dp: int = 1,
+                first_step: Optional[int] = None):
         """(K host batches, the real edges of their group) items of
         ``loader``, after skipping ``skip`` batches (a resume's offset:
         sampled, never copied). With ``dp`` > 1 each group is dp·K
         batches, of which this rank takes positions j·dp + rank, and a
         shorter tail is dropped; otherwise the last item is shorter. Runs
-        on the prefetch thread."""
+        on the prefetch thread, each batch in a ``prefetch.sample`` span
+        whose step id is the step it trains (from ``first_step``, the
+        step of the first batch after the skip)."""
         it = iter(loader)
         if skip:
             next(itertools.islice(it, skip - 1, skip), None)
         rank = dist.get_rank() if dp > 1 else 0
-        while True:
-            group = list(itertools.islice(it, k * dp))
+        taken, ended = 0, False
+        while not ended:
+            group = []
+            while len(group) < k * dp:
+                step = None if first_step is None else \
+                    first_step + taken // dp
+                with profiling.span("prefetch.sample", step=step,
+                                    counters=("rows", "edges")) as sp:
+                    b = next(it, None)
+                    if b is None:     # the loader's end trains no step
+                        if sp is not profiling.NO_SPAN:
+                            sp.step = None
+                    elif profiling.ON:
+                        profiling.count("rows",
+                                        int(np.count_nonzero(b.node_mask)))
+                        profiling.count("edges",
+                                        int(np.count_nonzero(b.edge_mask)))
+                if b is None:
+                    ended = True
+                    break
+                group.append(b)
+                taken += 1
             if not group or (dp > 1 and len(group) < k * dp):
                 return
             yield (group[rank::dp],

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from ..models.typed import (TypedGraph, concat_tables, to_typed,
                             typed_batch_to_device, typed_encode,
                             typed_encode_batch, typed_to_device)
+from ..utils import profiling
 from .metrics import BootstrappedBinaryMetrics
 from .optim import Optimizer
 from .stepping import param_grads
@@ -71,25 +72,28 @@ def _regularised(bce, z, decoder):
 def full_batch_loss(encoder, decoder, typed: TypedGraph, src, dst, rel,
                     neg_src, neg_dst) -> torch.Tensor:
     """Mean BCE over the positives and the (K, E) negatives of the
-    full-graph typed encode, + the L2 term."""
-    z = concat_tables(typed_encode(encoder, typed), typed.type_names)
-    pos = decoder.score(z, src, dst, rel)
-    neg = decoder.score_neg(z, neg_src, neg_dst, rel).reshape(-1)
-    pred = torch.cat([pos, neg])
-    gt = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
-    bce = torch.mean(-(gt * F.logsigmoid(pred)
-                       + (1 - gt) * F.logsigmoid(-pred)))
-    return _regularised(bce, z, decoder)
+    full-graph typed encode, + the L2 term (the ``step.forward`` span)."""
+    with profiling.span("step.forward", counters=(profiling.LAUNCHES,)):
+        z = concat_tables(typed_encode(encoder, typed), typed.type_names)
+        pos = decoder.score(z, src, dst, rel)
+        neg = decoder.score_neg(z, neg_src, neg_dst, rel).reshape(-1)
+        pred = torch.cat([pos, neg])
+        gt = torch.cat([torch.ones_like(pos), torch.zeros_like(neg)])
+        bce = torch.mean(-(gt * F.logsigmoid(pred)
+                           + (1 - gt) * F.logsigmoid(-pred)))
+        return _regularised(bce, z, decoder)
 
 
 def iid_negatives(generator: torch.Generator, ratio: int, num_edges: int,
                   high) -> tuple:
-    """(K, E) int64 sources and destinations, iid over [0, high)."""
+    """(K, E) int64 sources and destinations, iid over [0, high) (the
+    ``step.draw`` span)."""
     shape = (ratio, num_edges)
-    return (torch.randint(0, int(high), shape, generator=generator,
-                          device=generator.device),
-            torch.randint(0, int(high), shape, generator=generator,
-                          device=generator.device))
+    with profiling.span("step.draw", counters=(profiling.LAUNCHES,)):
+        return (torch.randint(0, int(high), shape, generator=generator,
+                              device=generator.device),
+                torch.randint(0, int(high), shape, generator=generator,
+                              device=generator.device))
 
 
 def typed_update(loss, params: Dict[str, torch.Tensor], tx: Optimizer,

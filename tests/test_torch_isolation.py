@@ -246,11 +246,10 @@ _TYPED_CHILD = textwrap.dedent("""
         importlib.import_module(
             "biomedkg_tpu_torch." + path[:-3].replace("/", "."))
     import numpy as np
-    import torch
     from biomedkg_tpu_torch import ml_exp
     from biomedkg_tpu_torch.train_kge import main as train_kge
     from biomedkg_tpu_torch.training.kge_module import KGEModule
-    from biomedkg_tpu_torch.utils.profiling import StepTimer
+    from biomedkg_tpu_torch.utils import profiling
     args = ["typed_tables=true", "typed_steps=2", "epochs=1",
             "device=cpu", "data.embed_dim=8", "model.hidden_dim=8",
             "model.out_dim=8", "model.num_hidden_layers=0"]
@@ -265,9 +264,10 @@ _TYPED_CHILD = textwrap.dedent("""
               node_init_method="random", remat=True)
     module = KGEModule(**hp)
     module.dst_bwd = "agg"
-    timer = StepTimer()
-    timer.start()
-    timer.stop(torch.zeros(1), items=1)
+    profiling.start()
+    with profiling.span("trainer.step", counters=(profiling.LAUNCHES,)):
+        pass
+    assert profiling.stop()[0].counts == {{profiling.LAUNCHES: 0}}
     try:
         ml_exp.evaluate(np.zeros((4, 2)), np.arange(4) % 2)
     except ModuleNotFoundError as err:

@@ -3,7 +3,7 @@ JAX package: ``agg_conv`` and ``take_rows_via_perm`` (forward and
 gradients, tests/test_ops.py's shapes), a whole dst-layout KGE step with
 ``dst_bwd`` "agg", "perm" and ``remat=True`` equal to the "scatter" step
 (loss 1e-5, gradients 2e-4, as tests/test_stepping.py:55 holds JAX's),
-RGAT refusing the variants, ``StepTimer``, ``trace``, ``debug_nans``, and
+RGAT refusing the variants, ``trace``, ``debug_nans``, and
 the aliases' names."""
 
 import importlib
@@ -244,20 +244,6 @@ def test_rgat_refuses_the_variants():
 def test_remat_reaches_the_encoder():
     assert KGEModule(**dict(HP, remat=True)).model.encoder.remat
     assert not KGEModule(**HP).model.encoder.remat
-
-
-def test_step_timer_rates(monkeypatch):
-    clock = iter([10.0, 10.5, 20.0, 21.5])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.StepTimer()
-    for items in (100, 300):
-        timer.start()
-        timer.stop({"loss": torch.zeros(())}, items=items)
-    rates = timer.rates()
-    assert timer.steps == 2 and timer.items == 400
-    assert rates["avg_step_ms"] == pytest.approx(1000.0)
-    assert rates["steps_per_sec"] == pytest.approx(1.0)
-    assert rates["items_per_sec"] == pytest.approx(200.0)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
