@@ -80,9 +80,11 @@
 //                 skip
 //   4 wgmma_bf16  the bf16 redesign (namespace wg below), with the skip;
 //                 for d a multiple of 8 and 16-byte aligned tables (TMA)
+//   5 whole_f32   wide_f32 with its backward on one slot: every item
+//                 whole, one CTA an item, nothing cut
 // The path runs wide_f32 and wgmma_bf16 (ops/flashnce.py::flash_design;
-// skip_bf16 where TMA cannot take the tables); the first designs and
-// skip_bf16 stay for the A/B in chip_smoke.py.
+// skip_bf16 where TMA cannot take the tables); the first designs,
+// skip_bf16 and whole_f32 stay for the A/B in chip_smoke.py.
 //
 // Bound. At GRACE's path shape (N = 37,376, d = 256) a forward makes two
 // N x N x d products, 1.43e12 operations: 21.3 ms on the float32 units at
@@ -652,8 +654,11 @@ __global__ void __launch_bounds__(kThreads, Occupancy<T>::kMinBlocks)
 // while this one is computed. The logit product, the cotangents and the
 // second product are three loops, so that the logits' registers are free
 // in the second product (one loop kept both alive and spilled). The three
-// jobs and the output layout are the first design's: no atomics,
-// deterministic.
+// jobs and the output layout are the first design's: no atomics on
+// output values, deterministic. The grid fills the card's last wave: the
+// items (a job and an own tile) that fill whole waves run whole, one CTA
+// each, and the rest are cut into slices of their live streamed tiles,
+// merged in slice order (bwd_f32 below).
 namespace wide {
 
 constexpr int kO = 128;       // own rows per CTA
@@ -937,40 +942,99 @@ constexpr int kSB = 64;  // the backward's streamed rows per tile
 constexpr size_t kBwdSmem =
     ((size_t)kStages * kP2 + kSB * kLdW + 3 * kO + 3 * kSB) * sizeof(float);
 
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-    bwd_f32(const float* __restrict__ an, const float* __restrict__ bn,
-            const float* __restrict__ col, const float* __restrict__ den,
-            const float* __restrict__ g, const uint8_t* __restrict__ flags,
-            float* __restrict__ out, int n, int n64, int d, int dp,
-            float tau, bool vec) {
-  extern __shared__ __align__(16) float sm[];
+// The index of the rank-th (from 0) i < count with pred(i), or count where
+// there are fewer; every thread of the CTA calls it and gets the answer.
+template <typename P>
+__device__ int nth(int count, int rank, P pred) {
+  __shared__ int per_warp[kThreads / 32], found;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int base = 0; base < count; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const bool hit = i < count && pred(i);
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) per_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int before = __popc(ballot & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      before += w < warp ? per_warp[w] : 0;
+      total += per_warp[w];
+    }
+    if (hit && before == rank) found = i;
+    __syncthreads();
+    if (rank < total) return found;
+    rank -= total;
+  }
+  return count;
+}
+
+// The backward's items: a job and a 128-row own tile, item i = job *
+// owns + own tile (the order of the grid of one CTA an item). An item's
+// live pairs (Live::pair) are its streamed tiles with a real column (c of
+// them), with a nonzero g (g) or with either (cg), by what its own tile
+// holds, so that every thread counts any item's from three sums. Every
+// thread of the CTA must construct it.
+struct BwdItems {
+  Live live;
+  int owns, c, g, cg;
+
+  __device__ BwdItems(const uint8_t* flags, int n64)
+      : live(flags, n64 / kSB), owns((n64 + kO - 1) / kO), c(0), g(0),
+        cg(0) {
+    for (int base = 0; base < live.tiles; base += kThreads) {
+      const int u = base + threadIdx.x;
+      const bool cu = live.c(u), gu = live.gz(u);
+      c += __syncthreads_count(cu);
+      g += __syncthreads_count(gu);
+      cg += __syncthreads_count(cu || gu);
+    }
+  }
+  __device__ __forceinline__ int total() const { return kJobs * owns; }
+  __device__ __forceinline__ bool go(int ot) const {
+    return live.gz(2 * ot) || live.gz(2 * ot + 1);
+  }
+  __device__ __forceinline__ bool co(int ot) const {
+    return live.c(2 * ot) || live.c(2 * ot + 1);
+  }
+  // the live pairs of item i
+  __device__ __forceinline__ int pairs(int i) const {
+    const int job = i / owns, ot = i % owns;
+    const bool rows = go(ot), cols = co(ot);
+    if (job == 0) return rows ? c : 0;
+    if (job == 2) return cols ? g : 0;
+    return rows && cols ? cg : rows ? c : cols ? g : 0;
+  }
+};
+
+// Streamed tiles [lo, lo + count) of item i's live pairs, in their order:
+// acc = sum over them of the cotangents times the streamed rows, stored
+// times `scale` to the (128, dp) block at dst (its first `rows` rows).
+__device__ __forceinline__ void bwd_item(
+    const float* __restrict__ an, const float* __restrict__ bn,
+    const float* __restrict__ col, const float* __restrict__ den,
+    const float* __restrict__ g, const BwdItems& items, int i, int lo,
+    int count, float* __restrict__ dst, int rows, float scale, int n, int d,
+    int dp, float tau, bool vec, float* sm) {
   float* ring = sm;
   float* wt = ring + kStages * kP2;
   float* ov = wt + kSB * kLdW;
   float* sv = ov + 3 * kO;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int job = blockIdx.y, ot = blockIdx.x;
+  const int job = i / items.owns, ot = i % items.owns;
   const float* own = job == 2 ? bn : an;
   const float* st = job == 0 ? bn : an;
   const int64_t o0 = (int64_t)ot * kO;
-  // this CTA's block of the job's output: rows [o0, min(o0 + 128, n64))
-  float* out_job = out + ((int64_t)job * n64 + o0) * dp;
-  const int out_rows = (int)(n64 - o0 < kO ? n64 - o0 : kO);
-  const int tiles = n64 / kSB;
-  const Live live(flags, tiles);
-  const bool go = live.gz(2 * ot) || live.gz(2 * ot + 1);
-  const bool co = live.c(2 * ot) || live.c(2 * ot + 1);
+  const Live& live = items.live;
+  const int tiles = live.tiles;
+  const bool go = items.go(ot), co = items.co(ot);
+  auto is_live = [&](int u) {
+    return Live::pair(job, go, co, live.gz(u), live.c(u));
+  };
   auto live_from = [&](int u) {
-    while (u < tiles && !Live::pair(job, go, co, live.gz(u), live.c(u))) ++u;
+    while (u < tiles && !is_live(u)) ++u;
     return u;
   };
-  const int first = live_from(0);
-  if (first >= tiles) {  // no live pair: zeros
-    for (int i = tid; i < out_rows * dp / 4; i += kThreads)
-      reinterpret_cast<float4*>(out_job)[i] = make_float4(0.f, 0.f, 0.f,
-                                                          0.f);
-    return;
-  }
+  const int first = nth(tiles, lo, is_live);
   if (tid < kO) {
     const int64_t r = o0 + tid;
     const bool in = r < n;
@@ -981,13 +1045,13 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 
   // the ring's items: per tile, k1 product-1 slots, then kSB / kBK
   // product-2 slots of 8 streamed rows by dp
-  const int k1 = (d + kBK - 1) / kBK, items = k1 + kSB / kBK;
+  const int k1 = (d + kBK - 1) / kBK, per_tile = k1 + kSB / kBK;
   const int ldz = dp + 4;
   const Rows own_rows = rows_of(own, o0, n, d);
-  int pu = first, pi = 0;  // producer: tile, item
+  int pu = first, pk = 0, pi = 0;  // producer: tile, its rank, item
   Rows st_rows = rows_of<kSB / 32>(st, (int64_t)pu * kSB, n, d);
   auto issue = [&](int slot) {
-    if (pu < tiles) {
+    if (pk < count) {
       float* sl = ring + slot * kP2;
       if (pi < k1) {
         load_p1<kSB>(sl, own_rows, st_rows, st, pi * kBK, d);
@@ -1008,8 +1072,9 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
           }
         }
       }
-      if (++pi == items) {
+      if (++pi == per_tile) {
         pi = 0;
+        ++pk;
         pu = live_from(pu + 1);
         st_rows = rows_of<kSB / 32>(st, (int64_t)pu * kSB, n, d);
       }
@@ -1036,7 +1101,7 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
     slot = (slot + 1) % kStages;
     return sl;
   };
-  for (int u = first; u < tiles; u = live_from(u + 1)) {
+  for (int t = 0, u = first; t < count; ++t, u = live_from(u + 1)) {
     const int64_t s0 = (int64_t)u * kSB;
     // the streamed (g, den, col); the previous tile's readers passed the
     // barrier after its cotangents
@@ -1086,7 +1151,7 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
           make_float4(l[4][j], l[5][j], l[6][j], l[7][j]);
     }
     __syncthreads();
-    for (int it = k1; it < items; ++it) {
+    for (int it = k1; it < per_tile; ++it) {
       const float* sl = next_slot();
       // 8 streamed rows: acc += w[:, rows] . z[rows, :], in row order;
       // all four column blocks, also past dp (inside the shared
@@ -1119,17 +1184,133 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = of8(ty, i);
-    if (r >= out_rows) continue;
+    if (r >= rows) continue;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = 64 * q + 4 * tx;
       if (c < dp) {
         const float4 a = acc[i][q];
-        *reinterpret_cast<float4*>(out_job + (int64_t)r * dp + c) =
-            make_float4(a.x * inv_tau, a.y * inv_tau, a.z * inv_tau,
-                        a.w * inv_tau);
+        *reinterpret_cast<float4*>(dst + (int64_t)r * dp + c) =
+            make_float4(a.x * scale, a.y * scale, a.z * scale,
+                        a.w * scale);
       }
     }
+  }
+}
+
+// item i's block of the output (job-major, (3, n64, dp)) and its rows
+__device__ __forceinline__ float* item_block(float* out, const BwdItems& it,
+                                             int i, int n64, int dp,
+                                             int* rows) {
+  const int job = i / it.owns, ot = i % it.owns;
+  const int64_t o0 = (int64_t)ot * kO;
+  *rows = (int)(n64 - o0 < kO ? n64 - o0 : kO);
+  return out + ((int64_t)job * n64 + o0) * dp;
+}
+
+__device__ __forceinline__ void zero_block(float* dst, int rows, int dp) {
+  for (int i = threadIdx.x; i < rows * dp / 4; i += kThreads)
+    reinterpret_cast<float4*>(dst)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The backward on a grid that fills the card's last wave. L items have a
+// live pair, of W = `slots` CTAs resident at once. The grid's CTAs are
+// units, dispatched in order:
+//   - the dead items' (no live pair) zeros;
+//   - the first L - r items run whole, r = L mod W, one CTA each (the
+//     whole waves);
+//   - the last r items' slices: W units, per = W / r for each item and
+//     one more for the first W mod r, each a contiguous run of the item's
+//     live streamed tiles (k = min(those units, its live tiles) slices;
+//     units past k exit). Slice p of cut item j writes its unscaled block
+//     to the workspace at unit s = its first unit s0 + p, and the slice
+//     that takes the item's ticket last adds the k blocks in slice order
+//     and writes the item's rows: the result does not depend on which
+//     finishes first;
+//   - the grid's remaining units (it has 3 * owns + W) exit.
+// With W = 1 nothing is cut: one CTA an item (design whole_f32).
+// The plan is read from the flags by every CTA (no host read of L);
+// ops/flashnce.py::bwd_plan is its model on the host. tally, where given,
+// gets (L, r, the slices run) added.
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+    bwd_f32(const float* __restrict__ an, const float* __restrict__ bn,
+            const float* __restrict__ col, const float* __restrict__ den,
+            const float* __restrict__ g, const uint8_t* __restrict__ flags,
+            float* __restrict__ out, float* __restrict__ part,
+            int* __restrict__ tickets,
+            unsigned long long* __restrict__ tally, int slots, int n,
+            int n64, int d, int dp, float tau, bool vec) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int last;
+  const BwdItems items(flags, n64);
+  const int total = items.total();
+  int live = 0;
+  for (int base = 0; base < total; base += kThreads)
+    live += __syncthreads_count(base + threadIdx.x < total &&
+                                items.pairs(base + threadIdx.x) > 0);
+  const int dead = total - live, cut = live % slots, whole = live - cut;
+  auto is_live = [&](int i) { return items.pairs(i) > 0; };
+  const int b = blockIdx.x;
+  if (b == 0 && threadIdx.x == 0 && tally != nullptr) {
+    atomicAdd(tally, (unsigned long long)live);
+    atomicAdd(tally + 1, (unsigned long long)cut);
+  }
+  int rows;
+  if (b < dead) {
+    const int i = nth(total, b, [&](int x) { return !is_live(x); });
+    zero_block(item_block(out, items, i, n64, dp, &rows), rows, dp);
+    return;
+  }
+  const float inv_tau = 1.f / tau;
+  if (b < dead + whole) {
+    const int i = nth(total, b - dead, is_live);
+    float* dst = item_block(out, items, i, n64, dp, &rows);
+    bwd_item(an, bn, col, den, g, items, i, 0, items.pairs(i), dst, rows,
+             inv_tau, n, d, dp, tau, vec, sm);
+    return;
+  }
+  const int s = b - dead - whole;
+  if (cut == 0 || s >= slots) return;
+  const int per = slots / cut, extra = slots % cut;
+  int j, p, units;
+  if (s < extra * (per + 1)) {
+    j = s / (per + 1), p = s % (per + 1), units = per + 1;
+  } else {
+    const int t = s - extra * (per + 1);
+    j = extra + t / per, p = t % per, units = per;
+  }
+  const int i = nth(total, whole + j, is_live);
+  const int pairs = items.pairs(i);
+  const int k = units < pairs ? units : pairs;
+  if (p >= k) return;
+  if (p == 0 && threadIdx.x == 0 && tally != nullptr)
+    atomicAdd(tally + 2, (unsigned long long)k);
+  const int lo = (int)((int64_t)pairs * p / k);
+  const int count = (int)((int64_t)pairs * (p + 1) / k) - lo;
+  float* dst = item_block(out, items, i, n64, dp, &rows);
+  const int64_t block = (int64_t)kO * dp;  // floats of a slice's block
+  bwd_item(an, bn, col, den, g, items, i, lo, count, part + s * block, rows,
+           1.f, n, d, dp, tau, vec, sm);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + j, 1) == k - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float4* parts =
+      reinterpret_cast<const float4*>(part + (s - p) * block);
+  for (int e = threadIdx.x; e < rows * dp / 4; e += kThreads) {
+    float4 v = __ldcg(parts + e);
+    for (int q = 1; q < k; ++q) {
+      const float4 w = __ldcg(parts + q * (block / 4) + e);
+      v.x += w.x;
+      v.y += w.y;
+      v.z += w.z;
+      v.w += w.w;
+    }
+    reinterpret_cast<float4*>(dst)[e] =
+        make_float4(v.x * inv_tau, v.y * inv_tau, v.z * inv_tau,
+                    v.w * inv_tau);
   }
 }
 
@@ -1873,7 +2054,8 @@ enum Design {
   kFirstBf16 = 1,
   kSkipBf16 = 2,
   kWideF32 = 3,
-  kWgmmaBf16 = 4
+  kWgmmaBf16 = 4,
+  kWholeF32 = 5
 };
 
 template <typename T, bool kSkip>
@@ -1910,12 +2092,10 @@ int launch_bwd(const void* an, const void* bn, const void* col,
   return (int)cudaGetLastError();
 }
 
-// The forward slices per 128-row tile of a design that slices (wide_f32,
-// wgmma_bf16): the fewest (up to 8) whose grid fills at least 90 % of its
-// last wave, else the fullest; a wave is the card's SMs times the CTAs an
-// SM holds.
+// A wave of kernel on the current card: its SMs times the CTAs an SM
+// holds, or -1.
 template <typename K>
-int fwd_splits(K* kernel, int threads, size_t smem, int n) {
+int wave_of(K* kernel, int threads, size_t smem) {
   int dev = 0, sms = 0, per_sm = 0;
   if (set_smem(kernel, smem, false) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
@@ -1925,7 +2105,16 @@ int fwd_splits(K* kernel, int threads, size_t smem, int n) {
                                                     smem) != cudaSuccess ||
       sms * per_sm <= 0)
     return -1;
-  const int64_t wave = (int64_t)sms * per_sm;
+  return sms * per_sm;
+}
+
+// The forward slices per 128-row tile of a design that slices (wide_f32,
+// whole_f32, wgmma_bf16): the fewest (up to 8) whose grid fills at least
+// 90 % of its last wave, else the fullest.
+template <typename K>
+int fwd_splits(K* kernel, int threads, size_t smem, int n) {
+  const int64_t wave = wave_of(kernel, threads, smem);
+  if (wave <= 0) return -1;
   const int64_t rows = (n + wide::kO - 1) / wide::kO;
   int best = 1;
   double best_fill = 0.0;
@@ -2010,6 +2199,7 @@ int launch_wgmma_bwd(const void* an, const void* bn, const void* col,
 extern "C" int flashnce_fwd_splits(int design, int n) {
   switch (design) {
     case kWideF32:
+    case kWholeF32:
       return fwd_splits(wide::fwd_f32, wide::kThreads, wide::kFwdSmem, n);
     case kWgmmaBf16:
       return fwd_splits(wg::fwd_bf16, wg::kThreads, wg::kFwdSmem, n);
@@ -2017,10 +2207,17 @@ extern "C" int flashnce_fwd_splits(int design, int n) {
   return -1;
 }
 
-// den (n,) written. wide_f32 and wgmma_bf16 with splits > 1 take a
-// workspace of splits * ceil(n / 128) * 128 doubles (part_s) and as many
-// floats (part_m), and ceil(n / 128) tickets, zero on entry; the others
-// ignore them. wgmma_bf16 refuses (cudaErrorInvalidValue) a d that is no
+// The backward's slots of design wide_f32 (W, the CTAs resident at once:
+// the size of its workspace), or -1.
+extern "C" int flashnce_bwd_slots(int design) {
+  if (design != kWideF32) return -1;
+  return wave_of(wide::bwd_f32, wide::kThreads, wide::kBwdSmem);
+}
+
+// den (n,) written. wide_f32, whole_f32 and wgmma_bf16 with splits > 1
+// take a workspace of splits * ceil(n / 128) * 128 doubles (part_s) and
+// as many floats (part_m), and ceil(n / 128) tickets, zero on entry; the
+// others ignore them. wgmma_bf16 refuses (cudaErrorInvalidValue) a d that is no
 // multiple of 8, bases that are not 16-byte aligned, and a tensor map that
 // does not encode.
 extern "C" int flashnce_fwd(int design, const void* an, const void* bn,
@@ -2041,7 +2238,8 @@ extern "C" int flashnce_fwd(int design, const void* an, const void* bn,
     case kSkipBf16:
       return launch_fwd<__nv_bfloat16, true>(an, bn, col, fl, den, n, d, tau,
                                              st);
-    case kWideF32: {
+    case kWideF32:
+    case kWholeF32: {
       if (splits < 1 || splits > 8) return (int)cudaErrorInvalidValue;
       const cudaError_t err = set_smem(wide::fwd_f32, wide::kFwdSmem, false);
       if (err != cudaSuccess) return (int)err;
@@ -2063,11 +2261,16 @@ extern "C" int flashnce_fwd(int design, const void* an, const void* bn,
 
 // out (3, ceil(n / 64) * 64, round_up(d, 16)) float32, every element
 // written (job-major; rows past n and columns past d are padding the
-// caller drops).
+// caller drops). wide_f32 takes a workspace of `slots` (128,
+// round_up(d, 16)) float32 blocks (part) and `slots` tickets, zero on
+// entry, slots from flashnce_bwd_slots, and adds (items with a live pair,
+// items cut, slices) to the int64 tally (3,) where it is not null; the
+// others ignore them (whole_f32 runs wide_f32's kernel on one slot).
 extern "C" int flashnce_bwd(int design, const void* an, const void* bn,
                             const void* col, const void* den, const void* g,
-                            const void* flags, void* out, int n, int d,
-                            float tau, void* stream) {
+                            const void* flags, void* out, void* part,
+                            void* tickets, void* tally, int slots, int n,
+                            int d, float tau, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -2082,17 +2285,26 @@ extern "C" int flashnce_bwd(int design, const void* an, const void* bn,
     case kSkipBf16:
       return launch_bwd<__nv_bfloat16, true>(an, bn, col, den, g, fl, out, n,
                                              d, tau, st);
-    case kWideF32: {
+    case kWideF32:
+    case kWholeF32: {
+      if (design == kWholeF32) {  // one slot: nothing is cut
+        slots = 1;
+        part = tickets = tally = nullptr;
+      }
+      if (slots < 1) return (int)cudaErrorInvalidValue;
       const cudaError_t err = set_smem(wide::bwd_f32, wide::kBwdSmem, false);
       if (err != cudaSuccess) return (int)err;
       const int dp = round16(d), n64 = (n + 63) / 64 * 64;
-      const dim3 grid((unsigned)((n64 + wide::kO - 1) / wide::kO), kJobs);
+      const int owns = (n64 + wide::kO - 1) / wide::kO;
       const bool vec = d % 4 == 0 && ((uintptr_t)an | (uintptr_t)bn) % 16 == 0;
-      wide::bwd_f32<<<grid, wide::kThreads, wide::kBwdSmem, st>>>(
+      wide::bwd_f32<<<(unsigned)(kJobs * owns + slots), wide::kThreads,
+                      wide::kBwdSmem, st>>>(
           static_cast<const float*>(an), static_cast<const float*>(bn),
           static_cast<const float*>(col), static_cast<const float*>(den),
-          static_cast<const float*>(g), fl, static_cast<float*>(out), n, n64,
-          d, dp, tau, vec);
+          static_cast<const float*>(g), fl, static_cast<float*>(out),
+          static_cast<float*>(part), static_cast<int*>(tickets),
+          static_cast<unsigned long long*>(tally), slots, n, n64, d, dp, tau,
+          vec);
       return (int)cudaGetLastError();
     }
     case kWgmmaBf16:
@@ -2137,6 +2349,12 @@ extern "C" int flashnce_attributes(int backward, int design, int* attrs) {
       break;
     case 2 * kWgmmaBf16 + 1:
       err = cudaFuncGetAttributes(&a, wg::bwd_bf16);
+      break;
+    case 2 * kWholeF32:
+      err = cudaFuncGetAttributes(&a, wide::fwd_f32);
+      break;
+    case 2 * kWholeF32 + 1:
+      err = cudaFuncGetAttributes(&a, wide::bwd_f32);
       break;
   }
   if (err != cudaSuccess) return (int)err;

@@ -35,11 +35,19 @@ products where the function needs five, since jobs 0 and 2 both rebuild
 the inter logits; the one-pass choice, which builds them once and writes
 the columns side with float32 atomics, would land every (tile, column)
 partial sum as an atomic: 1.1·10¹⁰ of them at GRACE's N = 37,376, d = 256.
+``wide_f32``'s backward fills the card's last wave: of its items (a job
+and a 128-row own tile) those that fill whole waves run whole, one CTA
+each, and the rest are cut into slices of their live streamed tiles,
+whose partial sums the slice that finishes last adds in slice order
+(``bwd_plan`` models the grid); ``whole_f32`` runs the same kernels with
+the backward on one slot, every item whole, one CTA an item, kept for the
+A/B.
 Besides the kernel, a skipping forward launches ``live_tiles``'s three
 small kernels (a zero fill, a compare, a reduction) and, for a design
-that slices (``wide_f32``, ``wgmma_bf16``) into more than one slice, one
-zero fill of its tickets; a skipping backward four (a second compare, for
-``g``).
+that slices (``wide_f32``, ``whole_f32``, ``wgmma_bf16``) into more than
+one slice, one zero fill of its tickets; a skipping backward four (a
+second compare, for ``g``), and ``wide_f32``'s one zero fill of its
+tickets.
 
 On a CPU tensor it runs the plain version: a torch port of the reference's
 XLA flash path (``_flash_pos_denom``, gcl_module.py:59-140, without its
@@ -56,6 +64,7 @@ holds the kernels against it on the card.
 from __future__ import annotations
 
 import ctypes
+from typing import List, NamedTuple
 
 import torch
 
@@ -72,15 +81,21 @@ PLAIN_BLOCK = 1024  # rows per tile of the plain version by default
 # type each takes
 DESIGNS = {"first_f32": torch.float32, "first_bf16": torch.bfloat16,
            "skip_bf16": torch.bfloat16, "wide_f32": torch.float32,
-           "wgmma_bf16": torch.bfloat16}
+           "wgmma_bf16": torch.bfloat16, "whole_f32": torch.float32}
 # per type: the path's design where the widths and bases allow (every call
 # of GRACE's path), the one that takes any, and the first design
 PATH = {torch.float32: "wide_f32", torch.bfloat16: "wgmma_bf16"}
 GENERAL = {torch.float32: "wide_f32", torch.bfloat16: "skip_bf16"}
 FIRST = {torch.float32: "first_f32", torch.bfloat16: "first_bf16"}
-SLICING = {"wide_f32", "wgmma_bf16"}  # forwards cut into slices
+# forwards cut into slices
+SLICING = {"wide_f32", "wgmma_bf16", "whole_f32"}
+# backwards whose last wave is filled with slices (bwd_plan)
+BALANCED = {"wide_f32"}
 # the designs that read live_tiles' flags
-SKIPPING = set(PATH.values()) | set(GENERAL.values())
+SKIPPING = set(PATH.values()) | set(GENERAL.values()) | {"whole_f32"}
+# what a balanced backward adds to its wrapper's tally each launch: the
+# items with a live pair, the items cut into slices, the slices run
+TALLY = ("flash_bwd_items", "flash_bwd_cut", "flash_bwd_slices")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 LIBRARY = CudaLibrary("flashnce.cu", {
@@ -88,11 +103,14 @@ LIBRARY = CudaLibrary("flashnce.cu", {
     # d, tau, stream
     "flashnce_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      ctypes.c_float, _P],
-    # design, an, bn, col, den, g, flags, out, n, d, tau, stream
-    "flashnce_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                     ctypes.c_float, _P],
+    # design, an, bn, col, den, g, flags, out, part, tickets, tally, slots,
+    # n, d, tau, stream
+    "flashnce_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _I, ctypes.c_float, _P],
     # design, n
     "flashnce_fwd_splits": [_I, _I],
+    # design
+    "flashnce_bwd_slots": [_I],
     "flashnce_attributes": [_I, _I, ctypes.POINTER(ctypes.c_int)]})
 NAME = "flash_denom"
 
@@ -157,6 +175,73 @@ def live_pairs(flags: torch.Tensor, job: int,
     rows = _coarse(g, own_rows)[:, None] & c[None, :]
     cols = _coarse(c, own_rows)[:, None] & g[None, :]
     return rows if job == 0 else cols if job == 2 else rows | cols
+
+
+def bwd_item_pairs(flags: torch.Tensor) -> torch.Tensor:
+    """(JOBS, own tiles of OWN_ROWS) int64: each backward item's live
+    pairs, as csrc/flashnce.cu's ``BwdItems`` counts them from three sums
+    over the streamed tiles (a real column, a nonzero g, either) and what
+    the item's own tile holds."""
+    c = flags[0] if bool(flags[0].any()) else torch.ones_like(flags[0])
+    g = flags[1]
+    n_c, n_g, n_cg = (int(x.sum()) for x in (c, g, c | g))
+    rows, cols = _coarse(g, OWN_ROWS).long(), _coarse(c, OWN_ROWS).long()
+    both = torch.where(rows.bool() & cols.bool(), n_cg,
+                       rows * n_c + cols * n_g)
+    return torch.stack([rows * n_c, both, cols * n_g])
+
+
+class BwdUnit(NamedTuple):
+    """One CTA of ``wide_f32``'s backward grid that does work."""
+    kind: str     # "zeros" (an item with no live pair), "whole", "slice"
+    job: int
+    own: int      # the item's 128-row own tile
+    lo: int       # the rank of its first live streamed tile in the item's
+    count: int    # live streamed tiles, in order
+    slot: int     # slices: the workspace block it writes, else -1
+    cut: int      # slices: the cut item's index (its ticket), else -1
+    slices: int   # slices: the item's slices, merged in slot order, else 0
+
+
+def bwd_workspace(slots: int, d: int) -> tuple:
+    """The shape of ``wide_f32``'s backward workspace for ``slots``
+    resident CTAs and width d: one (OWN_ROWS, d rounded up to 16) float32
+    block a slot."""
+    return slots, OWN_ROWS, -(-d // 16) * 16
+
+
+def bwd_plan(flags: torch.Tensor, slots: int) -> List[BwdUnit]:
+    """The working units of ``wide_f32``'s backward for ``live_tiles``'
+    flags on a card that holds ``slots`` CTAs at once, in the order the
+    grid dispatches them, as csrc/flashnce.cu's ``bwd_f32`` reads them
+    from the flags: the items with no live pair (zeros), then, of the L
+    items with one, the first L - r (r = L mod slots) whole, then the last
+    r cut into ``slots`` units (slots // r each, one more for the first
+    slots % r), each unit a contiguous run of the item's live streamed
+    tiles; an item with fewer live tiles than units takes that many
+    slices, and its other units exit (left out here)."""
+    pairs = bwd_item_pairs(flags).flatten().tolist()
+    owns = len(pairs) // JOBS
+    live = [i for i, p in enumerate(pairs) if p]
+    units = [BwdUnit("zeros", i // owns, i % owns, 0, 0, -1, -1, 0)
+             for i, p in enumerate(pairs) if not p]
+    cut = len(live) % slots
+    whole = len(live) - cut
+    units += [BwdUnit("whole", i // owns, i % owns, 0, pairs[i], -1, -1, 0)
+              for i in live[:whole]]
+    if cut:
+        per, extra = divmod(slots, cut)
+        first = 0
+        for j, i in enumerate(live[whole:]):
+            span = per + (j < extra)
+            k = min(span, pairs[i])
+            for p in range(k):
+                lo = pairs[i] * p // k
+                units.append(BwdUnit("slice", i // owns, i % owns, lo,
+                                     pairs[i] * (p + 1) // k - lo, first + p,
+                                     j, k))
+            first += span
+    return units
 
 
 def attributes(backward: bool, design: str) -> dict:
@@ -305,7 +390,42 @@ class FlashBackward(_Wrapper):
     """The backward kernel's wrapper: (d_an, d_bn) in an's type from the
     saved denominators and their cotangent ``g``; one launch runs three
     jobs. ``flags`` (``live_tiles(col, g)``) is computed here, for the
-    designs that skip, unless the caller passes it."""
+    designs that skip, unless the caller passes it. A balanced backward
+    adds TALLY's three counts to an int64 tensor on its device
+    (``tallies``), read only by ``tally()``."""
+
+    _slots = {}  # (device, design) -> CTAs resident at once
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        self.tallies = {}  # device -> int64 (len(TALLY),)
+
+    def slots(self, device, design: str) -> int:
+        """The CTAs of ``design`` (one of BALANCED) the card ``device``
+        holds at once: the wave its backward fills, and its workspace's
+        blocks."""
+        key = (torch.device(device), design)
+        if key not in self._slots:
+            with torch.cuda.device(key[0]):
+                slots = LIBRARY.lib().flashnce_bwd_slots(
+                    list(DESIGNS).index(design))
+            if slots < 1:
+                raise RuntimeError(f"{self.name}: no occupancy for "
+                                   f"{design}")
+            self._slots[key] = slots
+        return self._slots[key]
+
+    def tally(self) -> dict:
+        """TALLY's counts summed over the devices since the last
+        ``clear_tally`` (a read of the device, which synchronises); {}
+        before any balanced launch."""
+        per_device = (t.tolist() for t in self.tallies.values())
+        return dict(zip(TALLY, map(sum, zip(*per_device))))
+
+    def clear_tally(self):
+        """Zero the tallies, in stream order on their devices."""
+        for t in self.tallies.values():
+            t.zero_()
 
     def __call__(self, an, bn, col, den, g, tau: float, flags=None):
         _check(an, bn, col)
@@ -326,11 +446,25 @@ class FlashBackward(_Wrapper):
         with torch.cuda.device(an.device):
             if flags is None and design in SKIPPING:
                 flags = live_tiles(col, g)
+            slots, part, tickets, tally = 0, None, None, None
+            if design in BALANCED:
+                # the workspace comes from the caching allocator each call
+                # (the same block step after step), in stream order
+                slots = self.slots(an.device, design)
+                part = torch.empty(bwd_workspace(slots, d),
+                                   dtype=torch.float32, device=an.device)
+                tickets = torch.zeros(slots, dtype=torch.int32,
+                                      device=an.device)
+                tally = self.tallies.get(an.device)
+                if tally is None:
+                    tally = self.tallies[an.device] = torch.zeros(
+                        len(TALLY), dtype=torch.int64, device=an.device)
             err = lib.flashnce_bwd(
                 list(DESIGNS).index(design), an.data_ptr(), bn.data_ptr(),
                 col.data_ptr(), den.data_ptr(), g.data_ptr(),
-                _ptr(flags), out.data_ptr(), n, d, float(tau),
-                stream_of(an))
+                _ptr(flags), out.data_ptr(),
+                *map(_ptr, (part, tickets, tally)), slots, n, d,
+                float(tau), stream_of(an))
         self._counted(err, design)
         out = out[:, :n, :d]
         return (out[0] + out[1]).to(an.dtype), out[2].to(bn.dtype)

@@ -14,7 +14,12 @@ biomedkg_tpu/utils/profiling.py).
   summed, on every thread: a backward's kernels launch on autograd's
   thread while the main thread waits in the backward span) or counts
   added with ``count``. Spans are kept in memory up to ``capacity``; later
-  ones are counted in ``dropped()`` only.
+  ones are counted in ``dropped()`` only. ``counters()`` gives the
+  counters' totals since ``start``; ``stop()`` adds to them the flash
+  backward's device tally (``ops/flashnce.py`` ``TALLY``:
+  ``flash_bwd_items``, ``flash_bwd_cut``, ``flash_bwd_slices``), which
+  ``start()`` clears: read once, after the window, never inside a
+  step.
 * Clock: while a ``torch.profiler`` session is active, each main-thread
   span is also emitted as a ``record_function`` range of the same name
   (its twin; ranges opened on other threads do not reach the profiler's
@@ -181,22 +186,36 @@ def span(name: str, step: Optional[int] = None,
 
 
 def start(capacity: int = 1 << 18) -> None:
-    """Clear the recorder and the counters and turn it on; it keeps the
-    first ``capacity`` spans."""
+    """Clear the recorder, the counters and the flash backward's tally
+    and turn the recorder on; it keeps the first ``capacity`` spans."""
     global ON, _capacity, _dropped
+    from ..ops import flashnce
     _spans.clear()
     _counts.clear()
+    flashnce.BACKWARD.clear_tally()
     _capacity, _dropped = capacity, 0
     ON = True
 
 
 def stop() -> List[Span]:
-    """Turn the recorder off (if on); the spans recorded since ``start``,
-    in the order they ended. A span that ends while the recorder is off
-    is not kept."""
+    """Turn the recorder off (if on) and, if it was on, add the flash
+    backward's tally since ``start`` to the counters; the spans recorded
+    since ``start``, in the order they ended. A span that ends while the
+    recorder is off is not kept."""
     global ON
-    ON = False
+    was, ON = ON, False
+    if was:
+        from ..ops import flashnce
+        with _count_lock:
+            _counts.update(flashnce.BACKWARD.tally())
     return list(_spans)
+
+
+def counters() -> Dict[str, int]:
+    """The counters' totals since ``start`` (``count`` and, after
+    ``stop``, the flash backward's tally)."""
+    with _count_lock:
+        return dict(_counts)
 
 
 def dropped() -> int:

@@ -128,8 +128,9 @@ Phases; any failure ends the run with a non-zero exit:
     kernels ``flash_denom`` (forward and backward) and the segsum:
     (a) both flash kernels, in the design ``flash_design`` picks
     (``wide_f32``; in bf16 ``wgmma_bf16`` where d is a multiple of 8,
-    else ``skip_bf16``), in ``skip_bf16`` where ``wgmma_bf16`` runs, and
-    in the first design (``first_f32``, ``first_bf16``), against the plain
+    else ``skip_bf16``), in ``skip_bf16`` where ``wgmma_bf16`` runs, in
+    ``whole_f32`` (float32, every backward item whole) and in the first
+    design (``first_f32``, ``first_bf16``), against the plain
     version off the path (N of 1,000, 333, 200, 130 and 700, d of 100, 72,
     36, 30, 136, 8 and 256, with and without a padded tail, every slot a
     pad, scattered pads, g nonzero on pads), float32 and bf16, and every
@@ -153,7 +154,14 @@ Phases; any failure ends the run with a non-zero exit:
     in turns beside the bounds (over the envelope and over the live tile
     pairs) and the plain version, and the segsum at the step's shape (the
     batch's edge slots × 256 into its node slots, both types), timed on the
-    device against the first design beside index_add_; (d) one DGI
+    device against the first design beside index_add_; then the float32
+    backward's last-wave fill (``flash_balance_checks``): ``wide_f32``
+    against ``whole_f32`` at N = 37,376, d = 256 with real-row counts whose
+    live items fall at a multiple of the resident CTAs W (nothing cut:
+    bitwise equal), just above one, at the GCL cell's 23,200 and mid-way,
+    each with its device time in turns against the live bound, its widest
+    gap from float64, two calls bitwise equal, and the tally against
+    ``bwd_plan``; (d) one DGI
     and one GGD step at the same width, kernels against plain versions
     (segsum 8, flash 0); (e) ``python -m biomedkg_tpu_torch.train_gcl
     model.model_name=grace data.node_type=gene`` (started beside phase 5's
@@ -408,6 +416,7 @@ import csv
 import io
 import itertools
 import json
+import math
 import os
 import pickle
 import re
@@ -2637,11 +2646,14 @@ def flash_kernels(an, bn, col, g):
 
 def flash_designs_of(an, bn):
     """The design the wrappers pick for an, bn, then the other skipping
-    bf16 design where that is wgmma_bf16, then the first design."""
+    bf16 design where that is wgmma_bf16, whole_f32 (wide_f32 with every
+    backward item whole) in float32, then the first design."""
     picked = flashnce.flash_design(an.dtype, an.shape[1], an.data_ptr(),
                                    bn.data_ptr())
     others = [flashnce.GENERAL[an.dtype]] if picked != \
         flashnce.GENERAL[an.dtype] else []
+    if an.dtype == torch.float32:
+        others.append("whole_f32")
     return [picked, *others, flashnce.FIRST[an.dtype]]
 
 
@@ -2859,6 +2871,139 @@ def flash_path_records(dev, node_mask, launches):
                 "ms": t[key], "plain_ms": t["plain_" + key],
                 "bound_ms": bound, "bound_by": by, "library_ms": None})
     return records
+
+
+def flash_grads64(an, bn, col, g, block: int = 1024):
+    """(d_an, d_bn) of sum(g * den) in float64 throughout (logits,
+    denominators, cotangents and products), over row tiles of ``block``:
+    the yardstick of the float32 backwards' gaps."""
+    a, b, c, w = an.double(), bn.double(), col.double(), g.double()
+    n = a.shape[0]
+    cols = torch.arange(n, device=a.device)
+
+    def logits(r0):
+        x = a[r0:r0 + block]
+        inter = x @ b.T / GCL_TAU + c[None, :]
+        intra = x @ a.T / GCL_TAU + c[None, :]
+        rows = torch.arange(r0, r0 + x.shape[0], device=a.device)
+        intra[rows[:, None] == cols[None, :]] = flashnce.NEG
+        return x, inter, intra
+
+    den = torch.empty(n, dtype=torch.float64, device=a.device)
+    for r0 in range(0, n, block):
+        _, inter, intra = logits(r0)
+        den[r0:r0 + block] = torch.logaddexp(torch.logsumexp(inter, 1),
+                                             torch.logsumexp(intra, 1))
+    d_an, d_bn = torch.zeros_like(a), torch.zeros_like(b)
+    for r0 in range(0, n, block):
+        x, inter, intra = logits(r0)
+        scale = w[r0:r0 + block, None]
+        gi = scale * torch.exp(inter - den[r0:r0 + block, None])
+        gt = scale * torch.exp(intra - den[r0:r0 + block, None])
+        d_an[r0:r0 + block] += gi @ b + gt @ a
+        d_an += gt.T @ x
+        d_bn += gi.T @ x
+        del inter, intra, gi, gt
+    return d_an / GCL_TAU, d_bn / GCL_TAU
+
+
+def flash_balance_reals(slots: int) -> dict:
+    """Real-row counts of a tail-padded batch at the path's N whose live
+    backward items (3 for each 128-row own tile that holds a real row)
+    fall exactly on a multiple of ``slots`` (nothing cut), just above it,
+    at the GCL cell's ~23.2 k real rows, and mid-way to the next
+    multiple."""
+    step = slots * 3 // math.gcd(slots, 3)   # a multiple of 3 and of W
+    at = max(1, round(546 / step)) * step // 3  # own tiles with real rows
+    owns = {"at a multiple": at, "just above": at + 1,
+            "mid-way": at + max(1, slots // 6)}
+    out = {k: flashnce.OWN_ROWS * m - 28 for k, m in owns.items()}
+    out["the GCL cell's"] = 23_200
+    return out
+
+
+def flash_balance_checks(dev, n: int = 37_376):
+    """Phase 8c': wide_f32's backward, which fills the card's last wave
+    with slices, against whole_f32 (every item whole, one CTA an item) in
+    one call, at the path's shape (N = 37,376, d = 256, a tail of pads)
+    for the real-row counts of ``flash_balance_reals``: each design's
+    device time (the kernel alone, torch.profiler, in turns whole, wide,
+    wide, whole) against the bound over the live tile pairs, its widest
+    gradient gap (of the max) from the float64 version, two calls bitwise
+    equal, the two designs bitwise equal where nothing is cut, and the
+    tally's (items, cut, slices) for one call against ``bwd_plan``."""
+    d = GCL["hidden_dim"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    slots = flashnce.BACKWARD.slots(dev, "wide_f32")
+    for design in ("wide_f32", "whole_f32"):
+        a = flashnce.attributes(True, design)
+        print(f"flash balance: {design} backward {a['registers']} "
+              f"registers, {a['local_bytes']} bytes of local memory "
+              f"(spills) a thread; W = {slots} CTAs resident")
+    an, bn = unit_rows(n, d, gen, torch.float32), \
+        unit_rows(n, d, gen, torch.float32)
+    out = {}
+    for what, reals in flash_balance_reals(slots).items():
+        real = torch.arange(n, device=dev) < reals
+        col = torch.where(real, 0.0, flashnce.NEG).float()
+        g = torch.rand(n, device=dev, generator=gen) * real
+        flags = flashnce.live_tiles(col, g)
+        plan = flashnce.bwd_plan(flags, slots)
+        cut = len({u.cut for u in plan if u.kind == "slice"})
+        want = (sum(u.kind == "whole" for u in plan) + cut, cut,
+                sum(u.kind == "slice" for u in plan))
+        den = flashnce.FORWARD(an, bn, col, GCL_TAU)
+        truth = flash_grads64(an, bn, col, g)
+        got = {}
+        for design in ("whole_f32", "wide_f32"):
+            with on_flash_design(design):
+                flashnce.BACKWARD.clear_tally()
+                first = flashnce.BACKWARD(an, bn, col, den, g, GCL_TAU)
+                tally = tuple(flashnce.BACKWARD.tally().get(k, 0)
+                              for k in flashnce.TALLY)
+                again = flashnce.BACKWARD(an, bn, col, den, g, GCL_TAU)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            gap = max(float((x.double() - t).abs().max()
+                            / t.abs().max()) for x, t in zip(first, truth))
+            got[design] = (first, same, gap, tally)
+            check(same, f"flash balance {what}: two {design} calls differ")
+        check(got["wide_f32"][3] == want,
+              f"flash balance {what}: tally {got['wide_f32'][3]}, the "
+              f"plan {want}")
+        equal = all(torch.equal(x, y) for x, y in
+                    zip(got["wide_f32"][0], got["whole_f32"][0]))
+        if want[1] == 0:
+            check(equal, f"flash balance {what}: nothing cut, yet wide_f32 "
+                         f"differs from whole_f32")
+        check(got["wide_f32"][2] <= FLASH_TOL[torch.float32][1],
+              f"flash balance {what}: gradients off the float64 version")
+        times = {}
+        for design in ("whole_f32", "wide_f32", "wide_f32", "whole_f32"):
+            with on_flash_design(design):
+                times.setdefault(design, []).append(device_ms(
+                    lambda: flashnce.BACKWARD(an, bn, col, den, g, GCL_TAU),
+                    only="wide::bwd_f32"))
+        work = flash_live_work(col, g, True)
+        bound, _, term = flash_bound_ms(n, d, torch.float32, True, work)
+        ms = {k: min(v) for k, v in times.items()}
+        print(f"flash balance {what}: {reals} real rows, live items "
+              f"{want[0]} = {want[0] // slots} x W + {want[0] % slots}; "
+              f"tally (items, cut, slices) {got['wide_f32'][3]}; device ms "
+              + ", ".join(f"{k} {v:.4f} (runs "
+                          f"{', '.join(f'{r:.4f}' for r in times[k])}; "
+                          f"{bound / v:.1%} of the live bound)"
+                          for k, v in ms.items())
+              + f", whole / wide {ms['whole_f32'] / ms['wide_f32']:.3f}; "
+              f"live bound {bound:.4f} ms ({term}); widest gap from float64 "
+              f"(of the max) wide_f32 {got['wide_f32'][2]:.3g}, whole_f32 "
+              f"{got['whole_f32'][2]:.3g}; two calls bitwise equal "
+              f"{got['wide_f32'][1]} / {got['whole_f32'][1]}; wide_f32 "
+              f"bitwise equal to whole_f32 {equal}")
+        out[what] = dict(reals=reals, items=want[0], tally=want, ms=ms,
+                         bound_ms=bound, gap=got["wide_f32"][2],
+                         gap_whole=got["whole_f32"][2])
+        del truth, got, den
+    return out
 
 
 def gcl_module_for(cls, sd, table, dev, dtype, hp=GCL):
@@ -3150,6 +3295,7 @@ def gcl_phase(dev, tmp, gcl_run):
     launches = grace_phase(dev, table, batches,
                            batch_to_device(next(iter(val)), dev))
     records = flash_path_records(dev, batches[0].node_mask, launches)
+    flash_balance_checks(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     for dtype in (torch.float32, torch.bfloat16):
         segsum_batch_times(batches[0], GCL["hidden_dim"], dtype, gen,

@@ -264,12 +264,17 @@ def test_designs_and_path():
                              torch.bfloat16: "wgmma_bf16"}
     assert flashnce.GENERAL == {torch.float32: "wide_f32",
                                 torch.bfloat16: "skip_bf16"}
+    assert flashnce.DESIGNS["whole_f32"] == torch.float32
+    assert "whole_f32" not in {*flashnce.PATH.values(),
+                               *flashnce.GENERAL.values(),
+                               *flashnce.FIRST.values()}
     assert set(flashnce.FORWARD.by_design) == set(flashnce.DESIGNS)
 
 
 def test_launch_codes_match_the_source():
     """DESIGNS' order is the launch codes of csrc/flashnce.cu's Design
-    enum: wgmma_bf16 takes 4, the earlier designs keep theirs."""
+    enum: wgmma_bf16 takes 4, whole_f32 5, the earlier designs keep
+    theirs."""
     import os
     import re
     with open(os.path.join(os.path.dirname(flashnce.__file__), "..", "csrc",
@@ -279,13 +284,15 @@ def test_launch_codes_match_the_source():
              for m in re.finditer(r"k(\w+) = (\d+)", enum)}
     names = {"FirstF32": "first_f32", "FirstBf16": "first_bf16",
              "SkipBf16": "skip_bf16", "WideF32": "wide_f32",
-             "WgmmaBf16": "wgmma_bf16"}
+             "WgmmaBf16": "wgmma_bf16", "WholeF32": "whole_f32"}
     assert {names[k]: v for k, v in codes.items()} \
         == {d: i for i, d in enumerate(flashnce.DESIGNS)}
     assert list(flashnce.DESIGNS) == ["first_f32", "first_bf16", "skip_bf16",
-                                      "wide_f32", "wgmma_bf16"]
-    assert flashnce.SLICING == {"wide_f32", "wgmma_bf16"}
-    assert flashnce.SKIPPING == {"skip_bf16", "wide_f32", "wgmma_bf16"}
+                                      "wide_f32", "wgmma_bf16", "whole_f32"]
+    assert flashnce.SLICING == {"wide_f32", "wgmma_bf16", "whole_f32"}
+    assert flashnce.SKIPPING == {"skip_bf16", "wide_f32", "wgmma_bf16",
+                                 "whole_f32"}
+    assert flashnce.BALANCED == {"wide_f32"}
 
 
 def _bases(n, d, dtype, offset=0):
@@ -380,3 +387,67 @@ def test_live_columns_against_brute_force(layout, rows):
     for u in range(got.shape[0]):
         assert got[u] == bool(real[u * rows:(u + 1) * rows].any()
                               or not real.any())
+
+
+def _live_lists(flags):
+    """Per (job, 128-row own tile): its live 64-row streamed tiles in
+    order, by live_pairs' rule (itself held against the terms above)."""
+    return {(job, o): [int(u) for u in row.nonzero().flatten()]
+            for job in range(flashnce.JOBS)
+            for o, row in enumerate(flashnce.live_pairs(
+                flags, job, flashnce.OWN_ROWS))}
+
+
+@pytest.mark.parametrize("slots", [1, 3, 7, 132])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_bwd_plan_against_brute_force(layout, slots):
+    """bwd_plan, the model of wide_f32's backward grid, on every pad
+    layout and several resident-CTA counts: each item's live pairs
+    (BwdItems' count from three sums) equal live_pairs' row; every live
+    (job, own tile, streamed tile) pair is computed by exactly one unit;
+    a cut item's slices are contiguous runs of its live tiles in slot
+    order (the merge's order), at least one tile each; whole items and
+    zeros never touch the workspace, slices stay within bwd_workspace's
+    blocks, each once; an item with no live pair writes zeros and an
+    item with one never does; only the last L mod slots items are cut."""
+    n = 777
+    col, g = _layout(n, layout, seed=7)
+    flags = flashnce.live_tiles(torch.tensor(col), torch.tensor(g))
+    lists = _live_lists(flags)
+    pairs = flashnce.bwd_item_pairs(flags)
+    for (job, o), tiles in lists.items():
+        assert int(pairs[job, o]) == len(tiles), (job, o)
+    plan = flashnce.bwd_plan(flags, slots)
+    blocks = flashnce.bwd_workspace(slots, 256)[0]
+    assert flashnce.bwd_workspace(slots, 100) == (slots, flashnce.OWN_ROWS,
+                                                  112)
+    covered, slices, used = [], {}, set()
+    for u in plan:
+        tiles = lists[u.job, u.own]
+        if u.kind == "zeros":
+            assert not tiles and u.slot == -1
+            continue
+        assert tiles and u.count >= 1
+        covered += [(u.job, u.own, t) for t in tiles[u.lo:u.lo + u.count]]
+        if u.kind == "whole":
+            assert u.slot == -1 and (u.lo, u.count) == (0, len(tiles))
+        else:
+            assert 0 <= u.slot < blocks and u.slot not in used
+            used.add(u.slot)
+            slices.setdefault((u.job, u.own), []).append(u)
+    want = [(job, o, t) for (job, o), tiles in lists.items() for t in tiles]
+    assert sorted(covered) == sorted(want)
+    assert len(set(covered)) == len(covered)
+    live = [item for item, tiles in lists.items() if tiles]  # item order
+    assert sorted(slices) == live[len(live) - len(live) % slots:]
+    for item, parts in slices.items():
+        parts.sort(key=lambda u: u.slot)
+        assert [u.slot - parts[0].slot for u in parts] \
+            == list(range(len(parts)))
+        assert parts[0].lo == 0
+        assert all(a.lo + a.count == b.lo for a, b in zip(parts, parts[1:]))
+        assert parts[-1].lo + parts[-1].count == len(lists[item])
+        assert {u.slices for u in parts} == {len(parts)}
+        assert len({u.cut for u in parts}) == 1
+    order = [u.kind for u in plan]
+    assert order == sorted(order, key=["zeros", "whole", "slice"].index)

@@ -95,6 +95,33 @@ def test_the_buffer_keeps_the_first_spans_and_counts_the_rest():
     assert [s.name for s in profiling.stop()] == ["a", "b"]
 
 
+def test_flash_tally_is_read_at_stop_only(monkeypatch):
+    """The flash backward's device tally: start() clears it, nothing reads
+    it while the recorder runs, stop() adds it to the counters once (a
+    tensor on the CPU stands in for the card's), and a stop() with the
+    recorder off adds nothing."""
+    tally = torch.tensor([9, 9, 9])
+    monkeypatch.setattr(flashnce.BACKWARD, "tallies",
+                        {torch.device("cpu"): tally})
+    profiling.start()
+    assert tally.tolist() == [0, 0, 0]
+    profiling.count("rows", 5)
+    tally += torch.tensor([546, 18, 132])    # one launch's adds
+    tally += torch.tensor([546, 18, 132])
+    assert profiling.counters() == {"rows": 5}
+    profiling.stop()
+    assert profiling.counters() == {
+        "rows": 5, "flash_bwd_items": 1092, "flash_bwd_cut": 36,
+        "flash_bwd_slices": 264}
+    tally += 1
+    profiling.stop()
+    assert profiling.counters()["flash_bwd_items"] == 1092
+    monkeypatch.setattr(flashnce.BACKWARD, "tallies", {})
+    profiling.start()
+    profiling.stop()
+    assert profiling.counters() == {}
+
+
 def _batch(epoch, i):
     rng = np.random.default_rng((epoch, i))
     x = np.random.default_rng(0).standard_normal((N_REAL, D)).astype(
