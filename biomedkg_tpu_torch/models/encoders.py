@@ -52,7 +52,12 @@ the "relation" layout only (its ``edge_layout`` refuses "dst"): per conv
 two grouped GEMMs (source and destination messages through W_r, H heads
 side by side, head-major), additive attention logits, a masked softmax over
 each destination's incoming edges, the float32 weighted sum and the head
-mean.
+mean. Each conv's three phases are spans of utils/profiling.py's recorder
+(off: a test of its flag, nothing recorded): ``rgat.messages`` (the
+gathers and the two grouped GEMMs; ``launches`` and ``edge_slots``),
+``rgat.attend`` (the logits, leaky ReLU and segment softmax) and
+``rgat.aggregate`` (the weighted scatter and the head mean), the last two
+counting ``launches``.
 
 Under a dp × tp step (``tp``, a parallel/collectives.py
 ``TensorParallel``) each layer's weights are the rank's columns
@@ -85,8 +90,14 @@ from ..ops.segment import (per_dst_relation_counts, scatter_add,
                            segment_softmax, take_rows, take_rows_matbwd,
                            take_rows_via_perm)
 from ..ops.segsum import sorted_segment_sum
+from ..utils import profiling
 
 DROPOUT = 0.2
+# RGAT's spans: each counts the hand-written launches; the messages also
+# the batch's edge slots
+EDGE_SLOTS = "edge_slots"
+SPAN_COUNTERS = (profiling.LAUNCHES,)
+MESSAGE_COUNTERS = (profiling.LAUNCHES, EDGE_SLOTS)
 
 
 def _layer_dims(in_dim, hidden_dim, out_dim, num_hidden_layers):
@@ -349,30 +360,35 @@ class RGAT(nn.Module):
               dtype, tp=None):
         num_nodes, heads = x.shape[0], self.num_heads
         dout = layer.b.shape[0]
-        w_rel = layer.w_rel.to(dtype)
-        mask = edge_mask[:, None].to(x.dtype)
-        # the (E, din) messages are temporaries: outside autograd each is
-        # freed as soon as its product is taken
-        hs = relation_matmul_sorted(take_rows(x, src) * mask, w_rel,
-                                    block_rel).reshape(-1, heads, dout)
-        hd = relation_matmul_sorted(take_rows(x, dst) * mask, w_rel,
-                                    block_rel).reshape(-1, heads, dout)
-        a_src = take_rows_matbwd(layer.att_src.to(dtype), edge_type)
-        a_dst = take_rows_matbwd(layer.att_dst.to(dtype), edge_type)
-        if tp is None:
-            logits = (hs * a_src).sum(-1) + (hd * a_dst).sum(-1)   # (E, H)
-        else:
-            # each rank's parts over its columns of every head, summed in
-            # float32 and rounded once, as the whole rows' sums are
-            parts = tp.sum_shared(torch.stack([
-                (hs * a_src).sum(-1, dtype=torch.float32),
-                (hd * a_dst).sum(-1, dtype=torch.float32)])).to(dtype)
-            logits = parts[0] + parts[1]
-        logits = torch.nn.functional.leaky_relu(logits, 0.2)
-        alpha = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
-        weighted = (hs * alpha[..., None]).reshape(-1, heads * dout)
-        agg = scatter_add(weighted, dst, num_nodes)
-        return agg.reshape(num_nodes, heads, dout).mean(1) + layer.b.to(dtype)
+        with profiling.span("rgat.messages", counters=MESSAGE_COUNTERS):
+            profiling.count(EDGE_SLOTS, src.shape[0])
+            w_rel = layer.w_rel.to(dtype)
+            mask = edge_mask[:, None].to(x.dtype)
+            # the (E, din) messages are temporaries: outside autograd each
+            # is freed as soon as its product is taken
+            hs = relation_matmul_sorted(take_rows(x, src) * mask, w_rel,
+                                        block_rel).reshape(-1, heads, dout)
+            hd = relation_matmul_sorted(take_rows(x, dst) * mask, w_rel,
+                                        block_rel).reshape(-1, heads, dout)
+        with profiling.span("rgat.attend", counters=SPAN_COUNTERS):
+            a_src = take_rows_matbwd(layer.att_src.to(dtype), edge_type)
+            a_dst = take_rows_matbwd(layer.att_dst.to(dtype), edge_type)
+            if tp is None:                                       # (E, H)
+                logits = (hs * a_src).sum(-1) + (hd * a_dst).sum(-1)
+            else:
+                # each rank's parts over its columns of every head, summed
+                # in float32 and rounded once, as the whole rows' sums are
+                parts = tp.sum_shared(torch.stack([
+                    (hs * a_src).sum(-1, dtype=torch.float32),
+                    (hd * a_dst).sum(-1, dtype=torch.float32)])).to(dtype)
+                logits = parts[0] + parts[1]
+            logits = torch.nn.functional.leaky_relu(logits, 0.2)
+            alpha = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
+        with profiling.span("rgat.aggregate", counters=SPAN_COUNTERS):
+            weighted = (hs * alpha[..., None]).reshape(-1, heads * dout)
+            agg = scatter_add(weighted, dst, num_nodes)
+            return (agg.reshape(num_nodes, heads, dout).mean(1)
+                    + layer.b.to(dtype))
 
     def forward(self, x, edge_index, edge_type, edge_mask, block_rel=None,
                 *, training: bool = False,

@@ -42,8 +42,11 @@ in ``sampling/loaders.py::prefetch``), ``trainer.step`` (each
 (``training/stepping.py``, ``optim.py``, ``typed_train.py``),
 ``prefetch.sample`` (each loader ``next()`` of ``Trainer._stream``; the
 step the batch trains; rows and edges), ``sample.hops`` / ``sample.walk``
-/ ``sample.induce`` / ``sample.pad`` (the samplers' phases) and
-``prefetch.copy`` (each item's host-to-device copy; bytes).
+/ ``sample.induce`` / ``sample.pad`` (the samplers' phases),
+``prefetch.copy`` (each item's host-to-device copy; bytes) and, in each
+RGAT conv's forward (``models/encoders.py::RGAT._conv``),
+``rgat.messages`` (launches; ``edge_slots``, the batch's edge slots from
+the shape), ``rgat.attend`` and ``rgat.aggregate`` (launches).
 """
 
 from __future__ import annotations
