@@ -49,23 +49,29 @@ less activation memory, the conv's launches twice.
 
 RGAT (the reference's intended relational attention, PARITY.md) runs in
 the "relation" layout only (its ``edge_layout`` refuses "dst"): per conv
-two grouped GEMMs (source and destination messages through W_r, H heads
-side by side, head-major), additive attention logits, a masked softmax over
-each destination's incoming edges, the float32 weighted sum and the head
-mean. Each conv's three phases are spans of utils/profiling.py's recorder
-(off: a test of its flag, nothing recorded): ``rgat.messages`` (the
-gathers and the two grouped GEMMs; ``launches`` and ``edge_slots``),
-``rgat.attend`` (the logits, leaky ReLU and segment softmax) and
-``rgat.aggregate`` (the weighted scatter and the head mean), the last two
-counting ``launches``.
+one grouped GEMM (the source messages through W_r, H heads side by side,
+head-major), additive attention logits, a masked softmax over each
+destination's incoming edges, the float32 weighted sum and the head mean.
+The logits come from per-(node, relation) projections: a_r·(x W_r) =
+x·(W_r a_r), so one dense (N, din) @ (din, 2·R·H) product gives every
+node's source and destination term under every relation, and each edge
+gathers two scalars per head at ``src·2R + rel`` and ``dst·2R + R + rel``
+(``attention_logits``), in float32 and rounded to ``compute_dtype`` once.
+Each conv's three phases are spans of utils/profiling.py's recorder (off:
+a test of its flag, nothing recorded): ``rgat.messages`` (the gather and
+the grouped GEMM; ``launches`` and ``edge_slots``), ``rgat.attend`` (the
+projection table, the logits, leaky ReLU and segment softmax;
+``launches`` and ``pair_logit_convs``, one per conv) and
+``rgat.aggregate`` (the weighted scatter and the head mean;
+``launches``).
 
 Under a dp × tp step (``tp``, a parallel/collectives.py
 ``TensorParallel``) each layer's weights are the rank's columns
 (parallel/sharding.py): a conv computes those columns, the dropout takes
 the rank's block of the whole-width mask, and the rows are all-gathered
 before the next conv; the last conv's columns stay on the rank. RGAT's
-(E, H) attention logits are each rank's part over its columns of every
-head, summed over tp before the softmax.
+projection table is each rank's part over its columns of every head,
+summed over tp in float32 before the logits are gathered.
 
 The GCN (the GCL models' encoder, PyG GCNConv) adds self-loops and
 normalises symmetrically, D^-1/2 (A + I) D^-1/2 with the in-degree counted
@@ -87,17 +93,19 @@ from ..nn import dropout, dropout_mask, xavier_uniform
 from ..ops.aggconv import agg_conv
 from ..ops.relmm import relation_matmul_sorted
 from ..ops.segment import (per_dst_relation_counts, scatter_add,
-                           segment_softmax, take_rows, take_rows_matbwd,
-                           take_rows_via_perm)
+                           segment_softmax, take_rows, take_rows_via_perm)
 from ..ops.segsum import sorted_segment_sum
 from ..utils import profiling
 
 DROPOUT = 0.2
 # RGAT's spans: each counts the hand-written launches; the messages also
-# the batch's edge slots
+# the batch's edge slots, the attention the convs whose logits come from
+# the per-(node, relation) projection table
 EDGE_SLOTS = "edge_slots"
+PAIR_LOGIT_CONVS = "pair_logit_convs"
 SPAN_COUNTERS = (profiling.LAUNCHES,)
 MESSAGE_COUNTERS = (profiling.LAUNCHES, EDGE_SLOTS)
+ATTEND_COUNTERS = (profiling.LAUNCHES, PAIR_LOGIT_CONVS)
 
 
 def _layer_dims(in_dim, hidden_dim, out_dim, num_hidden_layers):
@@ -305,6 +313,47 @@ class RGCN(nn.Module):
         return x
 
 
+def attention_keys(src, dst, edge_type, edge_mask, num_nodes,
+                   num_relations):
+    """(2E,) each edge's two rows of the flat projection table: the
+    sources' ``src·2R + rel``, then the destinations' ``dst·2R + R +
+    rel``. A masked slot's logit is the softmax's to drop and gets a zero
+    gradient, so its rows are spread over the table (slot i takes row i
+    mod N·2R): the zeros its backward adds then fall on many addresses,
+    not all on the pad node's few."""
+    r2 = 2 * num_relations
+    keys = torch.cat([src * r2 + edge_type,
+                      dst * r2 + num_relations + edge_type])
+    spread = torch.arange(keys.shape[0], device=keys.device) % (
+        num_nodes * r2)
+    return torch.where(edge_mask.repeat(2), keys, spread)
+
+
+def attention_logits(x, w_rel, att_src, att_dst, keys, tp=None):
+    """(E, H) attention logits a_src[r]·(x_u W_r) + a_dst[r]·(x_v W_r) of
+    each edge u → v of relation r, as x_u·(W_r a_src[r]) + x_v·(W_r
+    a_dst[r]): W_r's head blocks projected onto the attention vectors (U,
+    (din, 2, R, H)), the table x @ U of every node's two terms under every
+    relation, and two scalars a head gathered from it at ``keys``
+    (``attention_keys``). The products sum in float32 (float64 in float64)
+    from the weights in x's type, and the logits are rounded to x's type
+    once. Under ``tp`` the weights are the rank's columns of every head,
+    and the ranks' parts of the table are summed over tp before the
+    gather."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    r, din, _ = w_rel.shape
+    heads, dout = att_src.shape[1:]
+    att = torch.stack([att_src, att_dst]).to(acc)     # (2, R, H, dout)
+    u = torch.einsum("rihd,srhd->isrh",
+                     w_rel.to(acc).reshape(r, din, heads, dout), att)
+    table = x.to(acc) @ u.reshape(din, 2 * r * heads)
+    if tp is not None:
+        table = tp.sum_shared(table)
+    terms = take_rows(table.reshape(-1, heads), keys)     # (2E, H)
+    e = keys.shape[0] // 2
+    return (terms[:e] + terms[e:]).to(x.dtype)
+
+
 class RGATLayer(nn.Module):
     def __init__(self, num_relations: int, num_heads: int, din: int,
                  dout: int):
@@ -356,32 +405,23 @@ class RGAT(nn.Module):
                 p.copy_(xavier_uniform(p.shape, generator))
             layer.b.zero_()
 
-    def _conv(self, layer, x, src, dst, edge_type, edge_mask, block_rel,
-              dtype, tp=None):
+    def _conv(self, layer, x, src, dst, edge_mask, block_rel, keys, dtype,
+              tp=None):
+        """One conv; ``keys`` are the batch's ``attention_keys``."""
         num_nodes, heads = x.shape[0], self.num_heads
         dout = layer.b.shape[0]
         with profiling.span("rgat.messages", counters=MESSAGE_COUNTERS):
             profiling.count(EDGE_SLOTS, src.shape[0])
             w_rel = layer.w_rel.to(dtype)
-            mask = edge_mask[:, None].to(x.dtype)
-            # the (E, din) messages are temporaries: outside autograd each
-            # is freed as soon as its product is taken
-            hs = relation_matmul_sorted(take_rows(x, src) * mask, w_rel,
-                                        block_rel).reshape(-1, heads, dout)
-            hd = relation_matmul_sorted(take_rows(x, dst) * mask, w_rel,
-                                        block_rel).reshape(-1, heads, dout)
-        with profiling.span("rgat.attend", counters=SPAN_COUNTERS):
-            a_src = take_rows_matbwd(layer.att_src.to(dtype), edge_type)
-            a_dst = take_rows_matbwd(layer.att_dst.to(dtype), edge_type)
-            if tp is None:                                       # (E, H)
-                logits = (hs * a_src).sum(-1) + (hd * a_dst).sum(-1)
-            else:
-                # each rank's parts over its columns of every head, summed
-                # in float32 and rounded once, as the whole rows' sums are
-                parts = tp.sum_shared(torch.stack([
-                    (hs * a_src).sum(-1, dtype=torch.float32),
-                    (hd * a_dst).sum(-1, dtype=torch.float32)])).to(dtype)
-                logits = parts[0] + parts[1]
+            # the (E, din) messages are a temporary: outside autograd they
+            # are freed as soon as their product is taken
+            hs = relation_matmul_sorted(
+                take_rows(x, src) * edge_mask[:, None].to(x.dtype), w_rel,
+                block_rel).reshape(-1, heads, dout)
+        with profiling.span("rgat.attend", counters=ATTEND_COUNTERS):
+            profiling.count(PAIR_LOGIT_CONVS, 1)
+            logits = attention_logits(x, w_rel, layer.att_src.to(dtype),
+                                      layer.att_dst.to(dtype), keys, tp)
             logits = torch.nn.functional.leaky_relu(logits, 0.2)
             alpha = segment_softmax(logits, dst, num_nodes, mask=edge_mask)
         with profiling.span("rgat.aggregate", counters=SPAN_COUNTERS):
@@ -399,10 +439,12 @@ class RGAT(nn.Module):
         """(N, out_dim) node embeddings in ``compute_dtype`` of a
         relation-layout batch; dropout and ``tp`` as ``RGCN.forward``."""
         src, dst = edge_index[0], edge_index[1]
+        keys = attention_keys(src, dst, edge_type, edge_mask, x.shape[0],
+                              self.num_relations)
         x = x.to(compute_dtype)
         for i, layer in enumerate(self.layers):
-            x = self._conv(layer, x, src, dst, edge_type, edge_mask,
-                           block_rel, compute_dtype, tp)
+            x = self._conv(layer, x, src, dst, edge_mask, block_rel, keys,
+                           compute_dtype, tp)
             if i == len(self.layers) - 1:
                 break
             x = _next_input(x, i, training, self.drop_out, generator,

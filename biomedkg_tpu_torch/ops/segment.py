@@ -2,20 +2,19 @@
 (counterpart of biomedkg_tpu/ops/segment.py).
 
 Every row gather differentiates into a scatter that accumulates in float32
-and returns the gradient's own type, as the reference's custom VJPs do
-(bf16 sums saturate on hub nodes, ROADMAP.md hazard H4); torch's own
-``index_select`` backward would sum in the gradient's type.
-``take_rows_sorted`` routes that scatter through the sorted segment-sum
-(ops/segsum.py: the CUDA kernel on a CUDA tensor), and
+(float64 in float64) and returns the gradient's own type, as the
+reference's custom VJPs do (bf16 sums saturate on hub nodes, ROADMAP.md
+hazard H4); torch's own ``index_select`` backward would sum in the
+gradient's type. ``take_rows_sorted`` routes that scatter through the
+sorted segment-sum (ops/segsum.py: the CUDA kernel on a CUDA tensor), and
 ``take_rows_via_perm`` (``dst_bwd="perm"``) permutes the gradient into a
-sorted order first. The reference's
-``take_rows_matbwd`` (a one-hot matmul backward for small tables, a TPU
-lowering choice) is ``take_rows`` here: the float32 scatter computes the
-same exact sums.
+sorted order first. The reference's ``take_rows_matbwd`` (a one-hot
+matmul backward for small tables, a TPU lowering choice) is ``take_rows``
+here: the float32 scatter computes the same exact sums.
 
 ``scatter_max`` and ``segment_softmax`` (the RGAT attention) follow the
-reference's, with every sum in float32 (the reference sums the softmax
-denominator in the scores' type).
+reference's, with every sum in float32 or wider (the reference sums the
+softmax denominator in the scores' type).
 """
 
 from __future__ import annotations
@@ -102,10 +101,10 @@ def take_rows_sorted(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 def scatter_add(values: torch.Tensor, index: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum ``values`` rows into ``num_segments`` buckets keyed by
-    ``index``, accumulated in float32."""
-    out = values.new_zeros((num_segments,) + values.shape[1:],
-                           dtype=torch.float32)
-    return out.index_add_(0, index, values.float()).to(values.dtype)
+    ``index``, accumulated in float32 (float64 in float64)."""
+    acc = torch.promote_types(values.dtype, torch.float32)
+    out = values.new_zeros((num_segments,) + values.shape[1:], dtype=acc)
+    return out.index_add_(0, index, values.to(acc)).to(values.dtype)
 
 
 def per_dst_relation_counts(dst: torch.Tensor, edge_type: torch.Tensor,

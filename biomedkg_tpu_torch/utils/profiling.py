@@ -46,7 +46,9 @@ step the batch trains; rows and edges), ``sample.hops`` / ``sample.walk``
 ``prefetch.copy`` (each item's host-to-device copy; bytes) and, in each
 RGAT conv's forward (``models/encoders.py::RGAT._conv``),
 ``rgat.messages`` (launches; ``edge_slots``, the batch's edge slots from
-the shape), ``rgat.attend`` and ``rgat.aggregate`` (launches).
+the shape), ``rgat.attend`` (launches; ``pair_logit_convs``, one a conv
+whose logits come from the per-(node, relation) projection table) and
+``rgat.aggregate`` (launches).
 """
 
 from __future__ import annotations

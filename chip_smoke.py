@@ -101,12 +101,12 @@ Phases; any failure ends the run with a non-zero exit:
     relation with no block, trailing pad blocks); the RGAT training step
     (RGAT 768→256×4, 2 heads, + DistMult, "sorted" negatives, bf16 with
     float32 masters) on relation-layout SAINT batches of the same envelope,
-    timed as in phase 5 with its launch counts (relmm 8 + 6 per step, all
+    timed as in phase 5 with its launch counts (relmm 4 + 3 per step, all
     on ``wgmma``; negscore 1 + 1, segsum 0), a torch.profiler window with
     its float32 index_add_s split by call site, the same window with the
     first-design relmm (the general instances), a few float32 steps (relmm
     on ``simt_f32``), one eval step on a SAINT val batch in each type
-    with its launch counts (relmm 8 forwards, no d_msg, negscore and segsum
+    with its launch counts (relmm 4 forwards, no d_msg, negscore and segsum
     0), loss and gradients with the kernels against the plain
     versions, the loss falling on a fixed batch; both directions at the
     path's shapes (RGAT's 768 → 512 and 256 → 512 in bf16, the edge conv's
@@ -117,7 +117,7 @@ Phases; any failure ends the run with a non-zero exit:
     bound; the RGCN edge conv's full-graph encode (4 launches on
     ``simt_f32``, and once with the first design) against the node conv's
     z; and ``train_kge model.encoder_name=rgat``'s checkpoint (run beside
-    phase 5's) served: a float32 full-graph RGAT encode with 8 launches,
+    phase 5's) served: a float32 full-graph RGAT encode with 4 launches,
     timed, and with the plain versions and the first-design relmm, its z
     against the plain versions' (Z_RTOL of max|z|), its answers checked
     against float64. The ``kernels`` line has one record per relmm
@@ -292,7 +292,7 @@ Phases; any failure ends the run with a non-zero exit:
     <dir>``, whose 768 × 6,144-slot SAINT batches are the first the
     negscore kernels and the bucket build see): the DPI step from
     scratch (R = 1) and warm-started (R = 8, every slot on relation 1),
-    RGCN in float32 and bf16 and an RGAT warm start (relmm 8 + 6, every
+    RGCN in float32 and bf16 and an RGAT warm start (relmm 4 + 3, every
     block on relation 1), kernels against plain versions within
     STEP_TOL (in bf16 the RGAT leaves RGAT_DPI_CANCELLING, which cancel
     at this batch, held to the plain float32 gradients, no further than
@@ -300,7 +300,7 @@ Phases; any failure ends the run with a non-zero exit:
     from the owner backward, the rows other than 1 of the step's relation
     gradient equal to the L2 term alone, timed steps with their launches
     (segsum 6, the count table on ``general`` at R = 1; negscore 1 + 1;
-    RGAT relmm 8 + 6 on ``wgmma``), the negscore pair, the bucket build,
+    RGAT relmm 4 + 3 on ``wgmma``), the negscore pair, the bucket build,
     the segsum and relmm at that shape against plain versions and timed
     beside their bounds (the ``dpi_*`` keys of the records); (f) a
     BIOMEDKG_DPI_CSV written from ``synthetic_dpi`` at PrimeKG++'s drug
@@ -553,11 +553,12 @@ RGAT = dict(TRAIN, encoder_name="rgat")        # 2 heads (HPARAMS)
 P7_WARMUP, P7_STEPS = 2, 5
 # float32 RGAT steps (train_kge's default type): warm-up, timed
 P7_F32_WARMUP, P7_F32_STEPS = 1, 2
-# grouped GEMMs per RGAT step (two per conv: source and destination
-# messages) and d_msg launches (none for the first conv: its messages come
-# from the feature table, which has no gradient); per encode
-RELMM_PER_STEP = (2 * CONVS, 2 * (CONVS - 1))
-RELMM_PER_RGAT_ENCODE = 2 * CONVS
+# grouped GEMMs per RGAT step (one per conv: the source messages; the
+# attention logits come from the per-(node, relation) projection table)
+# and d_msg launches (none for the first conv: its messages come from the
+# feature table, which has no gradient); per encode
+RELMM_PER_STEP = (CONVS, CONVS - 1)
+RELMM_PER_RGAT_ENCODE = CONVS
 RELMM_PER_EDGE_ENCODE = CONVS
 # relmm kernel against plain, per element, relative to (|msg| @ |W|): float32
 # sums differ only in order; bf16 outputs are each rounded once (at most one
@@ -4951,7 +4952,7 @@ def dpi_shapes_main(dev, ws: str) -> int:
     bf16 and float32, kernels against plain versions; the negscore pair
     (with d(rel)'s other rows exactly 0 when pinned), the bucket build and
     the segsum (its count table at R = 1 and pinned) at that shape, timed;
-    an RGAT warm start's step (relmm 8 + 6, every block on relation 1) and
+    an RGAT warm start's step (relmm 4 + 3, every block on relation 1) and
     relmm at its shape; timed steps with their launches. Prints
     DPI_SHAPES_RESULT and a JSON object: the launches and the records."""
     for lib in (segsum.LIBRARY, negscore.LIBRARY, relmm.LIBRARY):

@@ -3,10 +3,12 @@ the CPU: z and every parameter's gradient of the full-graph encode in the
 "relation" layout (block 64, JAX-initialised weights carried across), the
 edge conv against the node conv, and RGAT's ``_forward_loss`` on a
 relation-layout SAINT batch with the reference's negatives and dropout
-masks injected (its key splits replayed), in float32 and bf16.
+masks injected (its key splits replayed), in float32 and bf16; and, in
+float64, RGAT's conv, whose attention logits come from per-(node,
+relation) projections, against the per-edge formulation it replaced.
 
 Tolerances: float32 z 1e-4 of max|z|, loss 1e-5 relative, gradients 5e-4
-of their max (only summation orders differ). bf16, JAX's own figures for
+of their max (only summation orders differ); float64 1e-10 of the max. bf16, JAX's own figures for
 its kernels (tests/test_ops.py): loss 1e-3 relative, gradients 3e-2 of
 their max. The port sums the attention's scatter and softmax denominator
 in float32 where JAX sums them in bf16 (PERF.md, parity note).
@@ -35,6 +37,7 @@ from biomedkg_tpu_torch.interop.jax_params import flatten_tree, \
     load_jax_params
 from biomedkg_tpu_torch.models import decoders, encoders
 from biomedkg_tpu_torch.models.factory import DECODERS, KGEModelFactory
+from biomedkg_tpu_torch.ops.segment import segment_softmax
 from biomedkg_tpu_torch.sampling.batch import batch_to_device
 from biomedkg_tpu_torch.sampling.loaders import FullGraphLoader, \
     SaintRandomWalkLoader
@@ -266,3 +269,110 @@ def test_factory_builds_rgat_with_every_decoder():
     assert 0 < float(att.abs().max()) <= np.sqrt(6.0 / (3 + 6))
     with pytest.raises(ValueError, match="Unknown encoder"):
         KGEModelFactory.get_model("gcn", "transe", 8, 8, 8, 1, 5)
+
+
+def _relmm64(msg, w, block_rel):
+    """The grouped GEMM in float64 (the kernel's wrapper takes float32 and
+    bf16 only): each block of edges times its relation's W."""
+    nb = block_rel.shape[0]
+    return torch.bmm(msg.reshape(nb, -1, msg.shape[1]),
+                     w[block_rel.long()]).reshape(msg.shape[0], -1)
+
+
+def _per_edge_logits(x, w, att_src, att_dst, src, dst, edge_type, mask,
+                     block_rel):
+    """The per-edge formulation: both endpoints' messages through W_r,
+    each dotted with its relation's attention vector; and hs."""
+    heads, dout = att_src.shape[1:]
+    m = mask[:, None].to(x.dtype)
+    hs = _relmm64(x[src] * m, w, block_rel).reshape(-1, heads, dout)
+    hd = _relmm64(x[dst] * m, w, block_rel).reshape(-1, heads, dout)
+    return ((hs * att_src[edge_type]).sum(-1)
+            + (hd * att_dst[edge_type]).sum(-1)), hs
+
+
+def _per_edge_conv(layer, x, src, dst, edge_type, mask, block_rel):
+    logits, hs = _per_edge_logits(x, layer.w_rel, layer.att_src,
+                                  layer.att_dst, src, dst, edge_type, mask,
+                                  block_rel)
+    n, heads, dout = x.shape[0], hs.shape[1], hs.shape[2]
+    alpha = segment_softmax(torch.nn.functional.leaky_relu(logits, 0.2),
+                            dst, n, mask=mask)
+    agg = torch.zeros(n, heads * dout, dtype=x.dtype).index_add_(
+        0, dst, (hs * alpha[..., None]).reshape(-1, heads * dout))
+    return agg.reshape(n, heads, dout).mean(1) + layer.b
+
+
+class _Parts:
+    """tp's ``sum_shared`` on one process: keeps each rank's part and adds
+    the other rank's, once known."""
+
+    def __init__(self, other=None):
+        self.other, self.kept = other, []
+
+    def sum_shared(self, part):
+        self.kept.append(part)
+        return part if self.other is None else part + self.other
+
+
+@pytest.mark.parametrize("case", ["conv", "tp"])
+def test_pair_logits_equal_the_per_edge_formulation(case, monkeypatch):
+    """float64, a relation-layout SAINT batch with pad slots and a
+    destination whose edges are all masked. "conv": RGAT's conv and the
+    gradients of x, W, a_src and a_dst against the per-edge formulation
+    (both endpoints' messages through W_r, the gathered attention
+    vectors). "tp": two column shards of every head, each rank's part of
+    the projection table summed with the other's, give the whole width's
+    logits on both ranks."""
+    monkeypatch.setattr(encoders, "relation_matmul_sorted", _relmm64)
+    batch = batch_to_device(_saint_batches()[1], "cpu")
+    src, dst = batch.edge_index
+    mask = batch.edge_mask.clone()
+    assert not mask.all()
+    mask[dst == dst[mask][0]] = False
+    num_rel = _graphs()[1].num_edge_types
+    enc = encoders.RGAT(DIM, DIM, DIM, 1, num_rel, num_heads=HEADS).double()
+    enc.init(torch.Generator().manual_seed(2))
+    layer = enc.layers[0]
+    with torch.no_grad():
+        layer.b.normal_(generator=torch.Generator().manual_seed(4))
+    x = batch.x.double().requires_grad_(True)
+    keys = encoders.attention_keys(src, dst, batch.edge_type, mask,
+                                   x.shape[0], num_rel)
+    # the pad slots' rows are spread: none shares a row with more than
+    # its share of the table
+    pads = keys[~mask.repeat(2)]
+    rows = x.shape[0] * 2 * num_rel
+    assert pads.bincount().max() <= -(-2 * mask.shape[0] // rows)
+    args = (src, dst, batch.edge_type, mask, batch.block_rel)
+    if case == "conv":
+        leaves = [x, layer.w_rel, layer.att_src, layer.att_dst]
+        got = enc._conv(layer, x, src, dst, mask, batch.block_rel, keys,
+                        torch.float64)
+        want = _per_edge_conv(layer, x, *args)
+        cot = torch.randn(got.shape, dtype=torch.float64,
+                          generator=torch.Generator().manual_seed(5))
+        pairs = [(got, want)] + list(zip(
+            torch.autograd.grad(got, leaves, cot),
+            torch.autograd.grad(want, leaves, cot)))
+    else:
+        whole, _ = _per_edge_logits(x, layer.w_rel, layer.att_src,
+                                    layer.att_dst, *args)
+        c = DIM // 2
+        shards = [(layer.w_rel.reshape(num_rel, DIM, HEADS, DIM)
+                   [..., t * c:(t + 1) * c].reshape(num_rel, DIM, -1),
+                   layer.att_src[..., t * c:(t + 1) * c],
+                   layer.att_dst[..., t * c:(t + 1) * c]) for t in (0, 1)]
+        kept = _Parts()
+        for shard in shards:
+            encoders.attention_logits(x, *shard, keys, kept)
+        parts = kept.kept
+        assert not torch.allclose(parts[0], parts[1])
+        # a masked slot's logit is the softmax's to drop: the per-edge
+        # formulation's is 0, the table's that of the slot's rows
+        pairs = [(encoders.attention_logits(x, *shards[t], keys,
+                                            _Parts(parts[1 - t]))[mask],
+                  whole[mask]) for t in (0, 1)]
+    for got, want in pairs:
+        _assert_close_to_max(got.detach().numpy(), want.detach().numpy(),
+                             1e-10, case)

@@ -5,7 +5,9 @@ within 1e-4 relative, the reference computed in bfloat16 outside them;
 the attention weights of every destination summing to one over its real
 incoming edges across relations; the ``rgat.*`` spans and their counters
 with the recorder on, nothing and no clock or counter read with it off;
-and the reference importing neither JAX nor either package."""
+the attention logits from the per-(node, relation) projection table, with
+one grouped GEMM a conv and no destination rows gathered; and the
+reference importing neither JAX nor either package."""
 
 import ast
 import os
@@ -189,10 +191,45 @@ def test_rgat_spans_record_with_their_counts(recorder_off):
     messages = [s for s in spans if s.name == "rgat.messages"]
     assert all(s.counts["edge_slots"] == E_PAD for s in messages)
     assert profiling.counters()["edge_slots"] == NUM_LAYERS * E_PAD
+    attend = [s for s in spans if s.name == "rgat.attend"]
+    assert all(s.counts["pair_logit_convs"] == 1 for s in attend)
     order = [s.name for s in sorted(spans, key=lambda s: s.start_ns)
              if s.name.startswith("rgat.")]
     assert order == ["rgat.messages", "rgat.attend",
                      "rgat.aggregate"] * NUM_LAYERS
+
+
+def test_rgat_logits_come_from_the_pair_table(recorder_off, monkeypatch):
+    """float32, recorder on: every conv takes the per-pair logits, runs one
+    grouped GEMM (the source messages) and gathers no destination rows."""
+    relmm, gathers = [], []
+    real_relmm, real_take = encoders.relation_matmul_sorted, \
+        encoders.take_rows
+
+    def spy_relmm(*args):
+        relmm.append(args[0].shape)
+        return real_relmm(*args)
+
+    def spy_take(x, index):
+        gathers.append(index)
+        return real_take(x, index)
+
+    monkeypatch.setattr(encoders, "relation_matmul_sorted", spy_relmm)
+    monkeypatch.setattr(encoders, "take_rows", spy_take)
+    module = _module()
+    _, batch = _batch()
+    profiling.start()
+    module._forward_loss(batch, True, **_draws())
+    profiling.stop()
+    counts = profiling.counters()
+    assert counts["pair_logit_convs"] == NUM_LAYERS
+    assert counts["edge_slots"] == NUM_LAYERS * E_PAD
+    assert len(relmm) == NUM_LAYERS
+    src, dst = batch.edge_index
+    assert not any(i.shape == dst.shape and torch.equal(i, dst)
+                   for i in gathers)
+    assert sum(i.shape == src.shape and torch.equal(i, src)
+               for i in gathers) == NUM_LAYERS
 
 
 def test_rgat_spans_off_record_and_read_nothing(recorder_off, monkeypatch):
